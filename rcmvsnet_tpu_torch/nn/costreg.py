@@ -1,0 +1,67 @@
+"""3D U-Net cost regularizer.
+
+Counterpart of `rcmvsnet_tpu/nn/costreg.py:192-249` (`CostRegNet`) and of
+its folded eval path `rcmvsnet_tpu/ops/pallas_costreg.costreg_lanes`
+(`:538-561`). Volumes are NCDHW.
+
+Encoder 8→16→32→64 with stride-2 conv1/3/5; decoder transposed conv7/9/11
+whose skip add comes AFTER their BN+ReLU; `prob` has no BN and no bias.
+
+  * `forward`: the modules as they stand.
+  * `forward_folded`: all 11 layers through K2 (`ops/conv3d.conv3d`) on
+    BN-folded weights: stride-1, stride-2 and transposed modes.
+    `plain=True` runs K2's plain version instead.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.conv3d import conv3d, conv3d_plain
+from .layers import ConvBNAct, DeconvBNAct, fold_block
+
+
+class CostRegNet(nn.Module):
+    def __init__(self, in_channels: int, base_channels: int = 8):
+        super().__init__()
+        c = base_channels
+        blk = lambda ci, co, s: ConvBNAct(ci, co, 3, s, 1, dims=3)
+        self.conv0 = blk(in_channels, c, 1)
+        self.conv1 = blk(c, 2 * c, 2)
+        self.conv2 = blk(2 * c, 2 * c, 1)
+        self.conv3 = blk(2 * c, 4 * c, 2)
+        self.conv4 = blk(4 * c, 4 * c, 1)
+        self.conv5 = blk(4 * c, 8 * c, 2)
+        self.conv6 = blk(8 * c, 8 * c, 1)
+        self.conv7 = DeconvBNAct(8 * c, 4 * c)
+        self.conv9 = DeconvBNAct(4 * c, 2 * c)
+        self.conv11 = DeconvBNAct(2 * c, c)
+        self.prob = nn.Conv3d(c, 1, 3, stride=1, padding=1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv0 = self.conv0(x)
+        conv2 = self.conv2(self.conv1(conv0))
+        conv4 = self.conv4(self.conv3(conv2))
+        x = self.conv6(self.conv5(conv4))
+        x = conv4 + self.conv7(x)
+        x = conv2 + self.conv9(x)
+        x = conv0 + self.conv11(x)
+        return self.prob(x)
+
+    def forward_folded(self, x: torch.Tensor,
+                       plain: bool = False) -> torch.Tensor:
+        """x [N, C, D, H, W] → cost [N, 1, D, H, W]; same as `forward`."""
+        conv = conv3d_plain if plain else conv3d
+        f = lambda name: fold_block(getattr(self, name))
+        conv0 = conv(x, *f("conv0"), "s1")
+        t = conv(conv0, *f("conv1"), "s2")
+        conv2 = conv(t, *f("conv2"), "s1")
+        t = conv(conv2, *f("conv3"), "s2")
+        conv4 = conv(t, *f("conv4"), "s1")
+        t = conv(conv4, *f("conv5"), "s2")
+        t = conv(t, *f("conv6"), "s1")
+        t = conv(t, *f("conv7"), "t2", skip=conv4)
+        t = conv(t, *f("conv9"), "t2", skip=conv2)
+        t = conv(t, *f("conv11"), "t2", skip=conv0)
+        zero = torch.zeros(1, dtype=torch.float32, device=x.device)
+        return conv(t, self.prob.weight, zero, "s1", relu=False)

@@ -1,0 +1,77 @@
+"""FPN feature extractor: 3-scale pyramid, strides 1/2/4.
+
+Counterpart of `rcmvsnet_tpu/nn/featurenet.py:38-75` (`FeatureNet`) and of
+its folded eval path `rcmvsnet_tpu/nn/featurenet_fast.featurenet_packed`.
+Tensors are NCHW. Outputs: stage1 [N, 4c, H/4, W/4], stage2
+[N, 2c, H/2, W/2], stage3 [N, c, H, W].
+
+  * `forward`: the modules as they stand (Conv → BN → ReLU).
+  * `forward_folded`: the eval path through K5 (`ops/conv2d.conv2d`): BN
+    as a scale/shift epilogue, the 1×1 `inner*` heads fused with the
+    nearest-×2 upsample-add. `plain=True` runs K5's plain version instead
+    (for comparing the two on the card).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.conv2d import conv2d, conv2d_plain
+from .layers import ConvBNAct, bn_scale_shift
+
+
+class FeatureNet(nn.Module):
+    def __init__(self, base_channels: int = 8):
+        super().__init__()
+        c = base_channels
+        self.conv0 = nn.Sequential(ConvBNAct(3, c, 3, 1, 1),
+                                   ConvBNAct(c, c, 3, 1, 1))
+        self.conv1 = nn.Sequential(ConvBNAct(c, 2 * c, 5, 2, 2),
+                                   ConvBNAct(2 * c, 2 * c, 3, 1, 1),
+                                   ConvBNAct(2 * c, 2 * c, 3, 1, 1))
+        self.conv2 = nn.Sequential(ConvBNAct(2 * c, 4 * c, 5, 2, 2),
+                                   ConvBNAct(4 * c, 4 * c, 3, 1, 1),
+                                   ConvBNAct(4 * c, 4 * c, 3, 1, 1))
+        # heads: out* without bias, inner* (1×1 laterals) with bias
+        self.out1 = nn.Conv2d(4 * c, 4 * c, 1, bias=False)
+        self.inner1 = nn.Conv2d(2 * c, 4 * c, 1, bias=True)
+        self.inner2 = nn.Conv2d(c, 4 * c, 1, bias=True)
+        self.out2 = nn.Conv2d(4 * c, 2 * c, 3, padding=1, bias=False)
+        self.out3 = nn.Conv2d(4 * c, c, 3, padding=1, bias=False)
+        self.out_channels = (4 * c, 2 * c, c)
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        conv0 = self.conv0(x)
+        conv1 = self.conv1(conv0)
+        intra = self.conv2(conv1)
+        out = {"stage1": self.out1(intra)}
+        intra = F.interpolate(intra, scale_factor=2, mode="nearest") \
+            + self.inner1(conv1)
+        out["stage2"] = self.out2(intra)
+        intra = F.interpolate(intra, scale_factor=2, mode="nearest") \
+            + self.inner2(conv0)
+        out["stage3"] = self.out3(intra)
+        return out
+
+    def forward_folded(self, x: torch.Tensor,
+                       plain: bool = False) -> dict[str, torch.Tensor]:
+        """Eval forward through K5; same outputs as `forward`."""
+        conv = conv2d_plain if plain else conv2d
+        acts = []
+        for seq in (self.conv0, self.conv1, self.conv2):
+            for blk in seq:
+                scale, shift = bn_scale_shift(blk.bn)
+                x = conv(x, blk.conv.weight, scale, shift,
+                         stride=blk.conv.stride[0],
+                         padding=blk.conv.padding[0], relu=True)
+            acts.append(x)
+        conv0, conv1, intra = acts
+        out = {"stage1": conv(intra, self.out1.weight)}
+        intra = conv(conv1, self.inner1.weight, shift=self.inner1.bias,
+                     up=intra)
+        out["stage2"] = conv(intra, self.out2.weight, padding=1)
+        intra = conv(conv0, self.inner2.weight, shift=self.inner2.bias,
+                     up=intra)
+        out["stage3"] = conv(intra, self.out3.weight, padding=1)
+        return out

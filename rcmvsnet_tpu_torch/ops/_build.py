@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels (sources under `ops/csrc/`).
+
+Each `.cu` file has a plain C interface and is compiled by `nvcc` on its
+own into a shared library that `ctypes` loads. No source includes
+PyTorch's headers, so a build takes seconds rather than the minutes a
+`torch.utils.cpp_extension.load` build of the same kernels takes.
+
+  * Target `sm_90a` (Hopper), `-O3`.
+  * Output: `rcmvsnet_tpu_torch/.ext_build/lib<name>_<hash>.so`, keyed by a
+    hash of the source and the flags, so an edited source rebuilds and an
+    unchanged one is reused. `.gitignore` lists the directory.
+  * `build_all()` starts one `nvcc` per source, all at once, and waits.
+  * A failed build raises with the compiler's output; nothing catches it.
+
+Every C entry point launches on the stream it is given and returns
+`cudaGetLastError()` as an int, which the wrappers turn into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / ".ext_build"
+SOURCES = ("warp_variance", "conv3d", "conv2d")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset and no "
+                           "nvcc on PATH): the port's kernels cannot build")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{key}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (Popen, tmp path, target) or
+    None when the library is already built."""
+    target = _target(name)
+    if target.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, target
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every named source in parallel. Returns {name: nvcc output}
+    (the `-Xptxas -v` register and shared-memory report); raises on the
+    first failed build."""
+    with _lock:
+        jobs = {n: _start(n) for n in names}
+        logs = {}
+        failed = []
+        for name, job in jobs.items():
+            if job is None:
+                logs[name] = "(cached)"
+                continue
+            proc, tmp, target = job
+            out, _ = proc.communicate()
+            logs[name] = out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{out}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, target)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for `ops/csrc/<name>.cu`, built at first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = _libs.setdefault(name, ctypes.CDLL(str(_target(name))))
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel launch reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """A kernel takes float32, contiguous tensors on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: all tensors must be on one CUDA "
+                             f"device, got {[x.device for x in tensors]}")
+        if t.dtype.is_floating_point and t.dtype != torch.float32:
+            raise TypeError(f"{name}: float32 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")

@@ -1,0 +1,69 @@
+"""chip_smoke.py's own control flow, here on the CPU.
+
+  * without a CUDA device it exits non-zero and prints no "ok" line;
+  * in a directory holding only chip_smoke.py it fails even when a device
+    is reported (nothing of the port to import);
+  * its kernel phase runs end to end at a tiny size on CPU tensors (where
+    every wrapper returns its plain version, so kernel and plain agree
+    exactly), and its main-path phase refuses a run in which no kernel was
+    launched."""
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402
+from rcmvsnet_tpu_torch.models.cascade import CascadeMVSNet  # noqa: E402
+from rcmvsnet_tpu_torch.weights import ASSET, load_state_dict  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+def test_exits_nonzero_without_cuda():
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_fails_alone_in_a_directory(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path)
+    code = ("import runpy, torch\n"
+            "torch.cuda.is_available = lambda: True\n"
+            "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert "rcmvsnet_tpu_torch" in r.stderr
+    assert '"ok"' not in r.stdout
+
+
+def test_phases_run_on_cpu_and_main_path_demands_launches():
+    scene = chip_smoke.plane_scene(64, 96, 3, chip_smoke.SEED)
+    samples = chip_smoke.dtu_samples(scene, 96)
+    model = CascadeMVSNet()
+    model.load_state_dict(load_state_dict(ASSET), strict=True)
+    model.eval()
+
+    def cpu_ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    ledger = chip_smoke.Ledger(timer=cpu_ms)
+    dev = torch.device("cpu")
+    with torch.no_grad():
+        chip_smoke.phase_kernels(model, samples, scene, ledger, dev)
+    calls = {k: ledger.summary(k)["calls"]
+             for k in ("conv2d", "warp_variance", "conv3d", "depth_tail")}
+    assert calls == {"conv2d": 13, "warp_variance": 3, "conv3d": 33,
+                     "depth_tail": 3}
+    assert all(r["max_abs_err"] == 0.0 for r in ledger.rows)
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.phase_main(model, samples[:1], scene, dev)

@@ -1,0 +1,114 @@
+"""The port's hand-written kernels against their plain PyTorch versions, on
+a CUDA card (marker `gpu`; each test skips where there is no card).
+
+Small shapes that still cover every code path: K1 at C 8/16/32 with
+out-of-image taps, K2 in each mode (stride 1, stride 2, transposed with
+skip, the 1-channel prob head), K4 at D 8/32/48, K5 at k 1/3/5, stride 1/2
+and the upsample-add epilogue. Run on the card without the JAX test
+configuration (its host has no jax):
+
+    python -m pytest --noconftest -p no:cacheprovider -m gpu \
+        tests/test_torch_kernels_gpu.py
+"""
+import pytest
+import torch
+
+from rcmvsnet_tpu_torch.ops import conv2d as K5
+from rcmvsnet_tpu_torch.ops import conv3d as K2
+from rcmvsnet_tpu_torch.ops import depth_tail as K4
+from rcmvsnet_tpu_torch.ops import warp_variance as K1
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rcmvsnet_tpu_torch.core.geometry import set_full_precision
+    set_full_precision()
+    return torch.device("cuda")
+
+
+def _gen(dev, seed=0):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _projs(V, h, w, dev):
+    """K-folded projections of cameras translated along x, looking at a
+    plane ~600 away (a few pixels of disparity per view)."""
+    f = 1.2 * max(h, w)
+    P = torch.zeros(V, 4, 4)
+    for v in range(V):
+        K = torch.tensor([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+        E = torch.eye(4)
+        E[0, 3] = -4.0 * v
+        P[v, :3] = K @ E[:3]
+        P[v, 3] = E[3]
+    return P.to(dev)
+
+
+@pytest.mark.parametrize("C,D", [(8, 8), (16, 32), (32, 48)])
+def test_warp_variance_matches_plain(dev, C, D):
+    V, h, w = 4, 24, 40
+    g = _gen(dev, C)
+    feats = torch.randn(V, h, w, C, device=dev, generator=g)
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = torch.full((h, w), 4.0, device=dev)
+    projs = _projs(V, h, w, dev)
+    n0 = K1.warp_variance.launches
+    got = K1.warp_variance(feats, projs, lo, step, D)
+    want = K1.warp_variance_plain(feats, projs, lo, step, D)
+    torch.cuda.synchronize()
+    assert K1.warp_variance.launches == n0 + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode,ci,co", [("s1", 8, 16), ("s2", 16, 32),
+                                        ("t2", 64, 32), ("s1", 8, 1)])
+def test_conv3d_matches_plain(dev, mode, ci, co):
+    g = _gen(dev, ci + co)
+    d, h, w = (4, 6, 10) if mode == "t2" else (8, 12, 20)
+    x = torch.randn(1, ci, d, h, w, device=dev, generator=g)
+    shape = (ci, co, 3, 3, 3) if mode == "t2" else (co, ci, 3, 3, 3)
+    wgt = 0.1 * torch.randn(*shape, device=dev, generator=g)
+    b = torch.randn(co, device=dev, generator=g)
+    skip = None
+    if mode == "t2":
+        skip = torch.randn(1, co, 2 * d, 2 * h, 2 * w, device=dev,
+                           generator=g)
+    relu = co != 1
+    got = K2.conv3d(x, wgt, b, mode, relu=relu, skip=skip)
+    want = K2.conv3d_plain(x, wgt, b, mode, relu=relu, skip=skip)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [8, 32, 48])
+def test_depth_tail_matches_plain(dev, D):
+    g = _gen(dev, D)
+    h, w = 40, 52
+    cost = 3 * torch.randn(D, h, w, device=dev, generator=g)
+    lo = 425 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = 2.5 + torch.rand(h, w, device=dev, generator=g)
+    depth, conf = K4.depth_tail(cost, lo, step)
+    d_p, c_p = K4.depth_tail_plain(cost, lo, step)
+    torch.testing.assert_close(depth, d_p, rtol=1e-5, atol=0)
+    assert float(((conf - c_p).abs() > 1e-4).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("k,stride,ci,co,up", [
+    (3, 1, 3, 8, False), (5, 2, 8, 16, False), (1, 1, 32, 32, False),
+    (3, 1, 32, 16, False), (1, 1, 16, 32, True)])
+def test_conv2d_matches_plain(dev, k, stride, ci, co, up):
+    g = _gen(dev, k * 100 + ci)
+    x = torch.randn(3, ci, 24, 40, device=dev, generator=g)
+    wgt = 0.2 * torch.randn(co, ci, k, k, device=dev, generator=g)
+    scale = 0.5 + torch.rand(co, device=dev, generator=g)
+    shift = torch.randn(co, device=dev, generator=g)
+    ho, wo = (24 - 1) // stride + 1, (40 - 1) // stride + 1
+    u = (torch.randn(3, co, ho // 2, wo // 2, device=dev, generator=g)
+         if up else None)
+    kw = dict(stride=stride, padding=k // 2, relu=not up, up=u)
+    got = K5.conv2d(x, wgt, scale, shift, **kw)
+    want = K5.conv2d_plain(x, wgt, scale, shift, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
