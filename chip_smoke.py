@@ -8,23 +8,46 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 Phases (none catches its own failure; any failure exits non-zero without
 the final "ok" line):
   1. device   require CUDA, print the card's name and power limit, TF32 off;
-  2. build    compile the three CUDA sources (sm_90a, one nvcc each, in
+  2. build    compile the five CUDA sources (sm_90a, one nvcc each, in
               parallel) and print the build seconds;
-  3. kernels  hold each hand-written kernel against its plain PyTorch
-              version on the card, at the DTU eval shapes (864x1152, V=5,
-              stages 216x288x32/48, 432x576x16/32, 864x1152x8/8): K1 at all
-              3 stages, K2 in every mode of all 3 U-Nets (stride 1,
-              stride 2, transposed, prob), K4 at 3 stages, K5 at every
-              FeatureNet layer; print max errors and median ms of both;
-  4. main     `infer_views` on all 5 reference views of an in-memory
+  3. kernels  hold each eval kernel against its plain PyTorch version on
+              the card, at the DTU eval shapes (864x1152, V=5, stages
+              216x288x32/48, 432x576x16/32, 864x1152x8/8): K1 at all 3
+              stages, K2 in every mode of all 3 U-Nets (stride 1, stride 2,
+              transposed, prob), K4 at 3 stages, K5 at every FeatureNet
+              layer; print max errors and median ms of both, the library
+              call's ms where one PyTorch call computes the same function,
+              and the card's least time for the work (bound);
+  4. eval     `infer_views` on all 5 reference views of an in-memory
               textured-plane scene at 864x1152, V=5, 192 planes, with the
               committed golden weights, once through the kernels and once
-              through the plain versions; every kernel's launch count must
-              be > 0 and depth must agree within the TPU path's budget
+              through the plain versions; every eval kernel's launch count
+              must be > 0 and depth must agree within the TPU path's budget
               (max relative delta 2e-3, no pixel above 0.01);
-  5. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and
+  5. train kernels  the same for the train kernels at the train shapes
+              (512x640, V=4; stages 128x160x32/48, 256x320x16/32,
+              512x640x8/8; neural volume 41 -> 8 channels at
+              128x128x160): K1 and K6 (its backward) at all 3 stages, K7
+              forward and backward at stage 1, and K8 for every conv of the
+              3 CostRegNets and the render U-Net: forward and dx through K2,
+              dw through its own kernel, each from a fixed random cotangent;
+  6. train    the fused train step (clean + aug + render passes, one
+              backward, one Adam step) at 512x640, V=4, 192 planes, 1024
+              rays x 128 samples, 128 planes, from one init (the golden
+              backbone, a seeded render branch) and one batch of the plane
+              scene, with the random draws fixed once: 2 warm-up and 5
+              timed steps through the kernels, then the same through the
+              plain versions; every train kernel's launch count must be
+              > 0, step-1 losses must agree to relative 1e-4 and every
+              parameter gradient tensor to 3e-2 in relative L2 norm (see
+              LOSS_RTOL, GRAD_L2_TOL); prints steps/s and peak memory of
+              both paths;
+  7. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and
               the final {"ok": true, "device": {...}} line.
-Per-call details go to chiprun_out/chip_smoke.json.
+Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM and 67 TFLOP/s
+of float32 outside the tensor cores (TF32 is off on this path). Per-call
+details go to chip_smoke.json in the output directory `main` names; every
+printed result carries the card's name and power limit.
 
 The script imports nothing of JAX and nothing of the JAX package: the scene
 is built with numpy and scipy.
@@ -40,13 +63,32 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 H, W, V, NDEPTH, SEED = 864, 1152, 5, 192, 5
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
+TH, TW, TV = 512, 640, 4                    # the train step's input
+HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12                     # f32, outside the tensor cores
 # plain-vs-kernel tolerances: |kernel - plain| <= atol + rtol * max|plain|.
 # Sums run in another order than cuDNN's / torch's (and the warp's
 # coordinates in another association), so float32 rounding differs.
+# The backward kernels sum with atomicAdd (K6, K7) or in per-block partials
+# (K8 dw), in another order than autograd's scatter or the plain einsum.
 TOL = {"warp_variance": (1e-4, 1e-4), "conv3d": (1e-4, 1e-4),
-       "conv2d": (1e-4, 1e-4), "depth_tail": (0.0, 1e-5)}
+       "conv2d": (1e-4, 1e-4), "depth_tail": (0.0, 1e-5),
+       "warp_variance_bwd": (1e-4, 1e-4), "warp_volume": (1e-4, 1e-4),
+       "warp_volume_bwd": (1e-4, 1e-4), "conv3d_dw": (1e-4, 1e-4)}
+# Train step 1, kernel path vs plain path (chip_train_probe.py measures
+# both gates' noise and power). The plain path's step 1 runs under
+# cudnn.deterministic: without it cuDNN's float32 conv_transpose3d (a
+# dgrad algorithm) differs from run to run, and the render losses, which
+# encode sample depths drawn around the pseudo-depth at frequencies up to
+# 2^9, amplify that to 1.8e-4 of the step-1 loss. Under the flag both
+# paths repeat bit for bit (K6/K7's atomics move gradients by ~1e-6 only).
+# Losses, relative, each term: measured ≤ 7.7e-5 (the render terms).
+LOSS_RTOL = 1e-4
+# Gradients, per parameter tensor, ‖kernel − plain‖₂ / ‖plain‖₂: measured
+# ≤ 1.2e-2 (render U-Net BN biases: the same amplification); K6's or K7's
+# backward or K8's dw scaled by 1.1 reads ≥ 0.10. A 1 % fault hides in
+# that noise end to end; phase 5 holds each backward to 1e-4.
+GRAD_L2_TOL = 3e-2
 CONF_TOL, CONF_SHARE = 1e-4, 1e-3   # per-pixel |Δconf| and allowed share
 DEPTH_REL_MAX, DEPTH_GATE = 2e-3, 0.01   # the fused TPU path's budget
 
@@ -54,9 +96,10 @@ DEPTH_REL_MAX, DEPTH_GATE = 2e-3, 0.01   # the fused TPU path's budget
 def plane_scene(H, W, V, seed, depth0=600.0, baseline=8.0, tilt=0.08):
     """V views of the tilted textured plane z = depth0 + tilt·x_world seen
     by cameras translated along x (the geometry of the JAX package's
-    data/synthetic.make_synthetic_views, with a scipy cubic texture).
-    Returns images [V, H, W, 3] in [0, 1], K, extrinsics [V, 4, 4],
-    depths [V, H, W], near, far."""
+    data/synthetic.make_synthetic_views, with a scipy cubic texture, as
+    the card's host has no cv2). Returns that function's dict: images
+    [V, H, W, 3] in [0, 1], intrinsics, extrinsics [V, 4, 4], depths
+    [V, H, W], depth_min, depth_max."""
     import numpy as np
     from scipy import ndimage
     rs = np.random.RandomState(seed)
@@ -95,9 +138,9 @@ def plane_scene(H, W, V, seed, depth0=600.0, baseline=8.0, tilt=0.08):
         images.append(img.astype(np.float32))
         extr.append(E.astype(np.float32))
         depths.append(pts[..., 2].astype(np.float32))   # world z = cam z
-    return {"images": np.stack(images), "K": K.astype(np.float32),
+    return {"images": np.stack(images), "intrinsics": K.astype(np.float32),
             "extrinsics": np.stack(extr), "depths": np.stack(depths),
-            "near": depth0 * 0.8, "far": depth0 * 1.25}
+            "depth_min": depth0 * 0.8, "depth_max": depth0 * 1.25}
 
 
 def dtu_samples(scene, ndepth, interval_scale=1.06):
@@ -105,25 +148,26 @@ def dtu_samples(scene, ndepth, interval_scale=1.06):
     them (ref view first, stage-1 intrinsics at 1/4, stage 2/3 at 1/2, 1;
     depth_values from the cam file's min and interval)."""
     import numpy as np
-    mean = np.asarray(IMAGENET_MEAN, np.float32)
-    std = np.asarray(IMAGENET_STD, np.float32)
+    from rcmvsnet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
     nv = len(scene["images"])
-    interval = (scene["far"] - scene["near"]) / ndepth * interval_scale
-    dvals = np.arange(scene["near"], interval * (ndepth - 0.5) + scene["near"],
-                      interval, dtype=np.float32)
+    near = scene["depth_min"]
+    interval = (scene["depth_max"] - near) / ndepth * interval_scale
+    dvals = np.arange(near, interval * (ndepth - 0.5) + near, interval,
+                      dtype=np.float32)
     samples = []
     for ref in range(nv):
         views = [ref] + [v for v in range(nv) if v != ref]
         proj = np.zeros((nv, 2, 4, 4), np.float32)
         for i, v in enumerate(views):
             proj[i, 0] = scene["extrinsics"][v]
-            proj[i, 1, :3, :3] = scene["K"]
+            proj[i, 1, :3, :3] = scene["intrinsics"]
             proj[i, 1, :2] /= 4.0
         pm = {"stage1": proj, "stage2": proj.copy(), "stage3": proj.copy()}
         pm["stage2"][:, 1, :2] *= 2
         pm["stage3"][:, 1, :2] *= 4
         samples.append({
-            "imgs": ((scene["images"][views] - mean) / std).astype(np.float32),
+            "imgs": ((scene["images"][views] - IMAGENET_MEAN)
+                     / IMAGENET_STD).astype(np.float32),
             "proj_matrices": pm, "depth_values": dvals})
     return samples
 
@@ -152,37 +196,65 @@ def time_ms(fn, warmup=2, reps=7):
     return statistics.median(times)
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors given (None skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound_ms(n_bytes: float, flops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / F32_FLOPS_PER_S * 1e3
+    return max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
 class Ledger:
-    """Per-kernel comparison records: max error, summed per-view ms."""
+    """Per-kernel comparison records: max error, ms of the kernel, of its
+    plain version and of the library call, and the bound."""
 
     def __init__(self, timer=time_ms):
         self.rows = []
         self.failures = []
         self.timer = timer
+        self.phase = "eval"
 
-    def compare(self, kernel, label, fn_k, fn_p):
+    def compare(self, kernel, label, fn_k, fn_p, n_bytes=0, flops=0,
+                fn_lib=None):
         import torch
         out_k, out_p = fn_k(), fn_p()
-        sync(out_p[0].device if isinstance(out_p, tuple) else out_p.device)
         outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
         outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
-        a, p = outs_k[0].float(), outs_p[0].float()
-        if a.shape != p.shape or not bool(torch.isfinite(a).all()):
-            self.failures.append(f"{kernel} {label}: shape {tuple(a.shape)} "
-                                 f"vs {tuple(p.shape)} or non-finite")
-            err = float("inf")
-        else:
-            err = float((a - p).abs().max())
-        scale = float(p.abs().max())
+        sync(outs_p[0].device)
+        # depth_tail: depth first, its confidence is checked by share below
+        pairs = list(zip(outs_k, outs_p))
+        if kernel == "depth_tail":
+            pairs = pairs[:1]
+        err, scale, rel = 0.0, 0.0, 0.0
+        for a, p in pairs:
+            a, p = a.float(), p.float()
+            if a.shape != p.shape or not bool(torch.isfinite(a).all()):
+                self.failures.append(
+                    f"{kernel} {label}: shape {tuple(a.shape)} vs "
+                    f"{tuple(p.shape)} or non-finite")
+                err = float("inf")
+                continue
+            e = float((a - p).abs().max())
+            m = float(p.abs().max())
+            err, scale = max(err, e), max(scale, m)
+            # depth is positive everywhere, so its error is relative per
+            # pixel; conv, variance and gradient outputs cross zero, so
+            # theirs is relative to the largest plain value
+            rel = max(rel, float(((a - p).abs() / p.abs().clamp_min(1e-12))
+                                 .max()) if kernel == "depth_tail"
+                      else e / max(m, 1e-12))
         atol, rtol = TOL[kernel]
-        # depth is positive everywhere, so its error is relative per pixel;
-        # conv and variance outputs cross zero (ReLU), so theirs is relative
-        # to the largest plain value
-        rel = (float(((a - p).abs() / p.abs().clamp_min(1e-12)).max())
-               if kernel == "depth_tail" else err / max(scale, 1e-12))
-        row = {"kernel": kernel, "label": label, "shape": list(p.shape),
-               "max_abs_err": err, "max_rel_err": rel,
-               "tol": atol + rtol * scale}
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        row = {"kernel": kernel, "phase": self.phase, "label": label,
+               "shape": list(outs_p[0].shape), "max_abs_err": err,
+               "max_rel_err": rel, "tol": atol + rtol * scale,
+               "bytes": n_bytes, "flops": flops, "bound_ms": b_ms,
+               "bound_by": b_by}
         if kernel == "depth_tail":
             flips = float(((outs_k[1] - outs_p[1]).abs() > CONF_TOL)
                           .float().mean())
@@ -195,16 +267,58 @@ class Ledger:
                                  f"{atol + rtol * scale:.3e}")
         row["ms"] = self.timer(fn_k)
         row["plain_ms"] = self.timer(fn_p)
+        row["library_ms"] = self.timer(fn_lib) if fn_lib else None
         self.rows.append(row)
         print(json.dumps(row), flush=True)
         return out_p
 
-    def summary(self, kernel):
-        rows = [r for r in self.rows if r["kernel"] == kernel]
+    def summary(self, kernel, phase=None):
+        rows = [r for r in self.rows if r["kernel"] == kernel
+                and (phase is None or r["phase"] == phase)]
+        libs = [r["library_ms"] for r in rows]
+        t_b = sum(bound_ms(r["bytes"], 0)[0] for r in rows)
+        t_f = sum(bound_ms(0, r["flops"])[0] for r in rows)
         return {"max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": sum(r["ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
+                "library_ms": (None if any(v is None for v in libs)
+                               else sum(libs)),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "bound_by": "bytes" if t_b >= t_f else "operations",
                 "calls": len(rows)}
+
+    def check(self, what):
+        if self.failures:
+            raise AssertionError(f"{what}, kernel vs plain:\n  "
+                                 + "\n  ".join(self.failures))
+
+
+# Work of each kernel call, from its shapes: (bytes, flops). Each input is
+# read once and each output written once (float32); flops count a fused
+# multiply-add as 2 and only the taps that land (the transposed conv's
+# gather reaches 1 tap in 8 of the stuffed input).
+def conv3d_work(x, w, out, mode, extra=()):
+    N, Ci = x.shape[:2]
+    Co = out.shape[1]
+    pos = x[0, 0].numel() if mode == "t2" else out[0, 0].numel()
+    return (nbytes(x, w, out, *extra), 2 * N * Co * Ci * 27 * pos)
+
+
+def warp_flops(V, h, w, C, D, bwd=False, images=0):
+    """K1 / K6 / K7 per (plane, pixel) and source view: the projection
+    (~30), 4 taps x C FMAs and the Σx, Σx² update (3C); a backward samples
+    twice and scatters 4 taps x C FMAs more; `images` channels ride the
+    same taps."""
+    per_view = 30 + 8 * (C + images) + 3 * C
+    if bwd:
+        per_view += 8 * C + 8 * (C + images) + 3 * C
+    return D * h * w * ((V - 1) * per_view + 5 * C)
+
+
+def conv2d_work(x, w, out, *extra):
+    N, Ci = x.shape[:2]
+    Co, _, k, _ = w.shape
+    return nbytes(x, w, out, *extra), 2 * N * Co * Ci * k * k * out[0, 0].numel()
 
 
 def phase_kernels(model, samples, scene, ledger, dev):
@@ -231,34 +345,33 @@ def phase_kernels(model, samples, scene, ledger, dev):
             args = (blk.conv.weight, sc, sh)
             kw = dict(stride=blk.conv.stride[0], padding=blk.conv.padding[0],
                       relu=True)
+            y = K5.conv2d_plain(x, *args, **kw)
             x = ledger.compare(
                 "conv2d", f"conv{si}.{li} {tuple(x.shape)}",
                 lambda x=x: K5.conv2d(x, *args, **kw),
-                lambda x=x: K5.conv2d_plain(x, *args, **kw))
+                lambda x=x: K5.conv2d_plain(x, *args, **kw),
+                *conv2d_work(x, blk.conv.weight, y, sc, sh),
+                fn_lib=lambda x=x, kw=kw: F.conv2d(
+                    x, args[0], stride=kw["stride"], padding=kw["padding"]))
         acts.append(x)
     conv0, conv1, intra = acts
     feats = {}
-    feats["stage1"] = ledger.compare(
-        "conv2d", "out1", lambda: K5.conv2d(intra, fn.out1.weight),
-        lambda: K5.conv2d_plain(intra, fn.out1.weight))
-    intra = ledger.compare(
-        "conv2d", "inner1+up",
-        lambda: K5.conv2d(conv1, fn.inner1.weight, shift=fn.inner1.bias,
-                          up=intra),
-        lambda: K5.conv2d_plain(conv1, fn.inner1.weight,
-                                shift=fn.inner1.bias, up=intra))
-    feats["stage2"] = ledger.compare(
-        "conv2d", "out2", lambda: K5.conv2d(intra, fn.out2.weight, padding=1),
-        lambda: K5.conv2d_plain(intra, fn.out2.weight, padding=1))
-    intra = ledger.compare(
-        "conv2d", "inner2+up",
-        lambda: K5.conv2d(conv0, fn.inner2.weight, shift=fn.inner2.bias,
-                          up=intra),
-        lambda: K5.conv2d_plain(conv0, fn.inner2.weight,
-                                shift=fn.inner2.bias, up=intra))
-    feats["stage3"] = ledger.compare(
-        "conv2d", "out3", lambda: K5.conv2d(intra, fn.out3.weight, padding=1),
-        lambda: K5.conv2d_plain(intra, fn.out3.weight, padding=1))
+
+    def head(label, x, wgt, shift=None, up=None, padding=0):
+        y = K5.conv2d_plain(x, wgt, shift=shift, up=up, padding=padding)
+        return ledger.compare(
+            "conv2d", label,
+            lambda: K5.conv2d(x, wgt, shift=shift, up=up, padding=padding),
+            lambda: K5.conv2d_plain(x, wgt, shift=shift, up=up,
+                                    padding=padding),
+            *conv2d_work(x, wgt, y, shift, up),
+            fn_lib=lambda: F.conv2d(x, wgt, shift, padding=padding))
+
+    feats["stage1"] = head("out1", intra, fn.out1.weight)
+    intra = head("inner1+up", conv1, fn.inner1.weight, fn.inner1.bias, intra)
+    feats["stage2"] = head("out2", intra, fn.out2.weight, padding=1)
+    intra = head("inner2+up", conv0, fn.inner2.weight, fn.inner2.bias, intra)
+    feats["stage3"] = head("out3", intra, fn.out3.weight, padding=1)
     del acts, conv0, conv1, intra, x
 
     gt = torch.from_numpy(scene["depths"][0]).to(dev)
@@ -287,11 +400,13 @@ def phase_kernels(model, samples, scene, ledger, dev):
         f = feats[key].permute(0, 2, 3, 1).contiguous()          # [V,h,w,C]
         projs = compose_projection(
             torch.from_numpy(s0["proj_matrices"][key]).to(dev))
+        Vn, C = f.shape[0], f.shape[-1]
         var = ledger.compare(
-            "warp_variance",
-            f"{key} V{f.shape[0]} {h}x{w} C{f.shape[-1]} D{nd}",
+            "warp_variance", f"{key} V{Vn} {h}x{w} C{C} D{nd}",
             lambda: K1.warp_variance(f, projs, lo, step, nd),
-            lambda: K1.warp_variance_plain(f, projs, lo, step, nd))
+            lambda: K1.warp_variance_plain(f, projs, lo, step, nd),
+            nbytes(f, projs, lo, step) + 4 * C * nd * h * w,
+            warp_flops(Vn, h, w, C, nd))
 
         cr = model.cost_regularization[s]
         t = var[None]
@@ -304,40 +419,69 @@ def phase_kernels(model, samples, scene, ledger, dev):
                 ("conv9", "t2", "conv2"), ("conv11", "t2", "conv0")):
             wgt, b = fold_block(getattr(cr, name))
             sk = saved.get(skip)
+            y = K2.conv3d_plain(t, wgt, b, mode, skip=sk)
             t = ledger.compare(
                 "conv3d", f"{key} {name} {mode} {tuple(t.shape)}",
                 lambda t=t, wgt=wgt, b=b, mode=mode, sk=sk: K2.conv3d(
                     t, wgt, b, mode, skip=sk),
                 lambda t=t, wgt=wgt, b=b, mode=mode, sk=sk: K2.conv3d_plain(
-                    t, wgt, b, mode, skip=sk))
+                    t, wgt, b, mode, skip=sk),
+                *conv3d_work(t, wgt, y, mode, (b, sk)),
+                fn_lib=lambda t=t, wgt=wgt, b=b, mode=mode: library_conv3d(
+                    t, wgt, b, mode))
             saved[name] = t
         zero = torch.zeros(1, device=dev)
+        y = K2.conv3d_plain(t, cr.prob.weight, zero, "s1", relu=False)
         cost = ledger.compare(
             "conv3d", f"{key} prob s1 {tuple(t.shape)}",
             lambda: K2.conv3d(t, cr.prob.weight, zero, "s1", relu=False),
             lambda: K2.conv3d_plain(t, cr.prob.weight, zero, "s1",
-                                    relu=False))
+                                    relu=False),
+            *conv3d_work(t, cr.prob.weight, y, "s1"),
+            fn_lib=lambda: library_conv3d(t, cr.prob.weight, zero, "s1"))
         del saved, t, var
         c = cost[0, 0].contiguous()
         ledger.compare("depth_tail", f"{key} D{nd} {h}x{w}",
                        lambda: K4.depth_tail(c, lo, step),
-                       lambda: K4.depth_tail_plain(c, lo, step))
+                       lambda: K4.depth_tail_plain(c, lo, step),
+                       nbytes(c, lo, step) + 8 * h * w, 12 * nd * h * w)
     sync(dev)
-    if ledger.failures:
-        raise AssertionError("kernel vs plain:\n  "
-                             + "\n  ".join(ledger.failures))
+    ledger.check("eval kernels")
+
+
+def library_conv3d(x, w, b, mode):
+    """One cuDNN call for the same 3D conv (TF32 off)."""
+    import torch.nn.functional as F
+    if mode == "t2":
+        return F.conv_transpose3d(x, w, b, stride=2, padding=1,
+                                  output_padding=1)
+    return F.conv3d(x, w, b, stride=1 if mode == "s1" else 2, padding=1)
+
+
+EVAL_KERNELS = ("warp_variance", "conv3d", "depth_tail", "conv2d")
+TRAIN_KERNELS = ("warp_variance", "conv3d", "warp_variance_bwd",
+                 "warp_volume", "warp_volume_bwd", "conv3d_dw")
+
+
+def kernel_wrappers():
+    """{name: wrapper} of every kernel; each counts its launches."""
+    from rcmvsnet_tpu_torch.ops import (conv2d, conv3d, conv3d_train,
+                                        depth_tail, warp_variance,
+                                        warp_volume)
+    return {"warp_variance": warp_variance.warp_variance,
+            "conv3d": conv3d.conv3d, "depth_tail": depth_tail.depth_tail,
+            "conv2d": conv2d.conv2d,
+            "warp_variance_bwd": warp_variance.warp_variance_bwd,
+            "warp_volume": warp_volume.warp_volume,
+            "warp_volume_bwd": warp_volume.warp_volume_bwd,
+            "conv3d_dw": conv3d_train.conv3d_dw}
 
 
 def phase_main(model, samples, scene, dev):
     """Phase 4: the main path, kernels then plain versions, 5 views."""
     import numpy as np
-    import torch
     from rcmvsnet_tpu_torch.models.cascade import infer_views
-    from rcmvsnet_tpu_torch.ops import conv2d, conv3d, depth_tail
-    from rcmvsnet_tpu_torch.ops import warp_variance
-    wrappers = {"warp_variance": warp_variance.warp_variance,
-                "conv3d": conv3d.conv3d, "depth_tail": depth_tail.depth_tail,
-                "conv2d": conv2d.conv2d}
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     sync(dev)
@@ -346,7 +490,7 @@ def phase_main(model, samples, scene, dev):
     sync(dev)
     t_kernel = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in EVAL_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
 
@@ -379,6 +523,230 @@ def phase_main(model, samples, scene, dev):
         raise AssertionError(f"kernel vs plain depth: max rel {rel_max:.3e} "
                              f"(limit {DEPTH_REL_MAX}), {n_gate} pixels "
                              f"above {DEPTH_GATE}")
+    return result
+
+
+def phase_train_kernels(cascade, render, batch, scene, ledger, dev):
+    """Phase 5: the train kernels against their plain versions at the
+    train shapes, forward and backward from fixed random cotangents."""
+    import torch
+    import torch.nn.functional as F
+    from rcmvsnet_tpu_torch.core.geometry import compose_projection
+    from rcmvsnet_tpu_torch.nn.costreg import TRUNK, conv_bn
+    from rcmvsnet_tpu_torch.ops import conv3d as K2
+    from rcmvsnet_tpu_torch.ops import conv3d_train as K8
+    from rcmvsnet_tpu_torch.ops import warp_variance as K1
+    from rcmvsnet_tpu_torch.ops import warp_volume as K7
+    from rcmvsnet_tpu_torch.ops.sampling import resize_bilinear
+
+    ledger.phase = "train"
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    imgs = batch["imgs"][0]                                   # [V,H,W,3]
+    Hs, Ws = imgs.shape[1:3]
+    Vn = imgs.shape[0]
+    feats = cascade.feature(imgs.permute(0, 3, 1, 2).contiguous())
+    gt = torch.from_numpy(scene["depths"][0]).to(dev)
+    dv = batch["depth_values"][0]
+    interval = float(dv[-1] - dv[0]) / len(dv)
+    cfg = cascade.config
+    unets = []
+    for s, (nd, sc, ratio) in enumerate(zip(cfg.ndepths, (4, 2, 1),
+                                            cfg.depth_intervals_ratio)):
+        key = f"stage{s + 1}"
+        h, w = Hs // sc, Ws // sc
+        if s == 0:
+            lo = torch.full((h, w), float(dv[0]), device=dev)
+            step = torch.full((h, w), float(dv[-1] - dv[0]) / (nd - 1),
+                              device=dev)
+        else:
+            cur = F.interpolate(gt[None, None], size=(h, w), mode="bilinear",
+                                align_corners=False)[0, 0]
+            cur = cur + rand(h, w) * ratio * interval
+            lo = (cur - nd / 2.0 * ratio * interval).contiguous()
+            step = ((cur + nd / 2.0 * ratio * interval - lo) / (nd - 1)) \
+                .contiguous()
+        f = feats[key].permute(0, 2, 3, 1).contiguous()          # [V,h,w,C]
+        C = f.shape[-1]
+        projs = compose_projection(batch["proj_matrices"][key][0])
+        tag = f"{key} V{Vn} {h}x{w} C{C} D{nd}"
+        ledger.compare(
+            "warp_variance", tag,
+            lambda: K1.warp_variance(f, projs, lo, step, nd),
+            lambda: K1.warp_variance_plain(f, projs, lo, step, nd),
+            nbytes(f, projs, lo, step) + 4 * C * nd * h * w,
+            warp_flops(Vn, h, w, C, nd))
+        g = rand(C, nd, h, w)
+        ledger.compare(
+            "warp_variance_bwd", tag,
+            lambda: K1.warp_variance_bwd(f, projs, lo, step, g),
+            lambda: K1.warp_variance_bwd_plain(f, projs, lo, step, g),
+            2 * nbytes(f) + nbytes(projs, lo, step, g),
+            warp_flops(Vn, h, w, C, nd, bwd=True))
+        if s == 0:
+            im = resize_bilinear(imgs, h, w).contiguous()
+            ledger.compare(
+                "warp_volume", tag,
+                lambda: K7.warp_volume(f, im, projs, lo, step, nd),
+                lambda: K7.warp_volume_plain(f, im, projs, lo, step, nd),
+                nbytes(f, im, projs, lo, step)
+                + 4 * (2 * C + 3 * (Vn - 1)) * nd * h * w,
+                warp_flops(Vn, h, w, C, nd, images=3))
+            cots = (g, rand(C, nd, h, w), rand(3 * (Vn - 1), nd, h, w))
+            ledger.compare(
+                "warp_volume_bwd", tag,
+                lambda: K7.warp_volume_bwd(f, im, projs, lo, step, *cots),
+                lambda: K7.warp_volume_bwd_plain(f, im, projs, lo, step,
+                                                 *cots),
+                2 * nbytes(f, im) + nbytes(projs, lo, step, *cots),
+                warp_flops(Vn, h, w, C, nd, bwd=True, images=3))
+        unets.append((f"cr{s}", cascade.cost_regularization[s], C,
+                      (nd, h, w)))
+    del feats
+    rc = render.MVSNet["cost_reg_2"]
+    unets.append(("render", rc, rc.conv0.conv.in_channels,
+                  (render.num_planes, Hs // 4, Ws // 4)))
+
+    for net_name, net, ci, dims in unets:
+        layers = [(n, m, conv_bn(getattr(net, n))[0].weight)
+                  for n, m in TRUNK]
+        if hasattr(net, "prob"):
+            layers.append(("prob", "s1", net.prob.weight))
+        cur = (ci, *dims)                  # the layer's input [C, D, H, W]
+        for name, mode, wgt in layers:
+            cin, d, h, w = cur
+            co = wgt.shape[1] if mode == "t2" else wgt.shape[0]
+            cur = (co, *K2.out_shape(mode, d, h, w))
+            x = rand(1, cin, d, h, w)
+            g = rand(1, *cur)
+            adj_w = K8._adjoint_weight(wgt, mode)
+            adj = K8.ADJOINT[mode]
+            zo, zi = torch.zeros(co, device=dev), torch.zeros(cin, device=dev)
+            tag = f"{net_name} {name} {mode} {tuple(x.shape)}"
+            y = K2.conv3d_plain(x, wgt, None, mode, relu=False)
+            ledger.compare(
+                "conv3d", f"train fwd {tag}",
+                lambda: K2.conv3d(x, wgt, zo, mode, relu=False),
+                lambda: K2.conv3d_plain(x, wgt, None, mode, relu=False),
+                *conv3d_work(x, wgt, y, mode),
+                fn_lib=lambda: library_conv3d(x, wgt, None, mode))
+            ledger.compare(
+                "conv3d", f"train dx {tag}",
+                lambda: K2.conv3d(g, adj_w, zi, adj, relu=False),
+                lambda: K2.conv3d_plain(g, adj_w, None, adj, relu=False),
+                *conv3d_work(g, adj_w, x, adj),
+                fn_lib=lambda: library_conv3d(g, adj_w, None, adj))
+            _, flops = conv3d_work(x, wgt, y, mode)
+            ledger.compare(
+                "conv3d_dw", tag,
+                lambda: K8.conv3d_dw(x, g, mode),
+                lambda: K8.conv3d_dw_plain(x, g, mode),
+                nbytes(x, g, wgt), flops,
+                fn_lib=lambda: library_conv3d_dw(x, g, wgt, mode))
+            del x, g, y
+    sync(dev)
+    ledger.check("train kernels")
+
+
+def library_conv3d_dw(x, g, w, mode):
+    """One cuDNN call for the same weight gradient (TF32 off)."""
+    import torch
+    t2 = mode == "t2"
+    s = 1 if mode == "s1" else 2
+    return torch.ops.aten.convolution_backward(
+        g, x, w, None, [s] * 3, [1] * 3, [1] * 3, t2, [1 if t2 else 0] * 3,
+        1, [False, True, False])[1]
+
+
+def phase_train(batch, cascade_sd, smi, dev, cfg=None, warmup=2, timed=5):
+    """Phase 6: the fused train step, kernels then plain versions, from
+    one init and one batch with the draws fixed once."""
+    import torch
+    from rcmvsnet_tpu_torch.config import Config
+    from rcmvsnet_tpu_torch.train.state import create_train_state
+    from rcmvsnet_tpu_torch.train.step import draw_step, make_train_step
+    cfg = cfg or Config()
+    cuda = dev.type == "cuda"
+    B, Vn, Hs, Ws = batch["imgs"].shape[:4]
+    draws = draw_step(torch.Generator(device=dev).manual_seed(SEED), cfg, B,
+                      Hs, Ws)
+    wrappers = kernel_wrappers()
+    paths = {}
+    for plain in (False, True):
+        state = create_train_state(cfg, Vn, 1000, dev, seed=SEED,
+                                   state_dicts=(cascade_sd, None))
+        step = make_train_step(cfg, plain=plain)
+        for fn in wrappers.values():
+            fn.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        sync(dev)
+        torch.backends.cudnn.deterministic = plain
+        first = {k: float(v) for k, v in step(state, batch, draws).items()}
+        torch.backends.cudnn.deterministic = False
+        grads = {f"render.{n}": p.grad.detach().clone()
+                 for n, p in state.render.named_parameters()}
+        grads.update({n: p.grad.detach().clone()
+                      for n, p in state.cascade.named_parameters()})
+        for _ in range(warmup - 1):
+            step(state, batch, draws)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            last = step(state, batch, draws)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        paths["plain" if plain else "kernel"] = {
+            "first": first, "grads": grads, "steps_per_s": timed / dt,
+            "last_loss": float(last["loss"]),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                     if cuda else None),
+            "launches": {k: fn.launches for k, fn in wrappers.items()}}
+        del state
+        if cuda:
+            torch.cuda.empty_cache()
+
+    k, p = paths["kernel"], paths["plain"]
+    rel = {n: abs(k["first"][n] - v) / max(abs(v), 1e-12)
+           for n, v in p["first"].items()}
+    scale = {m: max(float(g.abs().max()) for n, g in p["grads"].items()
+                    if n.startswith("render.") == (m == "render"))
+             for m in ("render", "cascade")}
+    grad_err = {n: float((k["grads"][n] - g).abs().max())
+                / scale["render" if n.startswith("render.") else "cascade"]
+                for n, g in p["grads"].items()}
+    grad_l2 = {n: float((k["grads"][n] - g).norm())
+               / max(float(g.norm()), 1e-30) for n, g in p["grads"].items()}
+    result = {
+        "device": smi, "input": f"{Ws}x{Hs} B={B} V={Vn}",
+        "steps_per_s_kernel": k["steps_per_s"],
+        "steps_per_s_plain": p["steps_per_s"],
+        "max_memory_allocated_kernel": k["max_memory_allocated"],
+        "max_memory_allocated_plain": p["max_memory_allocated"],
+        "launches": k["launches"], "launches_plain": p["launches"],
+        "step1_loss_kernel": k["first"]["loss"],
+        "step1_loss_plain": p["first"]["loss"],
+        "step1_rel_delta": rel,
+        "grad_max_l2_rel": max(grad_l2.values()),
+        "grad_worst_l2_rel": sorted(grad_l2.items(),
+                                    key=lambda t: -t[1])[:5],
+        "grad_max_err_of_model_scale": max(grad_err.values()),
+        "step7_loss_kernel": k["last_loss"], "step7_loss_plain":
+            p["last_loss"]}
+    print(json.dumps({"train_path": result}), flush=True)
+    missing = [n for n in TRAIN_KERNELS if k["launches"][n] == 0]
+    if missing:
+        raise AssertionError(f"train path never launched {missing}")
+    if any(p["launches"].values()):
+        raise AssertionError(f"plain train path launched kernels: "
+                             f"{p['launches']}")
+    terms = ("loss", "repr_loss", "aug_loss", "img_loss", "ray_depth_loss")
+    bad = {n: rel[n] for n in terms if not rel[n] <= LOSS_RTOL}
+    if bad or not all(map(lambda v: v == v, k["first"].values())):
+        raise AssertionError(f"step-1 losses kernel vs plain: {bad}")
+    if not max(grad_l2.values()) <= GRAD_L2_TOL:
+        raise AssertionError(f"gradients kernel vs plain: "
+                             f"{result['grad_worst_l2_rel']}")
     return result
 
 
@@ -420,36 +788,75 @@ def main() -> int:
         phase_kernels(model, samples, scene, ledger, dev)
     torch.cuda.empty_cache()
 
-    # 4. main path
+    # 4. eval main path
     main_path = phase_main(model, samples, scene, dev)
+    main_path["device"] = smi
+    del samples
+    torch.cuda.empty_cache()
 
-    # 5. report
+    # 5. train kernels against their plain versions
+    from rcmvsnet_tpu_torch.config import Config
+    from rcmvsnet_tpu_torch.data.synthetic import batch_from_views
+    from rcmvsnet_tpu_torch.train.state import make_models
+    from rcmvsnet_tpu_torch.train.step import batch_to
+    tscene = plane_scene(TH, TW, TV, SEED)
+    batch = batch_to(batch_from_views([tscene], NDEPTH, SEED), dev)
+    torch.manual_seed(SEED)
+    render = make_models(Config(), TV)[1].to(dev)
+    with torch.no_grad():
+        phase_train_kernels(model, render, batch, tscene, ledger, dev)
+    del render
+    torch.cuda.empty_cache()
+
+    # 6. train main path
+    train_path = phase_train(batch, load_state_dict(ASSET), smi, dev)
+
+    # 7. report
     source = "rcmvsnet_tpu_torch/ops/"
     meta = [
-        ("warp_variance", "cuda", source + "csrc/warp_variance.cu",
+        ("warp_variance", "eval", "cuda", source + "csrc/warp_variance.cu",
          "rcmvsnet_tpu/ops/pallas_warp2.py:393"),
-        ("conv3d", "cuda", source + "csrc/conv3d.cu",
+        ("conv3d", "eval", "cuda", source + "csrc/conv3d.cu",
          "rcmvsnet_tpu/ops/pallas_costreg.py:383 + "
          "rcmvsnet_tpu/ops/pallas_resample.py:59,117"),
-        ("depth_tail", "triton", source + "depth_tail.py",
+        ("depth_tail", "eval", "triton", source + "depth_tail.py",
          "rcmvsnet_tpu/ops/pallas_tail.py:133"),
-        ("conv2d", "cuda", source + "csrc/conv2d.cu",
+        ("conv2d", "eval", "cuda", source + "csrc/conv2d.cu",
          "rcmvsnet_tpu/ops/pallas_conv2d.py:306"),
+        ("warp_variance_bwd", "train", "cuda",
+         source + "csrc/warp_variance.cu",
+         "rcmvsnet_tpu/ops/pallas_warp_train.py:306 (bwd :108, :374)"),
+        ("warp_volume", "train", "cuda", source + "csrc/warp_volume.cu",
+         "rcmvsnet_tpu/ops/pallas_warp_volume.py:263 (fwd :101, :340)"),
+        ("warp_volume_bwd", "train", "cuda", source + "csrc/warp_volume.cu",
+         "rcmvsnet_tpu/ops/pallas_warp_volume.py:263 (bwd :178, :406)"),
+        ("conv3d_dw", "train", "cuda", source + "csrc/conv3d_dw.cu",
+         "rcmvsnet_tpu/ops/pallas_costreg_train.py:81 (dw :163, :258)"),
     ]
     kernels = []
-    for name, route, src, replaces in meta:
-        s = ledger.summary(name)
-        kernels.append({"name": name, "route": route, "source": src,
-                        "replaces": replaces,
-                        "launches": main_path["launches"][name],
-                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                        "plain_ms": s["plain_ms"]})
+    for name, phase, route, src, replaces in meta:
+        s = ledger.summary(name, phase)
+        path = main_path if phase == "eval" else train_path
+        row = {"name": name, "route": route, "source": src,
+               "replaces": replaces, "launches": path["launches"][name],
+               "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+               "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+               "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+               "calls_timed": s["calls"], "shapes": phase}
+        if name in TRAIN_KERNELS and phase == "eval":
+            t = ledger.summary(name, "train")
+            row["train"] = {"launches": train_path["launches"][name],
+                            **{k: t[k] for k in (
+                                "max_abs_err", "ms", "plain_ms",
+                                "library_ms", "bound_ms", "bound_by")},
+                            "calls_timed": t["calls"]}
+        kernels.append(row)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s, "nvcc": logs,
-        "calls": ledger.rows, "main_path": main_path, "kernels": kernels},
-        indent=1))
+        "calls": ledger.rows, "main_path": main_path,
+        "train_path": train_path, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

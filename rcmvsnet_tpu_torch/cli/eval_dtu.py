@@ -7,7 +7,7 @@ GPU is an error, not a CPU run).
 Phase 1 (save_depth): the cascade per reference view (`infer_views`), then
 depth_est / confidence PFMs, cams, images and visualizations — the JAX
 CLI's output tree. Phase 2 (fusion): photometric + geometric filtering
-into mvsnet{scan:03d}_l3.ply (the shared `rcmvsnet_tpu.fusion.fuse`).
+into mvsnet{scan:03d}_l3.ply (the port's `fusion/fuse.py`).
 Optional phase 3: the ported DTU acc/comp benchmark when --gt_dir is given.
 
 Usage:
@@ -29,17 +29,13 @@ import numpy as np
 import torch
 
 from ..config import BackboneConfig
+from ..core import io as _io
 from ..core.geometry import set_full_precision
+from ..data import dtu_test as _dtu_test
+from ..data import transforms as _transforms
+from ..fusion import fuse as _fuse
 from ..models.cascade import CascadeMVSNet, infer_views
-from ..shared import import_shared
 from ..weights import load_state_dict
-
-# the JAX package's framework-free I/O, datasets and fusion, shared as they
-# are (see shared.py for why they are not imported directly)
-_io = import_shared("rcmvsnet_tpu.core.io")
-_dtu_test = import_shared("rcmvsnet_tpu.data.dtu_test")
-_transforms = import_shared("rcmvsnet_tpu.data.transforms")
-_fuse = import_shared("rcmvsnet_tpu.fusion.fuse")
 
 
 def parse_args(argv=None):
@@ -187,8 +183,7 @@ def main(argv=None):
         print(json.dumps({s: n for s, n in results}))
 
     if args.gt_dir:
-        dtu_eval_scans = import_shared(
-            "rcmvsnet_tpu.fusion.dtu_eval").dtu_eval_scans
+        from ..fusion.dtu_eval import dtu_eval_scans
         sets = sorted(int(s[4:]) for s in testlist)
         metrics = dtu_eval_scans(args.outdir, args.gt_dir, sets=sets)
         out = Path(args.outdir) / "dtu_metrics.json"

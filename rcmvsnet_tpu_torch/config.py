@@ -1,12 +1,14 @@
-"""Backbone configuration of the port: the cascade's shape knobs only.
+"""Configuration of the port: the cascade's shape knobs, and the train
+step's render, loss and run settings.
 
-Counterpart of `rcmvsnet_tpu.config.BackboneConfig` without the TPU knobs
-(`pallas_*`, `eval_dtype`, `train_*`, `remat`): the port picks its kernels
-by the tensor's device, and it computes in float32.
+Counterparts of `rcmvsnet_tpu/config.py` without the TPU knobs (`pallas_*`,
+`eval_dtype`, `train_dtype`, `remat`, `ray_major_lookup`): the port picks
+its kernels by the tensor's device, and it computes in float32.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Tuple
 
 
@@ -16,3 +18,43 @@ class BackboneConfig:
     depth_intervals_ratio: Tuple[float, ...] = (4.0, 2.0, 1.0)
     cr_base_chs: Tuple[int, ...] = (8, 8, 8)
     base_channels: int = 8
+    grad_detach: bool = True
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """The render branch's sizes (net_type 'v0'; its widths are constants
+    of `models/render_net.py`)."""
+    n_rays: int = 1024
+    n_samples: int = 128
+    num_planes: int = 128
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    dlossw: Tuple[float, ...] = (0.5, 1.0, 2.0)
+    w_aug: float = 0.01
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    epochs: int = 15
+    lr: float = 1e-4
+    lr_milestone_epochs: Tuple[int, ...] = (10, 12, 14)
+    lr_gamma: float = 0.5
+    weight_decay: float = 0.0
+    batch_size: int = 1
+    seed: int = 1
+    logdir: str = "./rc-mvsnet"
+    summary_freq: int = 10
+
+
+@dataclass(frozen=True)
+class Config:
+    backbone: BackboneConfig = field(default_factory=BackboneConfig)
+    render: RenderConfig = field(default_factory=RenderConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    run: RunConfig = field(default_factory=RunConfig)
+
+    def replace(self, **kwargs) -> "Config":
+        return dataclasses.replace(self, **kwargs)

@@ -1,6 +1,7 @@
 """Projective geometry for plane-sweep MVS, in PyTorch (float32).
 
-Counterpart of `rcmvsnet_tpu/core/geometry.py:21-82`. The JAX code pins
+Counterpart of `rcmvsnet_tpu/core/geometry.py:21-82` and of its
+`world_to_ndc` (`:120`), which the render branch uses. The JAX code pins
 these products to f32 `HIGHEST`; on the card the port relies on
 `torch.backends.cuda.matmul.allow_tf32 = False` (the default, and set again
 by `set_full_precision`), so a 4x4 product never drops to TF32.
@@ -72,3 +73,21 @@ def project_to_grid(proj: torch.Tensor, depth_values: torch.Tensor,
     x_norm = proj_xy[:, 0] / ((width - 1) / 2.0) - 1.0
     y_norm = proj_xy[:, 1] / ((height - 1) / 2.0) - 1.0
     return x_norm, y_norm
+
+
+def world_to_ndc(points: torch.Tensor, w2c_ref: torch.Tensor,
+                 intrinsic_ref: torch.Tensor, inv_scale: torch.Tensor,
+                 near, far) -> torch.Tensor:
+    """World points → reference-view NDC in [0, 1]^3.
+
+    points [..., 3]; w2c_ref [4, 4]; intrinsic_ref [3, 3]; inv_scale [2] =
+    (W-1, H-1). xy are projected pixels normalized by inv_scale, z is
+    (z - near) / (far - near). The JAX function's `pad` squeeze is not
+    ported: no configuration sets it."""
+    shape = points.shape
+    pts = points.reshape(-1, 3)
+    pts = torch.matmul(pts, w2c_ref[:3, :3].T) + w2c_ref[:3, 3][None]
+    pix = torch.matmul(pts, intrinsic_ref.T)
+    xy = (pix[:, :2] / pix[:, 2:3]) / inv_scale.reshape(1, 2)
+    z = (pix[:, 2:3] - near) / (far - near)
+    return torch.cat([xy, z], dim=-1).reshape(shape)

@@ -1,17 +1,27 @@
-"""CascadeMVSNet eval: 3-stage coarse-to-fine plane-sweep depth network.
+"""CascadeMVSNet: 3-stage coarse-to-fine plane-sweep depth network.
 
-Counterpart of the eval branch of `rcmvsnet_tpu/models/cascade.py:292-508`
-(`train=False`, `refine=False`). Parameter names follow the reference
-(`feature.*`, `cost_regularization.{i}.*`), so a reference `*_cas.ckpt`
-state_dict loads with `strict=True`.
+Counterpart of `rcmvsnet_tpu/models/cascade.py:292-508` (`refine=False`).
+Parameter names follow the reference (`feature.*`,
+`cost_regularization.{i}.*`), so a reference `*_cas.ckpt` state_dict loads
+with `strict=True`.
 
-Per stage, for each batch element:
+Eval (`forward`), per stage and batch element:
   features (K5) → warp + variance (K1) → 3D U-Net (K2) → softmax,
   depth and confidence (K4),
 with the per-pixel hypothesis schedule dv(d) = lo + d·step feeding K1 and
 K4 directly; the [D, h, w] hypothesis volume exists only inside the plain
-versions. `plain=True` runs every kernel's plain version (on a CPU tensor
-the wrappers do so anyway).
+versions.
+
+Train (`forward_train`, BatchNorm in train mode): FeatureNet as modules;
+per stage the differentiable warp — K7 (variance, no-ref variance and
+warped source images in one sweep) at stage 1 when the render branch's
+volume is asked for, K1 with K6 as its backward otherwise — then the U-Net
+through K8, then softmax + depth regression in plain PyTorch (the JAX
+train tail is XLA code). With `grad_detach` the previous stage's depth is
+detached before it sets the next window.
+
+`plain=True` runs every kernel's plain version (on a CPU tensor the
+wrappers do so anyway), with autograd through them on the train path.
 """
 from __future__ import annotations
 
@@ -23,9 +33,12 @@ from ..config import BackboneConfig
 from ..core.geometry import compose_projection
 from ..nn.costreg import CostRegNet
 from ..nn.featurenet import FeatureNet
-from ..ops.depth_tail import depth_tail, depth_tail_plain
+from ..ops.depth_tail import (depth_regression, depth_tail,
+                              depth_tail_plain, photometric_confidence)
 from ..ops.sampling import resize_bilinear
-from ..ops.warp_variance import warp_variance, warp_variance_plain
+from ..ops.warp_variance import (warp_variance, warp_variance_plain,
+                                 warp_variance_train)
+from ..ops.warp_volume import warp_volume_plain, warp_volume_train
 
 STAGE_SCALES = (4, 2, 1)
 
@@ -46,36 +59,18 @@ class CascadeMVSNet(nn.Module):
 
         Returns {stage1..3: {depth, photometric_confidence}, depth,
         photometric_confidence}, each map [B, h, w] float32."""
-        cfg = self.config
         warp = warp_variance_plain if plain else warp_variance
         tail = depth_tail_plain if plain else depth_tail
         B, V, H, W, _ = imgs.shape
-        d_min = depth_values[:, 0]
-        d_max = depth_values[:, -1]
-        depth_interval = (d_max - d_min) / depth_values.shape[1]      # [B]
-
         x = imgs.reshape(B * V, H, W, 3).permute(0, 3, 1, 2).contiguous()
         feats = self.feature.forward_folded(x, plain=plain)
 
         outputs = {}
         depth = None
-        for s, nd in enumerate(cfg.ndepths):
+        for s, nd in enumerate(self.config.ndepths):
             key = f"stage{s + 1}"
             h, w = H // STAGE_SCALES[s], W // STAGE_SCALES[s]
-            if depth is None:
-                step1 = (d_max - d_min) / (nd - 1)
-                lo = d_min[:, None, None].expand(B, h, w).contiguous()
-                step = step1[:, None, None].expand(B, h, w).contiguous()
-            else:
-                # two-step resize, as the reference's full-res round trip
-                cur = resize_bilinear(depth[..., None], H, W)[..., 0]
-                if (h, w) != (H, W):
-                    cur = resize_bilinear(cur[..., None], h, w)[..., 0]
-                interval = (cfg.depth_intervals_ratio[s]
-                            * depth_interval)[:, None, None]
-                lo = cur - nd / 2.0 * interval
-                hi = cur + nd / 2.0 * interval
-                step = (hi - lo) / (nd - 1)
+            lo, step = self._planes(s, depth, depth_values, H, W)
             fs = feats[key]
             C = fs.shape[1]
             fs = fs.reshape(B, V, C, h, w).permute(0, 1, 3, 4, 2)
@@ -92,9 +87,96 @@ class CascadeMVSNet(nn.Module):
             depth = torch.stack(depths)
             outputs[key] = {"depth": depth,
                             "photometric_confidence": torch.stack(confs)}
+        last = outputs[f"stage{len(self.config.ndepths)}"]
+        outputs["depth"] = last["depth"]
+        outputs["photometric_confidence"] = last["photometric_confidence"]
+        return outputs
+
+    def _planes(self, s: int, depth, depth_values: torch.Tensor, H: int,
+                W: int):
+        """Stage s's hypothesis schedule dv(d) = lo + d·step: (lo, step),
+        each [B, h, w]: the full sweep at stage 1, a window of
+        ndepths[s] planes around the previous depth after it."""
+        cfg = self.config
+        nd = cfg.ndepths[s]
+        B = depth_values.shape[0]
+        h, w = H // STAGE_SCALES[s], W // STAGE_SCALES[s]
+        d_min = depth_values[:, 0]
+        d_max = depth_values[:, -1]
+        if depth is None:
+            step1 = (d_max - d_min) / (nd - 1)
+            lo = d_min[:, None, None].expand(B, h, w).contiguous()
+            return lo, step1[:, None, None].expand(B, h, w).contiguous()
+        # two-step resize, as the reference's full-res round trip
+        cur = resize_bilinear(depth[..., None], H, W)[..., 0]
+        if (h, w) != (H, W):
+            cur = resize_bilinear(cur[..., None], h, w)[..., 0]
+        depth_interval = (d_max - d_min) / depth_values.shape[1]
+        interval = (cfg.depth_intervals_ratio[s]
+                    * depth_interval)[:, None, None]
+        lo = cur - nd / 2.0 * interval
+        hi = cur + nd / 2.0 * interval
+        return lo, (hi - lo) / (nd - 1)
+
+    def forward_train(self, imgs: torch.Tensor, proj_matrices: dict,
+                      depth_values: torch.Tensor,
+                      return_volume: bool = False, plain: bool = False):
+        """Train-mode forward (inputs as `forward`). Returns the outputs
+        dict ({stage1..3: {depth, photometric_confidence}}, depth,
+        photometric_confidence) and, with return_volume, the stage-1
+        volume_feature_no_ref [B, 3(V−1)+C, D, h, w]: the warped source
+        images (view-major) then the no-ref variance, channels first."""
+        cfg = self.config
+        warp = warp_variance_plain if plain else warp_variance_train
+        volume = warp_volume_plain if plain else warp_volume_train
+        B, V, H, W, _ = imgs.shape
+        x = imgs.reshape(B * V, H, W, 3).permute(0, 3, 1, 2).contiguous()
+        feats = self.feature(x)
+
+        outputs = {}
+        depth = None
+        volume_feature = None
+        for s, nd in enumerate(cfg.ndepths):
+            key = f"stage{s + 1}"
+            h, w = H // STAGE_SCALES[s], W // STAGE_SCALES[s]
+            prev = depth
+            if prev is not None and cfg.grad_detach:
+                prev = prev.detach()
+            lo, step = self._planes(s, prev, depth_values, H, W)
+            C = feats[key].shape[1]
+            fs = feats[key].reshape(B, V, C, h, w).permute(0, 1, 3, 4, 2)
+            projs = compose_projection(proj_matrices[key].float())
+            want_volume = return_volume and s == 0
+            if want_volume:
+                imgs_s = resize_bilinear(imgs.reshape(B * V, H, W, 3), h,
+                                         w).reshape(B, V, h, w, 3)
+            depths, confs, vols = [], [], []
+            idx = torch.arange(nd, dtype=lo.dtype, device=lo.device)
+            for b in range(B):
+                f_b = fs[b].contiguous()
+                if want_volume:
+                    var, var_nr, wimg = volume(
+                        f_b, imgs_s[b].contiguous(), projs[b], lo[b],
+                        step[b], nd)
+                    vols.append(torch.cat([wimg, var_nr], dim=0))
+                else:
+                    var = warp(f_b, projs[b], lo[b], step[b], nd)
+                cost = self.cost_regularization[s].forward_train(
+                    var[None], plain=plain)[0, 0]                # [D, h, w]
+                prob = torch.softmax(cost, dim=0)[None]
+                dv = lo[b][None] + idx[:, None, None] * step[b][None]
+                depths.append(depth_regression(prob, dv[None])[0])
+                confs.append(photometric_confidence(prob.detach())[0])
+            depth = torch.stack(depths)
+            outputs[key] = {"depth": depth,
+                            "photometric_confidence": torch.stack(confs)}
+            if want_volume:
+                volume_feature = torch.stack(vols)
         last = outputs[f"stage{len(cfg.ndepths)}"]
         outputs["depth"] = last["depth"]
         outputs["photometric_confidence"] = last["photometric_confidence"]
+        if return_volume:
+            return outputs, volume_feature
         return outputs
 
 

@@ -7,8 +7,9 @@ PyTorch's headers, so a build takes seconds rather than the minutes a
 
   * Target `sm_90a` (Hopper), `-O3`.
   * Output: `rcmvsnet_tpu_torch/.ext_build/lib<name>_<hash>.so`, keyed by a
-    hash of the source and the flags, so an edited source rebuilds and an
-    unchanged one is reused. `.gitignore` lists the directory.
+    hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so
+    an edited source rebuilds and an unchanged one is reused. `.gitignore`
+    lists the directory.
   * `build_all()` starts one `nvcc` per source, all at once, and waits.
   * A failed build raises with the compiler's output; nothing catches it.
 
@@ -28,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".ext_build"
-SOURCES = ("warp_variance", "conv3d", "conv2d")
+SOURCES = ("warp_variance", "conv3d", "conv2d", "warp_volume", "conv3d_dw")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,7 +46,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{key}.so"
 

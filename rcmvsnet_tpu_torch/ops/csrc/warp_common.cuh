@@ -1,0 +1,98 @@
+// Plane-sweep sampling coordinates shared by the warp kernels
+// (warp_variance.cu: K1 and its backward; warp_volume.cu: the stage-1
+// volume kernel and its backward), so that a backward recomputes exactly
+// the taps its forward read.
+//
+// For reference pixel (x, y) at hypothesis depth dv and a row-major 4x4
+// relative projection m (src @ inv(ref), K folded in):
+//   p = rot * [x, y, 1] * dv + t,  |Z| floored at 1e-6 (sign kept),
+//   px = X/Z clipped to [-2, W+1], py = Y/Z clipped to [-2, H+1];
+// tap k (0..3) is (x0 + (k & 1), y0 + (k >> 1)) with the bilinear weight
+// tap_weight(k); a tap outside the image reads zero (zeros padding, per
+// tap). The clip only moves samples whose four taps all lie outside.
+#pragma once
+#include <cuda_runtime.h>
+
+namespace warp {
+
+constexpr int kMaxViews = 16;
+
+struct Taps {
+  int x0, y0;
+  float wx, wy;
+};
+
+// The hypothesis depth, rounded as the plain lo + d * step (no FMA).
+__device__ __forceinline__ float plane_depth(float lo, float step, int d) {
+  return __fadd_rn(lo, __fmul_rn((float)d, step));
+}
+
+__device__ __forceinline__ Taps project(const float* m, float fx, float fy,
+                                        float dv, int H, int W) {
+  const float rx = m[0] * fx + m[1] * fy + m[2];
+  const float ry = m[4] * fx + m[5] * fy + m[6];
+  const float rz = m[8] * fx + m[9] * fy + m[10];
+  const float X = rx * dv + m[3];
+  const float Y = ry * dv + m[7];
+  float Z = rz * dv + m[11];
+  if (fabsf(Z) < 1e-6f) Z = Z < 0.f ? -1e-6f : 1e-6f;
+  const float px = fminf(fmaxf(X / Z, -2.f), (float)W + 1.f);
+  const float py = fminf(fmaxf(Y / Z, -2.f), (float)H + 1.f);
+  const float x0f = floorf(px), y0f = floorf(py);
+  return Taps{(int)x0f, (int)y0f, px - x0f, py - y0f};
+}
+
+// Tap k's pixel index y * W + x, or -1 when it lies outside the image.
+__device__ __forceinline__ long long tap_pixel(const Taps& t, int k, int H,
+                                               int W) {
+  const int xi = t.x0 + (k & 1), yi = t.y0 + (k >> 1);
+  if (xi < 0 || xi >= W || yi < 0 || yi >= H) return -1;
+  return (long long)yi * W + xi;
+}
+
+__device__ __forceinline__ float tap_weight(const Taps& t, int k) {
+  return ((k & 1) ? t.wx : 1.f - t.wx) * ((k >> 1) ? t.wy : 1.f - t.wy);
+}
+
+// Bilinear sample of C contiguous channels (C % 4 == 0, float4 loads) of
+// map base [H, W, C] into val.
+template <int C>
+__device__ __forceinline__ void sample_channels(const float* base,
+                                                const Taps& t, int H, int W,
+                                                float* val) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) val[c] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long p = tap_pixel(t, k, H, W);
+    if (p < 0) continue;
+    const float wgt = tap_weight(t, k);
+    const float4* q4 = reinterpret_cast<const float4*>(base + p * C);
+#pragma unroll
+    for (int c4 = 0; c4 < C / 4; ++c4) {
+      const float4 q = __ldg(q4 + c4);
+      val[4 * c4 + 0] += wgt * q.x; val[4 * c4 + 1] += wgt * q.y;
+      val[4 * c4 + 2] += wgt * q.z; val[4 * c4 + 3] += wgt * q.w;
+    }
+  }
+}
+
+// Transposed bilinear sample: scatter grad[c] * weight into the four taps
+// of dbase [H, W, NC] (atomicAdd: many (plane, pixel) threads reach one
+// source pixel, so the summation order varies from run to run).
+template <int NC>
+__device__ __forceinline__ void scatter_channels(float* dbase, const Taps& t,
+                                                 int H, int W,
+                                                 const float* grad) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long p = tap_pixel(t, k, H, W);
+    if (p < 0) continue;
+    const float wgt = tap_weight(t, k);
+    float* q = dbase + p * NC;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) atomicAdd(q + c, wgt * grad[c]);
+  }
+}
+
+}  // namespace warp

@@ -1,7 +1,9 @@
 """Plane-sweep homography warp and the multi-view variance cost volume.
 
-Counterparts of `rcmvsnet_tpu/ops/warp.py:22-81`, and the plain version of
-the warp-variance kernel (`ops/warp_variance.py`). Views stream through
+Counterparts of `rcmvsnet_tpu/ops/warp.py:22-101`, and the plain versions
+of the warp kernels (`ops/warp_variance.py`, `ops/warp_volume.py`).
+`homo_warp` warps features or images alike; the sampling grid carries no
+gradient, the warped tensor does (through `F.grid_sample`). Views stream through
 running Σx / Σx² accumulators in float32; the reference view is broadcast
 over the depth axis.
 """
@@ -49,3 +51,19 @@ def plane_sweep_variance(ref_feat: torch.Tensor, src_feats, src_projs,
     mean = vol_sum / num_views
     variance = vol_sq_sum / num_views - mean * mean
     return variance.to(ref_feat.dtype)
+
+
+def plane_sweep_variance_no_ref(warped_srcs) -> torch.Tensor:
+    """Variance over the warped source volumes only, divided by the FULL
+    view count V = len(warped_srcs) + 1 — the reference's `no_ref`
+    bookkeeping (its sum excludes the reference view, its divisor does
+    not). warped_srcs: list of [B, D, H, W, C]."""
+    num_views = len(warped_srcs) + 1
+    vol_sum = 0.0
+    vol_sq_sum = 0.0
+    for w in warped_srcs:
+        wf = w.float()
+        vol_sum = vol_sum + wf
+        vol_sq_sum = vol_sq_sum + wf * wf
+    mean = vol_sum / num_views
+    return (vol_sq_sum / num_views - mean * mean).to(warped_srcs[0].dtype)

@@ -1,14 +1,22 @@
-"""K1: fused plane-sweep warp + multi-view variance.
+"""K1: fused plane-sweep warp + multi-view variance, and K6, its backward.
 
 `warp_variance` launches the CUDA kernel `csrc/warp_variance.cu` for a
 CUDA tensor; for a CPU tensor it returns `warp_variance_plain`, the same
 function in plain PyTorch (`ops/warp.plane_sweep_variance` on the
 [D, h, w] hypothesis volume built from (lo, step)).
 
-Replaces the TPU kernel `rcmvsnet_tpu/ops/pallas_warp2.py`
-`plane_sweep_variance_lanes` (planes mode). The TPU kernel's VMEM
-residency, band ladder and coverage counter are not ported: the Hopper
-kernel samples straight from device memory and has no such precondition.
+`warp_variance_bwd` (K6) is the cotangent of the features: the second entry
+of the same source on a CUDA tensor, `warp_variance_bwd_plain` (autograd
+through the plain version) on a CPU one. `warp_variance_train` wraps the
+pair in one `torch.autograd.Function`; the projections and depth planes get
+no gradient (the sampling grid carries none).
+
+Replaces the TPU kernels `rcmvsnet_tpu/ops/pallas_warp2.py`
+`plane_sweep_variance_lanes` (planes mode) and the backward of
+`rcmvsnet_tpu/ops/pallas_warp_train.py` `plane_sweep_variance_fused_train`.
+The TPU kernels' VMEM residency, band ladder and coverage counter are not
+ported: the Hopper kernels sample straight from device memory and have no
+such precondition.
 """
 from __future__ import annotations
 
@@ -46,13 +54,33 @@ def warp_variance_plain(feats: torch.Tensor, projs: torch.Tensor,
     return var[0].permute(3, 0, 1, 2).contiguous()
 
 
-def _lib():
-    fn = _build.load("warp_variance").warp_variance_f32
+def warp_variance_bwd_plain(feats: torch.Tensor, projs: torch.Tensor,
+                            lo: torch.Tensor, step: torch.Tensor,
+                            g: torch.Tensor) -> torch.Tensor:
+    """Cotangent of feats [V, h, w, C] for the variance cotangent g
+    [C, D, h, w]: autograd through `warp_variance_plain`."""
+    with torch.enable_grad():
+        f = feats.detach().requires_grad_(True)
+        var = warp_variance_plain(f, projs, lo, step, g.shape[1])
+        return torch.autograd.grad(var, f, g)[0]
+
+
+def _lib(entry="warp_variance_f32", n_ptr=5):
+    fn = getattr(_build.load("warp_variance"), entry)
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check(name, feats, lo, step):
+    V, h, w, C = feats.shape
+    if C not in CHANNELS or not 1 <= V <= MAX_VIEWS:
+        raise ValueError(f"{name}: C in {CHANNELS} and 1 <= V <= "
+                         f"{MAX_VIEWS}, got V={V} C={C}")
+    if lo.shape != (h, w) or step.shape != (h, w):
+        raise ValueError(f"{name}: lo/step must be {(h, w)}")
 
 
 def warp_variance(feats: torch.Tensor, projs: torch.Tensor,
@@ -61,12 +89,8 @@ def warp_variance(feats: torch.Tensor, projs: torch.Tensor,
     """Same contract as `warp_variance_plain`; the kernel on a CUDA tensor."""
     if feats.device.type == "cpu":
         return warp_variance_plain(feats, projs, lo, step, ndepth)
+    _check("warp_variance", feats, lo, step)
     V, h, w, C = feats.shape
-    if C not in CHANNELS or not 1 <= V <= MAX_VIEWS:
-        raise ValueError(f"warp_variance: C in {CHANNELS} and 1 <= V <= "
-                         f"{MAX_VIEWS}, got V={V} C={C}")
-    if lo.shape != (h, w) or step.shape != (h, w):
-        raise ValueError(f"warp_variance: lo/step must be {(h, w)}")
     rel = relative_projections(projs)
     _build.require_cuda("warp_variance", feats, rel, lo, step)
     out = torch.empty((C, ndepth, h, w), dtype=torch.float32,
@@ -80,3 +104,50 @@ def warp_variance(feats: torch.Tensor, projs: torch.Tensor,
 
 
 warp_variance.launches = 0
+
+
+def warp_variance_bwd(feats: torch.Tensor, projs: torch.Tensor,
+                      lo: torch.Tensor, step: torch.Tensor,
+                      g: torch.Tensor) -> torch.Tensor:
+    """Same contract as `warp_variance_bwd_plain`; K6 on a CUDA tensor."""
+    if feats.device.type == "cpu":
+        return warp_variance_bwd_plain(feats, projs, lo, step, g)
+    _check("warp_variance_bwd", feats, lo, step)
+    V, h, w, C = feats.shape
+    D = g.shape[1]
+    if tuple(g.shape) != (C, D, h, w):
+        raise ValueError(f"warp_variance_bwd: g {tuple(g.shape)} is not "
+                         f"[{C}, D, {h}, {w}]")
+    rel = relative_projections(projs)
+    _build.require_cuda("warp_variance_bwd", feats, rel, lo, step, g)
+    dsrc = torch.zeros_like(feats)
+    err = _lib("warp_variance_bwd_f32", 6)(
+        feats.data_ptr(), rel.data_ptr(), lo.data_ptr(), step.data_ptr(),
+        g.data_ptr(), dsrc.data_ptr(), V, h, w, C, D,
+        _build.stream_ptr(feats.device))
+    _build.check(err, "warp_variance_bwd")
+    warp_variance_bwd.launches += 1
+    return dsrc
+
+
+warp_variance_bwd.launches = 0
+
+
+class _WarpVariance(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, projs, lo, step, ndepth):
+        ctx.save_for_backward(feats, projs, lo, step)
+        return warp_variance(feats, projs, lo, step, ndepth)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, projs, lo, step = ctx.saved_tensors
+        dfeats = warp_variance_bwd(feats, projs, lo, step, g.contiguous())
+        return dfeats, None, None, None, None
+
+
+def warp_variance_train(feats: torch.Tensor, projs: torch.Tensor,
+                        lo: torch.Tensor, step: torch.Tensor,
+                        ndepth: int) -> torch.Tensor:
+    """`warp_variance` with K6 as its backward (differentiable in feats)."""
+    return _WarpVariance.apply(feats, projs, lo, step, ndepth)

@@ -1,0 +1,157 @@
+"""K7: the stage-1 train volume — all-view variance, no-ref variance and
+warped source images in one sweep — and its backward.
+
+`warp_volume` launches the CUDA kernel `csrc/warp_volume.cu` for a CUDA
+tensor; for a CPU tensor it returns `warp_volume_plain` (`ops/warp.py`'s
+`homo_warp`, variance and `plane_sweep_variance_no_ref`, the composition
+the JAX cascade runs when the kernel is off). `warp_volume_bwd` is the
+backward (the second entry of the same source, or autograd through the
+plain version), and `warp_volume_train` wraps both in one
+`torch.autograd.Function`, differentiable in the features and the images.
+
+Replaces the TPU kernel `rcmvsnet_tpu/ops/pallas_warp_volume.py`
+`plane_sweep_volume_fused_train` (forward and backward); as for K1, the
+band ladder and coverage counter are not ported.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .warp import homo_warp, plane_sweep_variance_no_ref
+from .warp_variance import (CHANNELS, MAX_VIEWS, relative_projections,
+                            warp_variance_plain)
+
+
+def warp_volume_plain(feats: torch.Tensor, imgs: torch.Tensor,
+                      projs: torch.Tensor, lo: torch.Tensor,
+                      step: torch.Tensor, ndepth: int):
+    """feats [V, h, w, C], imgs [V, h, w, 3] (view 0 = reference), projs
+    [V, 4, 4], lo/step [h, w] → (variance [C, D, h, w], no-ref variance
+    [C, D, h, w], warped source images [3 (V−1), D, h, w], view-major)."""
+    idx = torch.arange(ndepth, dtype=lo.dtype, device=lo.device)
+    dv = (lo[None] + idx[:, None, None] * step[None])[None]   # [1, D, h, w]
+    V = feats.shape[0]
+    ref_p = projs[:1]
+    warp = lambda x, v: homo_warp(x[v:v + 1], projs[v:v + 1], ref_p, dv)
+    var_nr = plane_sweep_variance_no_ref([warp(feats, v)
+                                          for v in range(1, V)])
+    wimg = torch.cat([warp(imgs, v) for v in range(1, V)], dim=-1)
+    cm = lambda t: t[0].permute(3, 0, 1, 2).contiguous()
+    return (warp_variance_plain(feats, projs, lo, step, ndepth), cm(var_nr),
+            cm(wimg))
+
+
+def warp_volume_bwd_plain(feats, imgs, projs, lo, step, g_var, g_nr, g_img):
+    """Cotangents of (feats, imgs) for the three output cotangents:
+    autograd through `warp_volume_plain`."""
+    with torch.enable_grad():
+        f = feats.detach().requires_grad_(True)
+        im = imgs.detach().requires_grad_(True)
+        outs = warp_volume_plain(f, im, projs, lo, step, g_var.shape[1])
+        return torch.autograd.grad(outs, (f, im), (g_var, g_nr, g_img))
+
+
+def _lib(entry, n_ptr):
+    fn = getattr(_build.load("warp_volume"), entry)
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, feats, imgs, lo, step):
+    V, h, w, C = feats.shape
+    if C not in CHANNELS or not 2 <= V <= MAX_VIEWS:
+        raise ValueError(f"{name}: C in {CHANNELS} and 2 <= V <= "
+                         f"{MAX_VIEWS}, got V={V} C={C}")
+    if tuple(imgs.shape) != (V, h, w, 3):
+        raise ValueError(f"{name}: imgs {tuple(imgs.shape)} != "
+                         f"{(V, h, w, 3)}")
+    if lo.shape != (h, w) or step.shape != (h, w):
+        raise ValueError(f"{name}: lo/step must be {(h, w)}")
+
+
+def warp_volume(feats: torch.Tensor, imgs: torch.Tensor,
+                projs: torch.Tensor, lo: torch.Tensor, step: torch.Tensor,
+                ndepth: int):
+    """Same contract as `warp_volume_plain`; the kernel on a CUDA tensor."""
+    if feats.device.type == "cpu":
+        return warp_volume_plain(feats, imgs, projs, lo, step, ndepth)
+    _check("warp_volume", feats, imgs, lo, step)
+    V, h, w, C = feats.shape
+    rel = relative_projections(projs)
+    _build.require_cuda("warp_volume", feats, imgs, rel, lo, step)
+    new = lambda c: torch.empty((c, ndepth, h, w), dtype=torch.float32,
+                                device=feats.device)
+    var, var_nr, wimg = new(C), new(C), new(3 * (V - 1))
+    err = _lib("warp_volume_f32", 8)(
+        feats.data_ptr(), imgs.data_ptr(), rel.data_ptr(), lo.data_ptr(),
+        step.data_ptr(), var.data_ptr(), var_nr.data_ptr(), wimg.data_ptr(),
+        V, h, w, C, ndepth, _build.stream_ptr(feats.device))
+    _build.check(err, "warp_volume")
+    warp_volume.launches += 1
+    return var, var_nr, wimg
+
+
+warp_volume.launches = 0
+
+
+def warp_volume_bwd(feats, imgs, projs, lo, step, g_var, g_nr, g_img):
+    """Same contract as `warp_volume_bwd_plain`; the kernel on a CUDA
+    tensor. Returns (dfeats [V, h, w, C], dimgs [V, h, w, 3])."""
+    if feats.device.type == "cpu":
+        return warp_volume_bwd_plain(feats, imgs, projs, lo, step, g_var,
+                                     g_nr, g_img)
+    _check("warp_volume_bwd", feats, imgs, lo, step)
+    V, h, w, C = feats.shape
+    D = g_var.shape[1]
+    want = {"g_var": (C, D, h, w), "g_nr": (C, D, h, w),
+            "g_img": (3 * (V - 1), D, h, w)}
+    for name, t in (("g_var", g_var), ("g_nr", g_nr), ("g_img", g_img)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"warp_volume_bwd: {name} {tuple(t.shape)} "
+                             f"!= {want[name]}")
+    rel = relative_projections(projs)
+    _build.require_cuda("warp_volume_bwd", feats, rel, lo, step, g_var,
+                        g_nr, g_img)
+    dfeat = torch.zeros_like(feats)
+    dimg = torch.zeros((V, h, w, 3), dtype=torch.float32,
+                       device=feats.device)
+    err = _lib("warp_volume_bwd_f32", 9)(
+        feats.data_ptr(), rel.data_ptr(), lo.data_ptr(), step.data_ptr(),
+        g_var.data_ptr(), g_nr.data_ptr(), g_img.data_ptr(),
+        dfeat.data_ptr(), dimg.data_ptr(), V, h, w, C, D,
+        _build.stream_ptr(feats.device))
+    _build.check(err, "warp_volume_bwd")
+    warp_volume_bwd.launches += 1
+    return dfeat, dimg
+
+
+warp_volume_bwd.launches = 0
+
+
+class _WarpVolume(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, feats, imgs, projs, lo, step, ndepth):
+        ctx.save_for_backward(feats, imgs, projs, lo, step)
+        return warp_volume(feats, imgs, projs, lo, step, ndepth)
+
+    @staticmethod
+    def backward(ctx, g_var, g_nr, g_img):
+        feats, imgs, projs, lo, step = ctx.saved_tensors
+        dfeat, dimg = warp_volume_bwd(feats, imgs, projs, lo, step,
+                                      g_var.contiguous(), g_nr.contiguous(),
+                                      g_img.contiguous())
+        return dfeat, dimg, None, None, None, None
+
+
+def warp_volume_train(feats: torch.Tensor, imgs: torch.Tensor,
+                      projs: torch.Tensor, lo: torch.Tensor,
+                      step: torch.Tensor, ndepth: int):
+    """`warp_volume` with its kernel backward (differentiable in feats and
+    imgs)."""
+    return _WarpVolume.apply(feats, imgs, projs, lo, step, ndepth)

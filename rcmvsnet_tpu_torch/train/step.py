@@ -1,0 +1,138 @@
+"""The fused RC-MVSNet unsupervised train step:
+
+    L = L_photometric(clean pass)
+      + w_aug · L_aug(masked-aug pass vs the detached pseudo-depth)
+      + L_rgb(rendered rays) + L_depth(rendered rays vs pseudo-depth)
+
+with ONE backward and one Adam step, as the reference's three sub-steps
+share one zero_grad / backward / step. Counterpart of
+`rcmvsnet_tpu/train/step.py:37-197`. The render losses reach the backbone
+through the NON-detached stage-1 volume; the pseudo-depth targets are
+detached. BatchNorm running statistics update in forward order: clean
+pass → aug pass → render pass.
+
+The step's random draws (the aug rectangle's origin, each sample's ray
+pixels and depth noise) are an input, `StepDraws`; `draw_step` makes them
+from a `torch.Generator`.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import Config
+from ..losses.aug import (aug_loss_multi_stage, draw_mask_origins,
+                          random_image_mask)
+from ..losses.rays import (abs_error, acc_threshold, img2mse, mse2psnr,
+                           sl1_loss)
+from ..losses.supervised import abs_depth_error_metric, thres_metric
+from ..losses.unsup import unsup_loss_multi_stage
+from ..render.rays import draw_rays
+from .state import TrainState
+
+
+class StepDraws(NamedTuple):
+    mask_origin: torch.Tensor      # [B, 2] int64 (x0, y0)
+    rays: tuple                    # one render.rays.RayDraws per sample
+
+
+def draw_step(generator: torch.Generator, config: Config, batch: int,
+              height: int, width: int) -> StepDraws:
+    origins = draw_mask_origins(generator, batch, height, width,
+                                (height // 3, width // 3))
+    rays = tuple(draw_rays(generator, height, width, config.render.n_rays,
+                           config.render.n_samples) for _ in range(batch))
+    return StepDraws(origins, rays)
+
+
+def batch_to(batch: dict, device) -> dict:
+    """A numpy / tensor batch → float32 tensors on device (nested dicts)."""
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return torch.as_tensor(v, dtype=torch.float32).to(device)
+    return {k: conv(v) for k, v in batch.items()}
+
+
+def make_train_step(config: Config, plain: bool = False):
+    """Returns train_step(state, batch, draws) -> metrics (0-d tensors).
+
+    batch (tensors on the models' device, batch-major): imgs, imgs_aug,
+    center_imgs [B, V, H, W, 3]; proj_matrices {stageK: [B, V, 2, 4, 4]};
+    depth_values [B, Dfull]; w_aug (scalar); w2cs, c2ws [B, V, 4, 4];
+    intrinsics [B, V, 3, 3]; near_fars [B, V, 2]; optionally depth / mask
+    {stageK: [B, h, w]} for the supervised monitoring metrics.
+    `plain=True` runs every kernel's plain version under autograd."""
+    dlossw = tuple(config.loss.dlossw)
+
+    def train_step(state: TrainState, batch: dict,
+                   draws: StepDraws) -> dict:
+        cascade, render = state.cascade, state.render
+        imgs = batch["imgs"]
+        B, V, H, W, _ = imgs.shape
+        projs, dvals = batch["proj_matrices"], batch["depth_values"]
+
+        # clean pass + photometric self-supervision
+        outputs, volume_feature = cascade.forward_train(
+            imgs, projs, dvals, return_volume=True, plain=plain)
+        loss_base, unsup_scalars = unsup_loss_multi_stage(
+            outputs, batch["center_imgs"], projs, dlossw)
+        pseudo_depth = outputs["depth"].detach()
+
+        # aug pass vs the pseudo-depth
+        imgs_aug = batch["imgs_aug"]
+        ref_masked, filter_mask = random_image_mask(
+            imgs_aug[:, 0], (H // 3, W // 3), draws.mask_origin)
+        imgs_aug = torch.cat([ref_masked[:, None], imgs_aug[:, 1:]], dim=1)
+        outputs_aug = cascade.forward_train(imgs_aug, projs, dvals,
+                                            plain=plain)
+        loss_aug, aug_scalars = aug_loss_multi_stage(
+            outputs_aug, pseudo_depth, filter_mask, dlossw)
+
+        # rendering consistency
+        result = render(volume_feature, pseudo_depth, imgs, batch["w2cs"],
+                        batch["c2ws"], batch["intrinsics"],
+                        batch["near_fars"], draws.rays, plain=plain)
+        img_loss = img2mse(result.rgb, result.target_rgb)
+        ray_mask = result.rays_depth > 0
+        depth_loss = sl1_loss(result.depth, result.rays_depth, ray_mask)
+
+        w_aug = batch["w_aug"]
+        total = loss_base + w_aug * loss_aug + img_loss + depth_loss
+
+        lr = state.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        state.optimizer.step()
+        state.step += 1
+
+        metrics = {
+            "loss": total, "repr_loss": loss_base,
+            "aug_loss": w_aug * loss_aug,
+            "img_loss": img_loss, "ray_depth_loss": depth_loss,
+            "psnr": mse2psnr(img_loss),
+            "ray_abs_err": abs_error(result.depth, result.rays_depth,
+                                     ray_mask),
+            "ray_acc_2mm": acc_threshold(result.depth, result.rays_depth,
+                                         ray_mask, 2.0),
+            **unsup_scalars, **aug_scalars,
+        }
+        if "depth" in batch and "mask" in batch:
+            key = f"stage{len(dlossw)}"
+            gt = batch["depth"][key]
+            mask = batch["mask"][key] > 0.5
+            est = pseudo_depth
+            metrics.update({
+                "abs_depth_error": abs_depth_error_metric(est, gt, mask),
+                "thres2mm_error": thres_metric(est, gt, mask, 2.0),
+                "thres4mm_error": thres_metric(est, gt, mask, 4.0),
+                "thres8mm_error": thres_metric(est, gt, mask, 8.0),
+            })
+        metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
+        metrics["lr"] = torch.tensor(lr)
+        return metrics
+
+    return train_step

@@ -1,13 +1,14 @@
-"""Weight bridge: the JAX package's CascadeMVSNet variables → a reference-
-named torch `state_dict`.
+"""Weight bridge: the JAX package's CascadeMVSNet and render-branch
+variables → reference-named torch `state_dict`s.
 
-Inverts `rcmvsnet_tpu/train/convert.py:21-121` (`_conv`, `_deconv`,
-`_convbn`, `convert_cascade_checkpoint`):
+Inverts `rcmvsnet_tpu/train/convert.py` (`_conv`, `_deconv`, `_convbn`,
+`_linear`, `convert_cascade_checkpoint`, `convert_render_checkpoint`):
   Conv{2,3}d         (*k, I, O)              → (O, I, *k)
   ConvTranspose3d    spatially flipped (*k, I, O) → (I, O, *k), unflipped
   TorchBatchNorm     scale/bias + mean/var   → weight/bias +
                                                running_mean/running_var
                                                (+ num_batches_tracked = 0)
+  Dense              kernel (I, O)           → Linear weight (O, I)
 Takes numpy arrays and imports no JAX, so the golden backbone converts
 once and ships as `assets/backbone_synth.npz` (`load_state_dict` reads it
 back).
@@ -46,13 +47,18 @@ def _undeconv(k) -> np.ndarray:
 
 
 def _bn(sd, prefix, params, stats):
+    """BN of a block under `prefix` (e.g. "conv0.bn" or "conv7.1")."""
     bn_p = params["TorchBatchNorm_0"]
     bn_s = stats["TorchBatchNorm_0"]
-    sd[f"{prefix}.bn.weight"] = bn_p["scale"]
-    sd[f"{prefix}.bn.bias"] = bn_p["bias"]
-    sd[f"{prefix}.bn.running_mean"] = bn_s["mean"]
-    sd[f"{prefix}.bn.running_var"] = bn_s["var"]
-    sd[f"{prefix}.bn.num_batches_tracked"] = np.zeros((), np.int64)
+    sd[f"{prefix}.weight"] = bn_p["scale"]
+    sd[f"{prefix}.bias"] = bn_p["bias"]
+    sd[f"{prefix}.running_mean"] = bn_s["mean"]
+    sd[f"{prefix}.running_var"] = bn_s["var"]
+    sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _tensors(sd) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
 def state_dict_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
@@ -63,7 +69,7 @@ def state_dict_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
     for torch_name, our_name in FEATURE_BLOCKS:
         prefix = f"feature.{torch_name}"
         sd[f"{prefix}.conv.weight"] = _unconv(fp[our_name]["Conv_0"]["kernel"])
-        _bn(sd, prefix, fp[our_name], fs[our_name])
+        _bn(sd, f"{prefix}.bn", fp[our_name], fs[our_name])
     for head in FEATURE_HEADS:
         entry = fp[head]["Conv_0"]
         sd[f"feature.{head}.weight"] = _unconv(entry["kernel"])
@@ -71,20 +77,70 @@ def state_dict_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
             sd[f"feature.{head}.bias"] = np.asarray(entry["bias"])
     i = 0
     while f"stage{i + 1}" in params:
-        cp = params[f"stage{i + 1}"]["cost_reg"]
-        cs = batch_stats[f"stage{i + 1}"]["cost_reg"]
-        prefix = f"cost_regularization.{i}"
-        for name in COSTREG_CONVS:
-            sd[f"{prefix}.{name}.conv.weight"] = _unconv(
-                cp[name]["Conv_0"]["kernel"])
-            _bn(sd, f"{prefix}.{name}", cp[name], cs[name])
-        for name in COSTREG_DECONVS:
-            sd[f"{prefix}.{name}.conv.weight"] = _undeconv(
-                cp[name]["kernel"])
-            _bn(sd, f"{prefix}.{name}", cp[name], cs[name])
-        sd[f"{prefix}.prob.weight"] = _unconv(cp["prob"]["Conv_0"]["kernel"])
+        _costreg(sd, f"cost_regularization.{i}",
+                 params[f"stage{i + 1}"]["cost_reg"],
+                 batch_stats[f"stage{i + 1}"]["cost_reg"])
         i += 1
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    return _tensors(sd)
+
+
+def _costreg(sd, prefix, cp, cs, deconv_seq: bool = False):
+    """One U-Net's blocks under `prefix`. deconv_seq: conv7/9/11 as the
+    render branch's nn.Sequential (`.0` conv, `.1` BN)."""
+    for name in COSTREG_CONVS:
+        sd[f"{prefix}.{name}.conv.weight"] = _unconv(
+            cp[name]["Conv_0"]["kernel"])
+        _bn(sd, f"{prefix}.{name}.bn", cp[name], cs[name])
+    conv, bn = ("0", "1") if deconv_seq else ("conv", "bn")
+    for name in COSTREG_DECONVS:
+        sd[f"{prefix}.{name}.{conv}.weight"] = _undeconv(cp[name]["kernel"])
+        _bn(sd, f"{prefix}.{name}.{bn}", cp[name], cs[name])
+    if "prob" in cp:
+        sd[f"{prefix}.prob.weight"] = _unconv(cp["prob"]["Conv_0"]["kernel"])
+
+
+def costreg_state_dict_from_jax(params, batch_stats,
+                                render: bool = False) -> dict[str,
+                                                              torch.Tensor]:
+    """One JAX CostRegNet (or, with render, RenderCostReg) → the port
+    module's own state_dict."""
+    sd: dict[str, np.ndarray] = {}
+    _costreg(sd, "u", params, batch_stats, deconv_seq=render)
+    return _tensors({k[2:]: v for k, v in sd.items()})
+
+
+def render_state_dict_from_jax(params, batch_stats) -> dict[str,
+                                                              torch.Tensor]:
+    """JAX RenderingConsistencyNet variables (net_type 'v0') → the
+    reference's `*_nerf.ckpt` names, for
+    `RenderingConsistencyNet.load_state_dict(strict=True)`:
+    `MVSNet.cost_reg_2.*` (conv7/9/11 as `.0` ConvTranspose3d + `.1` BN)
+    and `network_fn.nerf.*`."""
+    sd: dict[str, np.ndarray] = {}
+    _costreg(sd, "MVSNet.cost_reg_2", params["neural_volume"]["cost_reg_2"],
+             batch_stats["neural_volume"]["cost_reg_2"], deconv_seq=True)
+    _nerf(sd, "network_fn.nerf", params["nerf"])
+    return _tensors(sd)
+
+
+def _nerf(sd, prefix, nerf):
+    dense = [(f"pts_linears.{i}", f"pts_linear_{i}")
+             for i in range(sum(k.startswith("pts_linear_") for k in nerf))]
+    dense += [("pts_bias", "pts_bias"), ("views_linears.0", "views_linear_0"),
+              ("feature_linear", "feature_linear"),
+              ("alpha_linear", "alpha_linear"), ("rgb_linear", "rgb_linear")]
+    for torch_name, our_name in dense:
+        entry = nerf[our_name]["Dense_0"]
+        sd[f"{prefix}.{torch_name}.weight"] = np.ascontiguousarray(
+            np.asarray(entry["kernel"]).T)
+        sd[f"{prefix}.{torch_name}.bias"] = np.asarray(entry["bias"])
+
+
+def nerf_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
+    """A JAX NerfMLP (v0) → the port's NerfMLP state_dict."""
+    sd: dict[str, np.ndarray] = {}
+    _nerf(sd, "m", params)
+    return _tensors({k[2:]: v for k, v in sd.items()})
 
 
 def load_state_dict(path) -> dict[str, torch.Tensor]:

@@ -3,10 +3,10 @@
   * without a CUDA device it exits non-zero and prints no "ok" line;
   * in a directory holding only chip_smoke.py it fails even when a device
     is reported (nothing of the port to import);
-  * its kernel phase runs end to end at a tiny size on CPU tensors (where
-    every wrapper returns its plain version, so kernel and plain agree
-    exactly), and its main-path phase refuses a run in which no kernel was
-    launched."""
+  * its kernel phases (eval and train) run end to end at a tiny size on
+    CPU tensors (where every wrapper returns its plain version, so kernel
+    and plain agree exactly), and its main-path phases (eval and train)
+    refuse a run in which no kernel was launched."""
 import shutil
 import subprocess
 import sys
@@ -67,3 +67,32 @@ def test_phases_run_on_cpu_and_main_path_demands_launches():
     assert all(r["max_abs_err"] == 0.0 for r in ledger.rows)
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.phase_main(model, samples[:1], scene, dev)
+
+
+def test_train_phases_run_on_cpu_and_demand_launches():
+    from rcmvsnet_tpu_torch.config import Config, RenderConfig
+    from rcmvsnet_tpu_torch.data.synthetic import batch_from_views
+    from rcmvsnet_tpu_torch.train.state import make_models
+    from rcmvsnet_tpu_torch.train.step import batch_to
+    scene = chip_smoke.plane_scene(64, 64, 3, chip_smoke.SEED)
+    batch = batch_to(batch_from_views([scene], 64, chip_smoke.SEED), "cpu")
+    cfg = Config(render=RenderConfig(n_rays=16, n_samples=8, num_planes=16))
+    model = CascadeMVSNet()
+    model.load_state_dict(load_state_dict(ASSET), strict=True)
+    model.eval()
+    render = make_models(cfg, 3)[1]
+    ledger = chip_smoke.Ledger(timer=lambda fn: 0.0)
+    with torch.no_grad():
+        chip_smoke.phase_train_kernels(model, render, batch, scene, ledger,
+                                       torch.device("cpu"))
+    calls = {k: ledger.summary(k, "train")["calls"]
+             for k in ("warp_variance", "warp_variance_bwd", "warp_volume",
+                       "warp_volume_bwd", "conv3d", "conv3d_dw")}
+    assert calls == {"warp_variance": 3, "warp_variance_bwd": 3,
+                     "warp_volume": 1, "warp_volume_bwd": 1,
+                     "conv3d": 2 * 43, "conv3d_dw": 43}
+    assert all(r["max_abs_err"] == 0.0 for r in ledger.rows)
+    assert all(r["bound_ms"] > 0 for r in ledger.rows)
+    with pytest.raises(AssertionError, match="train path never launched"):
+        chip_smoke.phase_train(batch, load_state_dict(ASSET), "cpu",
+                               torch.device("cpu"), cfg, warmup=1, timed=1)

@@ -4,8 +4,14 @@ a CUDA card (marker `gpu`; each test skips where there is no card).
 Small shapes that still cover every code path: K1 at C 8/16/32 with
 out-of-image taps, K2 in each mode (stride 1, stride 2, transposed with
 skip, the 1-channel prob head), K4 at D 8/32/48, K5 at k 1/3/5, stride 1/2
-and the upsample-add epilogue. Run on the card without the JAX test
-configuration (its host has no jax):
+and the upsample-add epilogue; and the train kernels, forward and
+gradients from a fixed random cotangent against autograd through the plain
+versions: K6 (K1's backward) at C 8/16/32, K7 (volume forward and
+backward), K8 in each mode (forward and dx through K2, dw through its own
+kernel, the 41-channel input and 1-channel prob head included). The
+backward kernels sum with atomicAdd, so their order varies from run to
+run: tolerance 1e-4 of the largest value. Run on the card without the JAX
+test configuration (its host has no jax):
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_kernels_gpu.py
@@ -15,8 +21,10 @@ import torch
 
 from rcmvsnet_tpu_torch.ops import conv2d as K5
 from rcmvsnet_tpu_torch.ops import conv3d as K2
+from rcmvsnet_tpu_torch.ops import conv3d_train as K8
 from rcmvsnet_tpu_torch.ops import depth_tail as K4
 from rcmvsnet_tpu_torch.ops import warp_variance as K1
+from rcmvsnet_tpu_torch.ops import warp_volume as K7
 
 pytestmark = pytest.mark.gpu
 
@@ -112,3 +120,79 @@ def test_conv2d_matches_plain(dev, k, stride, ci, co, up):
     got = K5.conv2d(x, wgt, scale, shift, **kw)
     want = K5.conv2d_plain(x, wgt, scale, shift, **kw)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _close(got, want, tol=1e-4):
+    """|got − want| ≤ tol · max|want| (+ tol)."""
+    err = float((got - want).abs().max())
+    assert err <= tol * (1.0 + float(want.abs().max())), err
+
+
+@pytest.mark.parametrize("C,D", [(8, 8), (16, 32), (32, 48)])
+def test_warp_variance_train_matches_plain(dev, C, D):
+    V, h, w = 4, 24, 40
+    g = _gen(dev, 7 * C)
+    feats = torch.randn(V, h, w, C, device=dev, generator=g)
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = torch.full((h, w), 4.0, device=dev)
+    projs = _projs(V, h, w, dev)
+    cot = torch.randn(C, D, h, w, device=dev, generator=g)
+    x = feats.clone().requires_grad_(True)
+    n0 = K1.warp_variance_bwd.launches
+    var = K1.warp_variance_train(x, projs, lo, step, D)
+    var.backward(cot)
+    torch.cuda.synchronize()
+    assert K1.warp_variance_bwd.launches == n0 + 1
+    _close(var.detach(), K1.warp_variance_plain(feats, projs, lo, step, D))
+    _close(x.grad, K1.warp_variance_bwd_plain(feats, projs, lo, step, cot))
+
+
+def test_warp_volume_matches_plain(dev):
+    V, h, w, C, D = 4, 32, 40, 32, 48
+    g = _gen(dev, 3)
+    feats = torch.randn(V, h, w, C, device=dev, generator=g)
+    imgs = torch.rand(V, h, w, 3, device=dev, generator=g)
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = torch.full((h, w), 4.0, device=dev)
+    projs = _projs(V, h, w, dev)
+    x = feats.clone().requires_grad_(True)
+    im = imgs.clone().requires_grad_(True)
+    n0 = (K7.warp_volume.launches, K7.warp_volume_bwd.launches)
+    outs = K7.warp_volume_train(x, im, projs, lo, step, D)
+    want = K7.warp_volume_plain(feats, imgs, projs, lo, step, D)
+    cots = [torch.randn(o.shape, device=dev, generator=g) for o in outs]
+    torch.autograd.backward(outs, cots)
+    torch.cuda.synchronize()
+    assert (K7.warp_volume.launches,
+            K7.warp_volume_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    for got, ref in zip(outs, want):
+        _close(got.detach(), ref)
+    gf, gi = K7.warp_volume_bwd_plain(feats, imgs, projs, lo, step, *cots)
+    _close(x.grad, gf)
+    _close(im.grad, gi)
+
+
+@pytest.mark.parametrize("mode,ci,co,shape", [
+    ("s1", 8, 16, (8, 12, 20)), ("s2", 16, 32, (8, 12, 20)),
+    ("t2", 64, 32, (4, 6, 10)), ("s1", 8, 1, (8, 12, 20)),
+    ("s1", 41, 8, (16, 16, 20))])
+def test_conv3d_train_matches_plain(dev, mode, ci, co, shape):
+    g = _gen(dev, ci * co)
+    x = torch.randn(1, ci, *shape, device=dev, generator=g)
+    wshape = (ci, co, 3, 3, 3) if mode == "t2" else (co, ci, 3, 3, 3)
+    wgt = 0.1 * torch.randn(*wshape, device=dev, generator=g)
+    xk, wk = x.clone().requires_grad_(True), wgt.clone().requires_grad_(True)
+    xp, wp = x.clone().requires_grad_(True), wgt.clone().requires_grad_(True)
+    n0 = (K2.conv3d.launches, K8.conv3d_dw.launches)
+    yk = K8.conv3d_train(xk, wk, mode)
+    yp = K8.conv3d_train_plain(xp, wp, mode)
+    cot = torch.randn(yk.shape, device=dev, generator=g)
+    yk.backward(cot)
+    yp.backward(cot)
+    torch.cuda.synchronize()
+    assert (K2.conv3d.launches, K8.conv3d_dw.launches) == (n0[0] + 2,
+                                                            n0[1] + 1)
+    _close(yk.detach(), yp.detach())
+    _close(xk.grad, xp.grad)
+    _close(wk.grad, wp.grad)
+    _close(K8.conv3d_dw(x, cot, mode), K8.conv3d_dw_plain(x, cot, mode))

@@ -1,51 +1,58 @@
-"""The PyTorch port imports no JAX: every module of rcmvsnet_tpu_torch
-imports in a fresh interpreter where `jax` and `flax` cannot be imported;
-and `chip_smoke.py` with the model, op and weight modules it drives import
-nothing of the JAX package at all (the card's host has no jax, flax, cv2,
-PIL or msgpack); and the CLI runs end to end with jax and flax absent."""
+"""The PyTorch port imports nothing of JAX and nothing of the JAX package:
+every module of rcmvsnet_tpu_torch imports in a fresh interpreter where
+`jax`, `flax` and `rcmvsnet_tpu` cannot be imported; `chip_smoke.py` and
+`chip_train_probe.py` with the model, op, data and weight modules they
+drive import none of them either (the card's host has no jax, flax, cv2,
+PIL or msgpack); and both CLIs run end to end under the same ban, on the
+port's own copies of the I/O, data and fusion modules."""
+import json
 import subprocess
 import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 
-_ALL_MODULES = """
-import sys, pkgutil, importlib
-sys.modules["jax"] = None
-sys.modules["flax"] = None
+_BAN = """
+import sys
+for name in ("jax", "flax", "rcmvsnet_tpu"):
+    sys.modules[name] = None
+"""
+
+_ALL_MODULES = _BAN + """
+import pkgutil, importlib
 import rcmvsnet_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     rcmvsnet_tpu_torch.__path__, "rcmvsnet_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "rcmvsnet_tpu_torch.cli.eval_dtu" in names, names
-assert not any(m.split(".")[0] in ("jax", "flax") and sys.modules[m]
-               for m in sys.modules), "jax imported"
+for must in ("cli.eval_dtu", "cli.train", "core.io", "data.dtu_test",
+             "fusion.fuse", "train.step", "ops.warp_volume"):
+    assert "rcmvsnet_tpu_torch." + must in names, names
+assert not any(m.split(".")[0] in ("jax", "flax", "rcmvsnet_tpu")
+               and sys.modules[m] for m in sys.modules), "JAX package imported"
 print(len(names))
 """
 
-_CHIP_PATH = """
-import sys, importlib
-for name in ("jax", "flax", "rcmvsnet_tpu", "cv2", "PIL", "msgpack"):
+_CHIP_PATH = _BAN + """
+import importlib
+for name in ("cv2", "PIL", "msgpack"):
     sys.modules[name] = None
 import chip_smoke
-for name in ("core.geometry", "ops.sampling", "ops.warp", "ops._build",
+import chip_train_probe
+for name in ("core.geometry", "data.synthetic", "data.transforms",
+             "ops.sampling", "ops.warp", "ops._build",
              "ops.warp_variance", "ops.conv3d", "ops.depth_tail",
-             "ops.conv2d", "nn.layers", "nn.featurenet", "nn.costreg",
-             "models.cascade", "weights", "config"):
+             "ops.conv2d", "ops.warp_volume", "nn.layers", "nn.featurenet",
+             "nn.costreg", "models.cascade", "models.render_net",
+             "train.step", "train.state", "weights", "config"):
     importlib.import_module("rcmvsnet_tpu_torch." + name)
 print("ok")
 """
 
-
-_CLI = """
-import sys
-sys.modules["jax"] = None
-sys.modules["flax"] = None
+_CLI = _BAN + """
 from rcmvsnet_tpu_torch.cli import eval_dtu
-from rcmvsnet_tpu_torch.shared import import_shared
+from rcmvsnet_tpu_torch.data import synthetic
 from rcmvsnet_tpu_torch.weights import ASSET
-synthetic = import_shared("rcmvsnet_tpu.data.synthetic")
 root = sys.argv[1]
 synthetic.write_synthetic_scan(root + "/data", H=64, W=96, V=3)
 eval_dtu.main(["--testpath", root + "/data", "--testlist", "scan1",
@@ -54,6 +61,13 @@ eval_dtu.main(["--testpath", root + "/data", "--testlist", "scan1",
                "--max_w", "96", "--prob_thres", "0.0",
                "--num_consistency", "1", "--num_worker", "1",
                "--device", "cpu"])
+"""
+
+_TRAIN_CLI = _BAN + """
+from rcmvsnet_tpu_torch.cli import train
+train.main(["--trainpath", "synthetic", "--max_steps", "1", "--epochs",
+            "1", "--device", "cpu", "--logdir", sys.argv[1],
+            "--summary_freq", "1"])
 """
 
 
@@ -65,7 +79,7 @@ def _run(code, *args):
 def test_every_port_module_imports_without_jax():
     r = _run(_ALL_MODULES)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip().splitlines()[-1]) >= 15
+    assert int(r.stdout.strip().splitlines()[-1]) >= 30
 
 
 def test_chip_path_imports_nothing_of_the_jax_package():
@@ -75,10 +89,21 @@ def test_chip_path_imports_nothing_of_the_jax_package():
 
 
 def test_cli_runs_without_jax(tmp_path):
-    """Depth, fusion and the output tree on a host with no jax/flax: the
-    shared I/O and dataset modules load through rcmvsnet_tpu_torch.shared."""
+    """Depth, fusion and the output tree on a host with no jax, flax or JAX
+    package: I/O, dataset and fusion are the port's own modules."""
     r = _run(_CLI, str(tmp_path))
     assert r.returncode == 0, r.stderr
     assert (tmp_path / "out" / "mvsnet001_l3.ply").stat().st_size > 0
     assert len(list((tmp_path / "out" / "scan1" / "depth_est").glob(
         "*.pfm"))) == 3
+
+
+def test_train_cli_runs_without_jax(tmp_path):
+    """One synthetic train step through the port's train CLI under the
+    same ban; it logs finite scalars."""
+    r = _run(_TRAIN_CLI, str(tmp_path))
+    assert r.returncode == 0, r.stderr
+    lines = (tmp_path / "scalars.jsonl").read_text().splitlines()
+    rec = json.loads(lines[0])
+    assert rec["mode"] == "train" and rec["step"] == 1
+    assert all(v == v for v in rec.values() if isinstance(v, float))

@@ -4,7 +4,10 @@ the JAX package's checkpoint converter (rcmvsnet_tpu/train/convert.py).
 The golden backbone (tests/golden/backbone_synth.msgpack) goes JAX tree →
 reference-named state_dict → torch.save → convert_cascade_checkpoint and
 must come back bit-exact; the committed .npz must equal the bridge's output;
-a reference-named state_dict must load into the port strictly."""
+a reference-named state_dict must load into the port strictly. The render
+branch likewise: a JAX-initialized RenderingConsistencyNet → the port's
+module (strict) → its state_dict → torch.save → convert_render_checkpoint
+equals the flax render tree bit-exact."""
 from pathlib import Path
 
 import flax.serialization
@@ -12,9 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from rcmvsnet_tpu.train.convert import convert_cascade_checkpoint
+from rcmvsnet_tpu.models.render_net import (
+    RenderingConsistencyNet as JRenderNet)
+from rcmvsnet_tpu.train.convert import (convert_cascade_checkpoint,
+                                        convert_render_checkpoint)
 from rcmvsnet_tpu_torch.models.cascade import CascadeMVSNet
+from rcmvsnet_tpu_torch.models.render_net import RenderingConsistencyNet
 from rcmvsnet_tpu_torch.weights import (ASSET, load_state_dict,
+                                        render_state_dict_from_jax,
                                         state_dict_from_jax)
 
 torch.set_num_threads(2)
@@ -81,3 +89,29 @@ def test_deconv_weights_unflipped(blob):
     assert w.shape == (k.shape[3], k.shape[4], 3, 3, 3)
     np.testing.assert_array_equal(w[:, :, 0, 1, 2],
                                   k[2, 1, 0].astype(np.float32))
+
+
+def test_render_round_trip_through_reference_converter(tmp_path):
+    import jax
+    import jax.numpy as jnp
+    B, V, H, W = 1, 4, 32, 32
+    net = JRenderNet(n_rays=8, n_samples=4, num_planes=8)
+    init = jax.jit(lambda *a: net.init(*a, rng=jax.random.PRNGKey(4),
+                                       train=False))
+    variables = init(
+        jax.random.PRNGKey(3), jnp.zeros((B, 8, H // 4, W // 4, 41)),
+        jnp.ones((B, H, W)), jnp.zeros((B, V, H, W, 3)),
+        jnp.tile(jnp.eye(4), (B, V, 1, 1)), jnp.tile(jnp.eye(4), (B, V, 1, 1)),
+        jnp.tile(jnp.eye(3), (B, V, 1, 1)), jnp.ones((B, V, 2)))
+    params = jax.device_get(variables["params"])
+    stats = jax.device_get(variables["batch_stats"])
+    # non-trivial running statistics, so that their mapping is checked
+    stats = jax.tree_util.tree_map(lambda a: a + 0.25, stats)
+    port = RenderingConsistencyNet(41, num_planes=8)
+    port.load_state_dict(render_state_dict_from_jax(params, stats),
+                         strict=True)
+    path = tmp_path / "model_000002_nerf.ckpt"
+    torch.save({"model": port.state_dict()}, path)
+    got_p, got_s = convert_render_checkpoint(path)
+    _assert_trees_equal(got_p, params)
+    _assert_trees_equal(got_s, stats)
