@@ -42,28 +42,49 @@ the final "ok" line):
               parameter gradient tensor to 3e-2 in relative L2 norm (see
               LOSS_RTOL, GRAD_L2_TOL); prints steps/s and peak memory of
               both paths;
-  7. report   one {"kernels": [...]} JSON line, the nvidia-smi line, and
-              the final {"ok": true, "device": {...}} line.
+  7. tanks    `infer_views` on all 7 reference views of the plane scene
+              at Tanks & Temples' 1056x1920, V=7, 192 planes, with the
+              T&T loader's depth range (min to max in 191 intervals),
+              through the kernels and the plain versions: every eval
+              kernel launched, none on the plain path, the same depth
+              gate as phase 4; prints maps/s, launches per map and peak
+              memory of both paths;
+  8. tools    the profiling entry points at their own shapes
+              (tools/profile_breakdown: 864x1152, V=5, 192 planes, every
+              eval component; tools/profile_conv3d: K9 at its eight
+              CostRegNet cases), printing their lines; K9 and K10 must
+              launch. Then K10 per view and stage against its plain
+              version, the K10 route's variance against K1's, and K9 at
+              the eight cases and at odd sizes (5x9x7, each mode) against
+              F.conv3d / F.conv_transpose3d;
+  9. report   one {"kernels": [...]} JSON line (ten kernels), the
+              nvidia-smi line, and the final {"ok": true, "device": {...}}
+              line.
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM and 67 TFLOP/s
 of float32 outside the tensor cores (TF32 is off on this path). Per-call
 details go to chip_smoke.json in the output directory `main` names; every
 printed result carries the card's name and power limit.
 
 The script imports nothing of JAX and nothing of the JAX package: the scene
-is built with numpy and scipy.
+(`rcmvsnet_tpu_torch/data/plane_scene.py`) is built with numpy and scipy.
 """
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+from rcmvsnet_tpu_torch.data.plane_scene import (  # noqa: E402
+    dtu_samples, plane_scene, tanks_samples)
+from rcmvsnet_tpu_torch.tools.timing import make_timer  # noqa: E402
+
 H, W, V, NDEPTH, SEED = 864, 1152, 5, 192, 5
 TH, TW, TV = 512, 640, 4                    # the train step's input
+TT_H, TT_W, TT_V = 1056, 1920, 7            # Tanks & Temples' eval input
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12                     # f32, outside the tensor cores
 # plain-vs-kernel tolerances: |kernel - plain| <= atol + rtol * max|plain|.
@@ -74,7 +95,13 @@ F32_FLOPS_PER_S = 67e12                     # f32, outside the tensor cores
 TOL = {"warp_variance": (1e-4, 1e-4), "conv3d": (1e-4, 1e-4),
        "conv2d": (1e-4, 1e-4), "depth_tail": (0.0, 1e-5),
        "warp_variance_bwd": (1e-4, 1e-4), "warp_volume": (1e-4, 1e-4),
-       "warp_volume_bwd": (1e-4, 1e-4), "conv3d_dw": (1e-4, 1e-4)}
+       "warp_volume_bwd": (1e-4, 1e-4), "conv3d_dw": (1e-4, 1e-4),
+       "conv3d_lanewise": (0.0, 1e-4), "warp_view": (0.0, 1e-5),
+       "warp_view_route": (0.0, 1e-5)}
+# K9 is held to 1e-4 of its largest value (cuDNN sums in another order);
+# K10 to 1e-5: its plain version samples the same coordinates in float64,
+# and the K10 route's variance ("warp_view_route") computes K1's function
+# with K1's coordinates and K1's order of operations.
 # Train step 1, kernel path vs plain path (chip_train_probe.py measures
 # both gates' noise and power). The plain path's step 1 runs under
 # cudnn.deterministic: without it cuDNN's float32 conv_transpose3d (a
@@ -82,118 +109,21 @@ TOL = {"warp_variance": (1e-4, 1e-4), "conv3d": (1e-4, 1e-4),
 # encode sample depths drawn around the pseudo-depth at frequencies up to
 # 2^9, amplify that to 1.8e-4 of the step-1 loss. Under the flag both
 # paths repeat bit for bit (K6/K7's atomics move gradients by ~1e-6 only).
-# Losses, relative, each term: measured ≤ 7.7e-5 (the render terms).
+# Losses, relative, each term: measured ≤ 7.9e-5 (the render terms).
 LOSS_RTOL = 1e-4
 # Gradients, per parameter tensor, ‖kernel − plain‖₂ / ‖plain‖₂: measured
-# ≤ 1.2e-2 (render U-Net BN biases: the same amplification); K6's or K7's
-# backward or K8's dw scaled by 1.1 reads ≥ 0.10. A 1 % fault hides in
-# that noise end to end; phase 5 holds each backward to 1e-4.
+# ≤ 1.8e-2 (feature.conv0.0's weight: the same amplification); K6's or
+# K7's backward or K8's dw scaled by 1.1 reads ≥ 0.10. A 1 % fault hides
+# in that noise end to end; phase 5 holds each backward to 1e-4.
 GRAD_L2_TOL = 3e-2
 CONF_TOL, CONF_SHARE = 1e-4, 1e-3   # per-pixel |Δconf| and allowed share
 DEPTH_REL_MAX, DEPTH_GATE = 2e-3, 0.01   # the fused TPU path's budget
-
-
-def plane_scene(H, W, V, seed, depth0=600.0, baseline=8.0, tilt=0.08):
-    """V views of the tilted textured plane z = depth0 + tilt·x_world seen
-    by cameras translated along x (the geometry of the JAX package's
-    data/synthetic.make_synthetic_views, with a scipy cubic texture, as
-    the card's host has no cv2). Returns that function's dict: images
-    [V, H, W, 3] in [0, 1], intrinsics, extrinsics [V, 4, 4], depths
-    [V, H, W], depth_min, depth_max."""
-    import numpy as np
-    from scipy import ndimage
-    rs = np.random.RandomState(seed)
-    f = 1.2 * max(H, W)
-    K = np.array([[f, 0, W / 2.0], [0, f, H / 2.0], [0, 0, 1]], np.float64)
-    n = np.array([-tilt, 0.0, 1.0])
-    n /= np.linalg.norm(n)
-    d = depth0 * n[2]
-    th, tw = 4 * H, 4 * W
-    small = rs.rand(th // 8 + 2, tw // 8 + 2, 3)
-    tex = np.stack([ndimage.zoom(small[..., c], (th / small.shape[0],
-                                                 tw / small.shape[1]),
-                                 order=3) for c in range(3)], -1)
-    tex = tex[:th, :tw].clip(0, 1).astype(np.float32)
-
-    xs, ys = np.meshgrid(np.arange(W, dtype=np.float64),
-                         np.arange(H, dtype=np.float64))
-    rays = np.stack([xs, ys, np.ones_like(xs)], -1) @ np.linalg.inv(K).T
-    images, extr, depths = [], [], []
-    for v in range(V):
-        E = np.eye(4)
-        E[0, 3] = -v * baseline
-        c = np.array([v * baseline, 0.0, 0.0])
-        t = (d - c @ n) / (rays @ n)
-        pts = c + t[..., None] * rays
-        u = (pts[..., 0] / depth0 * f * 0.25 + 2 * W).clip(0, tw - 1)
-        w_ = (pts[..., 1] / depth0 * f * 0.25 + 2 * H).clip(0, th - 1)
-        x0 = np.floor(u).astype(int)
-        y0 = np.floor(w_).astype(int)
-        x1 = np.minimum(x0 + 1, tw - 1)
-        y1 = np.minimum(y0 + 1, th - 1)
-        ax = (u - x0)[..., None]
-        ay = (w_ - y0)[..., None]
-        img = (tex[y0, x0] * (1 - ax) * (1 - ay) + tex[y0, x1] * ax * (1 - ay)
-               + tex[y1, x0] * (1 - ax) * ay + tex[y1, x1] * ax * ay)
-        images.append(img.astype(np.float32))
-        extr.append(E.astype(np.float32))
-        depths.append(pts[..., 2].astype(np.float32))   # world z = cam z
-    return {"images": np.stack(images), "intrinsics": K.astype(np.float32),
-            "extrinsics": np.stack(extr), "depths": np.stack(depths),
-            "depth_min": depth0 * 0.8, "depth_max": depth0 * 1.25}
-
-
-def dtu_samples(scene, ndepth, interval_scale=1.06):
-    """One eval sample per reference view, as the DTU test loader builds
-    them (ref view first, stage-1 intrinsics at 1/4, stage 2/3 at 1/2, 1;
-    depth_values from the cam file's min and interval)."""
-    import numpy as np
-    from rcmvsnet_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
-    nv = len(scene["images"])
-    near = scene["depth_min"]
-    interval = (scene["depth_max"] - near) / ndepth * interval_scale
-    dvals = np.arange(near, interval * (ndepth - 0.5) + near, interval,
-                      dtype=np.float32)
-    samples = []
-    for ref in range(nv):
-        views = [ref] + [v for v in range(nv) if v != ref]
-        proj = np.zeros((nv, 2, 4, 4), np.float32)
-        for i, v in enumerate(views):
-            proj[i, 0] = scene["extrinsics"][v]
-            proj[i, 1, :3, :3] = scene["intrinsics"]
-            proj[i, 1, :2] /= 4.0
-        pm = {"stage1": proj, "stage2": proj.copy(), "stage3": proj.copy()}
-        pm["stage2"][:, 1, :2] *= 2
-        pm["stage3"][:, 1, :2] *= 4
-        samples.append({
-            "imgs": ((scene["images"][views] - IMAGENET_MEAN)
-                     / IMAGENET_STD).astype(np.float32),
-            "proj_matrices": pm, "depth_values": dvals})
-    return samples
 
 
 def sync(dev):
     import torch
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def time_ms(fn, warmup=2, reps=7):
-    """Median ms of fn() on the card (CUDA events, after warm-up)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def nbytes(*tensors) -> int:
@@ -213,7 +143,7 @@ class Ledger:
     """Per-kernel comparison records: max error, ms of the kernel, of its
     plain version and of the library call, and the bound."""
 
-    def __init__(self, timer=time_ms):
+    def __init__(self, timer):
         self.rows = []
         self.failures = []
         self.timer = timer
@@ -461,69 +391,183 @@ def library_conv3d(x, w, b, mode):
 EVAL_KERNELS = ("warp_variance", "conv3d", "depth_tail", "conv2d")
 TRAIN_KERNELS = ("warp_variance", "conv3d", "warp_variance_bwd",
                  "warp_volume", "warp_volume_bwd", "conv3d_dw")
+TOOLS_KERNELS = EVAL_KERNELS + ("warp_view", "conv3d_lanewise")
+# K9 at odd sizes, each mode (Ci=16, Co=8): (label, D, H, W, Ci, Co, mode)
+ODD_CONV_CASES = tuple((f"odd 5x9x7 {m}", 5, 9, 7, 16, 8, m)
+                       for m in ("s1", "s2", "t2"))
 
 
 def kernel_wrappers():
     """{name: wrapper} of every kernel; each counts its launches."""
     from rcmvsnet_tpu_torch.ops import (conv2d, conv3d, conv3d_train,
                                         depth_tail, warp_variance,
-                                        warp_volume)
+                                        warp_view, warp_volume)
     return {"warp_variance": warp_variance.warp_variance,
             "conv3d": conv3d.conv3d, "depth_tail": depth_tail.depth_tail,
             "conv2d": conv2d.conv2d,
             "warp_variance_bwd": warp_variance.warp_variance_bwd,
             "warp_volume": warp_volume.warp_volume,
             "warp_volume_bwd": warp_volume.warp_volume_bwd,
-            "conv3d_dw": conv3d_train.conv3d_dw}
+            "conv3d_dw": conv3d_train.conv3d_dw,
+            "conv3d_lanewise": conv3d.conv3d_lanewise,
+            "warp_view": warp_view.warp_view}
 
 
-def phase_main(model, samples, scene, dev):
-    """Phase 4: the main path, kernels then plain versions, 5 views."""
-    import numpy as np
-    from rcmvsnet_tpu_torch.models.cascade import infer_views
+def zero_launches():
+    """Set every kernel's launch count to 0; returns kernel_wrappers()."""
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    sync(dev)
-    t0 = time.perf_counter()
-    got = infer_views(model, samples, dev)
-    sync(dev)
-    t_kernel = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    missing = [k for k in EVAL_KERNELS if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    return wrappers
 
-    t0 = time.perf_counter()
-    ref = infer_views(model, samples, dev, plain=True)
-    sync(dev)
-    t_plain = time.perf_counter() - t0
+
+def phase_main(model, samples, scene, dev, name="main_path", smi=None):
+    """Phases 4 and 7: an eval path, `infer_views` over every sample
+    through the kernels, then through the plain versions. Every eval
+    kernel must launch on the first and none on the second; depth must
+    agree within the TPU path's budget."""
+    import numpy as np
+    import torch
+    from rcmvsnet_tpu_torch.models.cascade import infer_views
+    cuda = dev.type == "cuda"
+    runs = {}
+    for plain in (False, True):
+        wrappers = zero_launches()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        out = infer_views(model, samples, dev, plain=plain)
+        sync(dev)
+        runs[plain] = {
+            "out": out, "s": time.perf_counter() - t0,
+            "launches": {k: fn.launches for k, fn in wrappers.items()},
+            "peak": torch.cuda.max_memory_allocated(dev) if cuda else None}
+        missing = [k for k in EVAL_KERNELS if runs[plain]["launches"][k] == 0]
+        if not plain and missing:
+            raise AssertionError(f"{name} never launched {missing}")
+    if any(runs[True]["launches"].values()):
+        raise AssertionError(f"{name}: the plain path launched kernels "
+                             f"{runs[True]['launches']}")
 
     rel_max, n_gate, plane_err = 0.0, 0, []
     hw = samples[0]["imgs"].shape[1:3]
-    for i, ((dk, ck), (dp, cp)) in enumerate(zip(got, ref)):
+    for i, ((dk, ck), (dp, cp)) in enumerate(zip(runs[False]["out"],
+                                                  runs[True]["out"])):
         if dk.shape != hw or not np.isfinite(dk).all() \
                 or not np.isfinite(ck).all():
-            raise AssertionError(f"view {i}: depth {dk.shape} not finite "
-                                 f"{hw}")
+            raise AssertionError(f"{name} view {i}: depth {dk.shape} not "
+                                 f"finite {hw}")
         rel = np.abs(dk - dp) / np.abs(dp)
         rel_max = max(rel_max, float(rel.max()))
         n_gate += int((rel > DEPTH_GATE).sum())
         plane_err.append(float(np.median(np.abs(dk - scene["depths"][i]))))
+    n = len(samples)
+    launches = runs[False]["launches"]
     result = {
-        "views": len(samples), "launches": launches,
-        "depth_maps_per_s_kernel": len(samples) / t_kernel,
-        "depth_maps_per_s_plain": len(samples) / t_plain,
+        "device": smi, "input": f"{hw[1]}x{hw[0]} V={len(samples[0]['imgs'])}"
+        f" D={len(samples[0]['depth_values'])}",
+        "views": n, "launches": launches,
+        "launches_per_map": {k: v / n for k, v in launches.items() if v},
+        "depth_maps_per_s_kernel": n / runs[False]["s"],
+        "depth_maps_per_s_plain": n / runs[True]["s"],
+        "max_memory_allocated_kernel": runs[False]["peak"],
+        "max_memory_allocated_plain": runs[True]["peak"],
         "depth_max_rel_delta_vs_plain": rel_max,
         "depth_pixels_above_gate": n_gate,
         "median_abs_depth_err_vs_plane": plane_err,
     }
-    print(json.dumps({"main_path": result}), flush=True)
+    print(json.dumps({name: result}), flush=True)
     if rel_max > DEPTH_REL_MAX or n_gate:
-        raise AssertionError(f"kernel vs plain depth: max rel {rel_max:.3e} "
-                             f"(limit {DEPTH_REL_MAX}), {n_gate} pixels "
-                             f"above {DEPTH_GATE}")
+        raise AssertionError(f"{name}, kernel vs plain depth: max rel "
+                             f"{rel_max:.3e} (limit {DEPTH_REL_MAX}), "
+                             f"{n_gate} pixels above {DEPTH_GATE}")
     return result
+
+
+def phase_tanks(model, dev, smi, shape=(TT_H, TT_W, TT_V)):
+    """Phase 7: the eval path at Tanks & Temples' input, with the T&T
+    loader's depth range."""
+    scene = plane_scene(*shape, SEED)
+    return phase_main(model, tanks_samples(scene, NDEPTH), scene, dev,
+                      "tanks_path", smi)
+
+
+def phase_tools(model, sample, dev, conv_cases):
+    """Phase 8: the profiling entry points at their shapes; every kernel
+    they reach must launch."""
+    from rcmvsnet_tpu_torch.tools import profile_breakdown as PB
+    from rcmvsnet_tpu_torch.tools import profile_conv3d as PC
+    wrappers = zero_launches()
+    sync(dev)
+    breakdown = PB.run(model, sample, dev)
+    conv_rows = PC.run(dev, conv_cases)
+    sync(dev)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    result = {"launches": launches, "breakdown_ms": breakdown,
+              "conv3d_cases": conv_rows}
+    print(json.dumps({"tools_path": result}), flush=True)
+    missing = [k for k in TOOLS_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"tools path never launched {missing}")
+    return result
+
+
+def phase_tools_kernels(model, sample, ledger, dev, conv_cases):
+    """Phase 8, second half: K10 per view and stage and K9 per case
+    against their plain versions, and the K10 route against K1."""
+    import torch
+    import torch.nn.functional as F
+    from rcmvsnet_tpu_torch.ops import conv3d as K9
+    from rcmvsnet_tpu_torch.ops import warp_variance as K1
+    from rcmvsnet_tpu_torch.ops import warp_view as K10
+    from rcmvsnet_tpu_torch.tools import profile_breakdown as PB
+    from rcmvsnet_tpu_torch.tools import profile_conv3d as PC
+
+    ledger.phase = "tools"
+    for st in PB.stage_inputs(model, sample, dev):
+        f, projs, nd, lo, step, dv = (st[k] for k in (
+            "feats", "projs", "nd", "lo", "step", "dv"))
+        Vn, h, w, C = f.shape
+        rel = K1.relative_projections(projs).reshape(-1, 4, 4)
+        for v in range(1, Vn):
+            px, py = (c[0].contiguous() for c in K10.pixel_coords(
+                rel[v:v + 1], dv[None], h, w))
+            src = f[v]
+            src_nchw = src.permute(2, 0, 1)[None].contiguous()
+            grid = torch.stack([px / ((w - 1) / 2.0) - 1.0,
+                                py / ((h - 1) / 2.0) - 1.0],
+                               -1).reshape(1, nd * h, w, 2)
+            ledger.compare(
+                "warp_view", f"{st['key']} view{v} {h}x{w} C{C} D{nd}",
+                lambda: K10.warp_view(src, px, py),
+                lambda: K10.warp_view_plain(src, px, py),
+                nbytes(src, px, py) + 4 * nd * h * w * C,
+                nd * h * w * (8 * C + 10),
+                fn_lib=lambda: F.grid_sample(src_nchw, grid,
+                                             align_corners=True))
+        ledger.compare(
+            "warp_view_route", f"{st['key']} V{Vn} {h}x{w} C{C} D{nd} "
+            f"K10 route vs K1",
+            lambda: PB.route_variance(st),
+            lambda: K1.warp_variance(f, projs, lo, step, nd).permute(
+                1, 2, 3, 0),
+            nbytes(f, projs, lo, step) + 4 * C * nd * h * w,
+            warp_flops(Vn, h, w, C, nd))
+    for case in tuple(conv_cases) + ODD_CONV_CASES:
+        x, wgt = PC.case_inputs(case, dev)
+        mode = case[-1]
+        y = K9.conv3d_lanewise_plain(x, wgt, mode)
+        ledger.compare(
+            "conv3d_lanewise", f"{case[0]} {tuple(x.shape)}",
+            lambda: K9.conv3d_lanewise(x, wgt, mode),
+            lambda: K9.conv3d_lanewise_plain(x, wgt, mode),
+            *conv3d_work(x, wgt, y, mode),
+            fn_lib=lambda: library_conv3d(x, wgt, None, mode))
+        del x, wgt, y
+    sync(dev)
+    ledger.check("tools kernels")
+
 
 
 def phase_train_kernels(cascade, render, batch, scene, ledger, dev):
@@ -670,14 +714,12 @@ def phase_train(batch, cascade_sd, smi, dev, cfg=None, warmup=2, timed=5):
     B, Vn, Hs, Ws = batch["imgs"].shape[:4]
     draws = draw_step(torch.Generator(device=dev).manual_seed(SEED), cfg, B,
                       Hs, Ws)
-    wrappers = kernel_wrappers()
     paths = {}
     for plain in (False, True):
         state = create_train_state(cfg, Vn, 1000, dev, seed=SEED,
                                    state_dicts=(cascade_sd, None))
         step = make_train_step(cfg, plain=plain)
-        for fn in wrappers.values():
-            fn.launches = 0
+        wrappers = zero_launches()
         if cuda:
             torch.cuda.reset_peak_memory_stats(dev)
         sync(dev)
@@ -755,7 +797,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
     from rcmvsnet_tpu_torch.core.geometry import set_full_precision
     from rcmvsnet_tpu_torch.models.cascade import CascadeMVSNet
     from rcmvsnet_tpu_torch.ops import _build
@@ -782,15 +823,15 @@ def main() -> int:
     model = CascadeMVSNet()
     model.load_state_dict(load_state_dict(ASSET), strict=True)
     model = model.cuda().eval()
-    ledger = Ledger()
     dev = torch.device("cuda")
+    ledger = Ledger(make_timer(dev))
     with torch.no_grad():
         phase_kernels(model, samples, scene, ledger, dev)
     torch.cuda.empty_cache()
 
     # 4. eval main path
-    main_path = phase_main(model, samples, scene, dev)
-    main_path["device"] = smi
+    main_path = phase_main(model, samples, scene, dev, smi=smi)
+    dtu_sample = samples[0]
     del samples
     torch.cuda.empty_cache()
 
@@ -810,8 +851,20 @@ def main() -> int:
 
     # 6. train main path
     train_path = phase_train(batch, load_state_dict(ASSET), smi, dev)
+    del batch
+    torch.cuda.empty_cache()
 
-    # 7. report
+    # 7. Tanks & Temples eval path
+    tanks_path = phase_tanks(model, dev, smi)
+    torch.cuda.empty_cache()
+
+    # 8. profiling tools, and K9 / K10 against their plain versions
+    from rcmvsnet_tpu_torch.tools.profile_conv3d import CASES
+    with torch.no_grad():
+        tools_path = phase_tools(model, dtu_sample, dev, CASES)
+        phase_tools_kernels(model, dtu_sample, ledger, dev, CASES)
+
+    # 9. report
     source = "rcmvsnet_tpu_torch/ops/"
     meta = [
         ("warp_variance", "eval", "cuda", source + "csrc/warp_variance.cu",
@@ -832,11 +885,16 @@ def main() -> int:
          "rcmvsnet_tpu/ops/pallas_warp_volume.py:263 (bwd :178, :406)"),
         ("conv3d_dw", "train", "cuda", source + "csrc/conv3d_dw.cu",
          "rcmvsnet_tpu/ops/pallas_costreg_train.py:81 (dw :163, :258)"),
+        ("conv3d_lanewise", "tools", "cuda", source + "csrc/conv3d.cu",
+         "rcmvsnet_tpu/ops/pallas_conv3d.py:167 (pallas_call :139)"),
+        ("warp_view", "tools", "cuda", source + "csrc/warp_view.cu",
+         "rcmvsnet_tpu/ops/pallas_warp.py:88 (pallas_call :109)"),
     ]
+    paths = {"eval": main_path, "train": train_path, "tools": tools_path}
     kernels = []
     for name, phase, route, src, replaces in meta:
         s = ledger.summary(name, phase)
-        path = main_path if phase == "eval" else train_path
+        path = paths[phase]
         row = {"name": name, "route": route, "source": src,
                "replaces": replaces, "launches": path["launches"][name],
                "max_abs_err": s["max_abs_err"], "ms": s["ms"],
@@ -856,7 +914,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s, "nvcc": logs,
         "calls": ledger.rows, "main_path": main_path,
-        "train_path": train_path, "kernels": kernels}, indent=1))
+        "train_path": train_path, "tanks_path": tanks_path,
+        "tools_path": tools_path, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

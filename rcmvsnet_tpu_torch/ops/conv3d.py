@@ -1,8 +1,14 @@
-"""K2 (+K3): the cost-volume U-Net's 3×3×3 convolution.
+"""K2 (+K3): the cost-volume U-Net's 3×3×3 convolution, and K9 on the
+same kernel.
 
 `conv3d` launches the CUDA kernel `csrc/conv3d.cu` for a CUDA tensor; for
 a CPU tensor it returns `conv3d_plain` (`F.conv3d` / `F.conv_transpose3d`
 on the same BN-folded weights, then ReLU and the skip add).
+
+`conv3d_lanewise` (K9) is the raw convolution: the same kernel with zero
+bias, no ReLU and no skip, on the unfolded weight, at any D/H/W (odd sizes
+included: the kernel's tap addressing bounds every axis on its own). It
+counts its own launches; `conv3d.launches` counts K2's.
 
 Modes, all k=3, padding 1:
   * "s1": stride 1;
@@ -14,7 +20,9 @@ Modes, all k=3, padding 1:
     gather over the un-stuffed input.
 
 Replaces `rcmvsnet_tpu/ops/pallas_costreg.py` `conv_lanes` and
-`rcmvsnet_tpu/ops/pallas_resample.py` `subsample_lanes` / `stuff_lanes`.
+`rcmvsnet_tpu/ops/pallas_resample.py` `subsample_lanes` / `stuff_lanes`
+(K2, K3), and `rcmvsnet_tpu/ops/pallas_conv3d.py:167` `conv3d_lanewise`
+(K9).
 """
 from __future__ import annotations
 
@@ -65,12 +73,10 @@ def _lib():
     return fn
 
 
-def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-           mode: str = "s1", relu: bool = True,
-           skip: torch.Tensor | None = None) -> torch.Tensor:
-    """Same contract as `conv3d_plain`; the kernel on a CUDA tensor."""
-    if x.device.type == "cpu":
-        return conv3d_plain(x, weight, bias, mode, relu, skip)
+def _launch(name: str, x: torch.Tensor, weight: torch.Tensor,
+            bias: torch.Tensor, mode: str, relu: bool,
+            skip: torch.Tensor | None) -> torch.Tensor:
+    """Check the arguments and launch `csrc/conv3d.cu` once."""
     N, Ci, D, H, W = x.shape
     if mode == "t2":
         w = weight.permute(1, 0, 2, 3, 4)                   # [Co, Ci, 3,3,3]
@@ -78,15 +84,15 @@ def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         w = weight
     Co = w.shape[0]
     if tuple(w.shape) != (Co, Ci, 3, 3, 3) or bias.shape != (Co,):
-        raise ValueError(f"conv3d: weight {tuple(weight.shape)} / bias "
+        raise ValueError(f"{name}: weight {tuple(weight.shape)} / bias "
                          f"{tuple(bias.shape)} do not fit input {Ci} "
                          f"channels in mode {mode}")
     w = w.reshape(Co, Ci, 27).contiguous()
     Do, Ho, Wo = out_shape(mode, D, H, W)
     tensors = [x, w, bias] + ([skip] if skip is not None else [])
-    _build.require_cuda("conv3d", *tensors)
+    _build.require_cuda(name, *tensors)
     if skip is not None and skip.shape != (N, Co, Do, Ho, Wo):
-        raise ValueError(f"conv3d: skip {tuple(skip.shape)} != output "
+        raise ValueError(f"{name}: skip {tuple(skip.shape)} != output "
                          f"{(N, Co, Do, Ho, Wo)}")
     out = torch.empty((N, Co, Do, Ho, Wo), dtype=torch.float32,
                       device=x.device)
@@ -94,9 +100,47 @@ def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                  skip.data_ptr() if skip is not None else None,
                  out.data_ptr(), N, Ci, D, H, W, Co, Do, Ho, Wo,
                  MODES[mode], int(relu), _build.stream_ptr(x.device))
-    _build.check(err, "conv3d")
+    _build.check(err, name)
+    return out
+
+
+def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           mode: str = "s1", relu: bool = True,
+           skip: torch.Tensor | None = None) -> torch.Tensor:
+    """Same contract as `conv3d_plain`; the kernel on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return conv3d_plain(x, weight, bias, mode, relu, skip)
+    out = _launch("conv3d", x, weight, bias, mode, relu, skip)
     conv3d.launches += 1
     return out
 
 
 conv3d.launches = 0
+
+
+def conv3d_lanewise_plain(x: torch.Tensor, weight: torch.Tensor,
+                          mode: str = "s1") -> torch.Tensor:
+    """The raw 3×3×3 convolution, padding 1, no bias: x [N, Ci, D, H, W];
+    weight [Co, Ci, 3, 3, 3] ("s1", "s2": stride 2, output ceil(n / 2)) or
+    [Ci, Co, 3, 3, 3] ("t2": transposed, exactly 2× every axis)."""
+    return conv3d_plain(x, weight, None, mode, relu=False)
+
+
+def conv3d_lanewise(x: torch.Tensor, weight: torch.Tensor,
+                    mode: str = "s1") -> torch.Tensor:
+    """K9, replacing `rcmvsnet_tpu/ops/pallas_conv3d.py:167`
+    `conv3d_lanewise` (its `pallas_call` at `:139`): the contract of
+    `conv3d_lanewise_plain`, run on K2's kernel (`csrc/conv3d.cu`, zero
+    bias, relu=0) for a CUDA tensor. The JAX function takes one sample
+    [D, H, W, Ci] and a DHWIO kernel; `weights.unconv` / `undeconv` give
+    that kernel in this layout."""
+    if x.device.type == "cpu":
+        return conv3d_lanewise_plain(x, weight, mode)
+    co = weight.shape[1] if mode == "t2" else weight.shape[0]
+    zero = torch.zeros(co, dtype=torch.float32, device=x.device)
+    out = _launch("conv3d_lanewise", x, weight, zero, mode, False, None)
+    conv3d_lanewise.launches += 1
+    return out
+
+
+conv3d_lanewise.launches = 0

@@ -1,13 +1,21 @@
 // Plane-sweep sampling coordinates shared by the warp kernels
 // (warp_variance.cu: K1 and its backward; warp_volume.cu: the stage-1
-// volume kernel and its backward), so that a backward recomputes exactly
-// the taps its forward read.
+// volume kernel and its backward; warp_view.cu: the per-view warp K10), so
+// that a backward recomputes exactly the taps its forward read and every
+// warp of the port samples by one rule.
 //
 // For reference pixel (x, y) at hypothesis depth dv and a row-major 4x4
 // relative projection m (src @ inv(ref), K folded in):
-//   p = rot * [x, y, 1] * dv + t,  |Z| floored at 1e-6 (sign kept),
+//   r = rot * [x, y, 1],  p = r * dv + t,  |Z| floored at 1e-6 (sign kept),
 //   px = X/Z clipped to [-2, W+1], py = Y/Z clipped to [-2, H+1];
-// tap k (0..3) is (x0 + (k & 1), y0 + (k >> 1)) with the bilinear weight
+// every operation rounds on its own (no fused multiply-add), in the order
+// ops/warp_view.pixel_coords spells out with plain tensor operations, so
+// the coordinates it computes equal these bit for bit. The K10 route's
+// 1e-5 gate against K1 (chip_smoke.py, tests/test_torch_kernels_gpu.py)
+// rests on that: one ulp of a coordinate moves the variance by up to
+// 3e-5 of its largest value. Reordering or contracting these operations
+// (in K1, K6 or K7) means changing pixel_coords to match.
+// Tap k (0..3) is (x0 + (k & 1), y0 + (k >> 1)) with the bilinear weight
 // tap_weight(k); a tap outside the image reads zero (zeros padding, per
 // tap). The clip only moves samples whose four taps all lie outside.
 #pragma once
@@ -27,19 +35,29 @@ __device__ __forceinline__ float plane_depth(float lo, float step, int d) {
   return __fadd_rn(lo, __fmul_rn((float)d, step));
 }
 
-__device__ __forceinline__ Taps project(const float* m, float fx, float fy,
-                                        float dv, int H, int W) {
-  const float rx = m[0] * fx + m[1] * fy + m[2];
-  const float ry = m[4] * fx + m[5] * fy + m[6];
-  const float rz = m[8] * fx + m[9] * fy + m[10];
-  const float X = rx * dv + m[3];
-  const float Y = ry * dv + m[7];
-  float Z = rz * dv + m[11];
-  if (fabsf(Z) < 1e-6f) Z = Z < 0.f ? -1e-6f : 1e-6f;
-  const float px = fminf(fmaxf(X / Z, -2.f), (float)W + 1.f);
-  const float py = fminf(fmaxf(Y / Z, -2.f), (float)H + 1.f);
+// Taps of the sample point (px, py), in pixels.
+__device__ __forceinline__ Taps taps_at(float px, float py) {
   const float x0f = floorf(px), y0f = floorf(py);
   return Taps{(int)x0f, (int)y0f, px - x0f, py - y0f};
+}
+
+// One row of rot * [x, y, 1] * dv + t, each operation rounded.
+__device__ __forceinline__ float project_row(const float* r, float fx,
+                                             float fy, float dv) {
+  const float rr = __fadd_rn(__fadd_rn(__fmul_rn(r[0], fx),
+                                       __fmul_rn(r[1], fy)), r[2]);
+  return __fadd_rn(__fmul_rn(rr, dv), r[3]);
+}
+
+__device__ __forceinline__ Taps project(const float* m, float fx, float fy,
+                                        float dv, int H, int W) {
+  const float X = project_row(m, fx, fy, dv);
+  const float Y = project_row(m + 4, fx, fy, dv);
+  float Z = project_row(m + 8, fx, fy, dv);
+  if (fabsf(Z) < 1e-6f) Z = Z < 0.f ? -1e-6f : 1e-6f;
+  const float px = fminf(fmaxf(__fdiv_rn(X, Z), -2.f), (float)W + 1.f);
+  const float py = fminf(fmaxf(__fdiv_rn(Y, Z), -2.f), (float)H + 1.f);
+  return taps_at(px, py);
 }
 
 // Tap k's pixel index y * W + x, or -1 when it lies outside the image.
@@ -54,12 +72,15 @@ __device__ __forceinline__ float tap_weight(const Taps& t, int k) {
   return ((k & 1) ? t.wx : 1.f - t.wx) * ((k >> 1) ? t.wy : 1.f - t.wy);
 }
 
-// Bilinear sample of C contiguous channels (C % 4 == 0, float4 loads) of
-// map base [H, W, C] into val.
+// Bilinear sample of C channels (C % 4 == 0, float4 loads; stride, the
+// floats between two pixels, a multiple of 4) of map base [H, W, stride]
+// into val, accumulating the taps in order 0..3 with one fused
+// multiply-add each.
 template <int C>
 __device__ __forceinline__ void sample_channels(const float* base,
                                                 const Taps& t, int H, int W,
-                                                float* val) {
+                                                float* val,
+                                                int stride = C) {
 #pragma unroll
   for (int c = 0; c < C; ++c) val[c] = 0.f;
 #pragma unroll
@@ -67,12 +88,14 @@ __device__ __forceinline__ void sample_channels(const float* base,
     const long long p = tap_pixel(t, k, H, W);
     if (p < 0) continue;
     const float wgt = tap_weight(t, k);
-    const float4* q4 = reinterpret_cast<const float4*>(base + p * C);
+    const float4* q4 = reinterpret_cast<const float4*>(base + p * stride);
 #pragma unroll
     for (int c4 = 0; c4 < C / 4; ++c4) {
       const float4 q = __ldg(q4 + c4);
-      val[4 * c4 + 0] += wgt * q.x; val[4 * c4 + 1] += wgt * q.y;
-      val[4 * c4 + 2] += wgt * q.z; val[4 * c4 + 3] += wgt * q.w;
+      val[4 * c4 + 0] = __fmaf_rn(wgt, q.x, val[4 * c4 + 0]);
+      val[4 * c4 + 1] = __fmaf_rn(wgt, q.y, val[4 * c4 + 1]);
+      val[4 * c4 + 2] = __fmaf_rn(wgt, q.z, val[4 * c4 + 2]);
+      val[4 * c4 + 3] = __fmaf_rn(wgt, q.w, val[4 * c4 + 3]);
     }
   }
 }

@@ -8,7 +8,10 @@
 //   each source view v sampled at its projection (warp_common.cuh)
 //   the reference view is read in place (identity warp)
 //   sum, sum of squares over the V views in float32 registers
-//   variance = sum_sq / V - (sum / V)^2, written once.
+//   variance = sum_sq * (1/V) - (sum * (1/V))^2, written once,
+// every step rounded on its own, in the order ops/warp_view.py's
+// plane_sweep_variance_views takes over the per-view warps (K10), so the
+// two routes give the same variance (gated at 1e-5 of its largest value).
 // No warped per-view volume ever reaches device memory.
 //
 // Backward (K6) replaces the backward kernel of
@@ -73,7 +76,7 @@ warp_variance_kernel(const float* __restrict__ src,
       sum[4 * c4 + 2] = q.z; sum[4 * c4 + 3] = q.w;
     }
 #pragma unroll
-    for (int c = 0; c < C; ++c) sq[c] = sum[c] * sum[c];
+    for (int c = 0; c < C; ++c) sq[c] = __fmul_rn(sum[c], sum[c]);
   }
 
   const float fx = (float)x, fy = (float)y;
@@ -83,17 +86,18 @@ warp_variance_kernel(const float* __restrict__ src,
     warp::sample_channels<C>(src + (long long)v * HW * C, t, H, W, val);
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      sum[c] += val[c];
-      sq[c] += val[c] * val[c];
+      sum[c] = __fadd_rn(sum[c], val[c]);
+      sq[c] = __fadd_rn(sq[c], __fmul_rn(val[c], val[c]));
     }
   }
 
-  const float fv = (float)V;
+  const float inv_v = 1.f / (float)V;
   const long long plane = (long long)D * HW;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const float mean = sum[c] / fv;
-    out[c * plane + d * HW + pix] = sq[c] / fv - mean * mean;
+    const float mean = __fmul_rn(sum[c], inv_v);
+    out[c * plane + d * HW + pix] =
+        __fsub_rn(__fmul_rn(sq[c], inv_v), __fmul_rn(mean, mean));
   }
 }
 

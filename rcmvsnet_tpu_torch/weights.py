@@ -32,14 +32,14 @@ COSTREG_CONVS = ("conv0", "conv1", "conv2", "conv3", "conv4", "conv5",
 COSTREG_DECONVS = ("conv7", "conv9", "conv11")
 
 
-def _unconv(k) -> np.ndarray:
+def unconv(k) -> np.ndarray:
     """(*k, I, O) → (O, I, *k)."""
     k = np.asarray(k)
     n = k.ndim - 2
     return np.ascontiguousarray(np.transpose(k, (n + 1, n) + tuple(range(n))))
 
 
-def _undeconv(k) -> np.ndarray:
+def undeconv(k) -> np.ndarray:
     """Flipped forward-conv (kd, kh, kw, I, O) → ConvTranspose (I, O, kd,
     kh, kw)."""
     k = np.transpose(np.asarray(k), (3, 4, 0, 1, 2))
@@ -68,11 +68,11 @@ def state_dict_from_jax(params, batch_stats) -> dict[str, torch.Tensor]:
     fp, fs = params["feature"], batch_stats["feature"]
     for torch_name, our_name in FEATURE_BLOCKS:
         prefix = f"feature.{torch_name}"
-        sd[f"{prefix}.conv.weight"] = _unconv(fp[our_name]["Conv_0"]["kernel"])
+        sd[f"{prefix}.conv.weight"] = unconv(fp[our_name]["Conv_0"]["kernel"])
         _bn(sd, f"{prefix}.bn", fp[our_name], fs[our_name])
     for head in FEATURE_HEADS:
         entry = fp[head]["Conv_0"]
-        sd[f"feature.{head}.weight"] = _unconv(entry["kernel"])
+        sd[f"feature.{head}.weight"] = unconv(entry["kernel"])
         if "bias" in entry:
             sd[f"feature.{head}.bias"] = np.asarray(entry["bias"])
     i = 0
@@ -88,15 +88,15 @@ def _costreg(sd, prefix, cp, cs, deconv_seq: bool = False):
     """One U-Net's blocks under `prefix`. deconv_seq: conv7/9/11 as the
     render branch's nn.Sequential (`.0` conv, `.1` BN)."""
     for name in COSTREG_CONVS:
-        sd[f"{prefix}.{name}.conv.weight"] = _unconv(
+        sd[f"{prefix}.{name}.conv.weight"] = unconv(
             cp[name]["Conv_0"]["kernel"])
         _bn(sd, f"{prefix}.{name}.bn", cp[name], cs[name])
     conv, bn = ("0", "1") if deconv_seq else ("conv", "bn")
     for name in COSTREG_DECONVS:
-        sd[f"{prefix}.{name}.{conv}.weight"] = _undeconv(cp[name]["kernel"])
+        sd[f"{prefix}.{name}.{conv}.weight"] = undeconv(cp[name]["kernel"])
         _bn(sd, f"{prefix}.{name}.{bn}", cp[name], cs[name])
     if "prob" in cp:
-        sd[f"{prefix}.prob.weight"] = _unconv(cp["prob"]["Conv_0"]["kernel"])
+        sd[f"{prefix}.prob.weight"] = unconv(cp["prob"]["Conv_0"]["kernel"])
 
 
 def costreg_state_dict_from_jax(params, batch_stats,

@@ -6,7 +6,10 @@
   * its kernel phases (eval and train) run end to end at a tiny size on
     CPU tensors (where every wrapper returns its plain version, so kernel
     and plain agree exactly), and its main-path phases (eval and train)
-    refuse a run in which no kernel was launched."""
+    refuse a run in which no kernel was launched;
+  * the Tanks & Temples path and the profiling tools run at a tiny size on
+    the CPU and refuse a run that launched no kernel; the tools' K9 and
+    K10 checks hold each call against its plain version."""
 import shutil
 import subprocess
 import sys
@@ -96,3 +99,37 @@ def test_train_phases_run_on_cpu_and_demand_launches():
     with pytest.raises(AssertionError, match="train path never launched"):
         chip_smoke.phase_train(batch, load_state_dict(ASSET), "cpu",
                                torch.device("cpu"), cfg, warmup=1, timed=1)
+
+
+def _golden_model():
+    model = CascadeMVSNet()
+    model.load_state_dict(load_state_dict(ASSET), strict=True)
+    return model.eval()
+
+
+def test_tanks_phase_runs_on_cpu_and_demands_launches():
+    with pytest.raises(AssertionError, match="tanks_path never launched"):
+        chip_smoke.phase_tanks(_golden_model(), torch.device("cpu"), "cpu",
+                               shape=(64, 96, 3))
+
+
+def test_tools_phases_run_on_cpu_and_demand_launches():
+    from rcmvsnet_tpu_torch.tools import profile_conv3d as PC
+    scene = chip_smoke.plane_scene(64, 96, 3, chip_smoke.SEED)
+    sample = chip_smoke.dtu_samples(scene, 96)[0]
+    model = _golden_model()
+    dev = torch.device("cpu")
+    cases = [(label, D, H // 32, W // 32, ci, co, mode)
+             for label, D, H, W, ci, co, mode in PC.CASES]
+    with torch.no_grad():
+        with pytest.raises(AssertionError,
+                           match="tools path never launched"):
+            chip_smoke.phase_tools(model, sample, dev, cases)
+        ledger = chip_smoke.Ledger(timer=lambda fn: 0.0)
+        chip_smoke.phase_tools_kernels(model, sample, ledger, dev, cases)
+    calls = {k: ledger.summary(k, "tools")["calls"]
+             for k in ("warp_view", "warp_view_route", "conv3d_lanewise")}
+    assert calls == {"warp_view": 3 * 2, "warp_view_route": 3,
+                     "conv3d_lanewise": 8 + 3}
+    assert all(r["max_abs_err"] <= r["tol"] for r in ledger.rows)
+    assert all(r["bound_ms"] > 0 for r in ledger.rows)

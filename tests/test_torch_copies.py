@@ -1,4 +1,5 @@
-"""The port's own copies of the framework-free modules (core/io, data/*,
+"""The port's own copies of the framework-free modules (core/io, data/*
+including the Tanks & Temples loader,
 fusion/*, native/) behave as the JAX package's originals: the same numpy
 inputs give equal outputs, and files one side writes the other reads back
 equal. The native geometry library builds into the port's `.ext_build/`."""
@@ -7,14 +8,17 @@ import numpy as np
 from rcmvsnet_tpu.core import io as jio
 from rcmvsnet_tpu.data import dtu_test as jdtu
 from rcmvsnet_tpu.data import synthetic as jsyn
+from rcmvsnet_tpu.data import tanks as jtanks
 from rcmvsnet_tpu.data import transforms as jtr
 from rcmvsnet_tpu.fusion import dtu_eval as jeval
 from rcmvsnet_tpu_torch import native
 from rcmvsnet_tpu_torch.core import io as tio
 from rcmvsnet_tpu_torch.data import dtu_test as tdtu
 from rcmvsnet_tpu_torch.data import synthetic as tsyn
+from rcmvsnet_tpu_torch.data import tanks as ttanks
 from rcmvsnet_tpu_torch.data import transforms as ttr
 from rcmvsnet_tpu_torch.data.synthetic_dataset import SyntheticDataset
+from rcmvsnet_tpu_torch.data.synthetic_tanks import write_tanks_scan
 from rcmvsnet_tpu_torch.fusion import dtu_eval as teval
 
 
@@ -84,3 +88,22 @@ def test_dtu_eval_matches_jax():
     np.testing.assert_array_equal(teval.reduce_points(q, 1.0),
                                   jeval.reduce_points(q, 1.0))
     assert native._LIB.parent.name == ".ext_build"
+
+
+def test_tanks_dataset_matches_jax(tmp_path, monkeypatch):
+    """The T&T loader on a scene in its layout (cams_1 line 11 = min and
+    max): equal samples, equal image-free cams, equal scan lists."""
+    assert ttanks.INTERMEDIATE_SCANS == jtanks.INTERMEDIATE_SCANS
+    assert ttanks.ADVANCED_SCANS == jtanks.ADVANCED_SCANS
+    for mod in (ttanks, jtanks):
+        monkeypatch.setattr(mod, "INTERMEDIATE_SCANS", ["Family"])
+    write_tanks_scan(tmp_path, H=48, W=64, V=3)
+    kw = dict(nviews=3, img_wh=(64, 48), ndepths=16)
+    a = ttanks.TanksDataset(tmp_path, "intermediate", **kw)
+    b = jtanks.TanksDataset(tmp_path, "intermediate", **kw)
+    assert len(a) == len(b) == 3
+    for i in range(3):
+        _equal_trees(a[i], b[i])
+        _equal_trees(a.sample_cams(i), b.sample_cams(i))
+    dv = a[0]["depth_values"]
+    assert len(dv) == 16 and dv[-1] > dv[0]

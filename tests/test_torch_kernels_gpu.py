@@ -8,7 +8,10 @@ and the upsample-add epilogue; and the train kernels, forward and
 gradients from a fixed random cotangent against autograd through the plain
 versions: K6 (K1's backward) at C 8/16/32, K7 (volume forward and
 backward), K8 in each mode (forward and dx through K2, dw through its own
-kernel, the 41-channel input and 1-channel prob head included). The
+kernel, the 41-channel input and 1-channel prob head included); K9 (K2's
+kernel as the raw conv) in every mode at odd and non-multiple-of-8 sizes;
+K10 at C 3/8/16/32 (the scalar path and the float4 path), and the K10
+route's variance against K1's, within 1e-5 of its largest value. The
 backward kernels sum with atomicAdd, so their order varies from run to
 run: tolerance 1e-4 of the largest value. Run on the card without the JAX
 test configuration (its host has no jax):
@@ -24,6 +27,7 @@ from rcmvsnet_tpu_torch.ops import conv3d as K2
 from rcmvsnet_tpu_torch.ops import conv3d_train as K8
 from rcmvsnet_tpu_torch.ops import depth_tail as K4
 from rcmvsnet_tpu_torch.ops import warp_variance as K1
+from rcmvsnet_tpu_torch.ops import warp_view as K10
 from rcmvsnet_tpu_torch.ops import warp_volume as K7
 
 pytestmark = pytest.mark.gpu
@@ -196,3 +200,60 @@ def test_conv3d_train_matches_plain(dev, mode, ci, co, shape):
     _close(xk.grad, xp.grad)
     _close(wk.grad, wp.grad)
     _close(K8.conv3d_dw(x, cot, mode), K8.conv3d_dw_plain(x, cot, mode))
+
+
+@pytest.mark.parametrize("mode", ["s1", "s2", "t2"])
+@pytest.mark.parametrize("shape", [(5, 9, 7), (3, 5, 6), (7, 13, 11)])
+def test_conv3d_lanewise_odd_sizes_match_plain(dev, mode, shape):
+    g = _gen(dev, sum(shape))
+    ci, co = 16, 8
+    x = torch.randn(1, ci, *shape, device=dev, generator=g)
+    wshape = (ci, co, 3, 3, 3) if mode == "t2" else (co, ci, 3, 3, 3)
+    wgt = 0.1 * torch.randn(*wshape, device=dev, generator=g)
+    n0 = (K2.conv3d_lanewise.launches, K2.conv3d.launches)
+    got = K2.conv3d_lanewise(x, wgt, mode)
+    want = K2.conv3d_lanewise_plain(x, wgt, mode)
+    torch.cuda.synchronize()
+    assert (K2.conv3d_lanewise.launches, K2.conv3d.launches) == (n0[0] + 1,
+                                                                  n0[1])
+    assert got.shape == want.shape
+    _close(got, want)
+
+
+def _view_inputs(dev, V, h, w, C, D, seed):
+    g = _gen(dev, seed)
+    feats = torch.randn(V, h, w, C, device=dev, generator=g)
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = torch.full((h, w), 4.0, device=dev)
+    projs = _projs(V, h, w, dev)
+    return feats, projs, lo, step
+
+
+@pytest.mark.parametrize("C", [3, 8, 16, 32])
+def test_warp_view_matches_plain(dev, C):
+    h, w, D = 24, 40, 8
+    feats, projs, lo, step = _view_inputs(dev, 2, h, w, C, D, C)
+    dv = lo[None] + torch.arange(D, device=dev)[:, None, None] * step[None]
+    rel = K1.relative_projections(projs).reshape(-1, 4, 4)
+    px, py = (c[0].contiguous()
+              for c in K10.pixel_coords(rel[1:], dv[None], h, w))
+    assert float(px.max()) > w - 1 or float(px.min()) < 0  # edge taps
+    n0 = K10.warp_view.launches
+    got = K10.warp_view(feats[1], px, py)
+    want = K10.warp_view_plain(feats[1], px, py)
+    torch.cuda.synchronize()
+    assert K10.warp_view.launches == n0 + 1
+    _close(got, want, 1e-5)
+
+
+def test_warp_view_route_matches_k1(dev):
+    V, h, w, C, D = 4, 24, 40, 16, 32
+    feats, projs, lo, step = _view_inputs(dev, V, h, w, C, D, 11)
+    dv = lo[None] + torch.arange(D, device=dev)[:, None, None] * step[None]
+    route = K10.plane_sweep_variance_views(
+        feats[:1], [feats[v:v + 1] for v in range(1, V)],
+        [projs[v:v + 1] for v in range(1, V)], projs[:1], dv[None])[0]
+    k1 = K1.warp_variance(feats, projs, lo, step, D).permute(1, 2, 3, 0)
+    torch.cuda.synchronize()
+    err = float((route - k1).abs().max())
+    assert err <= 1e-5 * float(k1.abs().max()), err

@@ -3,8 +3,9 @@ every module of rcmvsnet_tpu_torch imports in a fresh interpreter where
 `jax`, `flax` and `rcmvsnet_tpu` cannot be imported; `chip_smoke.py` and
 `chip_train_probe.py` with the model, op, data and weight modules they
 drive import none of them either (the card's host has no jax, flax, cv2,
-PIL or msgpack); and both CLIs run end to end under the same ban, on the
-port's own copies of the I/O, data and fusion modules."""
+PIL or msgpack); and the CLIs (eval_dtu, eval_tanks with rm_color, train)
+run end to end under the same ban, on the port's own copies of the I/O,
+data and fusion modules."""
 import json
 import subprocess
 import sys
@@ -26,7 +27,11 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 for must in ("cli.eval_dtu", "cli.train", "core.io", "data.dtu_test",
-             "fusion.fuse", "train.step", "ops.warp_volume"):
+             "fusion.fuse", "train.step", "ops.warp_volume",
+             "cli.eval_tanks", "cli.rm_color", "data.tanks",
+             "data.plane_scene", "data.synthetic_tanks", "ops.warp_view",
+             "tools.profile_breakdown", "tools.profile_conv3d",
+             "tools.timing"):
     assert "rcmvsnet_tpu_torch." + must in names, names
 assert not any(m.split(".")[0] in ("jax", "flax", "rcmvsnet_tpu")
                and sys.modules[m] for m in sys.modules), "JAX package imported"
@@ -44,7 +49,9 @@ for name in ("core.geometry", "data.synthetic", "data.transforms",
              "ops.warp_variance", "ops.conv3d", "ops.depth_tail",
              "ops.conv2d", "ops.warp_volume", "nn.layers", "nn.featurenet",
              "nn.costreg", "models.cascade", "models.render_net",
-             "train.step", "train.state", "weights", "config"):
+             "train.step", "train.state", "weights", "config",
+             "data.plane_scene", "ops.warp_view", "tools.profile_breakdown",
+             "tools.profile_conv3d"):
     importlib.import_module("rcmvsnet_tpu_torch." + name)
 print("ok")
 """
@@ -61,6 +68,22 @@ eval_dtu.main(["--testpath", root + "/data", "--testlist", "scan1",
                "--max_w", "96", "--prob_thres", "0.0",
                "--num_consistency", "1", "--num_worker", "1",
                "--device", "cpu"])
+"""
+
+_TANKS_CLI = _BAN + """
+from rcmvsnet_tpu_torch.cli import eval_tanks, rm_color
+from rcmvsnet_tpu_torch.data import tanks
+from rcmvsnet_tpu_torch.data.synthetic_tanks import write_tanks_scan
+from rcmvsnet_tpu_torch.weights import ASSET
+from pathlib import Path
+root = Path(sys.argv[1])
+tanks.INTERMEDIATE_SCANS = ["Family"]
+eval_tanks.GEO_MASK_THRESHOLD["Family"] = 2
+write_tanks_scan(root / "data", H=64, W=96, V=3)
+eval_tanks.main(["--testpath", str(root / "data"), "--loadckpt", str(ASSET),
+                 "--outdir", str(root / "out"), "--num_view", "3",
+                 "--numdepth", "32", "--img_wh", "96,64", "--device", "cpu"])
+rm_color.main(["--input_dir", str(root / "out")])
 """
 
 _TRAIN_CLI = _BAN + """
@@ -96,6 +119,15 @@ def test_cli_runs_without_jax(tmp_path):
     assert (tmp_path / "out" / "mvsnet001_l3.ply").stat().st_size > 0
     assert len(list((tmp_path / "out" / "scan1" / "depth_est").glob(
         "*.pfm"))) == 3
+
+
+def test_tanks_cli_and_rm_color_run_without_jax(tmp_path):
+    """T&T depth, fusion and rm_color under the same ban."""
+    r = _run(_TANKS_CLI, str(tmp_path))
+    assert r.returncode == 0, r.stderr
+    assert len(list((tmp_path / "out" / "Family" / "depth_est").glob(
+        "*.pfm"))) == 3
+    assert (tmp_path / "out" / "no_color" / "Family.ply").stat().st_size > 0
 
 
 def test_train_cli_runs_without_jax(tmp_path):
