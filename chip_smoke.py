@@ -8,8 +8,10 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 Phases (none catches its own failure; any failure exits non-zero without
 the final "ok" line):
   1. device   require CUDA, print the card's name and power limit, TF32 off;
-  2. build    compile the five CUDA sources (sm_90a, one nvcc each, in
-              parallel) and print the build seconds;
+  2. build    compile the six CUDA sources (sm_90a, one nvcc each, in
+              parallel) and print the build seconds; count the TF32
+              tensor-core MMAs (HMMA ... TF32) that `cuobjdump -sass` finds
+              in each kernel of K2/K9 and K8 dw, which must be > 0;
   3. kernels  hold each eval kernel against its plain PyTorch version on
               the card, at the DTU eval shapes (864x1152, V=5, stages
               216x288x32/48, 432x576x16/32, 864x1152x8/8): K1 at all 3
@@ -61,7 +63,10 @@ the final "ok" line):
               nvidia-smi line, and the final {"ok": true, "device": {...}}
               line.
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM and 67 TFLOP/s
-of float32 outside the tensor cores (TF32 is off on this path). Per-call
+of float32 outside the tensor cores (TF32 is off in PyTorch on this path);
+the 3D convs (K2, K8 dw, K9), which run 3xTF32 on the tensor cores, also
+get `bound_tc_ms`: bytes over HBM against 3 TF32 products per multiply-add
+over 495 TFLOP/s. Per-call
 details go to chip_smoke.json in the output directory `main` names; every
 printed result carries the card's name and power limit.
 
@@ -87,6 +92,9 @@ TH, TW, TV = 512, 640, 4                    # the train step's input
 TT_H, TT_W, TT_V = 1056, 1920, 7            # Tanks & Temples' eval input
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12                     # f32, outside the tensor cores
+TF32_FLOPS_PER_S = 495e12                   # TF32 tensor cores, dense
+# the kernels that run 3xTF32 MMAs: three TF32 products per multiply-add
+TC_KERNELS = ("conv3d", "conv3d_dw", "conv3d_lanewise")
 # plain-vs-kernel tolerances: |kernel - plain| <= atol + rtol * max|plain|.
 # Sums run in another order than cuDNN's / torch's (and the warp's
 # coordinates in another association), so float32 rounding differs.
@@ -132,11 +140,41 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float, rate: float = F32_FLOPS_PER_S):
     """(least ms the card could take, "bytes" or "operations")."""
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / F32_FLOPS_PER_S * 1e3
+    t_f = flops / rate * 1e3
     return max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
+
+
+def bound_tc_ms(n_bytes: float, flops: float):
+    """bound_ms of a 3xTF32 kernel: 3 TF32 products per multiply-add."""
+    return bound_ms(n_bytes, 3 * flops, TF32_FLOPS_PER_S)
+
+
+def sass_mma_counts() -> dict:
+    """{library: {"kernels": {kernel: TF32 HMMA count}, "example": one
+    such instruction}} of the 3D-conv libraries, from `cuobjdump -sass` of
+    the built files (the CUDA toolkit's)."""
+    import re
+    from rcmvsnet_tpu_torch.ops import _build
+    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    out = {}
+    for lib in ("conv3d", "conv3d_dw"):
+        sass = subprocess.run([tool, "-sass", str(_build._target(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, name, example = {}, None, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = m.group(1)
+                counts[name] = 0
+            elif name and re.search(r"HMMA\.\S*TF32", line):
+                counts[name] += 1
+                example = example or " ".join(line.split())
+        out[lib] = {"kernels": counts, "example": example}
+    return out
 
 
 class Ledger:
@@ -185,6 +223,9 @@ class Ledger:
                "max_rel_err": rel, "tol": atol + rtol * scale,
                "bytes": n_bytes, "flops": flops, "bound_ms": b_ms,
                "bound_by": b_by}
+        if kernel in TC_KERNELS:
+            row["bound_tc_ms"], row["bound_tc_by"] = bound_tc_ms(n_bytes,
+                                                                 flops)
         if kernel == "depth_tail":
             flips = float(((outs_k[1] - outs_p[1]).abs() > CONF_TOL)
                           .float().mean())
@@ -208,14 +249,19 @@ class Ledger:
         libs = [r["library_ms"] for r in rows]
         t_b = sum(bound_ms(r["bytes"], 0)[0] for r in rows)
         t_f = sum(bound_ms(0, r["flops"])[0] for r in rows)
-        return {"max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": sum(r["ms"] for r in rows),
-                "plain_ms": sum(r["plain_ms"] for r in rows),
-                "library_ms": (None if any(v is None for v in libs)
-                               else sum(libs)),
-                "bound_ms": sum(r["bound_ms"] for r in rows),
-                "bound_by": "bytes" if t_b >= t_f else "operations",
-                "calls": len(rows)}
+        out = {"max_abs_err": max(r["max_abs_err"] for r in rows),
+               "ms": sum(r["ms"] for r in rows),
+               "plain_ms": sum(r["plain_ms"] for r in rows),
+               "library_ms": (None if any(v is None for v in libs)
+                              else sum(libs)),
+               "bound_ms": sum(r["bound_ms"] for r in rows),
+               "bound_by": "bytes" if t_b >= t_f else "operations",
+               "calls": len(rows)}
+        if kernel in TC_KERNELS:
+            t_f = sum(bound_tc_ms(0, r["flops"])[0] for r in rows)
+            out["bound_tc_ms"] = sum(r["bound_tc_ms"] for r in rows)
+            out["bound_tc_by"] = "bytes" if t_b >= t_f else "operations"
+        return out
 
     def check(self, what):
         if self.failures:
@@ -816,6 +862,13 @@ def main() -> int:
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {len(logs)} CUDA sources in {build_s:.1f} s", flush=True)
+    mma = sass_mma_counts()
+    print(json.dumps({"sass_tf32_mma": mma}), flush=True)
+    no_mma = [k for lib in mma.values() for k, n in lib["kernels"].items()
+              if "_tc" in k and n == 0]
+    if not all(lib["kernels"] for lib in mma.values()) or no_mma:
+        raise AssertionError(f"3D-conv kernels without TF32 MMAs: {no_mma}"
+                             f" of {mma}")
 
     # 3. kernels against their plain versions
     scene = plane_scene(H, W, V, SEED)
@@ -901,18 +954,23 @@ def main() -> int:
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                "calls_timed": s["calls"], "shapes": phase}
+        if name in TC_KERNELS:
+            row.update(bound_tc_ms=s["bound_tc_ms"],
+                       bound_tc_by=s["bound_tc_by"])
         if name in TRAIN_KERNELS and phase == "eval":
             t = ledger.summary(name, "train")
             row["train"] = {"launches": train_path["launches"][name],
                             **{k: t[k] for k in (
                                 "max_abs_err", "ms", "plain_ms",
-                                "library_ms", "bound_ms", "bound_by")},
+                                "library_ms", "bound_ms", "bound_by",
+                                "bound_tc_ms", "bound_tc_by") if k in t},
                             "calls_timed": t["calls"]}
         kernels.append(row)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s, "nvcc": logs,
+        "sass_tf32_mma": mma,
         "calls": ledger.rows, "main_path": main_path,
         "train_path": train_path, "tanks_path": tanks_path,
         "tools_path": tools_path, "kernels": kernels}, indent=1))

@@ -46,33 +46,33 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
-        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+def _target(name: str, csrc: Path = CSRC) -> Path:
+    src = (csrc / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(csrc.glob("*.cuh")))
     key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 
-def _start(name: str):
+def _start(name: str, csrc: Path = CSRC):
     """Start nvcc for one source; returns (Popen, tmp path, target) or
     None when the library is already built."""
-    target = _target(name)
+    target = _target(name, csrc)
     if target.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target
 
 
-def build_all(names=SOURCES) -> dict[str, str]:
-    """Compile every named source in parallel. Returns {name: nvcc output}
-    (the `-Xptxas -v` register and shared-memory report); raises on the
-    first failed build."""
+def build_all(names=SOURCES, csrc: Path = CSRC) -> dict[str, str]:
+    """Compile every named source of `csrc` in parallel. Returns {name:
+    nvcc output} (the `-Xptxas -v` register and shared-memory report);
+    raises on the first failed build."""
     with _lock:
-        jobs = {n: _start(n) for n in names}
+        jobs = {n: _start(n, csrc) for n in names}
         logs = {}
         failed = []
         for name, job in jobs.items():
@@ -99,6 +99,14 @@ def load(name: str) -> ctypes.CDLL:
         build_all((name,))
         lib = _libs.setdefault(name, ctypes.CDLL(str(_target(name))))
     return lib
+
+
+def load_from(csrc: Path, names) -> dict[str, ctypes.CDLL]:
+    """Build the named sources of another directory with the same flags
+    (targets keyed by content, beside the package's own) and load them;
+    the libraries `load` serves are left as they are."""
+    build_all(names, csrc)
+    return {n: ctypes.CDLL(str(_target(n, csrc))) for n in names}
 
 
 def check(err: int, what: str) -> None:

@@ -7,7 +7,7 @@ on the same BN-folded weights, then ReLU and the skip add).
 
 `conv3d_lanewise` (K9) is the raw convolution: the same kernel with zero
 bias, no ReLU and no skip, on the unfolded weight, at any D/H/W (odd sizes
-included: the kernel's tap addressing bounds every axis on its own). It
+included: the kernel bounds every axis of its bricks on its own). It
 counts its own launches; `conv3d.launches` counts K2's.
 
 Modes, all k=3, padding 1:
@@ -16,8 +16,14 @@ Modes, all k=3, padding 1:
     by `pallas_resample.subsample_lanes`, computed at the strided output
     positions directly;
   * "t2": transposed, stride 2, output_padding 1 — the TPU's `conv_lanes`
-    over `pallas_resample.stuff_lanes`' zero-stuffed copy, computed as a
-    gather over the un-stuffed input.
+    over `pallas_resample.stuff_lanes`' zero-stuffed copy, computed as 8
+    parity classes over the un-stuffed input (output 2i + p reads, per
+    axis, tap 1 from input i when p = 0, taps 0 and 2 from inputs i + 1
+    and i when p = 1).
+
+The kernel is an implicit GEMM on the tensor cores (3xTF32 m16n8k8 MMAs,
+float32 accumulators; see `csrc/tc_conv3d.cuh`); `tile` picks its block
+tile from the shapes.
 
 Replaces `rcmvsnet_tpu/ops/pallas_costreg.py` `conv_lanes` and
 `rcmvsnet_tpu/ops/pallas_resample.py` `subsample_lanes` / `stuff_lanes`
@@ -34,6 +40,14 @@ import torch.nn.functional as F
 from . import _build
 
 MODES = {"s1": 0, "s2": 1, "t2": 2}
+# block tiles (MT, NTB) the kernel is built for, per mode: MT rows of 16 x
+# positions per warp (a brick of MT x 8 x 16 base positions), NTB tiles of
+# 8 output channels per block ("t2" keeps all 8 parity classes' sums in
+# registers, so MT * NTB <= 2 there)
+TILES = {"s1": ((1, 1), (1, 2), (1, 4), (2, 1), (2, 2), (4, 1)),
+         "s2": ((1, 1), (1, 2), (1, 4)),
+         "t2": ((1, 1), (1, 2), (2, 1))}
+SMS = 132                     # streaming multiprocessors of an H100
 
 
 def out_shape(mode: str, d: int, h: int, w: int):
@@ -45,15 +59,45 @@ def out_shape(mode: str, d: int, h: int, w: int):
     return 2 * d, 2 * h, 2 * w
 
 
+def tile(mode: str, n: int, co: int, base) -> tuple[int, int]:
+    """(MT, NTB) for `co` output channels over the base grid `base` (the
+    output for "s1"/"s2", the input for "t2") of `n` samples: as many
+    channel tiles per block as TILES allows, then the most rows per warp
+    that still leave two blocks per SM."""
+    nt = -(-co // 8)
+    ntb = 4 if (1, 4) in TILES[mode] and nt % 4 == 0 else min(nt, 2)
+    blocks = n * -(-nt // ntb) * -(-base[1] // 8) * -(-base[2] // 16)
+    for mt in (4, 2, 1):
+        if (mt, ntb) in TILES[mode] and (
+                mt == 1 or blocks * -(-base[0] // mt) >= 2 * SMS):
+            return mt, ntb
+    raise AssertionError("TILES lists (1, ntb) for every mode")
+
+
+def _t2_padding(d: int, h: int, w: int, out_dhw) -> tuple:
+    """output_padding of a "t2" conv over (d, h, w) that gives out_dhw
+    (2n or 2n − 1 per axis; None: 2n)."""
+    if out_dhw is None:
+        return (1, 1, 1)
+    pad = tuple(o - (2 * i - 1) for o, i in zip(out_dhw, (d, h, w)))
+    if any(p not in (0, 1) for p in pad):
+        raise ValueError(f"t2 over {(d, h, w)} cannot give {tuple(out_dhw)}")
+    return pad
+
+
 def conv3d_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                  mode: str = "s1", relu: bool = True,
-                 skip: torch.Tensor | None = None) -> torch.Tensor:
+                 skip: torch.Tensor | None = None,
+                 out_dhw=None) -> torch.Tensor:
     """x [N, Ci, D, H, W]; weight [Co, Ci, 3, 3, 3] for "s1"/"s2" or the
     ConvTranspose3d layout [Ci, Co, 3, 3, 3] for "t2"; bias [Co]; skip, if
-    given, is added after the ReLU. Returns [N, Co, D', H', W']."""
+    given, is added after the ReLU. Returns [N, Co, D', H', W']. `out_dhw`
+    ("t2" only) trims the output to 2n − 1 on an axis, as the adjoint of a
+    stride-2 conv over an odd size needs."""
     if mode == "t2":
         y = F.conv_transpose3d(x, weight, bias, stride=2, padding=1,
-                               output_padding=1)
+                               output_padding=_t2_padding(*x.shape[2:],
+                                                          out_dhw))
     else:
         y = F.conv3d(x, weight, bias, stride=1 if mode == "s1" else 2,
                      padding=1)
@@ -67,7 +111,7 @@ def conv3d_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def _lib():
     fn = _build.load("conv3d").conv3d_f32
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -75,7 +119,7 @@ def _lib():
 
 def _launch(name: str, x: torch.Tensor, weight: torch.Tensor,
             bias: torch.Tensor, mode: str, relu: bool,
-            skip: torch.Tensor | None) -> torch.Tensor:
+            skip: torch.Tensor | None, out_dhw=None) -> torch.Tensor:
     """Check the arguments and launch `csrc/conv3d.cu` once."""
     N, Ci, D, H, W = x.shape
     if mode == "t2":
@@ -88,29 +132,41 @@ def _launch(name: str, x: torch.Tensor, weight: torch.Tensor,
                          f"{tuple(bias.shape)} do not fit input {Ci} "
                          f"channels in mode {mode}")
     w = w.reshape(Co, Ci, 27).contiguous()
-    Do, Ho, Wo = out_shape(mode, D, H, W)
+    if mode == "t2":
+        pad = _t2_padding(D, H, W, out_dhw)
+        Do, Ho, Wo = (2 * n - 1 + p for n, p in zip((D, H, W), pad))
+    elif out_dhw is not None:
+        raise ValueError(f"{name}: out_dhw is for mode t2 only")
+    else:
+        Do, Ho, Wo = out_shape(mode, D, H, W)
     tensors = [x, w, bias] + ([skip] if skip is not None else [])
     _build.require_cuda(name, *tensors)
     if skip is not None and skip.shape != (N, Co, Do, Ho, Wo):
         raise ValueError(f"{name}: skip {tuple(skip.shape)} != output "
                          f"{(N, Co, Do, Ho, Wo)}")
+    mt, ntb = tile(mode, N, Co, (D, H, W) if mode == "t2" else (Do, Ho, Wo))
     out = torch.empty((N, Co, Do, Ho, Wo), dtype=torch.float32,
                       device=x.device)
+    # the kernel's weight layout, one [27, 8, 8·ntb] block per (group of
+    # 8·ntb output channels, chunk of 8 input channels)
+    wt = torch.empty(-(-Co // (8 * ntb)) * -(-Ci // 8) * 27 * 64 * ntb,
+                     dtype=torch.float32, device=x.device)
     err = _lib()(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
                  skip.data_ptr() if skip is not None else None,
-                 out.data_ptr(), N, Ci, D, H, W, Co, Do, Ho, Wo,
-                 MODES[mode], int(relu), _build.stream_ptr(x.device))
+                 out.data_ptr(), wt.data_ptr(), N, Ci, D, H, W, Co, Do, Ho, Wo,
+                 MODES[mode], int(relu), mt, ntb,
+                 _build.stream_ptr(x.device))
     _build.check(err, name)
     return out
 
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
            mode: str = "s1", relu: bool = True,
-           skip: torch.Tensor | None = None) -> torch.Tensor:
+           skip: torch.Tensor | None = None, out_dhw=None) -> torch.Tensor:
     """Same contract as `conv3d_plain`; the kernel on a CUDA tensor."""
     if x.device.type == "cpu":
-        return conv3d_plain(x, weight, bias, mode, relu, skip)
-    out = _launch("conv3d", x, weight, bias, mode, relu, skip)
+        return conv3d_plain(x, weight, bias, mode, relu, skip, out_dhw)
+    out = _launch("conv3d", x, weight, bias, mode, relu, skip, out_dhw)
     conv3d.launches += 1
     return out
 

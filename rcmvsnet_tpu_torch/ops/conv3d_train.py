@@ -7,9 +7,12 @@ autograd outside it):
   * dx: K2 in the adjoint mode: "s1" with the flipped, ci↔co-swapped
     kernel; "s2" ↔ "t2" with the same weights ("t2" reads its weight in
     the ConvTranspose3d layout, which is the stride-2 conv's [Co, Ci] read
-    the other way round); even input sizes only, as on the main path;
-  * dw: `conv3d_dw`, the kernel `csrc/conv3d_dw.cu` on a CUDA tensor, or
-    `conv3d_dw_plain` (27 shifted products, one einsum each) on a CPU one.
+    the other way round; over an odd input size the "t2" adjoint is
+    trimmed to it);
+  * dw: `conv3d_dw`, the kernel `csrc/conv3d_dw.cu` on a CUDA tensor (a
+    split-K GEMM on the tensor cores over the brick plan of `dw_chunks`),
+    or `conv3d_dw_plain` (27 shifted products, one einsum each) on a CPU
+    one.
 Both halves dispatch by device, so on the CPU the Function runs the plain
 versions and its backward composition is what the tests check.
 `conv3d_train_plain` is the same function in plain PyTorch
@@ -21,6 +24,7 @@ custom VJP: dx through the forward kernel, dw through `_conv_dw`).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -30,8 +34,27 @@ from .conv3d import MODES, conv3d, conv3d_plain, out_shape
 
 # the adjoint of each mode, as a K2 mode
 ADJOINT = {"s1": "s1", "s2": "t2", "t2": "s2"}
-TARGET_BLOCKS = 132 * 8       # about eight dw blocks per SM of an H100
-MIN_CHUNK = 1024              # output positions per dw block at least
+# the dw kernel's brick of base positions (z, y, x) per mode
+BRICK = {"s1": (1, 8, 16), "s2": (1, 4, 16), "t2": (1, 8, 16)}
+TARGET_BLOCKS = 132 * 4       # about four dw blocks per SM of an H100
+MAX_CO = 64                   # four m16 tiles of output channels
+
+
+class DwPlan(NamedTuple):
+    """The dw kernel's split-K plan: the base grid (the output for
+    "s1"/"s2", the input for "t2", whose 8 parity classes each get their
+    own blocks) cut into bricks of `brick`, `grid` bricks per axis and
+    `bricks` in all (samples included; brick index x fastest, then y, z,
+    sample), run as `chunks` runs of `per_chunk` consecutive bricks (the
+    last one shorter), one block per (run, 8-channel chunk of Ci, class);
+    each block writes one partial."""
+    brick: tuple
+    grid: tuple
+    bricks: int
+    chunks: int
+    per_chunk: int
+    ci_chunks: int
+    classes: int
 
 
 def conv3d_train_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -72,18 +95,26 @@ def conv3d_dw_plain(x: torch.Tensor, g: torch.Tensor,
     return torch.stack(cols, -1).reshape(Co, Ci, 3, 3, 3)
 
 
-def dw_chunks(positions: int, ci: int, co: int) -> int:
-    """Position chunks (blocks along x) of the dw kernel's first pass."""
-    pairs = ci * (co // 4 if co % 4 == 0 else co)
-    want = -(-TARGET_BLOCKS // pairs)
-    return max(1, min(want, -(-positions // MIN_CHUNK)))
+def dw_chunks(mode: str, n: int, ci: int, d: int, h: int,
+              w: int) -> DwPlan:
+    """The plan of bricks and chunks for x [n, ci, d, h, w] in `mode`:
+    enough runs for about TARGET_BLOCKS blocks, each at least one brick."""
+    base = (d, h, w) if mode == "t2" else out_shape(mode, d, h, w)
+    brick = BRICK[mode]
+    grid = tuple(-(-b // e) for b, e in zip(base, brick))
+    bricks = n * grid[0] * grid[1] * grid[2]
+    ci_chunks, classes = -(-ci // 8), 8 if mode == "t2" else 1
+    want = -(-TARGET_BLOCKS // (ci_chunks * classes))
+    per_chunk = -(-bricks // max(1, min(want, bricks)))
+    return DwPlan(brick, grid, bricks, -(-bricks // per_chunk), per_chunk,
+                  ci_chunks, classes)
 
 
 def _lib():
     fn = _build.load("conv3d_dw").conv3d_dw_f32
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
-            ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -98,14 +129,17 @@ def conv3d_dw(x: torch.Tensor, g: torch.Tensor, mode: str) -> torch.Tensor:
     if tuple(g.shape) != (N, Co, Do, Ho, Wo):
         raise ValueError(f"conv3d_dw: g {tuple(g.shape)} is not the "
                          f"{mode} output of x {tuple(x.shape)}")
+    if Co > MAX_CO:
+        raise ValueError(f"conv3d_dw: {Co} output channels > {MAX_CO}")
     _build.require_cuda("conv3d_dw", x, g)
-    chunks = dw_chunks(N * Do * Ho * Wo, Ci, Co)
-    partial = torch.empty((chunks, Co, Ci, 27), dtype=torch.float32,
+    plan = dw_chunks(mode, N, Ci, D, H, W)
+    partial = torch.empty((plan.chunks, Co, Ci, 27), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((Co, Ci, 27), dtype=torch.float32, device=x.device)
     err = _lib()(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
                  dw.data_ptr(), N, Ci, D, H, W, Co, Do, Ho, Wo, MODES[mode],
-                 chunks, _build.stream_ptr(x.device))
+                 plan.chunks, plan.per_chunk, plan.brick[1],
+                 _build.stream_ptr(x.device))
     _build.check(err, "conv3d_dw")
     conv3d_dw.launches += 1
     dw = dw.reshape(Co, Ci, 3, 3, 3)
@@ -137,12 +171,10 @@ class _Conv3dTrain(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
+            adj = ADJOINT[mode]
             dx = conv3d(g, _adjoint_weight(weight, mode),
-                        x.new_zeros(x.shape[1]), ADJOINT[mode], relu=False)
-            if dx.shape != x.shape:
-                raise ValueError(f"conv3d_train: the {mode} adjoint gives "
-                                 f"{tuple(dx.shape)} for input "
-                                 f"{tuple(x.shape)} (odd size)")
+                        x.new_zeros(x.shape[1]), adj, relu=False,
+                        out_dhw=tuple(x.shape[2:]) if adj == "t2" else None)
         if ctx.needs_input_grad[1]:
             dw = conv3d_dw(x, g, mode)
         return dx, dw, None

@@ -1,179 +1,407 @@
-// Direct 3x3x3 convolution of the cost-volume U-Net (float32), for Hopper.
+// 3x3x3 convolution of the cost-volume U-Net (float32) on Hopper's tensor
+// cores: an implicit GEMM, M = output positions, N = Co, K = 27 * Ci.
 //
 // Replaces the TPU kernels rcmvsnet_tpu/ops/pallas_costreg.py conv_lanes
-// (_conv_lanes_kernel, _conv_lanes_k9_kernel, composed by costreg_lanes)
-// AND rcmvsnet_tpu/ops/pallas_resample.py subsample_lanes / stuff_lanes
+// (_conv_lanes_kernel, _conv_lanes_k9_kernel, composed by costreg_lanes;
+// their body is jnp.dot(w, x_cat) on the MXU) AND
+// rcmvsnet_tpu/ops/pallas_resample.py subsample_lanes / stuff_lanes
 // (_sub_kernel, _stuff_kernel): those copies exist only because the TPU
 // U-Net keeps a lane layout. Here they fold into the addressing:
 //   mode 0  stride 1, padding 1:   in = out + k - 1
-//   mode 1  stride 2, padding 1:   in = 2*out + k - 1
-//           (= subsample_lanes o conv_lanes(z_stride=2): the stride-2
-//            outputs are computed directly, nothing is computed twice)
-//   mode 2  transposed, k3 s2 p1 output_padding 1, as an output-stationary
-//           gather over the un-stuffed input: tap k reaches output o from
-//           input (o + 1 - k) / 2 when that is a whole index in range
-//           (= conv_lanes o stuff_lanes, without the zero-stuffed copy).
+//   mode 1  stride 2, padding 1:   in = 2*out + k - 1 (the stride-2
+//           outputs directly; nothing is computed twice)
+//   mode 2  transposed, k3 s2 p1 output_padding 1, as 8 parity classes of
+//           the input grid (tc_conv3d.cuh): output 2*b + p, no stuffed
+//           zero ever multiplied. Do/Ho/Wo may be 2*in - 1 per axis (the
+//           adjoint of a stride-2 conv over an odd size): the last output
+//           row is then not written.
 // Epilogue: + bias (the eval BatchNorm is folded into weight and bias by
 // the caller), optional ReLU, optional skip add AFTER the ReLU (the
 // decoder's conv_k + deconv(x)), as in costreg_lanes.
 //
 // Layouts: x [N, Ci, Di, Hi, Wi]; w [Co, Ci, 27] (for mode 2 the caller
 // hands the ConvTranspose3d weight [Ci, Co, 3, 3, 3] transposed to
-// [Co, Ci, 27]); bias [Co]; skip and out [N, Co, Do, Ho, Wo].
+// [Co, Ci, 27]), laid out per block group and chunk by prep_weights into
+// the caller's scratch wt; bias [Co]; skip and out [N, Co, Do, Ho, Wo].
 //
-// Bound: load/FMA issue on the SMs at these small channel counts (Ci, Co
-// in 1..64): each thread owns one output voxel and CO_T output channels;
-// every input value it loads feeds CO_T fused multiply-adds with weights
-// broadcast from shared memory. Weights are staged through shared memory
-// in chunks of CI_CHUNK input channels (conv5/conv6 hold up to 64x64x27
-// floats, ~442 KB, more than a block may have), with CO_T channels per
-// block along gridDim.y. Neighbouring threads are neighbouring x, so the
-// input loads of a warp are coalesced.
+// Design. A block (8 warps) owns a brick of MT x 8 x 16 base positions
+// (warp w: the MT rows of 16 x positions at y = w, one m16 tile each) and
+// NTB n8 tiles of output channels (Co padded with zeros to a multiple of
+// 8; blocks along gridDim.y cover the rest); in mode 2 it computes all 8
+// parity classes of its brick. Per 8-channel chunk of Ci it stages the
+// halo brick (16-byte row vectors in modes 0 and 2) and the chunk's
+// weights [tap][ci][co] (laid out once per call by prep_weights) in shared
+// memory with cp.async, double-buffered so the next chunk loads while the
+// tensor cores work on this one. The 27 taps read shifted windows of that
+// one brick: an input value leaves device memory once per block, not once
+// per tap. In mode 0 each halo row is split once per (ky, kx) and feeds
+// every (tile, kz) that reads it. Products are 3xTF32 m16n8k8 MMAs into
+// three accumulators, flushed every 9 taps (tc_conv3d.cuh).
+//
+// Bound: at these widths (Ci, Co 1..64) the MMAs are small (k = 8 per
+// chunk and tap), so staging, fragment loads and the hi/lo splits on the
+// CUDA cores, not HBM, bound it, staging and compute both a large share;
+// the compute floor counts 3 TF32 products per multiply-add.
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "tc_conv3d.cuh"
 
 namespace {
 
-constexpr int kCiChunk = 8;
-constexpr int kThreads = 128;
+using namespace tc;
 
-template <int MODE>
-__device__ __forceinline__ int tap_index(int o, int k, int in_size) {
-  if (MODE == 0) {
-    const int i = o + k - 1;
-    return (i >= 0 && i < in_size) ? i : -1;
-  } else if (MODE == 1) {
-    const int i = 2 * o + k - 1;
-    return (i >= 0 && i < in_size) ? i : -1;
-  } else {
-    const int t = o + 1 - k;
-    if (t < 0 || (t & 1)) return -1;
-    const int i = t >> 1;
-    return i < in_size ? i : -1;
+template <int MODE, int MT, int NTB>
+struct Cfg {
+  static constexpr int BZ = MT, BY = kWarps;
+  static constexpr int NCLS = MODE == 2 ? 8 : 1;    // parity classes
+  using Hl = Halo<MODE, BZ, BY>;
+  static constexpr int PS = pad_to(Hl::PLANE, 8);   // A loads: t*PS + g
+  static constexpr int NW = 8 * NTB;                // channels per block
+  static constexpr int NPS =                        // B loads: t*NPS + g
+      (NW % 32 == 8 || NW % 32 == 24) ? NW : NW + 8;
+  static constexpr int X_FLOATS = kCiChunk * PS;
+  static constexpr int STAGE = X_FLOATS + 27 * kCiChunk * NPS;
+  static constexpr size_t SMEM = 2 * STAGE * sizeof(float);
+};
+
+// The weights laid out once per call for the blocks' 16-byte copies:
+// wt[group][chunk][tap][ci 8][NW] (group = co / NW, chunk = ci / 8), zero
+// past Co and Ci, from w [Co, Ci, 27].
+__global__ void __launch_bounds__(kThreads)
+prep_weights(const float* __restrict__ w, float* __restrict__ wt, int Ci,
+             int Co, int NW, int nch, long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  long long r = i / NW;
+  const int col = (int)(i - r * NW);
+  const int c = (int)(r % kCiChunk);
+  r /= kCiChunk;
+  const int tap = (int)(r % 27);
+  r /= 27;
+  const int ch = (int)(r % nch), grp = (int)(r / nch);
+  const int co = grp * NW + col, ci = ch * kCiChunk + c;
+  wt[i] = co < Co && ci < Ci ? w[((long long)co * Ci + ci) * 27 + tap] : 0.f;
+}
+
+// One chunk of one group's prepared weights (27 * 8 rows of NW floats)
+// into s[tap][ci][co] with row stride NPS, 16 bytes per copy.
+template <int NW, int NPS>
+__device__ __forceinline__ void load_weights(float* s, const float* wt) {
+  constexpr int nv = NW / 4, total = 27 * kCiChunk * nv;
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int v = e % nv, r = e / nv;
+    cp_async16(s + r * NPS + 4 * v, wt + r * NW + 4 * v, 16);
   }
 }
 
-template <int CO_T, int MODE>
+// One tap of one chunk: acc[mt][nt] += window(rz, ry, xc) x w[tap].
+// (rz0, ry) is the halo-brick row of the warp's first tile for this tap,
+// dz the row step between its tiles, xc the smem column of x position 0.
+template <int MODE, int MT, int NTB>
+__device__ __forceinline__ void tap_mma(float (&acc)[MT][NTB][3][4],
+                                        const float* sx, const float* sw,
+                                        int tap, int rz0, int dz, int ry,
+                                        int xc, int g, int t) {
+  using C = Cfg<MODE, MT, NTB>;
+  using Hl = typename C::Hl;
+  uint32_t bh[NTB][2], bl[NTB][2];
+#pragma unroll
+  for (int nt = 0; nt < NTB; ++nt) {
+    const float* wp = sw + (tap * kCiChunk + t) * C::NPS + nt * 8 + g;
+    split_tf32(wp[0], bh[nt][0], bl[nt][0]);
+    split_tf32(wp[4 * C::NPS], bh[nt][1], bl[nt][1]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const float* ap =
+        sx + ((rz0 + mt * dz) * Hl::EY + ry) * Hl::XS + xc + t * C::PS + g;
+    uint32_t ah[4], al[4];
+    split_tf32(ap[0], ah[0], al[0]);
+    split_tf32(ap[8], ah[1], al[1]);
+    split_tf32(ap[4 * C::PS], ah[2], al[2]);
+    split_tf32(ap[4 * C::PS + 8], ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < NTB; ++nt)
+      mma_3xtf32(acc[mt][nt], ah, al, bh[nt], bl[nt]);
+  }
+}
+
+// Mode 0, one (ky, kx) for all kz: the warp's MT tiles sit at z = mt, so
+// tile mt with tap kz reads halo row z = mt + kz. Each of the MT + 2 rows
+// is loaded and split once and feeds every (mt, kz) that reads it.
+template <int MT, int NTB>
+__device__ __forceinline__ void s1_column(float (&part)[MT][NTB][3][4],
+                                          const float* sx, const float* sw,
+                                          int ky, int kx, int warp, int g,
+                                          int t) {
+  using C = Cfg<0, MT, NTB>;
+  using Hl = typename C::Hl;
+  uint32_t bh[3][NTB][2], bl[3][NTB][2];
+#pragma unroll
+  for (int kz = 0; kz < 3; ++kz)
+#pragma unroll
+    for (int nt = 0; nt < NTB; ++nt) {
+      const float* wp =
+          sw + ((kz * 9 + ky * 3 + kx) * kCiChunk + t) * C::NPS + nt * 8 + g;
+      split_tf32(wp[0], bh[kz][nt][0], bl[kz][nt][0]);
+      split_tf32(wp[4 * C::NPS], bh[kz][nt][1], bl[kz][nt][1]);
+    }
+#pragma unroll
+  for (int z = 0; z < MT + 2; ++z) {
+    const float* ap = sx + (z * Hl::EY + warp + ky) * Hl::XS + Hl::xcol(kx) +
+                      t * C::PS + g;
+    uint32_t ah[4], al[4];
+    split_tf32(ap[0], ah[0], al[0]);
+    split_tf32(ap[8], ah[1], al[1]);
+    split_tf32(ap[4 * C::PS], ah[2], al[2]);
+    split_tf32(ap[4 * C::PS + 8], ah[3], al[3]);
+#pragma unroll
+    for (int kz = 0; kz < 3; ++kz) {
+      const int mt = z - kz;
+      if (mt >= 0 && mt < MT) {
+#pragma unroll
+        for (int nt = 0; nt < NTB; ++nt)
+          mma_3xtf32(part[mt][nt], ah, al, bh[kz][nt], bl[kz][nt]);
+      }
+    }
+  }
+}
+
+// The taps of parity class CLS (mode 2) into part, then flushed to acc.
+template <int MT, int NTB, int CLS>
+__device__ __forceinline__ void class_taps(float (&acc)[MT][NTB][4],
+                                           float (&part)[MT][NTB][3][4],
+                                           const float* sx, const float* sw,
+                                           int warp, int g, int t) {
+  constexpr int pz = CLS >> 2, py = (CLS >> 1) & 1, px = CLS & 1;
+#pragma unroll
+  for (int iz = 0; iz <= pz; ++iz) {
+    int kz, oz;
+    t2_tap(pz, iz, kz, oz);
+#pragma unroll
+    for (int iy = 0; iy <= py; ++iy) {
+      int ky, oy;
+      t2_tap(py, iy, ky, oy);
+#pragma unroll
+      for (int ix = 0; ix <= px; ++ix) {
+        int kx, ox;
+        t2_tap(px, ix, kx, ox);
+        tap_mma<2, MT, NTB>(part, sx, sw, kz * 9 + ky * 3 + kx, oz, 1,
+                            warp + oy, Halo<2, MT, kWarps>::xcol(ox), g, t);
+      }
+    }
+  }
+  flush(acc, part);
+}
+
+template <int MODE, int MT, int NTB>
 __global__ void __launch_bounds__(kThreads)
-conv3d_kernel(const float* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ bias,
-              const float* __restrict__ skip, float* __restrict__ out,
-              int N, int Ci, int Di, int Hi, int Wi,
-              int Co, int Do, int Ho, int Wo, int relu) {
-  __shared__ float s_w[kCiChunk * 27 * CO_T];
-  const int co0 = blockIdx.y * CO_T;
-  const long long out_sp = (long long)Do * Ho * Wo;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = idx < (long long)N * out_sp;
+conv3d_tc(const float* __restrict__ x, const float* __restrict__ wt,
+          const float* __restrict__ bias, const float* __restrict__ skip,
+          float* __restrict__ out, int Ci, int Di, int Hi, int Wi, int Co,
+          int Do, int Ho, int Wo, int relu, int nbz, int nby, int nbx,
+          int vec) {
+  using C = Cfg<MODE, MT, NTB>;
+  using Hl = typename C::Hl;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
 
-  int n = 0, oz = 0, oy = 0, ox = 0;
-  if (active) {
-    n = (int)(idx / out_sp);
-    long long r = idx - (long long)n * out_sp;
-    oz = (int)(r / ((long long)Ho * Wo));
-    r -= (long long)oz * Ho * Wo;
-    oy = (int)(r / Wo);
-    ox = (int)(r - (long long)oy * Wo);
-  }
-  int iz[3], iy[3], ix[3];
+  int b = blockIdx.x;
+  const int bx0 = (b % nbx) * kBX;
+  b /= nbx;
+  const int by0 = (b % nby) * C::BY;
+  b /= nby;
+  const int bz0 = (b % nbz) * C::BZ;
+  const int n = b / nbz;
+  const int co0 = blockIdx.y * C::NW;
+
+  // acc: the float32 totals (one per parity class); part: the MMAs of at
+  // most 9 taps, one accumulator per 3xTF32 product, before they are
+  // flushed into acc
+  float acc[C::NCLS][MT][NTB][4], part[MT][NTB][3][4];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    iz[k] = tap_index<MODE>(oz, k, Di);
-    iy[k] = tap_index<MODE>(oy, k, Hi);
-    ix[k] = tap_index<MODE>(ox, k, Wi);
-  }
-
-  float acc[CO_T];
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-  for (int j = 0; j < CO_T; ++j) acc[j] = 0.f;
+    for (int nt = 0; nt < NTB; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) part[mt][nt][k][i] = 0.f;
+#pragma unroll
+        for (int k = 0; k < C::NCLS; ++k) acc[k][mt][nt][i] = 0.f;
+      }
 
-  const long long in_sp = (long long)Di * Hi * Wi;
-  for (int ci0 = 0; ci0 < Ci; ci0 += kCiChunk) {
-    const int nci = min(kCiChunk, Ci - ci0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < nci * 27 * CO_T; i += blockDim.x) {
-      const int j = i % CO_T;
-      const int k = (i / CO_T) % 27;
-      const int c = i / (CO_T * 27);
-      s_w[i] = w[((long long)(co0 + j) * Ci + ci0 + c) * 27 + k];
+  const int nch = (Ci + kCiChunk - 1) / kCiChunk;
+  auto stage = [&](int ch) -> float* { return smem + (ch & 1) * C::STAGE; };
+  auto load = [&](int ch) {
+    float* s = stage(ch);
+    load_halo<MODE, C::BZ, C::BY, C::PS>(s, x, n, ch * kCiChunk, Ci, Di, Hi,
+                                         Wi, bz0, by0, bx0, vec);
+    load_weights<C::NW, C::NPS>(
+        s + C::X_FLOATS,
+        wt + ((long long)blockIdx.y * nch + ch) * 27 * kCiChunk * C::NW);
+    cp_async_commit();
+  };
+
+  load(0);
+  for (int ch = 0; ch < nch; ++ch) {
+    if (ch + 1 < nch) {
+      load(ch + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    if (!active) continue;
-    for (int c = 0; c < nci; ++c) {
-      const float* xc = x + ((long long)n * Ci + ci0 + c) * in_sp;
+    const float* sx = stage(ch);
+    const float* sw = sx + C::X_FLOATS;
+    if constexpr (MODE == 0) {
+      // s1: row z = mt + kz, y = warp + ky, x = r + kx; flush every 9 taps
+#pragma unroll 1
+      for (int ky = 0; ky < 3; ++ky) {
 #pragma unroll
+        for (int kx = 0; kx < 3; ++kx)
+          s1_column<MT, NTB>(part, sx, sw, ky, kx, warp, g, t);
+        flush(acc[0], part);
+      }
+    } else if constexpr (MODE == 1) {
+      // s2: row z = 2 mt + kz, y = 2 warp + ky, x = 2 r + kx (parity half)
+#pragma unroll 1
       for (int kz = 0; kz < 3; ++kz) {
-        if (iz[kz] < 0) continue;
 #pragma unroll
         for (int ky = 0; ky < 3; ++ky) {
-          if (iy[ky] < 0) continue;
-          const float* row = xc + ((long long)iz[kz] * Hi + iy[ky]) * Wi;
 #pragma unroll
           for (int kx = 0; kx < 3; ++kx) {
-            if (ix[kx] < 0) continue;
-            const float v = __ldg(row + ix[kx]);
-            const float* wk = s_w + (c * 27 + kz * 9 + ky * 3 + kx) * CO_T;
-#pragma unroll
-            for (int j = 0; j < CO_T; ++j) acc[j] = fmaf(v, wk[j], acc[j]);
+            tap_mma<MODE, MT, NTB>(part, sx, sw, kz * 9 + ky * 3 + kx, kz,
+                                   2, 2 * warp + ky, Hl::xcol(kx), g, t);
           }
+        }
+        flush(acc[0], part);
+      }
+    } else {
+      class_taps<MT, NTB, 0>(acc[0], part, sx, sw, warp, g, t);
+      class_taps<MT, NTB, 1>(acc[1], part, sx, sw, warp, g, t);
+      class_taps<MT, NTB, 2>(acc[2], part, sx, sw, warp, g, t);
+      class_taps<MT, NTB, 3>(acc[3], part, sx, sw, warp, g, t);
+      class_taps<MT, NTB, 4>(acc[4], part, sx, sw, warp, g, t);
+      class_taps<MT, NTB, 5>(acc[5], part, sx, sw, warp, g, t);
+      class_taps<MT, NTB, 6>(acc[6], part, sx, sw, warp, g, t);
+      class_taps<MT, NTB, 7>(acc[7], part, sx, sw, warp, g, t);
+    }
+    __syncthreads();
+  }
+
+  // epilogue: C fragment (row g / g + 8 = x position, col 2t / 2t + 1)
+#pragma unroll
+  for (int cls = 0; cls < C::NCLS; ++cls) {
+    const int pz = cls >> 2, py = (cls >> 1) & 1, px = cls & 1;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int bz = bz0 + mt, by = by0 + warp;
+      const int oz = MODE == 2 ? 2 * bz + pz : bz;
+      const int oy = MODE == 2 ? 2 * by + py : by;
+      if (oz >= Do || oy >= Ho) continue;
+#pragma unroll
+      for (int nt = 0; nt < NTB; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int bx = bx0 + g + ((i & 2) ? 8 : 0);
+          const int ox = MODE == 2 ? 2 * bx + px : bx;
+          const int co = co0 + nt * 8 + 2 * t + (i & 1);
+          if (ox >= Wo || co >= Co) continue;
+          const long long o =
+              ((((long long)n * Co + co) * Do + oz) * Ho + oy) * Wo + ox;
+          float r = acc[cls][mt][nt][i] + bias[co];
+          if (relu) r = fmaxf(r, 0.f);
+          if (skip != nullptr) r += skip[o];
+          out[o] = r;
         }
       }
     }
   }
-  if (!active) return;
-
-  const long long o_sp = ((long long)oz * Ho + oy) * Wo + ox;
-#pragma unroll
-  for (int j = 0; j < CO_T; ++j) {
-    const long long o = ((long long)n * Co + co0 + j) * out_sp + o_sp;
-    float r = acc[j] + bias[co0 + j];
-    if (relu) r = fmaxf(r, 0.f);
-    if (skip != nullptr) r += skip[o];
-    out[o] = r;
-  }
 }
 
-template <int CO_T, int MODE>
+template <int MODE, int MT, int NTB>
 cudaError_t launch(const float* x, const float* w, const float* bias,
-                   const float* skip, float* out, int N, int Ci, int Di,
-                   int Hi, int Wi, int Co, int Do, int Ho, int Wo, int relu,
-                   cudaStream_t stream) {
-  const long long n = (long long)N * Do * Ho * Wo;
-  dim3 grid((unsigned)((n + kThreads - 1) / kThreads), Co / CO_T);
-  conv3d_kernel<CO_T, MODE><<<grid, kThreads, 0, stream>>>(
-      x, w, bias, skip, out, N, Ci, Di, Hi, Wi, Co, Do, Ho, Wo, relu);
+                   const float* skip, float* out, float* wt, int N, int Ci,
+                   int Di, int Hi, int Wi, int Co, int Do, int Ho, int Wo,
+                   int relu, cudaStream_t stream) {
+  using C = Cfg<MODE, MT, NTB>;
+  static_assert(C::SMEM <= 227 * 1024, "shared memory per block");
+  auto kern = conv3d_tc<MODE, MT, NTB>;
+  static bool smem_set = false;
+  cudaError_t err = allow_smem(kern, C::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const int bd = MODE == 2 ? Di : Do, bh = MODE == 2 ? Hi : Ho,
+            bw = MODE == 2 ? Wi : Wo;
+  const int nbz = (bd + C::BZ - 1) / C::BZ, nby = (bh + C::BY - 1) / C::BY,
+            nbx = (bw + kBX - 1) / kBX;
+  const long long bricks = (long long)N * nbz * nby * nbx;
+  if (bricks <= 0 || bricks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int groups = (Co + C::NW - 1) / C::NW,
+            nch = (Ci + kCiChunk - 1) / kCiChunk;
+  const long long n_wt = (long long)groups * nch * 27 * kCiChunk * C::NW;
+  prep_weights<<<(unsigned)((n_wt + kThreads - 1) / kThreads), kThreads, 0,
+                 stream>>>(w, wt, Ci, Co, C::NW, nch, n_wt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)bricks, (unsigned)groups);
+  // 16-byte row vectors need 16-byte aligned rows of x
+  const int vec = Wi % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  kern<<<grid, kThreads, C::SMEM, stream>>>(x, wt, bias, skip, out, Ci, Di,
+                                            Hi, Wi, Co, Do, Ho, Wo, relu,
+                                            nbz, nby, nbx, vec);
   return cudaGetLastError();
 }
 
+// The tiles ops/conv3d.py's TILES lists for each mode: (MT, NTB).
 template <int MODE>
-cudaError_t dispatch_co(const float* x, const float* w, const float* bias,
-                        const float* skip, float* out, int N, int Ci, int Di,
-                        int Hi, int Wi, int Co, int Do, int Ho, int Wo,
-                        int relu, cudaStream_t s) {
-  if (Co % 16 == 0)
-    return launch<16, MODE>(x, w, bias, skip, out, N, Ci, Di, Hi, Wi, Co,
-                            Do, Ho, Wo, relu, s);
-  if (Co % 8 == 0)
-    return launch<8, MODE>(x, w, bias, skip, out, N, Ci, Di, Hi, Wi, Co, Do,
-                           Ho, Wo, relu, s);
-  return launch<1, MODE>(x, w, bias, skip, out, N, Ci, Di, Hi, Wi, Co, Do,
-                         Ho, Wo, relu, s);
+cudaError_t by_tile(int mt, int ntb, const float* x, const float* w,
+                    const float* bias, const float* skip, float* out,
+                    float* wt, int N, int Ci, int Di, int Hi, int Wi, int Co,
+                    int Do, int Ho, int Wo, int relu, cudaStream_t s) {
+#define CONV3D_TILE(M, B)                                                   \
+  if (mt == M && ntb == B)                                                  \
+    return launch<MODE, M, B>(x, w, bias, skip, out, wt, N, Ci, Di, Hi, Wi, \
+                              Co, Do, Ho, Wo, relu, s);
+  CONV3D_TILE(1, 1)
+  CONV3D_TILE(1, 2)
+  if constexpr (MODE != 2) {
+    CONV3D_TILE(1, 4)
+  }
+  if constexpr (MODE != 1) {
+    CONV3D_TILE(2, 1)
+  }
+  if constexpr (MODE == 0) {
+    CONV3D_TILE(2, 2)
+    CONV3D_TILE(4, 1)
+  }
+#undef CONV3D_TILE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // mode: 0 stride 1, 1 stride 2, 2 transposed (see above). skip may be null.
+// mt, ntb: the block tile (rows of 16 x positions per warp, n8 channel
+// tiles per block), one of ops/conv3d.py's TILES[mode]. wt: scratch for
+// the prepared weights, ceil(Co / 8ntb) * ceil(Ci / 8) * 27 * 8 * 8ntb
+// floats.
 extern "C" int conv3d_f32(const float* x, const float* w, const float* bias,
-                          const float* skip, float* out, int N, int Ci,
-                          int Di, int Hi, int Wi, int Co, int Do, int Ho,
-                          int Wo, int mode, int relu, void* stream) {
+                          const float* skip, float* out, float* wt, int N,
+                          int Ci, int Di, int Hi, int Wi, int Co, int Do,
+                          int Ho, int Wo, int mode, int relu, int mt, int ntb,
+                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
-    case 0: return (int)dispatch_co<0>(x, w, bias, skip, out, N, Ci, Di, Hi,
-                                       Wi, Co, Do, Ho, Wo, relu, s);
-    case 1: return (int)dispatch_co<1>(x, w, bias, skip, out, N, Ci, Di, Hi,
-                                       Wi, Co, Do, Ho, Wo, relu, s);
-    case 2: return (int)dispatch_co<2>(x, w, bias, skip, out, N, Ci, Di, Hi,
-                                       Wi, Co, Do, Ho, Wo, relu, s);
+    case 0: return (int)by_tile<0>(mt, ntb, x, w, bias, skip, out, wt, N, Ci,
+                                   Di, Hi, Wi, Co, Do, Ho, Wo, relu, s);
+    case 1: return (int)by_tile<1>(mt, ntb, x, w, bias, skip, out, wt, N, Ci,
+                                   Di, Hi, Wi, Co, Do, Ho, Wo, relu, s);
+    case 2: return (int)by_tile<2>(mt, ntb, x, w, bias, skip, out, wt, N, Ci,
+                                   Di, Hi, Wi, Co, Do, Ho, Wo, relu, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,234 @@
+// Shared pieces of the tensor-core 3x3x3 convolutions (conv3d.cu, K2/K9,
+// and conv3d_dw.cu, K8's weight gradient), for Hopper (sm_90a).
+//
+// Products: mma.sync.aligned.m16n8k8 with TF32 operands and float32
+// accumulators. The port is float32 end to end and its gates hold each
+// call to 1e-4 of its largest value; one TF32 product (10-bit mantissa)
+// misses that by 3x, so every product is 3xTF32: a = a_hi + a_lo with both
+// halves rounded to TF32 as cvt.rna.tf32.f32 rounds (nearest, ties away;
+// done as an integer add and mask, the same bits on full-rate ALU ops),
+// acc += a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (a_lo*b_lo, ~2^-22 of the
+// product, is dropped).
+// Accumulation: the tensor cores add into their float32 accumulators
+// with truncation, so an error of up to ~2^-23 of the running sum per MMA
+// grows with the length of the chain (measured: 2e-4 of the largest dw
+// value over a run of ~30k positions). Each kernel therefore runs MMAs
+// into short-lived accumulators over a few dozen products and adds them
+// into a float32 total with ordinary round-to-nearest adds (flush). The
+// three products of a 3xTF32 step go to S = 3 separate accumulators where
+// registers allow: three independent MMA chains instead of one.
+//
+// Bricks: a block owns a brick of "base" positions, BZ x BY x 16 in z, y,
+// x (16 = one m16 row tile or two k8 steps), and stages the input it reads
+// -- the brick plus its halo -- in shared memory with cp.async, 8 input
+// channels at a time, zero-filled outside the volume (the padding). The
+// base grid is the output grid for stride 1 ("s1", mode 0) and stride 2
+// ("s2", mode 1), and the INPUT grid for the transposed conv ("t2", mode
+// 2), which runs as 8 dense parity classes: output o = 2*b + p reads, per
+// axis, tap 1 from input b when p = 0, taps 0 and 2 from inputs b + 1 and
+// b when p = 1 -- 27 taps per base position over the 8 classes, none on a
+// stuffed zero.
+//   halo brick per axis: s1 extent + 2 (origin b0 - 1); s2 2*extent + 1
+//   (origin 2*b0 - 1, x stored as two parity halves so that a stride-2
+//   read is contiguous); t2 extent + 1 (origin b0). In x, the s1 and t2
+//   rows are staged as whole 16-byte vectors (s1: inputs bx0 - 4 ..
+//   bx0 + 19, t2: bx0 .. bx0 + 19) with 16-byte cp.async when the rows of
+//   the volume are 16-byte aligned (W % 4 == 0), one float at a time
+//   otherwise.
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace tc {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBX = 16;      // brick width in x
+constexpr int kCiChunk = 8;  // input channels staged at a time (mma k = 8)
+
+// Smallest m >= n with m = r (mod 32): the stride between channel planes
+// (or rows) that puts the lanes of one fragment load on distinct banks.
+constexpr int pad_to(int n, int r) { return n + ((r - n % 32) + 32) % 32; }
+
+template <int MODE, int BZ, int BY>
+struct Halo {
+  static constexpr int EZ = MODE == 0 ? BZ + 2 : MODE == 1 ? 2 * BZ + 1 : BZ + 1;
+  static constexpr int EY = MODE == 0 ? BY + 2 : MODE == 1 ? 2 * BY + 1 : BY + 1;
+  static constexpr int EX = MODE == 0 ? kBX + 2 : MODE == 1 ? 2 * kBX + 1 : kBX + 1;
+  static constexpr int XH = kBX + 1;                       // even half (s2)
+  // smem row: s2 two parity halves; s1 inputs bx0 - 4 .. bx0 + 19 and t2
+  // bx0 .. bx0 + 19, whole 16-byte vectors
+  static constexpr int XS = MODE == 1 ? 2 * XH : MODE == 0 ? kBX + 8 : kBX + 4;
+  static_assert(MODE == 1 || (MODE == 0 ? EX + 3 : EX) <= XS, "row fits");
+  static constexpr int NV = XS / 4;                        // 16-byte vectors
+  static constexpr int PLANE = EZ * EY * XS;
+
+  // brick-relative x (input origin(bx0) + rx) -> column in the smem row
+  static __device__ __forceinline__ int xcol(int rx) {
+    return MODE == 1 ? (rx & 1) * XH + (rx >> 1) : MODE == 0 ? rx + 3 : rx;
+  }
+  // first input index of the halo brick for base origin b0
+  static __device__ __forceinline__ int origin(int b0) {
+    return MODE == 0 ? b0 - 1 : MODE == 1 ? 2 * b0 - 1 : b0;
+  }
+  // first input x of the staged row (modes 0 and 2): column 0
+  static __device__ __forceinline__ int row_origin(int bx0) {
+    return MODE == 0 ? bx0 - 4 : bx0;
+  }
+};
+
+// Per-axis tap of a transposed-conv parity class: p = 0 has one tap (k 1,
+// input offset 0); p = 1 has two, chosen by bit: (k 0, offset 1), (k 2, 0).
+__device__ __forceinline__ void t2_tap(int p, int bit, int& k, int& off) {
+  k = p ? (bit ? 2 : 0) : 1;
+  off = (p && !bit) ? 1 : 0;
+}
+
+// v rounded to TF32 as cvt.rna.tf32.f32 does: to nearest on the 10-bit
+// mantissa, ties away from zero (the magnitude's bits plus half a TF32
+// ulp, low 13 bits cleared).
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// 3xTF32 split: v = hi + lo, both TF32; v - hi is exact in float32.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// total += the sum of the S partial accumulators; part = 0 (the flush of
+// the accumulation note above).
+template <int A, int B, int S>
+__device__ __forceinline__ void flush(float (&total)[A][B][4],
+                                      float (&part)[A][B][S][4]) {
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float v = part[a][b][0][i];
+        part[a][b][0][i] = 0.f;
+#pragma unroll
+        for (int k = 1; k < S; ++k) {
+          v += part[a][b][k][i];
+          part[a][b][k][i] = 0.f;
+        }
+        total[a][b][i] += v;
+      }
+}
+
+// Allow `bytes` of dynamic shared memory for `kern`, once per kernel (the
+// port runs on one device).
+template <class K>
+cudaError_t allow_smem(K* kern, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+// d += a * b: m16n8k8, TF32 operands, float32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in 3xTF32, the small terms first; with S = 3 accumulators
+// each product has its own.
+template <int S>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[S][4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d[0], al, bh[0], bh[1]);
+  mma_tf32(d[1 % S], ah, bl[0], bl[1]);
+  mma_tf32(d[2 % S], ah, bh[0], bh[1]);
+}
+
+// Asynchronous copies global -> shared; the bytes past `bytes` (all of
+// them when 0, and src is then not read) are written as zeros.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage channels [c0, c0 + 8) of the halo brick of sample n into s (plane
+// stride PS, row stride XS): zero outside the volume and for channels >=
+// C. vec (modes 0 and 2, rows of the volume 16-byte aligned): whole rows
+// of 16-byte vectors; else one float per thread and step, x fastest.
+template <int MODE, int BZ, int BY, int PS>
+__device__ __forceinline__ void load_halo(float* s, const float* x, int n,
+                                          int c0, int C, int Di, int Hi,
+                                          int Wi, int bz0, int by0, int bx0,
+                                          bool vec) {
+  using Hl = Halo<MODE, BZ, BY>;
+  const int iz0 = Hl::origin(bz0), iy0 = Hl::origin(by0);
+  if (MODE != 1 && vec) {
+    const int gx0 = Hl::row_origin(bx0);
+    constexpr int total = kCiChunk * Hl::EZ * Hl::EY * Hl::NV;
+    for (int e = threadIdx.x; e < total; e += kThreads) {
+      const int v = e % Hl::NV;
+      int r = e / Hl::NV;
+      const int ry = r % Hl::EY;
+      r /= Hl::EY;
+      const int rz = r % Hl::EZ;
+      const int c = r / Hl::EZ;
+      const int gz = iz0 + rz, gy = iy0 + ry, gx = gx0 + 4 * v;
+      const int nx = (c0 + c < C && gz >= 0 && gz < Di && gy >= 0 &&
+                      gy < Hi && gx >= 0)
+                         ? min(4, max(0, Wi - gx))
+                         : 0;
+      const float* src =
+          nx ? x + ((((long long)n * C + c0 + c) * Di + gz) * Hi + gy) * Wi +
+                   gx
+             : x;
+      cp_async16(s + c * PS + (rz * Hl::EY + ry) * Hl::XS + 4 * v, src,
+                 4 * nx);
+    }
+    return;
+  }
+  const int ix0 = Hl::origin(bx0);
+  constexpr int total = kCiChunk * Hl::EZ * Hl::EY * Hl::EX;
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int rx = e % Hl::EX;
+    int r = e / Hl::EX;
+    const int ry = r % Hl::EY;
+    r /= Hl::EY;
+    const int rz = r % Hl::EZ;
+    const int c = r / Hl::EZ;
+    const int gz = iz0 + rz, gy = iy0 + ry, gx = ix0 + rx;
+    const bool ok = c0 + c < C && gz >= 0 && gz < Di && gy >= 0 && gy < Hi &&
+                    gx >= 0 && gx < Wi;
+    const float* src =
+        ok ? x + ((((long long)n * C + c0 + c) * Di + gz) * Hi + gy) * Wi + gx
+           : x;
+    cp_async4(s + c * PS + (rz * Hl::EY + ry) * Hl::XS + Hl::xcol(rx), src,
+              ok);
+  }
+}
+
+}  // namespace tc

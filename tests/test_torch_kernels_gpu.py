@@ -3,12 +3,15 @@ a CUDA card (marker `gpu`; each test skips where there is no card).
 
 Small shapes that still cover every code path: K1 at C 8/16/32 with
 out-of-image taps, K2 in each mode (stride 1, stride 2, transposed with
-skip, the 1-channel prob head), K4 at D 8/32/48, K5 at k 1/3/5, stride 1/2
+skip, the 1-channel prob head, 41 output channels as in the render
+U-Net's conv0 dx, one input channel as in the prob head's dx, 64→64 and
+odd sizes in each mode), K4 at D 8/32/48, K5 at k 1/3/5, stride 1/2
 and the upsample-add epilogue; and the train kernels, forward and
 gradients from a fixed random cotangent against autograd through the plain
 versions: K6 (K1's backward) at C 8/16/32, K7 (volume forward and
 backward), K8 in each mode (forward and dx through K2, dw through its own
-kernel, the 41-channel input and 1-channel prob head included); K9 (K2's
+kernel, the 41-channel input, 1-channel prob head, 64→64 and odd sizes in
+each mode included), dw repeated bit for bit (no atomics); K9 (K2's
 kernel as the raw conv) in every mode at odd and non-multiple-of-8 sizes;
 K10 at C 3/8/16/32 (the scalar path and the float4 path), and the K10
 route's variance against K1's, within 1e-5 of its largest value. The
@@ -76,11 +79,15 @@ def test_warp_variance_matches_plain(dev, C, D):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("mode,ci,co", [("s1", 8, 16), ("s2", 16, 32),
-                                        ("t2", 64, 32), ("s1", 8, 1)])
-def test_conv3d_matches_plain(dev, mode, ci, co):
+@pytest.mark.parametrize("mode,ci,co,shape", [
+    ("s1", 8, 16, None), ("s2", 16, 32, None), ("t2", 64, 32, None),
+    ("s1", 8, 1, None), ("s1", 8, 41, (6, 10, 20)), ("s1", 1, 8, None),
+    ("s1", 64, 64, None), ("s2", 64, 64, None), ("t2", 64, 64, None),
+    ("s1", 16, 8, (5, 9, 7)), ("s2", 16, 8, (7, 13, 11)),
+    ("t2", 16, 8, (3, 5, 6))])
+def test_conv3d_matches_plain(dev, mode, ci, co, shape):
     g = _gen(dev, ci + co)
-    d, h, w = (4, 6, 10) if mode == "t2" else (8, 12, 20)
+    d, h, w = shape or ((4, 6, 10) if mode == "t2" else (8, 12, 20))
     x = torch.randn(1, ci, d, h, w, device=dev, generator=g)
     shape = (ci, co, 3, 3, 3) if mode == "t2" else (co, ci, 3, 3, 3)
     wgt = 0.1 * torch.randn(*shape, device=dev, generator=g)
@@ -179,7 +186,10 @@ def test_warp_volume_matches_plain(dev):
 @pytest.mark.parametrize("mode,ci,co,shape", [
     ("s1", 8, 16, (8, 12, 20)), ("s2", 16, 32, (8, 12, 20)),
     ("t2", 64, 32, (4, 6, 10)), ("s1", 8, 1, (8, 12, 20)),
-    ("s1", 41, 8, (16, 16, 20))])
+    ("s1", 41, 8, (16, 16, 20)), ("s1", 1, 8, (8, 12, 20)),
+    ("s1", 64, 64, (4, 6, 10)), ("s2", 64, 64, (4, 6, 10)),
+    ("t2", 64, 64, (2, 3, 5)), ("s1", 16, 8, (5, 9, 7)),
+    ("s2", 16, 8, (7, 13, 11)), ("t2", 16, 8, (3, 5, 6))])
 def test_conv3d_train_matches_plain(dev, mode, ci, co, shape):
     g = _gen(dev, ci * co)
     x = torch.randn(1, ci, *shape, device=dev, generator=g)
@@ -200,6 +210,21 @@ def test_conv3d_train_matches_plain(dev, mode, ci, co, shape):
     _close(xk.grad, xp.grad)
     _close(wk.grad, wp.grad)
     _close(K8.conv3d_dw(x, cot, mode), K8.conv3d_dw_plain(x, cot, mode))
+
+
+@pytest.mark.parametrize("mode,ci,co,shape", [
+    ("s1", 41, 8, (16, 16, 20)), ("s2", 32, 64, (8, 12, 20)),
+    ("t2", 16, 8, (4, 6, 10))])
+def test_conv3d_dw_repeats_bit_for_bit(dev, mode, ci, co, shape):
+    """No atomics: two calls on the same inputs agree in every bit."""
+    g = _gen(dev, ci + 3 * co)
+    x = torch.randn(1, ci, *shape, device=dev, generator=g)
+    cot = torch.randn(1, co, *K2.out_shape(mode, *shape), device=dev,
+                      generator=g)
+    first = K8.conv3d_dw(x, cot, mode)
+    second = K8.conv3d_dw(x, cot, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("mode", ["s1", "s2", "t2"])

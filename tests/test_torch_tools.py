@@ -2,14 +2,15 @@
 CPU, through the plain versions, at a tiny shape (the module's shape
 constants patched): each prints its host-clock lines under a CPU label,
 times every component it names, and refuses a CUDA device that is
-absent."""
+absent (as does the kernel A/B tool, which runs on the card only)."""
 import json
 from functools import partial
 
 import pytest
 import torch
 
-from rcmvsnet_tpu_torch.tools import profile_breakdown, profile_conv3d
+from rcmvsnet_tpu_torch.tools import (ab_conv3d, profile_breakdown,
+                                      profile_conv3d)
 from rcmvsnet_tpu_torch.tools.timing import make_timer
 
 torch.set_num_threads(2)
@@ -47,7 +48,8 @@ def test_profile_conv3d_cpu(capsys, monkeypatch):
     assert json.loads(out[-1])["cases"] == rows
 
 
-@pytest.mark.parametrize("tool", [profile_breakdown, profile_conv3d])
+@pytest.mark.parametrize("tool", [profile_breakdown, profile_conv3d,
+                                  ab_conv3d])
 def test_tools_refuse_missing_cuda(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):

@@ -194,11 +194,19 @@ def test_k8_forward_and_grads_match_jax(mode, ci, co, shape):
 
 
 def test_k8_adjoint_rejects_odd_sizes():
+    """The stride-2 conv's adjoint is the transposed conv, 2n per axis:
+    over an odd input size K8 trims it to the input (`out_dhw`), and the
+    gradient equals autograd through the plain conv; a size that no
+    transposed conv gives is rejected."""
     x = torch.randn(1, 4, 5, 6, 6, requires_grad=True)
     w = torch.randn(8, 4, 3, 3, 3)
     y = K8.conv3d_train(x, w, "s2")
-    with pytest.raises(ValueError, match="odd size"):
-        y.sum().backward()
+    y.sum().backward()
+    xp = x.detach().clone().requires_grad_(True)
+    K8.conv3d_train_plain(xp, w, "s2").sum().backward()
+    torch.testing.assert_close(x.grad, xp.grad, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="cannot give"):
+        K8.conv3d(y.detach(), w, torch.zeros(4), "t2", out_dhw=(4, 6, 6))
 
 
 @pytest.mark.parametrize("net", ["costreg", "render"])
