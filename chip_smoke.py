@@ -33,6 +33,9 @@ the final "ok" line):
               forward and backward at stage 1, and K8 for every conv of the
               3 CostRegNets and the render U-Net: forward and dx through K2,
               dw through its own kernel, each from a fixed random cotangent;
+              K6 and K7's backward are called a second time and must repeat
+              bit for bit (their rows give the elements that differ, the
+              merge factor and the integer adds of the fixed-point scatter);
   6. train    the fused train step (clean + aug + render passes, one
               backward, one Adam step) at 512x640, V=4, 192 planes, 1024
               rays x 128 samples, 128 planes, from one init (the golden
@@ -98,8 +101,9 @@ TC_KERNELS = ("conv3d", "conv3d_dw", "conv3d_lanewise")
 # plain-vs-kernel tolerances: |kernel - plain| <= atol + rtol * max|plain|.
 # Sums run in another order than cuDNN's / torch's (and the warp's
 # coordinates in another association), so float32 rounding differs.
-# The backward kernels sum with atomicAdd (K6, K7) or in per-block partials
-# (K8 dw), in another order than autograd's scatter or the plain einsum.
+# The backward kernels sum in 64-bit fixed point, rounded once per flushed
+# run of planes (K6, K7), or in per-block partials (K8 dw), in another order
+# than autograd's scatter or the plain einsum; each repeats bit for bit.
 TOL = {"warp_variance": (1e-4, 1e-4), "conv3d": (1e-4, 1e-4),
        "conv2d": (1e-4, 1e-4), "depth_tail": (0.0, 1e-5),
        "warp_variance_bwd": (1e-4, 1e-4), "warp_volume": (1e-4, 1e-4),
@@ -116,7 +120,8 @@ TOL = {"warp_variance": (1e-4, 1e-4), "conv3d": (1e-4, 1e-4),
 # dgrad algorithm) differs from run to run, and the render losses, which
 # encode sample depths drawn around the pseudo-depth at frequencies up to
 # 2^9, amplify that to 1.8e-4 of the step-1 loss. Under the flag both
-# paths repeat bit for bit (K6/K7's atomics move gradients by ~1e-6 only).
+# paths repeat bit for bit (every kernel backward, K6 and K7 included, is
+# deterministic).
 # Losses, relative, each term: measured ≤ 7.9e-5 (the render terms).
 LOSS_RTOL = 1e-4
 # Gradients, per parameter tensor, ‖kernel − plain‖₂ / ‖plain‖₂: measured
@@ -188,8 +193,12 @@ class Ledger:
         self.phase = "eval"
 
     def compare(self, kernel, label, fn_k, fn_p, n_bytes=0, flops=0,
-                fn_lib=None):
+                fn_lib=None, repeat=False, extra=None):
+        """Kernel vs plain on the same inputs; `repeat`: the kernel a
+        second time, which must agree in every bit; `extra`: more keys for
+        the row."""
         import torch
+        from rcmvsnet_tpu_torch.tools.repeat_warp_bwd import differ
         out_k, out_p = fn_k(), fn_p()
         outs_k = out_k if isinstance(out_k, tuple) else (out_k,)
         outs_p = out_p if isinstance(out_p, tuple) else (out_p,)
@@ -236,6 +245,14 @@ class Ledger:
         if not err <= atol + rtol * scale:
             self.failures.append(f"{kernel} {label}: max|Δ| {err:.3e} > "
                                  f"{atol + rtol * scale:.3e}")
+        if repeat:
+            again = fn_k()
+            row["repeat"] = differ(outs_k, again if isinstance(again, tuple)
+                                   else (again,))
+            if row["repeat"]["differing"]:
+                self.failures.append(f"{kernel} {label}: a second call "
+                                     f"differs {row['repeat']}")
+        row.update(extra or {})
         row["ms"] = self.timer(fn_k)
         row["plain_ms"] = self.timer(fn_p)
         row["library_ms"] = self.timer(fn_lib) if fn_lib else None
@@ -257,6 +274,9 @@ class Ledger:
                "bound_ms": sum(r["bound_ms"] for r in rows),
                "bound_by": "bytes" if t_b >= t_f else "operations",
                "calls": len(rows)}
+        if any("repeat" in r for r in rows):
+            out["repeats_bit_for_bit"] = all(
+                r["repeat"]["differing"] == 0 for r in rows if "repeat" in r)
         if kernel in TC_KERNELS:
             t_f = sum(bound_tc_ms(0, r["flops"])[0] for r in rows)
             out["bound_tc_ms"] = sum(r["bound_tc_ms"] for r in rows)
@@ -289,6 +309,31 @@ def warp_flops(V, h, w, C, D, bwd=False, images=0):
     if bwd:
         per_view += 8 * C + 8 * (C + images) + 3 * C
     return D * h * w * ((V - 1) * per_view + 5 * C)
+
+
+def tap_runs(projs, lo, step, nd, channels):
+    """The flushes of K6 / K7's fixed-point scatter, counted from the
+    kernels' own coordinates (`ops/warp_view.pixel_coords` spells out
+    `warp::project` operation by operation): per source view and
+    reference pixel, each run of consecutive planes with one top-left tap
+    is flushed once, one integer add per in-image tap and channel."""
+    import torch
+    from rcmvsnet_tpu_torch.ops.warp_variance import relative_projections
+    from rcmvsnet_tpu_torch.ops.warp_view import pixel_coords
+    h, w = lo.shape
+    rel = relative_projections(projs).reshape(-1, 4, 4)[1:]
+    d = torch.arange(nd, dtype=torch.float32, device=lo.device)
+    dv = lo[None] + d[:, None, None] * step[None]            # [D, h, w]
+    px, py = pixel_coords(rel, dv[None], h, w)               # [V-1, D, h, w]
+    x0, y0 = px.floor(), py.floor()
+    new = torch.ones_like(px, dtype=torch.bool)
+    new[:, 1:] = (x0[:, 1:] != x0[:, :-1]) | (y0[:, 1:] != y0[:, :-1])
+    taps = sum(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0)
+                & (y0 + dy < h)).int() for dx in (0, 1) for dy in (0, 1))
+    runs = int(new.sum())
+    return {"samples": px.numel(), "flushes": runs,
+            "merge_factor": px.numel() / runs,
+            "int_adds": int(taps[new].sum()) * channels}
 
 
 def conv2d_work(x, w, out, *extra):
@@ -620,45 +665,23 @@ def phase_train_kernels(cascade, render, batch, scene, ledger, dev):
     """Phase 5: the train kernels against their plain versions at the
     train shapes, forward and backward from fixed random cotangents."""
     import torch
-    import torch.nn.functional as F
-    from rcmvsnet_tpu_torch.core.geometry import compose_projection
     from rcmvsnet_tpu_torch.nn.costreg import TRUNK, conv_bn
     from rcmvsnet_tpu_torch.ops import conv3d as K2
     from rcmvsnet_tpu_torch.ops import conv3d_train as K8
     from rcmvsnet_tpu_torch.ops import warp_variance as K1
     from rcmvsnet_tpu_torch.ops import warp_volume as K7
     from rcmvsnet_tpu_torch.ops.sampling import resize_bilinear
+    from rcmvsnet_tpu_torch.tools.repeat_warp_bwd import train_stages
 
     ledger.phase = "train"
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rand = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
     imgs = batch["imgs"][0]                                   # [V,H,W,3]
     Hs, Ws = imgs.shape[1:3]
-    Vn = imgs.shape[0]
-    feats = cascade.feature(imgs.permute(0, 3, 1, 2).contiguous())
-    gt = torch.from_numpy(scene["depths"][0]).to(dev)
-    dv = batch["depth_values"][0]
-    interval = float(dv[-1] - dv[0]) / len(dv)
-    cfg = cascade.config
     unets = []
-    for s, (nd, sc, ratio) in enumerate(zip(cfg.ndepths, (4, 2, 1),
-                                            cfg.depth_intervals_ratio)):
-        key = f"stage{s + 1}"
-        h, w = Hs // sc, Ws // sc
-        if s == 0:
-            lo = torch.full((h, w), float(dv[0]), device=dev)
-            step = torch.full((h, w), float(dv[-1] - dv[0]) / (nd - 1),
-                              device=dev)
-        else:
-            cur = F.interpolate(gt[None, None], size=(h, w), mode="bilinear",
-                                align_corners=False)[0, 0]
-            cur = cur + rand(h, w) * ratio * interval
-            lo = (cur - nd / 2.0 * ratio * interval).contiguous()
-            step = ((cur + nd / 2.0 * ratio * interval - lo) / (nd - 1)) \
-                .contiguous()
-        f = feats[key].permute(0, 2, 3, 1).contiguous()          # [V,h,w,C]
-        C = f.shape[-1]
-        projs = compose_projection(batch["proj_matrices"][key][0])
+    for s, (key, f, projs, lo, step, nd) in enumerate(
+            train_stages(cascade, batch, scene, rand)):
+        Vn, h, w, C = f.shape
         tag = f"{key} V{Vn} {h}x{w} C{C} D{nd}"
         ledger.compare(
             "warp_variance", tag,
@@ -672,7 +695,8 @@ def phase_train_kernels(cascade, render, batch, scene, ledger, dev):
             lambda: K1.warp_variance_bwd(f, projs, lo, step, g),
             lambda: K1.warp_variance_bwd_plain(f, projs, lo, step, g),
             2 * nbytes(f) + nbytes(projs, lo, step, g),
-            warp_flops(Vn, h, w, C, nd, bwd=True))
+            warp_flops(Vn, h, w, C, nd, bwd=True), repeat=True,
+            extra=tap_runs(projs, lo, step, nd, C))
         if s == 0:
             im = resize_bilinear(imgs, h, w).contiguous()
             ledger.compare(
@@ -689,10 +713,10 @@ def phase_train_kernels(cascade, render, batch, scene, ledger, dev):
                 lambda: K7.warp_volume_bwd_plain(f, im, projs, lo, step,
                                                  *cots),
                 2 * nbytes(f, im) + nbytes(projs, lo, step, *cots),
-                warp_flops(Vn, h, w, C, nd, bwd=True, images=3))
+                warp_flops(Vn, h, w, C, nd, bwd=True, images=3),
+                repeat=True, extra=tap_runs(projs, lo, step, nd, C + 3))
         unets.append((f"cr{s}", cascade.cost_regularization[s], C,
                       (nd, h, w)))
-    del feats
     rc = render.MVSNet["cost_reg_2"]
     unets.append(("render", rc, rc.conv0.conv.in_channels,
                   (render.num_planes, Hs // 4, Ws // 4)))
@@ -957,6 +981,8 @@ def main() -> int:
         if name in TC_KERNELS:
             row.update(bound_tc_ms=s["bound_tc_ms"],
                        bound_tc_by=s["bound_tc_by"])
+        if "repeats_bit_for_bit" in s:
+            row["repeats_bit_for_bit"] = s["repeats_bit_for_bit"]
         if name in TRAIN_KERNELS and phase == "eval":
             t = ledger.summary(name, "train")
             row["train"] = {"launches": train_path["launches"][name],

@@ -2,7 +2,8 @@
 // (warp_variance.cu: K1 and its backward; warp_volume.cu: the stage-1
 // volume kernel and its backward; warp_view.cu: the per-view warp K10), so
 // that a backward recomputes exactly the taps its forward read and every
-// warp of the port samples by one rule.
+// warp of the port samples by one rule. The backwards' transposed sample
+// (a deterministic fixed-point scatter) is in warp_bwd.cuh.
 //
 // For reference pixel (x, y) at hypothesis depth dv and a row-major 4x4
 // relative projection m (src @ inv(ref), K folded in):
@@ -97,24 +98,6 @@ __device__ __forceinline__ void sample_channels(const float* base,
       val[4 * c4 + 2] = __fmaf_rn(wgt, q.z, val[4 * c4 + 2]);
       val[4 * c4 + 3] = __fmaf_rn(wgt, q.w, val[4 * c4 + 3]);
     }
-  }
-}
-
-// Transposed bilinear sample: scatter grad[c] * weight into the four taps
-// of dbase [H, W, NC] (atomicAdd: many (plane, pixel) threads reach one
-// source pixel, so the summation order varies from run to run).
-template <int NC>
-__device__ __forceinline__ void scatter_channels(float* dbase, const Taps& t,
-                                                 int H, int W,
-                                                 const float* grad) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const long long p = tap_pixel(t, k, H, W);
-    if (p < 0) continue;
-    const float wgt = tap_weight(t, k);
-    float* q = dbase + p * NC;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) atomicAdd(q + c, wgt * grad[c]);
   }
 }
 

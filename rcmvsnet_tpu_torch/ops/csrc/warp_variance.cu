@@ -16,29 +16,47 @@
 //
 // Backward (K6) replaces the backward kernel of
 // rcmvsnet_tpu/ops/pallas_warp_train.py plane_sweep_variance_fused_train
-// (_warp_var_bwd_kernel). With x_v the warped view v and g the cotangent
-// of the variance,
+// (:306; _warp_var_bwd_kernel :108, pallas_call :374). With x_v the warped
+// view v, mean = sum_v x_v / V and g the cotangent of the variance,
 //   dL/dx_v = (2/V) * g * (x_v - mean),   dL/dsrc_v = Warp_v^T dL/dx_v,
 // and no cotangent reaches the projections or the depth planes (the
-// sampling grid carries no gradient, as in the reference). One thread per
-// (plane, pixel) recomputes the mean over all V views (pass 1), then
-// re-samples each view and scatters its cotangent into dsrc with the four
-// bilinear weights (pass 2; atomicAdd). The reference view's cotangent
-// lands on its own pixel.
+// sampling grid carries no gradient, as in the reference). A group of C
+// lanes owns one reference pixel, one lane per channel, and walks the
+// planes in order (the TPU kernel's sequential plane grid): per plane each
+// lane projects the V-1 views (the forward's taps, bit for bit), samples
+// its channel of each once and keeps x_v in registers, forms the mean and
+// the cotangents, sums the reference view's cotangent over the planes in a
+// register (stored once, no atomic: the group owns that pixel) and merges
+// each source view's cotangent into its run of planes with one top-left
+// tap. Runs are flushed as 64-bit fixed-point integer adds
+// (warp_bwd.cuh), so the result is the same bit for bit in every run, as
+// the TPU kernel's is. No float atomics.
 //
 // Layouts: src and dsrc [V, h, w, C] channels-last (one tap reads C
-// contiguous floats, float4 loads); rel [V, 16] row-major relative
-// projections (row 0 unused); lo, step [h, w]; out and g [C, D, h, w], the
-// layout the 3D U-Net kernel (conv3d.cu) reads and writes.
+// contiguous floats); rel [V, 16] row-major relative projections (row 0
+// unused); lo, step [h, w]; out and g [C, D, h, w], the layout the 3D
+// U-Net kernel (conv3d.cu) reads and writes. The backward's scratch:
+// warp_bwd.cuh's Aux, then int64 quanta [V-1, h, w, C].
 //
 // Bound: device-memory bytes for the forward (each thread gathers
 // 4 taps x (V-1) views x C floats from source maps that stay hot in the
-// 50 MB L2, and writes C floats, coalesced across the warp per channel);
-// the backward adds twice the gathers and 4 x V x C atomic adds per
-// thread, which serialise on the D planes that hit one source pixel, so
-// atomic throughput bounds it.
+// 50 MB L2, and writes C floats, coalesced across the warp per channel).
+// The old float-atomic backward was bound by its atomics, one per tap and
+// channel of every sample, each lane on its own sector. Here they are one
+// integer add per flushed in-image tap and channel (fewer by the merge
+// factor, the group's C lanes in one coalesced request) and no longer set
+// the time: a build that flushes every plane, with 4-7x the adds, takes
+// 3-33 % longer (tools/ab_warp_bwd.py, PERF.md). What bounds it is the
+// work per plane and lane: V-1 projections, 4(V-1) gathers and the run
+// bookkeeping, done by each lane of a group. The bytes of g are small
+// (one read, plus one for its maximum), but g is [C, D, h, w], so a
+// group's lanes would read it at stride D*h*w, C sectors for C floats: a
+// block stages 8 planes of g for its 256 / C consecutive pixels in shared
+// memory, read in runs of 256 / C consecutive floats, and each lane reads
+// its own channel from there.
 #include <cuda_runtime.h>
 
+#include "warp_bwd.cuh"
 #include "warp_common.cuh"
 
 namespace {
@@ -101,71 +119,94 @@ warp_variance_kernel(const float* __restrict__ src,
   }
 }
 
-template <int C>
-__global__ void __launch_bounds__(128)
+constexpr int kPlaneChunk = 8;     // planes of g staged per __syncthreads
+
+// K6: one group of C lanes per reference pixel (256 / C pixels a block);
+// NV bounds the source views (V - 1) the registers hold.
+template <int C, int NV>
+__global__ void __launch_bounds__(warp::kBwdThreads)
 warp_variance_bwd_kernel(const float* __restrict__ src,
                          const float* __restrict__ rel,
                          const float* __restrict__ lo,
                          const float* __restrict__ step,
                          const float* __restrict__ g,
                          float* __restrict__ dsrc,
+                         unsigned long long* __restrict__ acc,
+                         const warp::Quantum* __restrict__ quantum,
                          int V, int H, int W, int D) {
+  constexpr int P = warp::kBwdThreads / C;
   __shared__ float s_rel[kMaxViews * 16];
+  __shared__ float s_g[kPlaneChunk][P][C + 1];
   for (int i = threadIdx.x; i < V * 16; i += blockDim.x) s_rel[i] = rel[i];
-  __syncthreads();
 
   const long long HW = (long long)H * W;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= HW * D) return;
-  const int d = (int)(idx / HW);
-  const long long pix = idx - (long long)d * HW;
-  const int y = (int)(pix / W);
-  const int x = (int)(pix - (long long)y * W);
-  const float dv = warp::plane_depth(lo[pix], step[pix], d);
-  const float fx = (float)x, fy = (float)y;
-  const long long plane = (long long)D * HW;
-  const float* gp = g + d * HW + pix;            // channel c at c * plane
+  const int j = threadIdx.x / C, c = threadIdx.x % C;
+  const long long p0 = (long long)blockIdx.x * P;
+  const long long pix = p0 + j;
+  const bool live = pix < HW;
+  const int y = live ? (int)(pix / W) : 0;
+  const float fx = live ? (float)(pix - (long long)y * W) : 0.f;
+  const float fy = (float)y;
+  const float lo_p = live ? lo[pix] : 0.f, step_p = live ? step[pix] : 0.f;
+  const float ref = live ? __ldg(src + pix * C + c) : 0.f;
+  const double to_q = quantum->to_q;
+  const int nv = V - 1;
   const float fv = (float)V;
   const float scale = 2.f / fv;
 
-  // pass 1: the mean over all views
-  float mean[C], val[C];
-  {
-    const float4* r = reinterpret_cast<const float4*>(src + pix * C);
+  warp::TapRun run[NV];
 #pragma unroll
-    for (int c4 = 0; c4 < C / 4; ++c4) {
-      const float4 q = __ldg(r + c4);
-      mean[4 * c4 + 0] = q.x; mean[4 * c4 + 1] = q.y;
-      mean[4 * c4 + 2] = q.z; mean[4 * c4 + 3] = q.w;
+  for (int v = 0; v < NV; ++v) warp::run_start(run[v]);
+  float dref = 0.f;
+
+  for (int d0 = 0; d0 < D; d0 += kPlaneChunk) {
+    __syncthreads();               // s_rel loaded; last chunk's reads done
+    for (int i = threadIdx.x; i < kPlaneChunk * C * P; i += blockDim.x) {
+      const int jj = i % P, cc = (i / P) % C, dd = i / (P * C);
+      const long long pp = p0 + jj;
+      const int d = d0 + dd;
+      s_g[dd][jj][cc] = pp < HW && d < D
+          ? __ldg(g + ((long long)cc * D + d) * HW + pp) : 0.f;
+    }
+    __syncthreads();
+    if (!live) continue;
+    const int dn = min(kPlaneChunk, D - d0);
+    for (int dd = 0; dd < dn; ++dd) {
+      const float dv = warp::plane_depth(lo_p, step_p, d0 + dd);
+      warp::Taps t[NV];
+      float x[NV];
+      float sum = ref;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        if (v >= nv) break;
+        const long long vo = (long long)(v + 1) * HW * C;
+        t[v] = warp::project(s_rel + (v + 1) * 16, fx, fy, dv, H, W);
+        x[v] = warp::sample_lane<C>(src + vo, t[v], H, W, c);
+        sum += x[v];
+      }
+      const float mean = sum / fv;
+      const float gs = scale * s_g[dd][j][c];
+      dref += gs * (ref - mean);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        if (v >= nv) break;
+        if (!warp::same_run(run[v], t[v])) {
+          warp::flush_taps<C>(acc + (long long)v * HW * C, run[v].x0,
+                              run[v].y0, run[v].acc, H, W, c, to_q);
+          warp::run_restart(run[v], t[v]);
+        }
+        warp::run_add(run[v], t[v], gs * (x[v] - mean));
+      }
     }
   }
-  for (int v = 1; v < V; ++v) {
-    const warp::Taps t = warp::project(s_rel + v * 16, fx, fy, dv, H, W);
-    warp::sample_channels<C>(src + (long long)v * HW * C, t, H, W, val);
+  if (!live) return;
 #pragma unroll
-    for (int c = 0; c < C; ++c) mean[c] += val[c];
+  for (int v = 0; v < NV; ++v) {
+    if (v >= nv) break;
+    warp::flush_taps<C>(acc + (long long)v * HW * C, run[v].x0, run[v].y0,
+                        run[v].acc, H, W, c, to_q);
   }
-#pragma unroll
-  for (int c = 0; c < C; ++c) mean[c] /= fv;
-
-  // pass 2: each view's cotangent, scattered through its warp
-  {
-    const float* r = src + pix * C;
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      val[c] = scale * __ldg(gp + c * plane) * (__ldg(r + c) - mean[c]);
-    float* q = dsrc + pix * C;
-#pragma unroll
-    for (int c = 0; c < C; ++c) atomicAdd(q + c, val[c]);
-  }
-  for (int v = 1; v < V; ++v) {
-    const warp::Taps t = warp::project(s_rel + v * 16, fx, fy, dv, H, W);
-    warp::sample_channels<C>(src + (long long)v * HW * C, t, H, W, val);
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      val[c] = scale * __ldg(gp + c * plane) * (val[c] - mean[c]);
-    warp::scatter_channels<C>(dsrc + (long long)v * HW * C, t, H, W, val);
-  }
+  dsrc[pix * C + c] = dref;
 }
 
 template <int C>
@@ -180,16 +221,30 @@ cudaError_t launch(const float* src, const float* rel, const float* lo,
   return cudaGetLastError();
 }
 
+template <int C, int NV>
+void launch_bwd(const float* src, const float* rel, const float* lo,
+                const float* step, const float* g, float* dsrc,
+                unsigned long long* acc, const warp::Quantum* q, int V,
+                int H, int W, int D, cudaStream_t stream) {
+  constexpr int P = warp::kBwdThreads / C;
+  const long long HW = (long long)H * W;
+  warp_variance_bwd_kernel<C, NV>
+      <<<(unsigned)((HW + P - 1) / P), warp::kBwdThreads, 0, stream>>>(
+          src, rel, lo, step, g, dsrc, acc, q, V, H, W, D);
+}
+
 template <int C>
-cudaError_t launch_bwd(const float* src, const float* rel, const float* lo,
-                       const float* step, const float* g, float* dsrc, int V,
-                       int H, int W, int D, cudaStream_t stream) {
-  const long long n = (long long)H * W * D;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  warp_variance_bwd_kernel<C><<<blocks, threads, 0, stream>>>(
-      src, rel, lo, step, g, dsrc, V, H, W, D);
-  return cudaGetLastError();
+void launch_bwd_views(const float* src, const float* rel, const float* lo,
+                      const float* step, const float* g, float* dsrc,
+                      unsigned long long* acc, const warp::Quantum* q, int V,
+                      int H, int W, int D, cudaStream_t stream) {
+  if (V <= 4)
+    launch_bwd<C, 3>(src, rel, lo, step, g, dsrc, acc, q, V, H, W, D, stream);
+  else if (V <= 8)
+    launch_bwd<C, 7>(src, rel, lo, step, g, dsrc, acc, q, V, H, W, D, stream);
+  else
+    launch_bwd<C, 15>(src, rel, lo, step, g, dsrc, acc, q, V, H, W, D,
+                      stream);
 }
 
 }  // namespace
@@ -208,21 +263,40 @@ extern "C" int warp_variance_f32(const float* src, const float* rel,
   }
 }
 
-// dsrc must be zeroed by the caller (the kernel accumulates into it).
+// Bytes of the scratch warp_variance_bwd_f32 takes (any contents).
+extern "C" long long warp_variance_bwd_scratch_bytes(int V, int H, int W,
+                                                     int C) {
+  return warp::kAuxBytes + 8LL * (V - 1) * H * W * C;
+}
+
+// K6. Every element of dsrc is written; scratch holds
+// warp_variance_bwd_scratch_bytes(V, H, W, C) bytes.
 extern "C" int warp_variance_bwd_f32(const float* src, const float* rel,
                                      const float* lo, const float* step,
-                                     const float* g, float* dsrc, int V,
-                                     int H, int W, int C, int D,
-                                     void* stream) {
+                                     const float* g, float* dsrc,
+                                     void* scratch, int V, int H, int W,
+                                     int C, int D, void* stream) {
   if (V < 1 || V > kMaxViews) return (int)cudaErrorInvalidValue;
+  if (C != 8 && C != 16 && C != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const long long HW = (long long)H * W;
+  warp::Aux* aux = static_cast<warp::Aux*>(scratch);
+  auto* acc = reinterpret_cast<unsigned long long*>(
+      static_cast<char*>(scratch) + warp::kAuxBytes);
+  warp::AbsMaxArgs a{{src, g, nullptr, nullptr},
+                     {V * HW * C, C * D * HW, 0, 0}};
+  warp::prepare_scratch(scratch,
+                        warp_variance_bwd_scratch_bytes(V, H, W, C), a,
+                        D * HW, V, false, s);
   switch (C) {
-    case 8:
-      return (int)launch_bwd<8>(src, rel, lo, step, g, dsrc, V, H, W, D, s);
-    case 16:
-      return (int)launch_bwd<16>(src, rel, lo, step, g, dsrc, V, H, W, D, s);
-    case 32:
-      return (int)launch_bwd<32>(src, rel, lo, step, g, dsrc, V, H, W, D, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 8: launch_bwd_views<8>(src, rel, lo, step, g, dsrc, acc, aux->q,
+                                V, H, W, D, s); break;
+    case 16: launch_bwd_views<16>(src, rel, lo, step, g, dsrc, acc, aux->q,
+                                  V, H, W, D, s); break;
+    default: launch_bwd_views<32>(src, rel, lo, step, g, dsrc, acc, aux->q,
+                                  V, H, W, D, s); break;
   }
+  warp::finish_quanta(acc, dsrc + HW * C, (V - 1) * HW * C, C, C, aux->q,
+                      s);
+  return (int)cudaGetLastError();
 }

@@ -14,19 +14,35 @@
 //   dL/dx_v   = (2/V) g_var (x_v - mean) + (2/V) g_nr (x_v - mean_nr)
 //   dL/dref   = (2/V) g_var (ref - mean)
 //   dL/dimg_v = the image cotangent of view v,
-// each scattered through Warp_v^T (four bilinear taps, atomicAdd) into
-// dfeat and dimg; the reference's lands on its own pixel. One thread per
-// (plane, pixel) recomputes the source sum (pass 1), then re-samples each
-// view (pass 2).
+// each applied through Warp_v^T (four bilinear taps) to dfeat and dimg;
+// the reference's lands on its own pixel, dimg[0] is zero. It replaces
+// pallas_warp_volume.py plane_sweep_volume_fused_train (:263;
+// _warp_vol_bwd_kernel :178, pallas_call :406) and is built as K6
+// (warp_variance.cu): a group of C lanes owns one reference pixel and
+// walks its planes in order, samples each source view once per plane
+// (x_v kept in registers), sums the reference's cotangent in a register
+// and merges each view's feature cotangent (every lane) and image
+// cotangent (lanes 0-2) into runs of planes with one top-left tap, which
+// it flushes as 64-bit fixed-point integer adds (warp_bwd.cuh): the
+// result is the same bit for bit in every run. No float atomics. The
+// features and the images get a quantum each.
 //
 // Layouts: feats / dfeat [V, h, w, C], imgs / dimg [V, h, w, 3]
 // channels-last; rel [V, 16]; lo, step [h, w]; var, var_nr, g_var, g_nr
-// [C, D, h, w]; wimg, g_img [3 (V-1), D, h, w].
+// [C, D, h, w]; wimg, g_img [3 (V-1), D, h, w]. The backward's scratch:
+// warp_bwd.cuh's Aux, int64 feature quanta [V-1, h, w, C], int64 image
+// quanta [V-1, h, w, 4] (channel 3 unused: one 32-byte sector a pixel).
 //
 // Bound: device-memory bytes forward (gathers hot in L2, (2C + 3(V-1))
-// floats written per thread); atomic throughput backward, as K6's.
+// floats written per thread); backward, as K6's, the work per plane and
+// lane (projections, gathers, run bookkeeping), not its integer atomics
+// (one per flushed in-image tap and channel, C + 3 channels). A block
+// stages the cotangents in shared memory 4 planes at a time (g_var, g_nr
+// and g_img are plane-major, so a group's lanes would read them at stride
+// D*h*w).
 #include <cuda_runtime.h>
 
+#include "warp_bwd.cuh"
 #include "warp_common.cuh"
 
 namespace {
@@ -104,8 +120,12 @@ warp_volume_kernel(const float* __restrict__ feats,
   }
 }
 
-template <int C>
-__global__ void __launch_bounds__(128)
+constexpr int kPlaneChunk = 4;     // planes of cotangents staged at once
+
+// K7's backward: one group of C lanes per reference pixel (256 / C pixels
+// a block); NV bounds the source views (V - 1) the registers hold.
+template <int C, int NV>
+__global__ void __launch_bounds__(warp::kBwdThreads)
 warp_volume_bwd_kernel(const float* __restrict__ feats,
                        const float* __restrict__ rel,
                        const float* __restrict__ lo,
@@ -113,66 +133,148 @@ warp_volume_bwd_kernel(const float* __restrict__ feats,
                        const float* __restrict__ g_var,
                        const float* __restrict__ g_nr,
                        const float* __restrict__ g_img,
-                       float* __restrict__ dfeat, float* __restrict__ dimg,
+                       float* __restrict__ dfeat,
+                       unsigned long long* __restrict__ acc_f,
+                       unsigned long long* __restrict__ acc_i,
+                       const warp::Quantum* __restrict__ quantum,
                        int V, int H, int W, int D) {
+  constexpr int P = warp::kBwdThreads / C;
   __shared__ float s_rel[kMaxViews * 16];
+  __shared__ float s_gv[kPlaneChunk][P][C + 1];
+  __shared__ float s_gn[kPlaneChunk][P][C + 1];
+  __shared__ float s_gi[kPlaneChunk][P][3 * NV];
   for (int i = threadIdx.x; i < V * 16; i += blockDim.x) s_rel[i] = rel[i];
-  __syncthreads();
 
   const long long HW = (long long)H * W;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= HW * D) return;
-  const int d = (int)(idx / HW);
-  const long long pix = idx - (long long)d * HW;
-  const int y = (int)(pix / W);
-  const int x = (int)(pix - (long long)y * W);
-  const float dv = warp::plane_depth(lo[pix], step[pix], d);
-  const float fx = (float)x, fy = (float)y;
-  const long long plane = (long long)D * HW;
-  const long long at = d * HW + pix;
+  const int j = threadIdx.x / C, c = threadIdx.x % C;
+  const long long p0 = (long long)blockIdx.x * P;
+  const long long pix = p0 + j;
+  const bool live = pix < HW;
+  const int y = live ? (int)(pix / W) : 0;
+  const float fx = live ? (float)(pix - (long long)y * W) : 0.f;
+  const float fy = (float)y;
+  const float lo_p = live ? lo[pix] : 0.f, step_p = live ? step[pix] : 0.f;
+  const float ref = live ? __ldg(feats + pix * C + c) : 0.f;
+  const double to_qf = quantum[0].to_q, to_qi = quantum[1].to_q;
+  const int nv = V - 1, ni = 3 * nv;
   const float fv = (float)V;
   const float scale = 2.f / fv;
-  const float* ref = feats + pix * C;
 
-  // pass 1: the source sum
-  float sum[C], val[C];
+  warp::TapRun run[NV];
+  float acc_img[NV][4];
 #pragma unroll
-  for (int c = 0; c < C; ++c) sum[c] = 0.f;
-  for (int v = 1; v < V; ++v) {
-    const warp::Taps t = warp::project(s_rel + v * 16, fx, fy, dv, H, W);
-    warp::sample_channels<C>(feats + (long long)v * HW * C, t, H, W, val);
+  for (int v = 0; v < NV; ++v) {
+    warp::run_start(run[v]);
 #pragma unroll
-    for (int c = 0; c < C; ++c) sum[c] += val[c];
+    for (int k = 0; k < 4; ++k) acc_img[v][k] = 0.f;
   }
+  float dref = 0.f;
 
-  // the reference view: only the all-view variance reads it
-  {
-    float* q = dfeat + pix * C;
+  for (int d0 = 0; d0 < D; d0 += kPlaneChunk) {
+    __syncthreads();               // s_rel loaded; last chunk's reads done
+    for (int i = threadIdx.x; i < kPlaneChunk * C * P; i += blockDim.x) {
+      const int jj = i % P, cc = (i / P) % C, dd = i / (P * C);
+      const long long pp = p0 + jj;
+      const int d = d0 + dd;
+      const bool in = pp < HW && d < D;
+      const long long at = ((long long)cc * D + d) * HW + pp;
+      s_gv[dd][jj][cc] = in ? __ldg(g_var + at) : 0.f;
+      s_gn[dd][jj][cc] = in ? __ldg(g_nr + at) : 0.f;
+    }
+    for (int i = threadIdx.x; i < kPlaneChunk * ni * P; i += blockDim.x) {
+      const int jj = i % P, ci = (i / P) % ni, dd = i / (P * ni);
+      const long long pp = p0 + jj;
+      const int d = d0 + dd;
+      s_gi[dd][jj][ci] = pp < HW && d < D
+          ? __ldg(g_img + ((long long)ci * D + d) * HW + pp) : 0.f;
+    }
+    __syncthreads();
+    if (!live) continue;
+    const int dn = min(kPlaneChunk, D - d0);
+    for (int dd = 0; dd < dn; ++dd) {
+      const float dv = warp::plane_depth(lo_p, step_p, d0 + dd);
+      warp::Taps t[NV];
+      float x[NV];
+      float sum = 0.f;                 // source views only
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float r = __ldg(ref + c);
-      const float m = (sum[c] + r) / fv;
-      atomicAdd(q + c, scale * __ldg(g_var + c * plane + at) * (r - m));
+      for (int v = 0; v < NV; ++v) {
+        if (v >= nv) break;
+        const long long vo = (long long)(v + 1) * HW * C;
+        t[v] = warp::project(s_rel + (v + 1) * 16, fx, fy, dv, H, W);
+        x[v] = warp::sample_lane<C>(feats + vo, t[v], H, W, c);
+        sum += x[v];
+      }
+      const float m = (sum + ref) / fv, m_nr = sum / fv;
+      const float gv = scale * s_gv[dd][j][c], gn = scale * s_gn[dd][j][c];
+      dref += gv * (ref - m);
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        if (v >= nv) break;
+        if (!warp::same_run(run[v], t[v])) {
+          warp::flush_taps<C>(acc_f + (long long)v * HW * C, run[v].x0,
+                              run[v].y0, run[v].acc, H, W, c, to_qf);
+          if (c < 3)
+            warp::flush_taps<4>(acc_i + (long long)v * HW * 4, run[v].x0,
+                                run[v].y0, acc_img[v], H, W, c, to_qi);
+          warp::run_restart(run[v], t[v]);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc_img[v][k] = 0.f;
+        }
+        warp::run_add(run[v], t[v],
+                      gv * (x[v] - m) + gn * (x[v] - m_nr));
+        if (c < 3) {
+          const float gi = s_gi[dd][j][3 * v + c];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            acc_img[v][k] = __fmaf_rn(warp::tap_weight(t[v], k), gi,
+                                      acc_img[v][k]);
+        }
+      }
     }
   }
-  // pass 2: each source view's feature and image cotangents
-  for (int v = 1; v < V; ++v) {
-    const warp::Taps t = warp::project(s_rel + v * 16, fx, fy, dv, H, W);
-    warp::sample_channels<C>(feats + (long long)v * HW * C, t, H, W, val);
+  if (!live) return;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float m = (sum[c] + __ldg(ref + c)) / fv;
-      const float m_nr = sum[c] / fv;
-      val[c] = scale * (__ldg(g_var + c * plane + at) * (val[c] - m)
-                        + __ldg(g_nr + c * plane + at) * (val[c] - m_nr));
-    }
-    warp::scatter_channels<C>(dfeat + (long long)v * HW * C, t, H, W, val);
-    float gi[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      gi[c] = __ldg(g_img + (long long)(3 * (v - 1) + c) * plane + at);
-    warp::scatter_channels<3>(dimg + (long long)v * HW * 3, t, H, W, gi);
+  for (int v = 0; v < NV; ++v) {
+    if (v >= nv) break;
+    warp::flush_taps<C>(acc_f + (long long)v * HW * C, run[v].x0, run[v].y0,
+                        run[v].acc, H, W, c, to_qf);
+    if (c < 3)
+      warp::flush_taps<4>(acc_i + (long long)v * HW * 4, run[v].x0,
+                          run[v].y0, acc_img[v], H, W, c, to_qi);
   }
+  dfeat[pix * C + c] = dref;
+}
+
+template <int C, int NV>
+void launch_bwd(const float* feats, const float* rel, const float* lo,
+                const float* step, const float* g_var, const float* g_nr,
+                const float* g_img, float* dfeat, unsigned long long* acc_f,
+                unsigned long long* acc_i, const warp::Quantum* q, int V,
+                int H, int W, int D, cudaStream_t s) {
+  constexpr int P = warp::kBwdThreads / C;
+  const long long HW = (long long)H * W;
+  warp_volume_bwd_kernel<C, NV>
+      <<<(unsigned)((HW + P - 1) / P), warp::kBwdThreads, 0, s>>>(
+          feats, rel, lo, step, g_var, g_nr, g_img, dfeat, acc_f, acc_i, q,
+          V, H, W, D);
+}
+
+template <int C>
+void launch_bwd_views(const float* feats, const float* rel, const float* lo,
+                      const float* step, const float* g_var,
+                      const float* g_nr, const float* g_img, float* dfeat,
+                      unsigned long long* acc_f, unsigned long long* acc_i,
+                      const warp::Quantum* q, int V, int H, int W, int D,
+                      cudaStream_t s) {
+  if (V <= 4)
+    launch_bwd<C, 3>(feats, rel, lo, step, g_var, g_nr, g_img, dfeat, acc_f,
+                     acc_i, q, V, H, W, D, s);
+  else if (V <= 8)
+    launch_bwd<C, 7>(feats, rel, lo, step, g_var, g_nr, g_img, dfeat, acc_f,
+                     acc_i, q, V, H, W, D, s);
+  else
+    launch_bwd<C, 15>(feats, rel, lo, step, g_var, g_nr, g_img, dfeat,
+                      acc_f, acc_i, q, V, H, W, D, s);
 }
 
 inline unsigned blocks_for(long long n, int threads) {
@@ -201,27 +303,48 @@ extern "C" int warp_volume_f32(const float* feats, const float* imgs,
   return (int)cudaGetLastError();
 }
 
-// dfeat and dimg must be zeroed by the caller (the kernel accumulates).
+// Bytes of the scratch warp_volume_bwd_f32 takes (any contents).
+extern "C" long long warp_volume_bwd_scratch_bytes(int V, int H, int W,
+                                                   int C) {
+  return warp::kAuxBytes + 8LL * (V - 1) * H * W * (C + 4);
+}
+
+// K7's backward. Every element of dfeat and dimg is written; scratch holds
+// warp_volume_bwd_scratch_bytes(V, H, W, C) bytes.
 extern "C" int warp_volume_bwd_f32(const float* feats, const float* rel,
                                    const float* lo, const float* step,
                                    const float* g_var, const float* g_nr,
                                    const float* g_img, float* dfeat,
-                                   float* dimg, int V, int H, int W, int C,
-                                   int D, void* stream) {
+                                   float* dimg, void* scratch, int V, int H,
+                                   int W, int C, int D, void* stream) {
   if (V < 2 || V > kMaxViews) return (int)cudaErrorInvalidValue;
+  if (C != 8 && C != 16 && C != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned b = blocks_for((long long)H * W * D, 128);
+  const long long HW = (long long)H * W;
+  warp::Aux* aux = static_cast<warp::Aux*>(scratch);
+  auto* acc_f = reinterpret_cast<unsigned long long*>(
+      static_cast<char*>(scratch) + warp::kAuxBytes);
+  unsigned long long* acc_i = acc_f + (V - 1) * HW * C;
+  const long long plane = (long long)D * HW;
+  warp::AbsMaxArgs a{{feats, g_var, g_nr, g_img},
+                     {V * HW * C, C * plane, C * plane, 3 * (V - 1) * plane}};
+  warp::prepare_scratch(scratch, warp_volume_bwd_scratch_bytes(V, H, W, C),
+                        a, plane, V, true, s);
   switch (C) {
-    case 8: warp_volume_bwd_kernel<8><<<b, 128, 0, s>>>(
-        feats, rel, lo, step, g_var, g_nr, g_img, dfeat, dimg, V, H, W, D);
+    case 8: launch_bwd_views<8>(feats, rel, lo, step, g_var, g_nr, g_img,
+                                dfeat, acc_f, acc_i, aux->q, V, H, W, D, s);
       break;
-    case 16: warp_volume_bwd_kernel<16><<<b, 128, 0, s>>>(
-        feats, rel, lo, step, g_var, g_nr, g_img, dfeat, dimg, V, H, W, D);
+    case 16: launch_bwd_views<16>(feats, rel, lo, step, g_var, g_nr, g_img,
+                                  dfeat, acc_f, acc_i, aux->q, V, H, W, D, s);
       break;
-    case 32: warp_volume_bwd_kernel<32><<<b, 128, 0, s>>>(
-        feats, rel, lo, step, g_var, g_nr, g_img, dfeat, dimg, V, H, W, D);
+    default: launch_bwd_views<32>(feats, rel, lo, step, g_var, g_nr, g_img,
+                                  dfeat, acc_f, acc_i, aux->q, V, H, W, D, s);
       break;
-    default: return (int)cudaErrorInvalidValue;
   }
+  cudaMemsetAsync(dimg, 0, sizeof(float) * HW * 3, s);
+  warp::finish_quanta(acc_f, dfeat + HW * C, (V - 1) * HW * C, C, C, aux->q,
+                      s);
+  warp::finish_quanta(acc_i, dimg + HW * 3, (V - 1) * HW * 3, 4, 3,
+                      aux->q + 1, s);
   return (int)cudaGetLastError();
 }

@@ -7,9 +7,11 @@ function in plain PyTorch (`ops/warp.plane_sweep_variance` on the
 
 `warp_variance_bwd` (K6) is the cotangent of the features: the second entry
 of the same source on a CUDA tensor, `warp_variance_bwd_plain` (autograd
-through the plain version) on a CPU one. `warp_variance_train` wraps the
-pair in one `torch.autograd.Function`; the projections and depth planes get
-no gradient (the sampling grid carries none).
+through the plain version) on a CPU one. K6 sums in 64-bit fixed point
+(`csrc/warp_bwd.cuh`), so two calls on the same inputs agree in every
+bit. `warp_variance_train` wraps the pair in one `torch.autograd.Function`;
+the projections and depth planes get no gradient (the sampling grid carries
+none).
 
 Replaces the TPU kernels `rcmvsnet_tpu/ops/pallas_warp2.py`
 `plane_sweep_variance_lanes` (planes mode) and the backward of
@@ -74,6 +76,18 @@ def _lib(entry="warp_variance_f32", n_ptr=5):
     return fn
 
 
+def bwd_scratch(source: str, feats: torch.Tensor) -> torch.Tensor:
+    """The scratch a backward entry of `csrc/<source>.cu` takes for feats
+    [V, h, w, C] (its fixed-point sums and their quantum), as bytes on
+    feats' device; the entry `<source>_bwd_scratch_bytes` sizes it."""
+    fn = getattr(_build.load(source), f"{source}_bwd_scratch_bytes")
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+    return torch.empty(fn(*feats.shape), dtype=torch.uint8,
+                       device=feats.device)
+
+
 def _check(name, feats, lo, step):
     V, h, w, C = feats.shape
     if C not in CHANNELS or not 1 <= V <= MAX_VIEWS:
@@ -120,10 +134,11 @@ def warp_variance_bwd(feats: torch.Tensor, projs: torch.Tensor,
                          f"[{C}, D, {h}, {w}]")
     rel = relative_projections(projs)
     _build.require_cuda("warp_variance_bwd", feats, rel, lo, step, g)
-    dsrc = torch.zeros_like(feats)
-    err = _lib("warp_variance_bwd_f32", 6)(
+    dsrc = torch.empty_like(feats)
+    scratch = bwd_scratch("warp_variance", feats)
+    err = _lib("warp_variance_bwd_f32", 7)(
         feats.data_ptr(), rel.data_ptr(), lo.data_ptr(), step.data_ptr(),
-        g.data_ptr(), dsrc.data_ptr(), V, h, w, C, D,
+        g.data_ptr(), dsrc.data_ptr(), scratch.data_ptr(), V, h, w, C, D,
         _build.stream_ptr(feats.device))
     _build.check(err, "warp_variance_bwd")
     warp_variance_bwd.launches += 1

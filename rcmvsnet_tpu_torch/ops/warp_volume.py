@@ -5,9 +5,10 @@ warped source images in one sweep — and its backward.
 tensor; for a CPU tensor it returns `warp_volume_plain` (`ops/warp.py`'s
 `homo_warp`, variance and `plane_sweep_variance_no_ref`, the composition
 the JAX cascade runs when the kernel is off). `warp_volume_bwd` is the
-backward (the second entry of the same source, or autograd through the
-plain version), and `warp_volume_train` wraps both in one
-`torch.autograd.Function`, differentiable in the features and the images.
+backward (the second entry of the same source, deterministic like K6's,
+or autograd through the plain version), and `warp_volume_train` wraps both
+in one `torch.autograd.Function`, differentiable in the features and the
+images.
 
 Replaces the TPU kernel `rcmvsnet_tpu/ops/pallas_warp_volume.py`
 `plane_sweep_volume_fused_train` (forward and backward); as for K1, the
@@ -21,8 +22,8 @@ import torch
 
 from . import _build
 from .warp import homo_warp, plane_sweep_variance_no_ref
-from .warp_variance import (CHANNELS, MAX_VIEWS, relative_projections,
-                            warp_variance_plain)
+from .warp_variance import (CHANNELS, MAX_VIEWS, bwd_scratch,
+                            relative_projections, warp_variance_plain)
 
 
 def warp_volume_plain(feats: torch.Tensor, imgs: torch.Tensor,
@@ -118,14 +119,15 @@ def warp_volume_bwd(feats, imgs, projs, lo, step, g_var, g_nr, g_img):
     rel = relative_projections(projs)
     _build.require_cuda("warp_volume_bwd", feats, rel, lo, step, g_var,
                         g_nr, g_img)
-    dfeat = torch.zeros_like(feats)
-    dimg = torch.zeros((V, h, w, 3), dtype=torch.float32,
+    dfeat = torch.empty_like(feats)
+    dimg = torch.empty((V, h, w, 3), dtype=torch.float32,
                        device=feats.device)
-    err = _lib("warp_volume_bwd_f32", 9)(
+    scratch = bwd_scratch("warp_volume", feats)
+    err = _lib("warp_volume_bwd_f32", 10)(
         feats.data_ptr(), rel.data_ptr(), lo.data_ptr(), step.data_ptr(),
         g_var.data_ptr(), g_nr.data_ptr(), g_img.data_ptr(),
-        dfeat.data_ptr(), dimg.data_ptr(), V, h, w, C, D,
-        _build.stream_ptr(feats.device))
+        dfeat.data_ptr(), dimg.data_ptr(), scratch.data_ptr(), V, h, w, C,
+        D, _build.stream_ptr(feats.device))
     _build.check(err, "warp_volume_bwd")
     warp_volume_bwd.launches += 1
     return dfeat, dimg

@@ -96,6 +96,11 @@ def test_train_phases_run_on_cpu_and_demand_launches():
                      "conv3d": 2 * 43, "conv3d_dw": 43}
     assert all(r["max_abs_err"] == 0.0 for r in ledger.rows)
     assert all(r["bound_ms"] > 0 for r in ledger.rows)
+    scatter = [r for r in ledger.rows if r["kernel"] in ("warp_variance_bwd",
+                                                          "warp_volume_bwd")]
+    assert all(r["repeat"]["differing"] == 0 and r["merge_factor"] >= 1
+               and r["int_adds"] > 0 for r in scatter)
+    assert ledger.summary("warp_volume_bwd", "train")["repeats_bit_for_bit"]
     with pytest.raises(AssertionError, match="train path never launched"):
         chip_smoke.phase_train(batch, load_state_dict(ASSET), "cpu",
                                torch.device("cpu"), cfg, warmup=1, timed=1)

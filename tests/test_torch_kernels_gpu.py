@@ -11,13 +11,15 @@ gradients from a fixed random cotangent against autograd through the plain
 versions: K6 (K1's backward) at C 8/16/32, K7 (volume forward and
 backward), K8 in each mode (forward and dx through K2, dw through its own
 kernel, the 41-channel input, 1-channel prob head, 64→64 and odd sizes in
-each mode included), dw repeated bit for bit (no atomics); K9 (K2's
-kernel as the raw conv) in every mode at odd and non-multiple-of-8 sizes;
-K10 at C 3/8/16/32 (the scalar path and the float4 path), and the K10
-route's variance against K1's, within 1e-5 of its largest value. The
-backward kernels sum with atomicAdd, so their order varies from run to
-run: tolerance 1e-4 of the largest value. Run on the card without the JAX
-test configuration (its host has no jax):
+each mode included), dw, K6 and K7's backward each repeated bit for bit
+(K6 and K7 also at odd sizes); K9 (K2's kernel as the raw conv) in every
+mode at odd and non-multiple-of-8 sizes; K10 at C 3/8/16/32 (the scalar
+path and the float4 path), and the K10 route's variance against K1's,
+within 1e-5 of its largest value. The backward kernels sum in another
+order than autograd (K8 dw in per-block partials, K6 and K7 in 64-bit
+fixed point, rounded once per flushed run of planes), so they are held to
+1e-4 of the largest value, and to themselves bit for bit. Run on the card
+without the JAX test configuration (its host has no jax):
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_kernels_gpu.py
@@ -225,6 +227,70 @@ def test_conv3d_dw_repeats_bit_for_bit(dev, mode, ci, co, shape):
     second = K8.conv3d_dw(x, cot, mode)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kernel,C,D", [("k6", 8, 8), ("k6", 16, 32),
+                                         ("k6", 32, 48), ("k7", 32, 48)])
+def test_warp_backward_repeats_bit_for_bit(dev, kernel, C, D):
+    """K6 and K7's backward sum in fixed point: two calls on the same
+    inputs agree in every bit. A failure reports how many elements differ
+    and by how much."""
+    V, h, w = 4, 24, 40
+    g = _gen(dev, 5 * C + D)
+    feats = torch.randn(V, h, w, C, device=dev, generator=g)
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = torch.full((h, w), 4.0, device=dev)
+    projs = _projs(V, h, w, dev)
+    if kernel == "k6":
+        cot = torch.randn(C, D, h, w, device=dev, generator=g)
+        run = lambda: (K1.warp_variance_bwd(feats, projs, lo, step, cot),)
+    else:
+        imgs = torch.rand(V, h, w, 3, device=dev, generator=g)
+        cots = [torch.randn(c, D, h, w, device=dev, generator=g)
+                for c in (C, C, 3 * (V - 1))]
+        run = lambda: K7.warp_volume_bwd(feats, imgs, projs, lo, step, *cots)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        n_diff = int((a != b).sum())
+        delta = float((a - b).abs().max())
+        print(f"{kernel} C{C} D{D} {tuple(a.shape)}: {n_diff} of "
+              f"{a.numel()} elements differ, max |delta| {delta:.3e} "
+              f"(max |value| {float(a.abs().max()):.3e})")
+        assert torch.equal(a, b), (n_diff, delta)
+
+
+@pytest.mark.parametrize("kernel,C,D,h,w", [
+    ("k6", 8, 5, 13, 21), ("k6", 32, 3, 7, 9), ("k6", 16, 11, 9, 30),
+    ("k7", 16, 6, 11, 13), ("k7", 8, 9, 5, 27)])
+def test_warp_backward_odd_sizes_match_plain(dev, kernel, C, D, h, w):
+    """K6 and K7's backward where the planes do not fill the staged chunks
+    and the pixels do not fill the last block (h·w not a multiple of
+    256 / C): within 1e-4 of autograd through the plain versions, and
+    repeated bit for bit."""
+    V = 4
+    g = _gen(dev, C * D + h)
+    feats = torch.randn(V, h, w, C, device=dev, generator=g)
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = torch.full((h, w), 4.0, device=dev)
+    projs = _projs(V, h, w, dev)
+    if kernel == "k6":
+        cot = torch.randn(C, D, h, w, device=dev, generator=g)
+        args = (feats, projs, lo, step, cot)
+        run = lambda: (K1.warp_variance_bwd(*args),)
+        want = (K1.warp_variance_bwd_plain(*args),)
+    else:
+        imgs = torch.rand(V, h, w, 3, device=dev, generator=g)
+        cots = [torch.randn(c, D, h, w, device=dev, generator=g)
+                for c in (C, C, 3 * (V - 1))]
+        args = (feats, imgs, projs, lo, step, *cots)
+        run = lambda: K7.warp_volume_bwd(*args)
+        want = K7.warp_volume_bwd_plain(*args)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b, p in zip(first, second, want):
+        assert torch.equal(a, b)
+        _close(a, p)
 
 
 @pytest.mark.parametrize("mode", ["s1", "s2", "t2"])

@@ -2,15 +2,18 @@
 CPU, through the plain versions, at a tiny shape (the module's shape
 constants patched): each prints its host-clock lines under a CPU label,
 times every component it names, and refuses a CUDA device that is
-absent (as does the kernel A/B tool, which runs on the card only)."""
+absent (as do the kernel A/B tools, which run on the card only). The
+warp-backward repeat tool reports every call's two runs, which the plain
+versions give equal."""
 import json
 from functools import partial
 
 import pytest
 import torch
 
-from rcmvsnet_tpu_torch.tools import (ab_conv3d, profile_breakdown,
-                                      profile_conv3d)
+from rcmvsnet_tpu_torch.tools import (ab_conv3d, ab_warp_bwd,
+                                      profile_breakdown, profile_conv3d,
+                                      repeat_warp_bwd)
 from rcmvsnet_tpu_torch.tools.timing import make_timer
 
 torch.set_num_threads(2)
@@ -48,8 +51,21 @@ def test_profile_conv3d_cpu(capsys, monkeypatch):
     assert json.loads(out[-1])["cases"] == rows
 
 
+def test_repeat_warp_bwd_cpu(capsys):
+    rows = repeat_warp_bwd.run(torch.device("cpu"), shape=(64, 80, 3))
+    out = capsys.readouterr().out.splitlines()
+    assert [r["call"] for r in rows] == [
+        "warp_variance_bwd stage1 V3 16x20 C32 D48",
+        "warp_volume_bwd stage1 V3 16x20 C32 D48",
+        "warp_variance_bwd stage2 V3 32x40 C16 D32",
+        "warp_variance_bwd stage3 V3 64x80 C8 D8"]
+    assert all(r["differing"] == 0 and r["max_abs"] > 0 for r in rows)
+    assert rows[1]["elements"] == 3 * 16 * 20 * (32 + 3)
+    assert [json.loads(line) for line in out] == rows
+
+
 @pytest.mark.parametrize("tool", [profile_breakdown, profile_conv3d,
-                                  ab_conv3d])
+                                  ab_conv3d, ab_warp_bwd, repeat_warp_bwd])
 def test_tools_refuse_missing_cuda(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):

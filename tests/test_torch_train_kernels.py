@@ -193,7 +193,7 @@ def test_k8_forward_and_grads_match_jax(mode, ci, co, shape):
     np.testing.assert_allclose(dw.numpy(), np.asarray(gk_j), **GTOL)
 
 
-def test_k8_adjoint_rejects_odd_sizes():
+def test_k8_adjoint_odd_sizes_match_autograd():
     """The stride-2 conv's adjoint is the transposed conv, 2n per axis:
     over an odd input size K8 trims it to the input (`out_dhw`), and the
     gradient equals autograd through the plain conv; a size that no
