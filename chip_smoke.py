@@ -11,15 +11,21 @@ the final "ok" line):
   2. build    compile the six CUDA sources (sm_90a, one nvcc each, in
               parallel) and print the build seconds; count the TF32
               tensor-core MMAs (HMMA ... TF32) that `cuobjdump -sass` finds
-              in each kernel of K2/K9 and K8 dw, which must be > 0;
+              in each tensor-core kernel of K2/K9, K8 dw and K5, which
+              must be > 0;
   3. kernels  hold each eval kernel against its plain PyTorch version on
               the card, at the DTU eval shapes (864x1152, V=5, stages
               216x288x32/48, 432x576x16/32, 864x1152x8/8): K1 at all 3
               stages, K2 in every mode of all 3 U-Nets (stride 1, stride 2,
-              transposed, prob), K4 at 3 stages, K5 at every FeatureNet
-              layer; print max errors and median ms of both, the library
-              call's ms where one PyTorch call computes the same function,
-              and the card's least time for the work (bound);
+              transposed, prob), K4 at 3 stages, K5 at every call of the
+              eval FeatureNet (the 8 trunk convs, out1 and out2 writing
+              the warp layout, inner1+up, and stage 3's lateral head
+              against its plain composition, inner2+up then out3), each
+              row with its route; print max errors and median ms of both,
+              the library call's ms where one PyTorch call computes the
+              same function (K5 also sums its calls with the lateral
+              head's two unfused cuDNN calls: library_unfused_ms), and
+              the card's least time for the work (bound);
   4. eval     `infer_views` on all 5 reference views of an in-memory
               textured-plane scene at 864x1152, V=5, 192 planes, with the
               committed golden weights, once through the kernels and once
@@ -67,9 +73,9 @@ the final "ok" line):
               line.
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM and 67 TFLOP/s
 of float32 outside the tensor cores (TF32 is off in PyTorch on this path);
-the 3D convs (K2, K8 dw, K9), which run 3xTF32 on the tensor cores, also
-get `bound_tc_ms`: bytes over HBM against 3 TF32 products per multiply-add
-over 495 TFLOP/s. Per-call
+the convs (K2, K5, K8 dw, K9), which run 3xTF32 on the tensor cores (K5
+on its "tc" route), also get `bound_tc_ms`: bytes over HBM against 3 TF32
+products per multiply-add over 495 TFLOP/s. Per-call
 details go to chip_smoke.json in the output directory `main` names; every
 printed result carries the card's name and power limit.
 
@@ -97,7 +103,7 @@ HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12                     # f32, outside the tensor cores
 TF32_FLOPS_PER_S = 495e12                   # TF32 tensor cores, dense
 # the kernels that run 3xTF32 MMAs: three TF32 products per multiply-add
-TC_KERNELS = ("conv3d", "conv3d_dw", "conv3d_lanewise")
+TC_KERNELS = ("conv3d", "conv3d_dw", "conv3d_lanewise", "conv2d")
 # plain-vs-kernel tolerances: |kernel - plain| <= atol + rtol * max|plain|.
 # Sums run in another order than cuDNN's / torch's (and the warp's
 # coordinates in another association), so float32 rounding differs.
@@ -159,13 +165,13 @@ def bound_tc_ms(n_bytes: float, flops: float):
 
 def sass_mma_counts() -> dict:
     """{library: {"kernels": {kernel: TF32 HMMA count}, "example": one
-    such instruction}} of the 3D-conv libraries, from `cuobjdump -sass` of
-    the built files (the CUDA toolkit's)."""
+    such instruction}} of the conv libraries (K2/K9, K8 dw, K5), from
+    `cuobjdump -sass` of the built files (the CUDA toolkit's)."""
     import re
     from rcmvsnet_tpu_torch.ops import _build
     tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
     out = {}
-    for lib in ("conv3d", "conv3d_dw"):
+    for lib in ("conv3d", "conv3d_dw", "conv2d"):
         sass = subprocess.run([tool, "-sass", str(_build._target(lib))],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -274,6 +280,11 @@ class Ledger:
                "bound_ms": sum(r["bound_ms"] for r in rows),
                "bound_by": "bytes" if t_b >= t_f else "operations",
                "calls": len(rows)}
+        if any("library_unfused_ms" in r for r in rows):
+            # the rows' library calls with a fused row's unfused ones
+            unf = [r.get("library_unfused_ms", r["library_ms"]) for r in rows]
+            out["library_unfused_ms"] = (None if any(v is None for v in unf)
+                                         else sum(unf))
         if any("repeat" in r for r in rows):
             out["repeats_bit_for_bit"] = all(
                 r["repeat"]["differing"] == 0 for r in rows if "repeat" in r)
@@ -339,7 +350,18 @@ def tap_runs(projs, lo, step, nd, channels):
 def conv2d_work(x, w, out, *extra):
     N, Ci = x.shape[:2]
     Co, _, k, _ = w.shape
-    return nbytes(x, w, out, *extra), 2 * N * Co * Ci * k * k * out[0, 0].numel()
+    pos = out[0].numel() // Co          # output positions, either layout
+    return nbytes(x, w, out, *extra), 2 * N * Co * Ci * k * k * pos
+
+
+def lateral_work(up, lat, wi, bi, w):
+    """K5's lateral head: reads up, lat and the weights once, writes the
+    [N, H, W, Co] output; the 1x1 lateral conv and out3's 3x3 conv."""
+    N, Cl, H, W = lat.shape
+    Co, Cu = w.shape[:2]
+    out_bytes = 4 * N * H * W * Co
+    return (nbytes(up, lat, wi, bi, w) + out_bytes,
+            2 * N * H * W * (Cu * Cl + Co * Cu * 9))
 
 
 def phase_kernels(model, samples, scene, ledger, dev):
@@ -357,43 +379,58 @@ def phase_kernels(model, samples, scene, ledger, dev):
     s0 = samples[0]
     x = torch.from_numpy(s0["imgs"]).to(dev).permute(0, 3, 1, 2).contiguous()
 
-    # K5: every FeatureNet layer, 5 views at 864x1152
+    # K5: every call of the eval FeatureNet, 5 views at 864x1152
     fn = model.feature
+
+    def k5(label, x, wgt, extra, fn_lib, **kw):
+        y = K5.conv2d_plain(x, wgt, **kw)
+        way = K5.route(wgt.shape[-1], kw.get("stride", 1),
+                       kw.get("padding", 0), x.shape[1])
+        return ledger.compare(
+            "conv2d", f"{label} {tuple(x.shape)}",
+            lambda: K5.conv2d(x, wgt, **kw),
+            lambda: K5.conv2d_plain(x, wgt, **kw),
+            *conv2d_work(x, wgt, y, *extra), fn_lib=fn_lib,
+            extra={"route": way})
+
     acts = []
     for si, seq in enumerate((fn.conv0, fn.conv1, fn.conv2)):
         for li, blk in enumerate(seq):
             sc, sh = bn_scale_shift(blk.bn)
-            args = (blk.conv.weight, sc, sh)
-            kw = dict(stride=blk.conv.stride[0], padding=blk.conv.padding[0],
-                      relu=True)
-            y = K5.conv2d_plain(x, *args, **kw)
-            x = ledger.compare(
-                "conv2d", f"conv{si}.{li} {tuple(x.shape)}",
-                lambda x=x: K5.conv2d(x, *args, **kw),
-                lambda x=x: K5.conv2d_plain(x, *args, **kw),
-                *conv2d_work(x, blk.conv.weight, y, sc, sh),
-                fn_lib=lambda x=x, kw=kw: F.conv2d(
-                    x, args[0], stride=kw["stride"], padding=kw["padding"]))
+            kw = dict(scale=sc, shift=sh, stride=blk.conv.stride[0],
+                      padding=blk.conv.padding[0], relu=True)
+            x = k5(f"conv{si}.{li}", x, blk.conv.weight, (sc, sh),
+                   lambda x=x, kw=kw, w=blk.conv.weight: F.conv2d(
+                       x, w, stride=kw["stride"], padding=kw["padding"]),
+                   **kw)
         acts.append(x)
     conv0, conv1, intra = acts
-    feats = {}
-
-    def head(label, x, wgt, shift=None, up=None, padding=0):
-        y = K5.conv2d_plain(x, wgt, shift=shift, up=up, padding=padding)
-        return ledger.compare(
-            "conv2d", label,
-            lambda: K5.conv2d(x, wgt, shift=shift, up=up, padding=padding),
-            lambda: K5.conv2d_plain(x, wgt, shift=shift, up=up,
-                                    padding=padding),
-            *conv2d_work(x, wgt, y, shift, up),
-            fn_lib=lambda: F.conv2d(x, wgt, shift, padding=padding))
-
-    feats["stage1"] = head("out1", intra, fn.out1.weight)
-    intra = head("inner1+up", conv1, fn.inner1.weight, fn.inner1.bias, intra)
-    feats["stage2"] = head("out2", intra, fn.out2.weight, padding=1)
-    intra = head("inner2+up", conv0, fn.inner2.weight, fn.inner2.bias, intra)
-    feats["stage3"] = head("out3", intra, fn.out3.weight, padding=1)
-    del acts, conv0, conv1, intra, x
+    feats = {"stage1": k5("out1 warp", intra, fn.out1.weight, (),
+                          lambda: F.conv2d(intra, fn.out1.weight),
+                          out_layout="warp")}
+    intra = k5("inner1+up", conv1, fn.inner1.weight, (fn.inner1.bias, intra),
+               lambda: F.conv2d(conv1, fn.inner1.weight, fn.inner1.bias),
+               shift=fn.inner1.bias, up=intra)
+    feats["stage2"] = k5("out2 warp", intra, fn.out2.weight, (),
+                         lambda: F.conv2d(intra, fn.out2.weight, padding=1),
+                         padding=1, out_layout="warp")
+    # stage 3's lateral head against its plain composition; no one PyTorch
+    # call fuses the two convs: the row's "library_unfused_ms" times the
+    # two cuDNN calls of the unfused head (inner2 1x1 with bias, then out3
+    # on the sum as the plain path writes it)
+    lat = (intra, conv0, fn.inner2.weight, fn.inner2.bias, fn.out3.weight)
+    s3 = K5.conv2d_plain(conv0, fn.inner2.weight, shift=fn.inner2.bias,
+                         up=intra)
+    feats["stage3"] = ledger.compare(
+        "conv2d", f"out3 lateral warp {tuple(conv0.shape)} up "
+        f"{tuple(intra.shape)}",
+        lambda: K5.lateral_conv2d(*lat, out_layout="warp"),
+        lambda: K5.lateral_conv2d_plain(*lat, out_layout="warp"),
+        *lateral_work(*lat),
+        extra={"route": "lateral", "library_unfused_ms": ledger.timer(
+            lambda: (F.conv2d(conv0, fn.inner2.weight, fn.inner2.bias),
+                     F.conv2d(s3, fn.out3.weight, padding=1)))})
+    del acts, conv0, conv1, intra, x, s3, lat
 
     gt = torch.from_numpy(scene["depths"][0]).to(dev)
     dv = s0["depth_values"]
@@ -418,7 +455,7 @@ def phase_kernels(model, samples, scene, ledger, dev):
             lo = (cur - nd / 2.0 * ratio * interval).contiguous()
             step = ((cur + nd / 2.0 * ratio * interval - lo) / (nd - 1)) \
                 .contiguous()
-        f = feats[key].permute(0, 2, 3, 1).contiguous()          # [V,h,w,C]
+        f = feats[key]                                           # [V,h,w,C]
         projs = compose_projection(
             torch.from_numpy(s0["proj_matrices"][key]).to(dev))
         Vn, C = f.shape[0], f.shape[-1]
@@ -981,6 +1018,8 @@ def main() -> int:
         if name in TC_KERNELS:
             row.update(bound_tc_ms=s["bound_tc_ms"],
                        bound_tc_by=s["bound_tc_by"])
+        if "library_unfused_ms" in s:
+            row["library_unfused_ms"] = s["library_unfused_ms"]
         if "repeats_bit_for_bit" in s:
             row["repeats_bit_for_bit"] = s["repeats_bit_for_bit"]
         if name in TRAIN_KERNELS and phase == "eval":

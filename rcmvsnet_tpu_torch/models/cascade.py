@@ -10,7 +10,9 @@ Eval (`forward`), per stage and batch element:
   depth and confidence (K4),
 with the per-pixel hypothesis schedule dv(d) = lo + d·step feeding K1 and
 K4 directly; the [D, h, w] hypothesis volume exists only inside the plain
-versions.
+versions. FeatureNet's three heads (out1, out2 and stage 3's fused
+lateral head) write the [V, h, w, C] layout K1 reads, so no feature map
+is permuted or copied between K5 and K1.
 
 Train (`forward_train`, BatchNorm in train mode): FeatureNet as modules;
 per stage the differentiable warp — K7 (variance, no-ref variance and
@@ -63,7 +65,8 @@ class CascadeMVSNet(nn.Module):
         tail = depth_tail_plain if plain else depth_tail
         B, V, H, W, _ = imgs.shape
         x = imgs.reshape(B * V, H, W, 3).permute(0, 3, 1, 2).contiguous()
-        feats = self.feature.forward_folded(x, plain=plain)
+        feats = self.feature.forward_folded(x, plain=plain,
+                                            out_layout="warp")
 
         outputs = {}
         depth = None
@@ -71,13 +74,12 @@ class CascadeMVSNet(nn.Module):
             key = f"stage{s + 1}"
             h, w = H // STAGE_SCALES[s], W // STAGE_SCALES[s]
             lo, step = self._planes(s, depth, depth_values, H, W)
-            fs = feats[key]
-            C = fs.shape[1]
-            fs = fs.reshape(B, V, C, h, w).permute(0, 1, 3, 4, 2)
+            fs = feats[key]                          # [B·V, h, w, C]
+            fs = fs.reshape(B, V, h, w, fs.shape[-1])
             projs = compose_projection(proj_matrices[key].float())
             depths, confs = [], []
             for b in range(B):
-                var = warp(fs[b].contiguous(), projs[b], lo[b], step[b], nd)
+                var = warp(fs[b], projs[b], lo[b], step[b], nd)
                 cost = self.cost_regularization[s].forward_folded(
                     var[None], plain=plain)
                 d_b, c_b = tail(cost[0, 0], lo[b].contiguous(),

@@ -6,10 +6,13 @@ Tensors are NCHW. Outputs: stage1 [N, 4c, H/4, W/4], stage2
 [N, 2c, H/2, W/2], stage3 [N, c, H, W].
 
   * `forward`: the modules as they stand (Conv → BN → ReLU).
-  * `forward_folded`: the eval path through K5 (`ops/conv2d.conv2d`): BN
-    as a scale/shift epilogue, the 1×1 `inner*` heads fused with the
-    nearest-×2 upsample-add. `plain=True` runs K5's plain version instead
-    (for comparing the two on the card).
+  * `forward_folded`: the eval path through K5 (`ops/conv2d`): BN as a
+    scale/shift epilogue; inner1 fused with the nearest-×2 upsample-add;
+    stage 3's head as one `lateral_conv2d` call, which forms
+    nearest-×2(intra) + inner2(conv0) + b tile by tile and never writes
+    that full-resolution sum; with out_layout="warp" the three heads
+    write [N, h, w, C], the layout K1 reads. `plain=True` runs K5's plain
+    versions instead (for comparing the two on the card).
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv2d import conv2d, conv2d_plain
+from ..ops.conv2d import (conv2d, conv2d_plain, lateral_conv2d,
+                          lateral_conv2d_plain)
 from .layers import ConvBNAct, bn_scale_shift
 
 
@@ -54,10 +58,12 @@ class FeatureNet(nn.Module):
         out["stage3"] = self.out3(intra)
         return out
 
-    def forward_folded(self, x: torch.Tensor,
-                       plain: bool = False) -> dict[str, torch.Tensor]:
-        """Eval forward through K5; same outputs as `forward`."""
+    def forward_folded(self, x: torch.Tensor, plain: bool = False,
+                       out_layout: str = "nchw") -> dict[str, torch.Tensor]:
+        """Eval forward through K5; the outputs of `forward`, as NCHW or
+        (out_layout="warp") as [N, h, w, C]."""
         conv = conv2d_plain if plain else conv2d
+        lateral = lateral_conv2d_plain if plain else lateral_conv2d
         acts = []
         for seq in (self.conv0, self.conv1, self.conv2):
             for blk in seq:
@@ -67,11 +73,13 @@ class FeatureNet(nn.Module):
                          padding=blk.conv.padding[0], relu=True)
             acts.append(x)
         conv0, conv1, intra = acts
-        out = {"stage1": conv(intra, self.out1.weight)}
+        out = {"stage1": conv(intra, self.out1.weight,
+                              out_layout=out_layout)}
         intra = conv(conv1, self.inner1.weight, shift=self.inner1.bias,
                      up=intra)
-        out["stage2"] = conv(intra, self.out2.weight, padding=1)
-        intra = conv(conv0, self.inner2.weight, shift=self.inner2.bias,
-                     up=intra)
-        out["stage3"] = conv(intra, self.out3.weight, padding=1)
+        out["stage2"] = conv(intra, self.out2.weight, padding=1,
+                             out_layout=out_layout)
+        out["stage3"] = lateral(intra, conv0, self.inner2.weight,
+                                self.inner2.bias, self.out3.weight,
+                                out_layout=out_layout)
         return out

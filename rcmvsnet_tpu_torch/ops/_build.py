@@ -33,6 +33,8 @@ SOURCES = ("warp_variance", "conv3d", "conv2d", "warp_volume", "conv3d_dw",
            "warp_view")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SMS = 132                     # streaming multiprocessors of an H100; the
+                              # wrappers size their grids by it
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -1,12 +1,27 @@
-"""K5: the FeatureNet FPN's 2D convolution with a folded-BN epilogue.
+"""K5: the FeatureNet FPN's 2D convolution with a folded-BN epilogue, and
+stage 3's lateral head in one pass.
 
 `conv2d` launches the CUDA kernel `csrc/conv2d.cu` for a CUDA tensor; for
 a CPU tensor it returns `conv2d_plain` (`F.conv2d`, then scale/shift,
-ReLU and the nearest-×2 upsample-add with `F.interpolate`).
+ReLU and the nearest-×2 upsample-add with `F.interpolate`). The kernel
+has two routes, picked per call by `route`: a 3xTF32 implicit GEMM on the
+tensor cores ("tc", the 3×3 and 5×5 convs with Ci ≥ 8; `tile` picks its
+block tile) and a direct conv on the CUDA cores ("direct", conv0.0 with
+its 3 input channels and the 1×1 heads, which are bound by bytes).
+
+`lateral_conv2d` is stage 3's head: out3(nearest×2(up) + inner(lat) + b)
+with the lateral sum formed tile by tile in shared memory and never
+written; `lateral_conv2d_plain` is the composition of the two plain calls.
+Its launches count as K5's (`conv2d.launches`).
+
+Both write NCHW or, with out_layout="warp", [N, H, W, Co]: the source
+layout of the warp kernels (K1), so the eval heads feed K1 without a
+permute.
 
 Replaces `rcmvsnet_tpu/ops/pallas_conv2d.py` `conv2d_cm` as
 `nn/featurenet_fast.featurenet_packed` chains it, plus the 1×1 heads and
-the upsample-add that chain leaves to XLA (`matmul_cm`, `upsample2_cm`).
+the upsample-add that chain leaves to XLA (`matmul_cm`, `upsample2_cm`)
+and its stage-3 head `_stage3_polyphase`.
 """
 from __future__ import annotations
 
@@ -16,18 +31,76 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._build import SMS
 
 KERNEL_SIZES = (1, 3, 5)
+LAYOUTS = ("nchw", "warp")
+# the tensor-core route's block tiles (MT, NTB) per (kernel size,
+# stride): 8 warps as WY x WX (`warps`), each MT output rows x 16 columns,
+# so a block covers WY·MT rows x 16·WX columns and NTB tiles of 8 output
+# channels (MT·NTB ≤ 4: the accumulators live in registers)
+TILES = {(3, 1): ((1, 1), (2, 1), (4, 1), (1, 2), (2, 2), (1, 4)),
+         (5, 2): ((1, 1), (2, 1), (1, 2), (2, 2), (1, 4))}
+LATERAL_TILES = ((1, 1), (2, 1), (4, 1))
+
+
+def route(k: int, stride: int, padding: int, ci: int) -> str:
+    """"tc" for the 3×3 (stride 1) and 5×5 (stride 2) convs with at least
+    8 input channels and padding k // 2; "direct" otherwise (each 1×1
+    head and conv0.0 measured faster there)."""
+    if (k, stride) in TILES and padding == k // 2 and ci >= 8:
+        return "tc"
+    return "direct"
+
+
+def warps(stride: int) -> tuple[int, int]:
+    """(WY, WX): the tensor-core route's warps per block, rows x columns;
+    2 x 4 at stride 1, 8 x 1 at stride 2."""
+    return (2, 4) if stride == 1 else (8, 1)
+
+
+def tile(k: int, stride: int, n: int, co: int, ho: int, wo: int,
+         tiles=None) -> tuple[int, int]:
+    """(MT, NTB) of the tensor-core route for `co` output channels over an
+    [ho, wo] output of `n` samples: every channel tile in one block where
+    TILES allows (up to 4), then the most rows per warp that still leave
+    two blocks per SM."""
+    tiles = tiles or TILES[(k, stride)]
+    nt = -(-co // 8)
+    ntb = max((b for _, b in tiles if nt % b == 0), default=1)
+    for mt in (4, 2, 1):
+        if (mt, ntb) not in tiles:
+            continue
+        wy, wx = warps(stride)
+        blocks = n * -(-nt // ntb) * -(-ho // (wy * mt)) * -(-wo // (16 * wx))
+        if blocks >= 2 * SMS or mt == min(m for m, b in tiles if b == ntb):
+            return mt, ntb
+    raise AssertionError(f"no tile with {ntb} channel tiles in {tiles}")
+
+
+def scratch_floats(k: int, ci: int, co: int, ntb: int) -> int:
+    """Floats of the prepared weights the tensor-core route lays out:
+    [groups][chunks of 8 ci][k·k][8][8·ntb]."""
+    nw = 8 * ntb
+    return -(-co // nw) * -(-ci // 8) * k * k * 8 * nw
+
+
+def _layout(y: torch.Tensor, out_layout: str) -> torch.Tensor:
+    if out_layout not in LAYOUTS:
+        raise ValueError(f"out_layout must be one of {LAYOUTS}")
+    return y.permute(0, 2, 3, 1).contiguous() if out_layout == "warp" else y
 
 
 def conv2d_plain(x: torch.Tensor, weight: torch.Tensor,
                  scale: torch.Tensor | None = None,
                  shift: torch.Tensor | None = None, stride: int = 1,
                  padding: int = 0, relu: bool = False,
-                 up: torch.Tensor | None = None) -> torch.Tensor:
+                 up: torch.Tensor | None = None,
+                 out_layout: str = "nchw") -> torch.Tensor:
     """x [N, Ci, H, W]; weight [Co, Ci, k, k]; y = conv·scale + shift
     (per output channel; None means 1 and 0); ReLU if asked; then, if `up`
-    [N, Co, H'/2, W'/2] is given, y += nearest-×2(up)."""
+    [N, Co, H'/2, W'/2] is given, y += nearest-×2(up). NCHW, or [N, H',
+    W', Co] with out_layout="warp"."""
     y = F.conv2d(x, weight, stride=stride, padding=padding)
     if scale is not None:
         y = y * scale[None, :, None, None]
@@ -37,32 +110,51 @@ def conv2d_plain(x: torch.Tensor, weight: torch.Tensor,
         y = torch.relu(y)
     if up is not None:
         y = F.interpolate(up, scale_factor=2, mode="nearest") + y
-    return y
+    return _layout(y, out_layout)
 
 
-def _lib():
-    fn = _build.load("conv2d").conv2d_f32
+def lateral_conv2d_plain(up: torch.Tensor, lat: torch.Tensor,
+                         inner_w: torch.Tensor, inner_b: torch.Tensor | None,
+                         weight: torch.Tensor,
+                         out_layout: str = "nchw") -> torch.Tensor:
+    """conv3×3(nearest-×2(up) + inner(lat) + inner_b), padding 1: up [N,
+    Cu, H/2, W/2], lat [N, Cl, H, W], inner_w [Cu, Cl, 1, 1], weight [Co,
+    Cu, 3, 3]; the two plain calls the FPN makes."""
+    s = conv2d_plain(lat, inner_w, shift=inner_b, up=up)
+    return conv2d_plain(s, weight, padding=1, out_layout=out_layout)
+
+
+def _lib(entry: str, n_ptr: int, n_int: int):
+    fn = getattr(_build.load("conv2d"), entry)
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            scale: torch.Tensor | None = None,
            shift: torch.Tensor | None = None, stride: int = 1,
            padding: int = 0, relu: bool = False,
-           up: torch.Tensor | None = None) -> torch.Tensor:
-    """Same contract as `conv2d_plain`; the kernel on a CUDA tensor."""
+           up: torch.Tensor | None = None,
+           out_layout: str = "nchw") -> torch.Tensor:
+    """Same contract as `conv2d_plain`; the kernel on a CUDA tensor, by
+    the route `route` picks."""
     if x.device.type == "cpu":
         return conv2d_plain(x, weight, scale, shift, stride, padding, relu,
-                            up)
+                            up, out_layout)
     N, Ci, H, W = x.shape
     Co, wci, k, k2 = weight.shape
     if wci != Ci or k != k2 or k not in KERNEL_SIZES or stride not in (1, 2):
         raise ValueError(f"conv2d: weight {tuple(weight.shape)}, stride "
                          f"{stride} do not fit input {tuple(x.shape)}")
+    if out_layout not in LAYOUTS:
+        raise ValueError(f"conv2d: out_layout must be one of {LAYOUTS}")
     Ho = (H + 2 * padding - k) // stride + 1
     Wo = (W + 2 * padding - k) // stride + 1
     extra = [t for t in (scale, shift, up) if t is not None]
@@ -73,14 +165,64 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     if up is not None and up.shape != (N, Co, Ho // 2, Wo // 2):
         raise ValueError(f"conv2d: up {tuple(up.shape)} is not half of "
                          f"{(N, Co, Ho, Wo)}")
-    out = torch.empty((N, Co, Ho, Wo), dtype=torch.float32, device=x.device)
-    ptr = lambda t: t.data_ptr() if t is not None else None
-    err = _lib()(x.data_ptr(), weight.data_ptr(), ptr(scale), ptr(shift),
-                 ptr(up), out.data_ptr(), N, Ci, H, W, Co, Ho, Wo, k, stride,
-                 padding, int(relu), _build.stream_ptr(x.device))
+    nhwc = out_layout == "warp"
+    shape = (N, Ho, Wo, Co) if nhwc else (N, Co, Ho, Wo)
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    stream = _build.stream_ptr(x.device)
+    if route(k, stride, padding, Ci) == "tc":
+        mt, ntb = tile(k, stride, N, Co, Ho, Wo)
+        wt = torch.empty(scratch_floats(k, Ci, Co, ntb), dtype=torch.float32,
+                         device=x.device)
+        err = _lib("conv2d_tc_f32", 7, 13)(
+            x.data_ptr(), weight.data_ptr(), _ptr(scale), _ptr(shift),
+            _ptr(up), out.data_ptr(), wt.data_ptr(), N, Ci, H, W, Co, Ho, Wo,
+            k, stride, int(relu), int(nhwc), mt, ntb, stream)
+    else:
+        err = _lib("conv2d_f32", 6, 12)(
+            x.data_ptr(), weight.data_ptr(), _ptr(scale), _ptr(shift),
+            _ptr(up), out.data_ptr(), N, Ci, H, W, Co, Ho, Wo, k, stride,
+            padding, int(relu), int(nhwc), stream)
     _build.check(err, "conv2d")
     conv2d.launches += 1
     return out
 
 
 conv2d.launches = 0
+
+
+def lateral_conv2d(up: torch.Tensor, lat: torch.Tensor,
+                   inner_w: torch.Tensor, inner_b: torch.Tensor | None,
+                   weight: torch.Tensor,
+                   out_layout: str = "nchw") -> torch.Tensor:
+    """Same contract as `lateral_conv2d_plain`; on a CUDA tensor one
+    launch of K5's lateral head (counted in `conv2d.launches`)."""
+    if lat.device.type == "cpu":
+        return lateral_conv2d_plain(up, lat, inner_w, inner_b, weight,
+                                    out_layout)
+    N, Cl, H, W = lat.shape
+    Co, Cu = weight.shape[:2]
+    if (tuple(weight.shape[2:]) != (3, 3) or inner_w.shape != (Cu, Cl, 1, 1)
+            or Cl > 8 or H % 2 or W % 2
+            or up.shape != (N, Cu, H // 2, W // 2)):
+        raise ValueError(
+            f"lateral_conv2d: up {tuple(up.shape)}, lat {tuple(lat.shape)}, "
+            f"inner {tuple(inner_w.shape)}, weight {tuple(weight.shape)} do "
+            f"not fit (Cl <= 8, H and W even)")
+    if out_layout not in LAYOUTS:
+        raise ValueError(f"lateral_conv2d: out_layout must be one of "
+                         f"{LAYOUTS}")
+    extra = [inner_b] if inner_b is not None else []
+    _build.require_cuda("lateral_conv2d", up, lat, inner_w, weight, *extra)
+    nhwc = out_layout == "warp"
+    out = torch.empty((N, H, W, Co) if nhwc else (N, Co, H, W),
+                      dtype=torch.float32, device=lat.device)
+    mt, ntb = tile(3, 1, N, Co, H, W, LATERAL_TILES)
+    wt = torch.empty(scratch_floats(3, Cu, Co, ntb), dtype=torch.float32,
+                     device=lat.device)
+    err = _lib("lateral_conv2d_f32", 7, 9)(
+        up.data_ptr(), lat.data_ptr(), inner_w.data_ptr(), _ptr(inner_b),
+        weight.data_ptr(), out.data_ptr(), wt.data_ptr(), N, Cu, Cl, H, W,
+        Co, int(nhwc), mt, ntb, _build.stream_ptr(lat.device))
+    _build.check(err, "lateral_conv2d")
+    conv2d.launches += 1
+    return out

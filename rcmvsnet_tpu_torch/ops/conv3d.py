@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._build import SMS
 
 MODES = {"s1": 0, "s2": 1, "t2": 2}
 # block tiles (MT, NTB) the kernel is built for, per mode: MT rows of 16 x
@@ -47,7 +48,6 @@ MODES = {"s1": 0, "s2": 1, "t2": 2}
 TILES = {"s1": ((1, 1), (1, 2), (1, 4), (2, 1), (2, 2), (4, 1)),
          "s2": ((1, 1), (1, 2), (1, 4)),
          "t2": ((1, 1), (1, 2), (2, 1))}
-SMS = 132                     # streaming multiprocessors of an H100
 
 
 def out_shape(mode: str, d: int, h: int, w: int):

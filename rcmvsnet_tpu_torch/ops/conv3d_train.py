@@ -36,7 +36,7 @@ from .conv3d import MODES, conv3d, conv3d_plain, out_shape
 ADJOINT = {"s1": "s1", "s2": "t2", "t2": "s2"}
 # the dw kernel's brick of base positions (z, y, x) per mode
 BRICK = {"s1": (1, 8, 16), "s2": (1, 4, 16), "t2": (1, 8, 16)}
-TARGET_BLOCKS = 132 * 4       # about four dw blocks per SM of an H100
+TARGET_BLOCKS = _build.SMS * 4  # about four dw blocks per SM
 MAX_CO = 64                   # four m16 tiles of output channels
 
 

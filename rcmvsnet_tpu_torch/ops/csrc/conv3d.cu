@@ -59,42 +59,11 @@ struct Cfg {
   using Hl = Halo<MODE, BZ, BY>;
   static constexpr int PS = pad_to(Hl::PLANE, 8);   // A loads: t*PS + g
   static constexpr int NW = 8 * NTB;                // channels per block
-  static constexpr int NPS =                        // B loads: t*NPS + g
-      (NW % 32 == 8 || NW % 32 == 24) ? NW : NW + 8;
+  static constexpr int NPS = weight_stride(NW);     // B loads: t*NPS + g
   static constexpr int X_FLOATS = kCiChunk * PS;
   static constexpr int STAGE = X_FLOATS + 27 * kCiChunk * NPS;
   static constexpr size_t SMEM = 2 * STAGE * sizeof(float);
 };
-
-// The weights laid out once per call for the blocks' 16-byte copies:
-// wt[group][chunk][tap][ci 8][NW] (group = co / NW, chunk = ci / 8), zero
-// past Co and Ci, from w [Co, Ci, 27].
-__global__ void __launch_bounds__(kThreads)
-prep_weights(const float* __restrict__ w, float* __restrict__ wt, int Ci,
-             int Co, int NW, int nch, long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  long long r = i / NW;
-  const int col = (int)(i - r * NW);
-  const int c = (int)(r % kCiChunk);
-  r /= kCiChunk;
-  const int tap = (int)(r % 27);
-  r /= 27;
-  const int ch = (int)(r % nch), grp = (int)(r / nch);
-  const int co = grp * NW + col, ci = ch * kCiChunk + c;
-  wt[i] = co < Co && ci < Ci ? w[((long long)co * Ci + ci) * 27 + tap] : 0.f;
-}
-
-// One chunk of one group's prepared weights (27 * 8 rows of NW floats)
-// into s[tap][ci][co] with row stride NPS, 16 bytes per copy.
-template <int NW, int NPS>
-__device__ __forceinline__ void load_weights(float* s, const float* wt) {
-  constexpr int nv = NW / 4, total = 27 * kCiChunk * nv;
-  for (int e = threadIdx.x; e < total; e += kThreads) {
-    const int v = e % nv, r = e / nv;
-    cp_async16(s + r * NPS + 4 * v, wt + r * NW + 4 * v, 16);
-  }
-}
 
 // One tap of one chunk: acc[mt][nt] += window(rz, ry, xc) x w[tap].
 // (rz0, ry) is the halo-brick row of the warp's first tile for this tap,
@@ -240,7 +209,7 @@ conv3d_tc(const float* __restrict__ x, const float* __restrict__ wt,
     float* s = stage(ch);
     load_halo<MODE, C::BZ, C::BY, C::PS>(s, x, n, ch * kCiChunk, Ci, Di, Hi,
                                          Wi, bz0, by0, bx0, vec);
-    load_weights<C::NW, C::NPS>(
+    load_weights<27, C::NW, C::NPS>(
         s + C::X_FLOATS,
         wt + ((long long)blockIdx.y * nch + ch) * 27 * kCiChunk * C::NW);
     cp_async_commit();
@@ -340,14 +309,9 @@ cudaError_t launch(const float* x, const float* w, const float* bias,
             nbx = (bw + kBX - 1) / kBX;
   const long long bricks = (long long)N * nbz * nby * nbx;
   if (bricks <= 0 || bricks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int groups = (Co + C::NW - 1) / C::NW,
-            nch = (Ci + kCiChunk - 1) / kCiChunk;
-  const long long n_wt = (long long)groups * nch * 27 * kCiChunk * C::NW;
-  prep_weights<<<(unsigned)((n_wt + kThreads - 1) / kThreads), kThreads, 0,
-                 stream>>>(w, wt, Ci, Co, C::NW, nch, n_wt);
-  err = cudaGetLastError();
+  err = prep(w, wt, Ci, Co, 27, C::NW, stream);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)bricks, (unsigned)groups);
+  dim3 grid((unsigned)bricks, (unsigned)((Co + C::NW - 1) / C::NW));
   // 16-byte row vectors need 16-byte aligned rows of x
   const int vec = Wi % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   kern<<<grid, kThreads, C::SMEM, stream>>>(x, wt, bias, skip, out, Ci, Di,

@@ -1,5 +1,6 @@
-// Shared pieces of the tensor-core 3x3x3 convolutions (conv3d.cu, K2/K9,
-// and conv3d_dw.cu, K8's weight gradient), for Hopper (sm_90a).
+// Shared pieces of the tensor-core convolutions, for Hopper (sm_90a): the
+// 3x3x3 ones (conv3d.cu, K2/K9, and conv3d_dw.cu, K8's weight gradient)
+// and FeatureNet's 2D convs (conv2d.cu, K5).
 //
 // Products: mma.sync.aligned.m16n8k8 with TF32 operands and float32
 // accumulators. The port is float32 end to end and its gates hold each
@@ -49,6 +50,12 @@ constexpr int kCiChunk = 8;  // input channels staged at a time (mma k = 8)
 // Smallest m >= n with m = r (mod 32): the stride between channel planes
 // (or rows) that puts the lanes of one fragment load on distinct banks.
 constexpr int pad_to(int n, int r) { return n + ((r - n % 32) + 32) % 32; }
+
+// Row stride of a chunk's staged weights [tap][ci][NW co]: B fragment
+// loads at t * stride + g fall on distinct banks for 8 or 24 (mod 32).
+constexpr int weight_stride(int nw) {
+  return (nw % 32 == 8 || nw % 32 == 24) ? nw : nw + 8;
+}
 
 template <int MODE, int BZ, int BY>
 struct Halo {
@@ -174,6 +181,47 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The weights laid out once per call for the blocks' 16-byte copies:
+// wt[group][chunk][tap][ci 8][NW] (group = co / NW, chunk = ci / 8), zero
+// past Co and Ci, from w [Co, Ci, KK].
+__global__ void __launch_bounds__(kThreads)
+prep_weights(const float* __restrict__ w, float* __restrict__ wt, int Ci,
+             int Co, int KK, int NW, int nch, long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  long long r = i / NW;
+  const int col = (int)(i - r * NW);
+  const int c = (int)(r % kCiChunk);
+  r /= kCiChunk;
+  const int tap = (int)(r % KK);
+  r /= KK;
+  const int ch = (int)(r % nch), grp = (int)(r / nch);
+  const int co = grp * NW + col, ci = ch * kCiChunk + c;
+  wt[i] = co < Co && ci < Ci ? w[((long long)co * Ci + ci) * KK + tap] : 0.f;
+}
+
+// Launch prep_weights for all of w into the caller's scratch wt
+// (ceil(Co / NW) * ceil(Ci / 8) * KK * 8 * NW floats).
+inline cudaError_t prep(const float* w, float* wt, int Ci, int Co, int KK,
+                        int NW, cudaStream_t stream) {
+  const int groups = (Co + NW - 1) / NW, nch = (Ci + kCiChunk - 1) / kCiChunk;
+  const long long n = (long long)groups * nch * KK * kCiChunk * NW;
+  prep_weights<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                 stream>>>(w, wt, Ci, Co, KK, NW, nch, n);
+  return cudaGetLastError();
+}
+
+// One chunk of one group's prepared weights (KK * 8 rows of NW floats)
+// into s[tap][ci][co] with row stride NPS, 16 bytes per copy.
+template <int KK, int NW, int NPS>
+__device__ __forceinline__ void load_weights(float* s, const float* wt) {
+  constexpr int nv = NW / 4, total = KK * kCiChunk * nv;
+  for (int e = threadIdx.x; e < total; e += kThreads) {
+    const int v = e % nv, r = e / nv;
+    cp_async16(s + r * NPS + 4 * v, wt + r * NW + 4 * v, 16);
+  }
 }
 
 // Stage channels [c0, c0 + 8) of the halo brick of sample n into s (plane

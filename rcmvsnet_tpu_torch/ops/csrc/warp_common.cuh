@@ -42,23 +42,38 @@ __device__ __forceinline__ Taps taps_at(float px, float py) {
   return Taps{(int)x0f, (int)y0f, px - x0f, py - y0f};
 }
 
-// One row of rot * [x, y, 1] * dv + t, each operation rounded.
-__device__ __forceinline__ float project_row(const float* r, float fx,
-                                             float fy, float dv) {
-  const float rr = __fadd_rn(__fadd_rn(__fmul_rn(r[0], fx),
-                                       __fmul_rn(r[1], fy)), r[2]);
-  return __fadd_rn(__fmul_rn(rr, dv), r[3]);
+// One row of rot * [x, y, 1] * dv + t, each operation rounded, in two
+// halves: rot_row, the same for every plane (K1 computes it once per
+// pixel), and depth_row, per plane.
+__device__ __forceinline__ float rot_row(const float* r, float fx,
+                                         float fy) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(r[0], fx), __fmul_rn(r[1], fy)),
+                   r[2]);
 }
 
-__device__ __forceinline__ Taps project(const float* m, float fx, float fy,
-                                        float dv, int H, int W) {
-  const float X = project_row(m, fx, fy, dv);
-  const float Y = project_row(m + 4, fx, fy, dv);
-  float Z = project_row(m + 8, fx, fy, dv);
+__device__ __forceinline__ float depth_row(float rr, float t, float dv) {
+  return __fadd_rn(__fmul_rn(rr, dv), t);
+}
+
+__device__ __forceinline__ float project_row(const float* r, float fx,
+                                             float fy, float dv) {
+  return depth_row(rot_row(r, fx, fy), r[3], dv);
+}
+
+// Taps of the point whose three projected rows are X, Y, Z.
+__device__ __forceinline__ Taps taps_of_rows(float X, float Y, float Z,
+                                             int H, int W) {
   if (fabsf(Z) < 1e-6f) Z = Z < 0.f ? -1e-6f : 1e-6f;
   const float px = fminf(fmaxf(__fdiv_rn(X, Z), -2.f), (float)W + 1.f);
   const float py = fminf(fmaxf(__fdiv_rn(Y, Z), -2.f), (float)H + 1.f);
   return taps_at(px, py);
+}
+
+__device__ __forceinline__ Taps project(const float* m, float fx, float fy,
+                                        float dv, int H, int W) {
+  return taps_of_rows(project_row(m, fx, fy, dv),
+                      project_row(m + 4, fx, fy, dv),
+                      project_row(m + 8, fx, fy, dv), H, W);
 }
 
 // Tap k's pixel index y * W + x, or -1 when it lies outside the image.
@@ -71,6 +86,32 @@ __device__ __forceinline__ long long tap_pixel(const Taps& t, int k, int H,
 
 __device__ __forceinline__ float tap_weight(const Taps& t, int k) {
   return ((k & 1) ? t.wx : 1.f - t.wx) * ((k >> 1) ? t.wy : 1.f - t.wy);
+}
+
+// Bilinear sample of the 4 channels [4q, 4q + 4) of map base [H, W, C]
+// (one float4 per tap), in sample_channels' order (taps 0..3, one fused
+// multiply-add each); the taps' offset, bounds and weights are worked out
+// once for the 4 taps.
+template <int C>
+__device__ __forceinline__ float4 sample_quad(const float* base,
+                                              const Taps& t, int H, int W,
+                                              int q) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  const bool x0in = t.x0 >= 0 && t.x0 < W, x1in = t.x0 >= -1 && t.x0 < W - 1;
+  const bool y0in = t.y0 >= 0 && t.y0 < H, y1in = t.y0 >= -1 && t.y0 < H - 1;
+  const long long p00 = ((long long)t.y0 * W + t.x0) * C + 4 * q;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (!(((k & 1) ? x1in : x0in) && ((k >> 1) ? y1in : y0in))) continue;
+    const float wgt = tap_weight(t, k);
+    const float4 s = __ldg(reinterpret_cast<const float4*>(
+        base + p00 + ((k >> 1) ? (long long)W * C : 0) + ((k & 1) ? C : 0)));
+    v.x = __fmaf_rn(wgt, s.x, v.x);
+    v.y = __fmaf_rn(wgt, s.y, v.y);
+    v.z = __fmaf_rn(wgt, s.z, v.z);
+    v.w = __fmaf_rn(wgt, s.w, v.w);
+  }
+  return v;
 }
 
 // Bilinear sample of C channels (C % 4 == 0, float4 loads; stride, the

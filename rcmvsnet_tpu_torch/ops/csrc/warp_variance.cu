@@ -14,6 +14,40 @@
 // two routes give the same variance (gated at 1e-5 of its largest value).
 // No warped per-view volume ever reaches device memory.
 //
+// What bounds K1. Its only unavoidable traffic is the output (C * D * h
+// * w floats written once), yet a sample is a gather of 4 taps x C
+// channels. The first port (one thread per (plane, pixel) holding all C
+// channels) had a warp's float4 load touch 32 rows 4C bytes apart (32 L1
+// wavefronts an instruction at C = 32) and a plane-major grid that swept
+// whole source images once per plane. This design:
+//   * lanes across channels: a group of C / 4 lanes owns a reference
+//     pixel, each lane one float4 of its channels, so one
+//     gather reads whole 4C-byte rows (C = 32: one 128-byte line a pixel)
+//     and a lane keeps 8 sums instead of 2C;
+//   * the plane loop inside the block: a block owns P consecutive
+//     reference pixels and walks a chunk of planes (all D where the grid
+//     fills the card; plan below), so the source neighbourhood it samples
+//     stays in L1/L2 from plane to plane; rot * [x, y, 1] of each view is
+//     computed once per pixel, and each tap's offset, bounds and weight
+//     once per view (warp::sample_quad);
+//   * projections shared: lane q projects views q, q + C/4, ... and the
+//     group passes each view's taps on with __shfl_sync (every lane
+//     projecting every view measured 1.4x slower at C = 32);
+//   * coalesced writes: per plane the block stages its P x C results in
+//     shared memory and writes C runs of P consecutive floats of
+//     out[c, d, :, :].
+// Measured (tools/ab_warp_fwd.py, PERF.md): 2.4x faster at C = 32, 1.5x
+// at 16, even at 8, where the first port already read whole 32-byte
+// rows. What is left is neither bytes (6-9x the output's write time) nor
+// wavefronts: per warp and plane a chain of projection (two IEEE
+// divisions), shuffles and 4(V-1) dependent gathers; half as many lanes
+// a pixel (two float4s a lane), two or four planes between barriers, and
+// 5-6 blocks per SM (with spills) all measured the same or slower.
+// The arithmetic per channel is the first port's, operation for operation
+// (reference first, taps 0..3 with one fma each, then views in order), so
+// the output is the same bit for bit (tools/ab_warp_fwd.py checks builds
+// with torch.equal).
+//
 // Backward (K6) replaces the backward kernel of
 // rcmvsnet_tpu/ops/pallas_warp_train.py plane_sweep_variance_fused_train
 // (:306; _warp_var_bwd_kernel :108, pallas_call :374). With x_v the warped
@@ -38,22 +72,20 @@
 // U-Net kernel (conv3d.cu) reads and writes. The backward's scratch:
 // warp_bwd.cuh's Aux, then int64 quanta [V-1, h, w, C].
 //
-// Bound: device-memory bytes for the forward (each thread gathers
-// 4 taps x (V-1) views x C floats from source maps that stay hot in the
-// 50 MB L2, and writes C floats, coalesced across the warp per channel).
-// The old float-atomic backward was bound by its atomics, one per tap and
-// channel of every sample, each lane on its own sector. Here they are one
-// integer add per flushed in-image tap and channel (fewer by the merge
-// factor, the group's C lanes in one coalesced request) and no longer set
-// the time: a build that flushes every plane, with 4-7x the adds, takes
-// 3-33 % longer (tools/ab_warp_bwd.py, PERF.md). What bounds it is the
-// work per plane and lane: V-1 projections, 4(V-1) gathers and the run
-// bookkeeping, done by each lane of a group. The bytes of g are small
-// (one read, plus one for its maximum), but g is [C, D, h, w], so a
-// group's lanes would read it at stride D*h*w, C sectors for C floats: a
-// block stages 8 planes of g for its 256 / C consecutive pixels in shared
-// memory, read in runs of 256 / C consecutive floats, and each lane reads
-// its own channel from there.
+// Backward bound. The old float-atomic backward was bound by its
+// atomics, one per tap and channel of every sample, each lane on its own
+// sector. Here they are one integer add per flushed in-image tap and
+// channel (fewer by the merge factor, the group's C lanes in one
+// coalesced request) and no longer set the time: a build that flushes
+// every plane, with 4-7x the adds, takes 3-33 % longer
+// (tools/ab_warp_bwd.py, PERF.md). What bounds it is the work per plane
+// and lane: V-1 projections, 4(V-1) gathers and the run bookkeeping, done
+// by each lane of a group. The bytes of g are small (one read, plus one
+// for its maximum), but g is [C, D, h, w], so a group's lanes would read
+// it at stride D*h*w, C sectors for C floats: a block stages 8 planes of
+// g for its 256 / C consecutive pixels in shared memory, read in runs of
+// 256 / C consecutive floats, and each lane reads its own channel from
+// there.
 #include <cuda_runtime.h>
 
 #include "warp_bwd.cuh"
@@ -63,59 +95,109 @@ namespace {
 
 using warp::kMaxViews;
 
-template <int C>
-__global__ void __launch_bounds__(128)
+// K1: a group of L = C / 4 lanes owns one reference pixel, lane q the
+// float4 of channels [4q, 4q + 4); a block owns P = kFwdThreads / L
+// consecutive pixels and walks planes [d0, d0 + DC) (the plane chunk plan
+// picks: blockIdx.y). NV bounds the source views (V - 1). Lane q projects
+// views q, q + L, ... of the group's pixel and the group passes each
+// view's taps on with __shfl_sync.
+constexpr int kFwdThreads = 256;
+
+template <int C, int NV>
+__global__ void __launch_bounds__(kFwdThreads)
 warp_variance_kernel(const float* __restrict__ src,
                      const float* __restrict__ rel,
                      const float* __restrict__ lo,
                      const float* __restrict__ step,
                      float* __restrict__ out,
-                     int V, int H, int W, int D) {
+                     int V, int H, int W, int D, int DC) {
+  constexpr int L = C / 4;                 // lanes per pixel
+  constexpr int P = kFwdThreads / L;       // pixels per block
+  constexpr int PS = P + 8 / L;            // staging row: banks distinct
+  constexpr int S = (NV + L - 1) / L;      // views a lane projects
   __shared__ float s_rel[kMaxViews * 16];
+  __shared__ float s_out[2][C * PS];
   for (int i = threadIdx.x; i < V * 16; i += blockDim.x) s_rel[i] = rel[i];
   __syncthreads();
 
   const long long HW = (long long)H * W;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= HW * D) return;
-  const int d = (int)(idx / HW);
-  const long long pix = idx - (long long)d * HW;
+  const int j = threadIdx.x / L, q = threadIdx.x % L;
+  const long long p0 = (long long)blockIdx.x * P;
+  // a pixel past the image computes the last one (its lanes take part in
+  // the shuffles) and writes nothing
+  const long long pix = min(p0 + j, HW - 1);
   const int y = (int)(pix / W);
-  const int x = (int)(pix - (long long)y * W);
-  const float dv = warp::plane_depth(lo[pix], step[pix], d);
+  const float fx = (float)(pix - (long long)y * W), fy = (float)y;
+  const float lo_p = lo[pix], step_p = step[pix];
+  const float4 ref = __ldg(reinterpret_cast<const float4*>(src + pix * C) + q);
+  const float4 ref_sq = make_float4(__fmul_rn(ref.x, ref.x),
+                                    __fmul_rn(ref.y, ref.y),
+                                    __fmul_rn(ref.z, ref.z),
+                                    __fmul_rn(ref.w, ref.w));
+  const int nv = V - 1;
 
-  float sum[C], sq[C];
-  {
-    const float4* r = reinterpret_cast<const float4*>(src + pix * C);
+  // rot * [x, y, 1] of the views this lane projects, once per pixel
+  float rr[S][3];
 #pragma unroll
-    for (int c4 = 0; c4 < C / 4; ++c4) {
-      const float4 q = __ldg(r + c4);
-      sum[4 * c4 + 0] = q.x; sum[4 * c4 + 1] = q.y;
-      sum[4 * c4 + 2] = q.z; sum[4 * c4 + 3] = q.w;
-    }
+  for (int s = 0; s < S; ++s) {
+    const int v = s * L + q;
+    const float* m = s_rel + (v < nv ? v + 1 : 0) * 16;
 #pragma unroll
-    for (int c = 0; c < C; ++c) sq[c] = __fmul_rn(sum[c], sum[c]);
-  }
-
-  const float fx = (float)x, fy = (float)y;
-  for (int v = 1; v < V; ++v) {
-    const warp::Taps t = warp::project(s_rel + v * 16, fx, fy, dv, H, W);
-    float val[C];
-    warp::sample_channels<C>(src + (long long)v * HW * C, t, H, W, val);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      sum[c] = __fadd_rn(sum[c], val[c]);
-      sq[c] = __fadd_rn(sq[c], __fmul_rn(val[c], val[c]));
-    }
+    for (int r = 0; r < 3; ++r) rr[s][r] = warp::rot_row(m + 4 * r, fx, fy);
   }
 
   const float inv_v = 1.f / (float)V;
-  const long long plane = (long long)D * HW;
+  const int d0 = blockIdx.y * DC, d1 = min(D, d0 + DC);
+  for (int d = d0; d < d1; ++d) {
+    const float dv = warp::plane_depth(lo_p, step_p, d);
+    warp::Taps mine[S];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float mean = __fmul_rn(sum[c], inv_v);
-    out[c * plane + d * HW + pix] =
-        __fsub_rn(__fmul_rn(sq[c], inv_v), __fmul_rn(mean, mean));
+    for (int s = 0; s < S; ++s) {
+      const float* m = s_rel + (s * L + q < nv ? s * L + q + 1 : 0) * 16;
+      mine[s] = warp::taps_of_rows(warp::depth_row(rr[s][0], m[3], dv),
+                                   warp::depth_row(rr[s][1], m[7], dv),
+                                   warp::depth_row(rr[s][2], m[11], dv),
+                                   H, W);
+    }
+    float4 sum = ref, sq = ref_sq;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (v >= nv) break;                  // the same in the whole warp
+      const warp::Taps& o = mine[v / L];   // projected by lane v % L
+      const warp::Taps t{__shfl_sync(0xffffffffu, o.x0, v % L, L),
+                         __shfl_sync(0xffffffffu, o.y0, v % L, L),
+                         __shfl_sync(0xffffffffu, o.wx, v % L, L),
+                         __shfl_sync(0xffffffffu, o.wy, v % L, L)};
+      const float4 val = warp::sample_quad<C>(
+          src + (long long)(v + 1) * HW * C, t, H, W, q);
+      sum.x = __fadd_rn(sum.x, val.x);
+      sum.y = __fadd_rn(sum.y, val.y);
+      sum.z = __fadd_rn(sum.z, val.z);
+      sum.w = __fadd_rn(sum.w, val.w);
+      sq.x = __fadd_rn(sq.x, __fmul_rn(val.x, val.x));
+      sq.y = __fadd_rn(sq.y, __fmul_rn(val.y, val.y));
+      sq.z = __fadd_rn(sq.z, __fmul_rn(val.z, val.z));
+      sq.w = __fadd_rn(sq.w, __fmul_rn(val.w, val.w));
+    }
+
+    // variance of the 4 channels into this plane's staging buffer
+    // [c][pixel]; the buffers alternate, so one barrier a plane suffices
+    float* so = s_out[(d - d0) & 1];
+    const float s4[4] = {sum.x, sum.y, sum.z, sum.w};
+    const float q4[4] = {sq.x, sq.y, sq.z, sq.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float mean = __fmul_rn(s4[k], inv_v);
+      so[(4 * q + k) * PS + j] =
+          __fsub_rn(__fmul_rn(q4[k], inv_v), __fmul_rn(mean, mean));
+    }
+    __syncthreads();
+    // C runs of P consecutive floats of out[c, d, :, :]
+    for (int i = threadIdx.x; i < C * P; i += kFwdThreads) {
+      const int c = i / P, jj = i - c * P;
+      if (p0 + jj < HW)
+        out[((long long)c * D + d) * HW + p0 + jj] = so[c * PS + jj];
+    }
   }
 }
 
@@ -209,16 +291,48 @@ warp_variance_bwd_kernel(const float* __restrict__ src,
   dsrc[pix * C + c] = dref;
 }
 
-template <int C>
+// K1's grid: P pixels a block, nx pixel blocks, dc planes a block walks,
+// nz plane chunks. A block walks all D planes when the pixel blocks alone
+// reach kTargetBlocks; otherwise the planes are cut into chunks until
+// they do (132 SMs on an H100; tests/test_torch_warp_lanes.py emulates
+// the rule).
+constexpr int kTargetBlocks = 8 * 132;
+
+struct Plan {
+  int P;
+  long long nx;
+  int dc, nz;
+};
+
+Plan plan(int H, int W, int C, int D) {
+  Plan p;
+  p.P = kFwdThreads / (C / 4);
+  p.nx = ((long long)H * W + p.P - 1) / p.P;
+  const long long want = (kTargetBlocks + p.nx - 1) / p.nx;
+  const int nz = (int)(want < 1 ? 1 : want > D ? D : want);
+  p.dc = (D + nz - 1) / nz;
+  p.nz = (D + p.dc - 1) / p.dc;
+  return p;
+}
+
+template <int C, int NV>
 cudaError_t launch(const float* src, const float* rel, const float* lo,
                    const float* step, float* out, int V, int H, int W, int D,
                    cudaStream_t stream) {
-  const long long n = (long long)H * W * D;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  warp_variance_kernel<C><<<blocks, threads, 0, stream>>>(
-      src, rel, lo, step, out, V, H, W, D);
+  const Plan p = plan(H, W, C, D);
+  warp_variance_kernel<C, NV>
+      <<<dim3((unsigned)p.nx, (unsigned)p.nz), kFwdThreads, 0, stream>>>(
+          src, rel, lo, step, out, V, H, W, D, p.dc);
   return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_views(const float* src, const float* rel, const float* lo,
+                         const float* step, float* out, int V, int H, int W,
+                         int D, cudaStream_t s) {
+  if (V <= 4) return launch<C, 3>(src, rel, lo, step, out, V, H, W, D, s);
+  if (V <= 8) return launch<C, 7>(src, rel, lo, step, out, V, H, W, D, s);
+  return launch<C, 15>(src, rel, lo, step, out, V, H, W, D, s);
 }
 
 template <int C, int NV>
@@ -253,12 +367,16 @@ extern "C" int warp_variance_f32(const float* src, const float* rel,
                                  const float* lo, const float* step,
                                  float* out, int V, int H, int W, int C,
                                  int D, void* stream) {
-  if (V < 1 || V > kMaxViews) return (int)cudaErrorInvalidValue;
+  if (V < 1 || V > kMaxViews || D < 1 || (long long)H * W < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
-    case 8: return (int)launch<8>(src, rel, lo, step, out, V, H, W, D, s);
-    case 16: return (int)launch<16>(src, rel, lo, step, out, V, H, W, D, s);
-    case 32: return (int)launch<32>(src, rel, lo, step, out, V, H, W, D, s);
+    case 8: return (int)launch_views<8>(src, rel, lo, step, out, V, H, W, D,
+                                        s);
+    case 16: return (int)launch_views<16>(src, rel, lo, step, out, V, H, W,
+                                          D, s);
+    case 32: return (int)launch_views<32>(src, rel, lo, step, out, V, H, W,
+                                          D, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

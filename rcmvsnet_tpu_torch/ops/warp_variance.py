@@ -3,7 +3,10 @@
 `warp_variance` launches the CUDA kernel `csrc/warp_variance.cu` for a
 CUDA tensor; for a CPU tensor it returns `warp_variance_plain`, the same
 function in plain PyTorch (`ops/warp.plane_sweep_variance` on the
-[D, h, w] hypothesis volume built from (lo, step)).
+[D, h, w] hypothesis volume built from (lo, step)). The kernel gives a
+group of C/4 lanes to each reference pixel (one float4 of channels a
+lane) and a block of 256 lanes walks a chunk of planes for its pixels
+(the kernel's entry sizes the grid: `plan` in the source).
 
 `warp_variance_bwd` (K6) is the cotangent of the features: the second entry
 of the same source on a CUDA tensor, `warp_variance_bwd_plain` (autograd

@@ -1,0 +1,142 @@
+"""A/B timing of K1 (`ops/warp_variance.warp_variance`, the fused warp +
+variance) for builds of its CUDA source, in turns, on one card, with the
+builds' outputs held equal bit for bit.
+
+Each argument is a directory holding `warp_variance.cu`,
+`warp_common.cuh` and `warp_bwd.cuh` with the package's C interface
+(default: the package's own `ops/csrc/`). Every build runs the same
+inputs: K1 at the DTU eval shapes (864×1152, V=5, stages 48/32/8 planes;
+`tools/profile_breakdown.stage_inputs`) and at the train shapes (512×640,
+V=4; `tools/repeat_warp_bwd.train_stages`). The builds take turns A, B,
+..., B, A, A, B, ... for `--rounds` rounds (default 2); each call's time
+is the smallest of its build's turns (each the median of 7 CUDA-event
+timings, `tools/timing`), printed with the largest. Before it is timed,
+each result is held to its plain version (1e-4 of the largest value) and
+to the first build's result with `torch.equal` (every bit); the tool
+fails after its report if any build's output differs.
+
+Usage:
+  python -m rcmvsnet_tpu_torch.tools.ab_warp_fwd [--rounds N] [SRC_DIR ...]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import torch
+
+from ..cli.eval_dtu import resolve_device
+from ..ops import _build
+from ..ops import warp_variance as K1
+from .timing import device_label, make_timer
+
+LIBS = ("warp_variance",)
+SEED = 5
+
+
+def k1_inputs(device, gen, dtu=(864, 1152, 5), train=(512, 640, 4)):
+    """[(label, (feats, projs, lo, step, ndepth))] of K1 at the DTU eval
+    stages and the train stages, from the golden backbone's FeatureNet on
+    the plane scene."""
+    from ..data.plane_scene import dtu_samples, plane_scene
+    from ..data.synthetic import batch_from_views
+    from ..models.cascade import CascadeMVSNet
+    from ..train.step import batch_to
+    from ..weights import ASSET, load_state_dict
+    from .profile_breakdown import stage_inputs
+    from .repeat_warp_bwd import NDEPTH, train_stages
+
+    model = CascadeMVSNet()
+    model.load_state_dict(load_state_dict(ASSET), strict=True)
+    model = model.to(device).eval()
+    calls = []
+    with torch.no_grad():
+        sample = dtu_samples(plane_scene(*dtu, SEED), NDEPTH)[0]
+        for st in stage_inputs(model, sample, device):
+            V, h, w, C = st["feats"].shape
+            calls.append((f"eval {st['key']} V{V} {h}x{w} C{C} D{st['nd']}",
+                          (st["feats"], st["projs"], st["lo"], st["step"],
+                           st["nd"])))
+        scene = plane_scene(*train, SEED)
+        batch = batch_to(batch_from_views([scene], NDEPTH, SEED), device)
+        rand = lambda *s: torch.randn(*s, generator=gen, device=device)
+        for key, f, projs, lo, step, nd in train_stages(model, batch, scene,
+                                                        rand):
+            V, h, w, C = f.shape
+            calls.append((f"train {key} V{V} {h}x{w} C{C} D{nd}",
+                          (f, projs, lo, step, nd)))
+    return calls
+
+
+def turns(n: int, rounds: int) -> list[int]:
+    """The order of n builds' turns: 0..n-1, n-1..0, 0..n-1, ..."""
+    fwd = list(range(n))
+    return [i for r in range(rounds) for i in (fwd if r % 2 == 0
+                                               else fwd[::-1])]
+
+
+def spread_line(label, row) -> str:
+    """label, then each build's least and largest ms over its turns."""
+    return f"{label:36s} " + "  ".join(
+        f"{min(t):7.3f}-{max(t):<7.3f}" for t in row)
+
+
+def run(device, srcs, rounds=2) -> dict:
+    """{label: [least ms of each build]}, every turn's ms, the totals and,
+    per label, whether each build's output equals the first build's in
+    every bit."""
+    builds = [_build.load_from(Path(s), LIBS) for s in srcs]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    calls = k1_inputs(device, gen)
+    timer = make_timer(device)
+    turn_ms = {label: [[] for _ in builds] for label, _ in calls}
+    equal = {label: [True] * len(builds) for label, _ in calls}
+    plain, first = {}, {}
+    with torch.no_grad():
+        for i in turns(len(builds), rounds):
+            _build._libs.update(builds[i])   # the wrapper now launches build i
+            for label, args in calls:
+                got = K1.warp_variance(*args)
+                if label not in plain:
+                    plain[label] = K1.warp_variance_plain(*args)
+                want = plain[label]
+                err = float((got - want).abs().max() / want.abs().max())
+                if not err <= 1e-4:
+                    raise AssertionError(f"{srcs[i]} {label}: error "
+                                         f"{err:.2e}")
+                ref = first.setdefault(label, got)
+                equal[label][i] &= bool(torch.equal(got, ref))
+                del got
+                turn_ms[label][i].append(
+                    timer(lambda a=args: K1.warp_variance(*a)))
+    ms = {label: [min(t) for t in row] for label, row in turn_ms.items()}
+    for label, row in turn_ms.items():
+        print(spread_line(label, row) + "  equal: " + " ".join(
+            "yes" if e else "NO" for e in equal[label]))
+    totals = [sum(row[i] for row in ms.values()) for i in range(len(srcs))]
+    print(f"{'total ms (least)':36s} "
+          + "  ".join(f"{t:15.3f}" for t in totals))
+    return {"ms": ms, "turns_ms": turn_ms, "total_ms": totals,
+            "bit_equal": equal}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("srcs", nargs="*", default=[str(_build.CSRC)])
+    p.add_argument("--rounds", type=int, default=2)
+    args = p.parse_args(argv)
+    device = resolve_device("cuda")
+    label = device_label(device)
+    print(f"device: {label} | builds: {' '.join(args.srcs)}")
+    res = run(device, args.srcs, args.rounds)
+    print(json.dumps({"device": label, "builds": args.srcs, **res}))
+    differ = [lab for lab, row in res["bit_equal"].items() if not all(row)]
+    if differ:
+        raise SystemExit(f"ab_warp_fwd: builds differ from the first at "
+                         f"{differ}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -60,7 +60,7 @@ def stage_inputs(model: CascadeMVSNet, sample: dict, device) -> list[dict]:
     imgs = torch.from_numpy(sample["imgs"]).to(device)
     V, Hs, Ws, _ = imgs.shape
     feats = model.feature.forward_folded(
-        imgs.permute(0, 3, 1, 2).contiguous())
+        imgs.permute(0, 3, 1, 2).contiguous(), out_layout="warp")
     stages = []
     for s, nd in enumerate(model.config.ndepths):
         key = f"stage{s + 1}"
@@ -72,7 +72,7 @@ def stage_inputs(model: CascadeMVSNet, sample: dict, device) -> list[dict]:
         stages.append({"key": key, "nd": nd, "lo": lo, "step": step,
                        "dv": lo[None] + idx[:, None, None] * step[None],
                        "projs": projs,
-                       "feats": feats[key].permute(0, 2, 3, 1).contiguous()})
+                       "feats": feats[key]})
     return stages
 
 
@@ -99,7 +99,8 @@ def run(model: CascadeMVSNet, sample: dict, device) -> dict:
         print(f"total forward: {res['total']:.2f} ms "
             f"({1000 / res['total']:.2f} maps/s)")
         x = imgs[0].permute(0, 3, 1, 2).contiguous()
-        res["featurenet"] = timer(lambda: model.feature.forward_folded(x))
+        res["featurenet"] = timer(lambda: model.feature.forward_folded(
+            x, out_layout="warp"))
         print(f"featurenet K5 ({V} views): {res['featurenet']:.2f} ms")
         for s, st in enumerate(stage_inputs(model, sample, device)):
             key, nd, f = st["key"], st["nd"], st["feats"]

@@ -65,9 +65,18 @@ def test_phases_run_on_cpu_and_main_path_demands_launches():
         chip_smoke.phase_kernels(model, samples, scene, ledger, dev)
     calls = {k: ledger.summary(k)["calls"]
              for k in ("conv2d", "warp_variance", "conv3d", "depth_tail")}
-    assert calls == {"conv2d": 13, "warp_variance": 3, "conv3d": 33,
+    assert calls == {"conv2d": 12, "warp_variance": 3, "conv3d": 33,
                      "depth_tail": 3}
     assert all(r["max_abs_err"] == 0.0 for r in ledger.rows)
+    k5 = [r for r in ledger.rows if r["kernel"] == "conv2d"]
+    assert [r["route"] for r in k5] == ["direct"] + ["tc"] * 7 + [
+        "direct", "direct", "tc", "lateral"]
+    assert all(r["bound_tc_ms"] > 0 for r in k5)
+    assert k5[-1]["library_ms"] is None and k5[-1]["library_unfused_ms"] > 0
+    s5 = ledger.summary("conv2d")
+    assert s5["library_ms"] is None
+    assert s5["library_unfused_ms"] == pytest.approx(
+        sum(r["library_ms"] for r in k5[:-1]) + k5[-1]["library_unfused_ms"])
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.phase_main(model, samples[:1], scene, dev)
 

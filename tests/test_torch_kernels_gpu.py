@@ -2,11 +2,16 @@
 a CUDA card (marker `gpu`; each test skips where there is no card).
 
 Small shapes that still cover every code path: K1 at C 8/16/32 with
-out-of-image taps, K2 in each mode (stride 1, stride 2, transposed with
+out-of-image taps, and at odd sizes (h·w not a multiple of a block's
+pixels, D not a multiple of its plane chunk, 2 to 9 source views) against
+the plain version and the K10 route, with the grid the built kernel
+reports equal to `plan`'s; K2 in each mode (stride 1, stride 2, transposed with
 skip, the 1-channel prob head, 41 output channels as in the render
 U-Net's conv0 dx, one input channel as in the prob head's dx, 64→64 and
 odd sizes in each mode), K4 at D 8/32/48, K5 at k 1/3/5, stride 1/2
-and the upsample-add epilogue; and the train kernels, forward and
+and the upsample-add epilogue, on both routes (tensor cores and direct),
+in both output layouts, at widths that stage 16-byte row vectors and at
+widths that do not, and K5's lateral head; and the train kernels, forward and
 gradients from a fixed random cotangent against autograd through the plain
 versions: K6 (K1's backward) at C 8/16/32, K7 (volume forward and
 backward), K8 in each mode (forward and dx through K2, dw through its own
@@ -139,6 +144,75 @@ def _close(got, want, tol=1e-4):
     """|got − want| ≤ tol · max|want| (+ tol)."""
     err = float((got - want).abs().max())
     assert err <= tol * (1.0 + float(want.abs().max())), err
+
+
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (5, 81, 95, 32, 48), (3, 9, 7, 8, 5), (4, 5, 7, 16, 3),
+    (8, 24, 40, 16, 8), (10, 12, 20, 32, 6)])
+def test_warp_variance_odd_sizes_match_plain(dev, V, h, w, C, D):
+    g = _gen(dev, h * w + C)
+    feats = torch.randn(V, h, w, C, device=dev, generator=g)
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = 3 + torch.rand(h, w, device=dev, generator=g)
+    projs = _projs(V, h, w, dev)
+    got = K1.warp_variance(feats, projs, lo, step, D)
+    want = K1.warp_variance_plain(feats, projs, lo, step, D)
+    dv = lo[None] + torch.arange(D, device=dev)[:, None, None] * step[None]
+    route = K10.plane_sweep_variance_views(
+        feats[:1], [feats[v:v + 1] for v in range(1, V)],
+        [projs[v:v + 1] for v in range(1, V)], projs[:1],
+        dv[None])[0].permute(3, 0, 1, 2)
+    torch.cuda.synchronize()
+    _close(got, want)
+    assert float((got - route).abs().max()) <= 1e-5 * float(
+        route.abs().max())
+
+
+@pytest.mark.parametrize("k,stride,ci,co,h,w,layout,way", [
+    (3, 1, 8, 8, 24, 40, "nchw", "tc"), (3, 1, 16, 16, 19, 38, "warp", "tc"),
+    (3, 1, 32, 32, 9, 18, "nchw", "tc"), (3, 1, 32, 8, 24, 40, "warp", "tc"),
+    (5, 2, 8, 16, 24, 40, "nchw", "tc"), (5, 2, 16, 32, 17, 30, "warp", "tc"),
+    (1, 1, 32, 32, 12, 20, "warp", "direct"),
+    (1, 1, 16, 32, 12, 20, "nchw", "direct"),
+    (1, 1, 32, 16, 19, 38, "warp", "direct"),
+    (3, 1, 3, 8, 24, 40, "nchw", "direct"),
+    (3, 1, 3, 8, 19, 38, "warp", "direct")])
+def test_conv2d_routes_match_plain(dev, k, stride, ci, co, h, w, layout,
+                                   way):
+    """Each route on shapes `route` gives it: the tensor cores for 3×3
+    and 5×5 with 8 or more input channels, the direct kernel for the 1×1
+    heads and 3 input channels; both layouts, aligned and unaligned
+    widths."""
+    assert K5.route(k, stride, k // 2, ci) == way
+    g = _gen(dev, k * 1000 + ci * 10 + co)
+    x = torch.randn(2, ci, h, w, device=dev, generator=g)
+    wgt = 0.2 * torch.randn(co, ci, k, k, device=dev, generator=g)
+    scale = 0.5 + torch.rand(co, device=dev, generator=g)
+    shift = torch.randn(co, device=dev, generator=g)
+    kw = dict(stride=stride, padding=k // 2, relu=True, out_layout=layout)
+    got = K5.conv2d(x, wgt, scale, shift, **kw)
+    want = K5.conv2d_plain(x, wgt, scale, shift, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    _close(got, want)
+
+
+@pytest.mark.parametrize("n,h,w,layout", [
+    (3, 24, 40, "warp"), (2, 18, 38, "nchw"), (1, 40, 72, "warp")])
+def test_lateral_conv2d_matches_plain(dev, n, h, w, layout):
+    g = _gen(dev, h * w)
+    up = torch.randn(n, 32, h // 2, w // 2, device=dev, generator=g)
+    lat = torch.randn(n, 8, h, w, device=dev, generator=g)
+    wi = 0.3 * torch.randn(32, 8, 1, 1, device=dev, generator=g)
+    bi = torch.randn(32, device=dev, generator=g)
+    wgt = 0.1 * torch.randn(8, 32, 3, 3, device=dev, generator=g)
+    n0 = K5.conv2d.launches
+    got = K5.lateral_conv2d(up, lat, wi, bi, wgt, layout)
+    want = K5.lateral_conv2d_plain(up, lat, wi, bi, wgt, layout)
+    torch.cuda.synchronize()
+    assert K5.conv2d.launches == n0 + 1
+    assert got.shape == want.shape
+    _close(got, want)
 
 
 @pytest.mark.parametrize("C,D", [(8, 8), (16, 32), (32, 48)])

@@ -3,6 +3,10 @@ the CPU, with the golden backbone's trained weights and BN statistics.
 
   * FeatureNet, as modules and folded through K5's plain version, against
     FeatureNet.apply(train=False) and featurenet_packed (Pallas, interpret);
+    the eval path's warp-layout heads, stage 3's through the lateral head
+    (`lateral_conv2d_plain`), against featurenet_packed(out_layout="warp"),
+    whose stage 3 is `_stage3_polyphase`, to 1e-5 of the largest value,
+    image borders included;
   * CostRegNet, as modules and folded through K2's plain version (stride 1,
     stride 2, transposed), against CostRegNet(conv_impl='xla') and
     costreg_lanes (Pallas conv + resample kernels, interpret);
@@ -72,6 +76,47 @@ def test_featurenet_matches_jax(golden):
                                        err_msg=f"{k} {name}", **TOL)
         np.testing.assert_allclose(folded[k].permute(0, 2, 3, 1).numpy(),
                                    np.asarray(packed[k]), err_msg=k, **TOL)
+
+
+def _from_warp(src2d, meta):
+    """featurenet_packed's warp layout → [V, h, w, C]."""
+    V, hm, row0, C, w_pad = meta
+    got = np.asarray(src2d)
+    return lambda h, w: np.stack([
+        got[(v * hm + row0) * C:(v * hm + row0 + h) * C]
+        .reshape(h, C, w_pad)[:, :, :w].transpose(0, 2, 1)
+        for v in range(V)])
+
+
+def test_featurenet_warp_layout_matches_jax(golden):
+    """forward_folded(out_layout="warp") through the plain versions, stage
+    3 as one lateral head, against the JAX eval path's warp layout
+    (stage 3 by `_stage3_polyphase`) and against the modules."""
+    params, stats, sd = golden
+    x = np.random.RandomState(9).randn(2, 32, 48, 3).astype(np.float32)
+    packed = featurenet_packed(
+        pack_featurenet(params["feature"], stats["feature"],
+                        dtype=jnp.float32), jnp.asarray(x), out_layout="warp",
+        interpret=True)
+    net = FeatureNet(8)
+    net.load_state_dict(_sub(sd, "feature."), strict=True)
+    net.eval()
+    xt = T(x).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        got = net.forward_folded(xt, plain=True, out_layout="warp")
+        mods = net(xt)
+    for k, scale in (("stage1", 4), ("stage2", 2), ("stage3", 1)):
+        h, w = 32 // scale, 48 // scale
+        want = _from_warp(*packed[k])(h, w)
+        out = got[k].numpy()
+        assert out.shape == want.shape == (2, h, w, want.shape[-1])
+        tol = 1e-5 * np.abs(want).max()
+        assert np.abs(out - want).max() <= tol, k
+        border = np.ones((h, w), bool)
+        border[1:-1, 1:-1] = False
+        assert np.abs(out - want)[:, border].max() <= tol, k
+        np.testing.assert_allclose(
+            out, mods[k].permute(0, 2, 3, 1).numpy(), err_msg=k, **TOL)
 
 
 @pytest.mark.parametrize("stage,shape", [(1, (8, 8, 16)), (3, (8, 16, 8))])

@@ -31,7 +31,8 @@ for must in ("cli.eval_dtu", "cli.train", "core.io", "data.dtu_test",
              "cli.eval_tanks", "cli.rm_color", "data.tanks",
              "data.plane_scene", "data.synthetic_tanks", "ops.warp_view",
              "tools.profile_breakdown", "tools.profile_conv3d",
-             "tools.timing", "tools.ab_conv3d", "tools.repeat_warp_bwd"):
+             "tools.timing", "tools.ab_conv3d", "tools.repeat_warp_bwd",
+             "tools.ab_warp_fwd", "tools.ab_conv2d"):
     assert "rcmvsnet_tpu_torch." + must in names, names
 assert not any(m.split(".")[0] in ("jax", "flax", "rcmvsnet_tpu")
                and sys.modules[m] for m in sys.modules), "JAX package imported"
@@ -51,7 +52,8 @@ for name in ("core.geometry", "data.synthetic", "data.transforms",
              "nn.costreg", "models.cascade", "models.render_net",
              "train.step", "train.state", "weights", "config",
              "data.plane_scene", "ops.warp_view", "tools.profile_breakdown",
-             "tools.profile_conv3d", "tools.repeat_warp_bwd"):
+             "tools.profile_conv3d", "tools.repeat_warp_bwd",
+             "tools.ab_warp_fwd", "tools.ab_conv2d"):
     importlib.import_module("rcmvsnet_tpu_torch." + name)
 print("ok")
 """

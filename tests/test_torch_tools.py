@@ -4,16 +4,18 @@ constants patched): each prints its host-clock lines under a CPU label,
 times every component it names, and refuses a CUDA device that is
 absent (as do the kernel A/B tools, which run on the card only). The
 warp-backward repeat tool reports every call's two runs, which the plain
-versions give equal."""
+versions give equal. The K5 A/B tool imports a tree's package under an
+alias and lists FeatureNet's 13 calls and the eval path's forms of them,
+each of which equals its plain version."""
 import json
 from functools import partial
 
 import pytest
 import torch
 
-from rcmvsnet_tpu_torch.tools import (ab_conv3d, ab_warp_bwd,
-                                      profile_breakdown, profile_conv3d,
-                                      repeat_warp_bwd)
+from rcmvsnet_tpu_torch.tools import (ab_conv2d, ab_conv3d, ab_warp_bwd,
+                                      ab_warp_fwd, profile_breakdown,
+                                      profile_conv3d, repeat_warp_bwd)
 from rcmvsnet_tpu_torch.tools.timing import make_timer
 
 torch.set_num_threads(2)
@@ -64,8 +66,36 @@ def test_repeat_warp_bwd_cpu(capsys):
     assert [json.loads(line) for line in out] == rows
 
 
+def test_ab_conv2d_lists_the_calls_of_a_tree_cpu():
+    """A tree loaded under an alias: FeatureNet's 13 calls, the
+    warp-layout heads, the lateral head and forward_folded; on the CPU
+    each form is its plain version."""
+    from rcmvsnet_tpu_torch.nn.featurenet import FeatureNet
+    tree = ab_conv2d.load_tree(ab_conv2d.ROOT, "_ab_tree_test")
+    torch.manual_seed(0)
+    net = FeatureNet(8).eval()
+    x = torch.randn(2, 3, 16, 24)
+    with torch.no_grad():
+        calls, lateral = ab_conv2d.featurenet_calls(net, x)
+        forms = ab_conv2d.tree_calls(tree, calls, lateral, net)
+        base = [c[0] for c in calls]
+        assert base == ["conv0.0", "conv0.1", "conv1.0", "conv1.1",
+                        "conv1.2", "conv2.0", "conv2.1", "conv2.2", "out1",
+                        "inner1+up", "out2", "inner2+up", "out3"]
+        want = []
+        for b in base:
+            want += [b] + ([f"{b} warp"] if b in ("out1", "out2", "out3")
+                           else [])
+        assert list(forms) == want + ["out3 lateral warp", "forward_folded"]
+        for label, (fk, fp) in forms.items():
+            assert ab_conv2d._err(fk(), fp()) <= 1e-6, label
+        folded = forms["forward_folded"][0]()
+        assert folded["stage3"].shape == (2, 16, 24, 8)
+
+
 @pytest.mark.parametrize("tool", [profile_breakdown, profile_conv3d,
-                                  ab_conv3d, ab_warp_bwd, repeat_warp_bwd])
+                                  ab_conv3d, ab_warp_bwd, repeat_warp_bwd,
+                                  ab_warp_fwd, ab_conv2d])
 def test_tools_refuse_missing_cuda(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
