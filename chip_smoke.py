@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 Phases (none catches its own failure; any failure exits non-zero without
 the final "ok" line):
   1. device   require CUDA, print the card's name and power limit, TF32 off;
-  2. build    compile the six CUDA sources (sm_90a, one nvcc each, in
+  2. build    compile the seven CUDA sources (sm_90a, one nvcc each, in
               parallel) and print the build seconds; count the TF32
               tensor-core MMAs (HMMA ... TF32) that `cuobjdump -sass` finds
               in each tensor-core kernel of K2/K9, K8 dw and K5, which
@@ -21,7 +21,10 @@ the final "ok" line):
               eval FeatureNet (the 8 trunk convs, out1 and out2 writing
               the warp layout, inner1+up, and stage 3's lateral head
               against its plain composition, inner2+up then out3), each
-              row with its route; print max errors and median ms of both,
+              row with its route; K4's rows split its time: the kernel's
+              own device ms (torch.profiler) and the host ms of one
+              wrapper call beside the event ms; print max errors and
+              median ms of both,
               the library call's ms where one PyTorch call computes the
               same function (K5 also sums its calls with the lateral
               head's two unfused cuDNN calls: library_unfused_ms), and
@@ -36,8 +39,9 @@ the final "ok" line):
               (512x640, V=4; stages 128x160x32/48, 256x320x16/32,
               512x640x8/8; neural volume 41 -> 8 channels at
               128x128x160): K1 and K6 (its backward) at all 3 stages, K7
-              forward and backward at stage 1, and K8 for every conv of the
-              3 CostRegNets and the render U-Net: forward and dx through K2,
+              forward (var and the render volume) and backward at stage
+              1, and K8 for every conv of the 3 CostRegNets and the
+              render U-Net: forward and dx through K2,
               dw through its own kernel, each from a fixed random cotangent;
               K6 and K7's backward are called a second time and must repeat
               bit for bit (their rows give the elements that differ, the
@@ -94,7 +98,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 from rcmvsnet_tpu_torch.data.plane_scene import (  # noqa: E402
     dtu_samples, plane_scene, tanks_samples)
-from rcmvsnet_tpu_torch.tools.timing import make_timer  # noqa: E402
+from rcmvsnet_tpu_torch.tools.timing import (  # noqa: E402
+    device_ms, host_ms, make_timer)
 
 H, W, V, NDEPTH, SEED = 864, 1152, 5, 192, 5
 TH, TW, TV = 512, 640, 4                    # the train step's input
@@ -137,6 +142,10 @@ LOSS_RTOL = 1e-4
 GRAD_L2_TOL = 3e-2
 CONF_TOL, CONF_SHARE = 1e-4, 1e-3   # per-pixel |Δconf| and allowed share
 DEPTH_REL_MAX, DEPTH_GATE = 2e-3, 0.01   # the fused TPU path's budget
+# kernels whose rows also carry the kernel's own device ms (torch.profiler)
+# and the host ms of one wrapper call: most of K4's event time is the
+# host's launch latency, not its few µs of device work
+SPLIT_KERNELS = ("depth_tail",)
 
 
 def sync(dev):
@@ -149,6 +158,15 @@ def nbytes(*tensors) -> int:
     """Bytes of the tensors given (None skipped)."""
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def split_times(fn, dev) -> dict:
+    """The kernel's own device ms (torch.profiler; None where it records
+    no device activity), the kernels it saw, and the host ms of one
+    call."""
+    ms, names = device_ms(fn, dev)
+    return {"device_ms": ms, "device_kernels": names,
+            "host_ms": host_ms(fn, dev)}
 
 
 def bound_ms(n_bytes: float, flops: float, rate: float = F32_FLOPS_PER_S):
@@ -192,10 +210,11 @@ class Ledger:
     """Per-kernel comparison records: max error, ms of the kernel, of its
     plain version and of the library call, and the bound."""
 
-    def __init__(self, timer):
+    def __init__(self, timer, split=None):
         self.rows = []
         self.failures = []
         self.timer = timer
+        self.split = split      # fn -> {device_ms, ...} for SPLIT_KERNELS
         self.phase = "eval"
 
     def compare(self, kernel, label, fn_k, fn_p, n_bytes=0, flops=0,
@@ -260,6 +279,8 @@ class Ledger:
                                      f"differs {row['repeat']}")
         row.update(extra or {})
         row["ms"] = self.timer(fn_k)
+        if self.split and kernel in SPLIT_KERNELS:
+            row.update(self.split(fn_k))
         row["plain_ms"] = self.timer(fn_p)
         row["library_ms"] = self.timer(fn_lib) if fn_lib else None
         self.rows.append(row)
@@ -285,6 +306,10 @@ class Ledger:
             unf = [r.get("library_unfused_ms", r["library_ms"]) for r in rows]
             out["library_unfused_ms"] = (None if any(v is None for v in unf)
                                          else sum(unf))
+        if any("device_ms" in r for r in rows):
+            dev = [r["device_ms"] for r in rows]
+            out["device_ms"] = None if None in dev else sum(dev)
+            out["host_ms"] = sum(r["host_ms"] for r in rows)
         if any("repeat" in r for r in rows):
             out["repeats_bit_for_bit"] = all(
                 r["repeat"]["differing"] == 0 for r in rows if "repeat" in r)
@@ -743,7 +768,8 @@ def phase_train_kernels(cascade, render, batch, scene, ledger, dev):
                 nbytes(f, im, projs, lo, step)
                 + 4 * (2 * C + 3 * (Vn - 1)) * nd * h * w,
                 warp_flops(Vn, h, w, C, nd, images=3))
-            cots = (g, rand(C, nd, h, w), rand(3 * (Vn - 1), nd, h, w))
+            # var's cotangent, then the render volume's (images, no-ref)
+            cots = (g, rand(3 * (Vn - 1) + C, nd, h, w))
             ledger.compare(
                 "warp_volume_bwd", tag,
                 lambda: K7.warp_volume_bwd(f, im, projs, lo, step, *cots),
@@ -938,7 +964,7 @@ def main() -> int:
     model.load_state_dict(load_state_dict(ASSET), strict=True)
     model = model.cuda().eval()
     dev = torch.device("cuda")
-    ledger = Ledger(make_timer(dev))
+    ledger = Ledger(make_timer(dev), split=lambda fn: split_times(fn, dev))
     with torch.no_grad():
         phase_kernels(model, samples, scene, ledger, dev)
     torch.cuda.empty_cache()
@@ -986,7 +1012,7 @@ def main() -> int:
         ("conv3d", "eval", "cuda", source + "csrc/conv3d.cu",
          "rcmvsnet_tpu/ops/pallas_costreg.py:383 + "
          "rcmvsnet_tpu/ops/pallas_resample.py:59,117"),
-        ("depth_tail", "eval", "triton", source + "depth_tail.py",
+        ("depth_tail", "eval", "cuda", source + "csrc/depth_tail.cu",
          "rcmvsnet_tpu/ops/pallas_tail.py:133"),
         ("conv2d", "eval", "cuda", source + "csrc/conv2d.cu",
          "rcmvsnet_tpu/ops/pallas_conv2d.py:306"),
@@ -1022,6 +1048,8 @@ def main() -> int:
             row["library_unfused_ms"] = s["library_unfused_ms"]
         if "repeats_bit_for_bit" in s:
             row["repeats_bit_for_bit"] = s["repeats_bit_for_bit"]
+        if "device_ms" in s:
+            row.update(device_ms=s["device_ms"], host_ms=s["host_ms"])
         if name in TRAIN_KERNELS and phase == "eval":
             t = ledger.summary(name, "train")
             row["train"] = {"launches": train_path["launches"][name],

@@ -16,11 +16,12 @@ is permuted or copied between K5 and K1.
 
 Train (`forward_train`, BatchNorm in train mode): FeatureNet as modules;
 per stage the differentiable warp — K7 (variance, no-ref variance and
-warped source images in one sweep) at stage 1 when the render branch's
-volume is asked for, K1 with K6 as its backward otherwise — then the U-Net
-through K8, then softmax + depth regression in plain PyTorch (the JAX
-train tail is XLA code). With `grad_detach` the previous stage's depth is
-detached before it sets the next window.
+warped source images in one sweep, the last two written straight into
+the render branch's volume_feature layout) at stage 1 when the render
+branch's volume is asked for, K1 with K6 as its backward otherwise — then
+the U-Net through K8, then softmax + depth regression in plain PyTorch
+(the JAX train tail is XLA code). With `grad_detach` the previous stage's
+depth is detached before it sets the next window.
 
 `plain=True` runs every kernel's plain version (on a CPU tensor the
 wrappers do so anyway), with autograd through them on the train path.
@@ -157,10 +158,9 @@ class CascadeMVSNet(nn.Module):
             for b in range(B):
                 f_b = fs[b].contiguous()
                 if want_volume:
-                    var, var_nr, wimg = volume(
-                        f_b, imgs_s[b].contiguous(), projs[b], lo[b],
-                        step[b], nd)
-                    vols.append(torch.cat([wimg, var_nr], dim=0))
+                    var, vol = volume(f_b, imgs_s[b].contiguous(), projs[b],
+                                      lo[b], step[b], nd)
+                    vols.append(vol)
                 else:
                     var = warp(f_b, projs[b], lo[b], step[b], nd)
                 cost = self.cost_regularization[s].forward_train(
@@ -172,8 +172,9 @@ class CascadeMVSNet(nn.Module):
             depth = torch.stack(depths)
             outputs[key] = {"depth": depth,
                             "photometric_confidence": torch.stack(confs)}
-            if want_volume:
-                volume_feature = torch.stack(vols)
+            if want_volume:        # K7 writes the layout: no copy at B=1
+                volume_feature = vols[0][None] if B == 1 else torch.stack(
+                    vols)
         last = outputs[f"stage{len(cfg.ndepths)}"]
         outputs["depth"] = last["depth"]
         outputs["photometric_confidence"] = last["photometric_confidence"]

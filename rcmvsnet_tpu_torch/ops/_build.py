@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".ext_build"
 SOURCES = ("warp_variance", "conv3d", "conv2d", "warp_volume", "conv3d_dw",
-           "warp_view")
+           "warp_view", "depth_tail")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMS = 132                     # streaming multiprocessors of an H100; the

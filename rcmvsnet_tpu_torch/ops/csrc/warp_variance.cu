@@ -19,17 +19,18 @@
 // channels. The first port (one thread per (plane, pixel) holding all C
 // channels) had a warp's float4 load touch 32 rows 4C bytes apart (32 L1
 // wavefronts an instruction at C = 32) and a plane-major grid that swept
-// whole source images once per plane. This design:
+// whole source images once per plane. This design (the block skeleton
+// in warp_fwd.cuh, which K7's forward shares; VarianceEpi below):
 //   * lanes across channels: a group of C / 4 lanes owns a reference
 //     pixel, each lane one float4 of its channels, so one
 //     gather reads whole 4C-byte rows (C = 32: one 128-byte line a pixel)
 //     and a lane keeps 8 sums instead of 2C;
 //   * the plane loop inside the block: a block owns P consecutive
 //     reference pixels and walks a chunk of planes (all D where the grid
-//     fills the card; plan below), so the source neighbourhood it samples
-//     stays in L1/L2 from plane to plane; rot * [x, y, 1] of each view is
-//     computed once per pixel, and each tap's offset, bounds and weight
-//     once per view (warp::sample_quad);
+//     fills the card; warp::fwd_plan), so the source neighbourhood it
+//     samples stays in L1/L2 from plane to plane; rot * [x, y, 1] of each
+//     view is computed once per pixel, and each tap's offset, bounds and
+//     weight once per view (warp::sample_quad);
 //   * projections shared: lane q projects views q, q + C/4, ... and the
 //     group passes each view's taps on with __shfl_sync (every lane
 //     projecting every view measured 1.4x slower at C = 32);
@@ -90,99 +91,44 @@
 
 #include "warp_bwd.cuh"
 #include "warp_common.cuh"
+#include "warp_fwd.cuh"
 
 namespace {
 
 using warp::kMaxViews;
 
-// K1: a group of L = C / 4 lanes owns one reference pixel, lane q the
-// float4 of channels [4q, 4q + 4); a block owns P = kFwdThreads / L
-// consecutive pixels and walks planes [d0, d0 + DC) (the plane chunk plan
-// picks: blockIdx.y). NV bounds the source views (V - 1). Lane q projects
-// views q, q + L, ... of the group's pixel and the group passes each
-// view's taps on with __shfl_sync.
-constexpr int kFwdThreads = 256;
+// K1's epilogue of the forward sweep (warp_fwd.cuh): sum x and sum x^2 start
+// at the reference view, each source view adds its float4, and the plane
+// stages its C variances, one row per channel of out [C, D, h, w].
+struct VarianceEpi {
+  float* out;
+  float inv_v;
+  long long plane;                         // D * h * w
+  float4 ref, ref_sq;
 
-template <int C, int NV>
-__global__ void __launch_bounds__(kFwdThreads)
-warp_variance_kernel(const float* __restrict__ src,
-                     const float* __restrict__ rel,
-                     const float* __restrict__ lo,
-                     const float* __restrict__ step,
-                     float* __restrict__ out,
-                     int V, int H, int W, int D, int DC) {
-  constexpr int L = C / 4;                 // lanes per pixel
-  constexpr int P = kFwdThreads / L;       // pixels per block
-  constexpr int PS = P + 8 / L;            // staging row: banks distinct
-  constexpr int S = (NV + L - 1) / L;      // views a lane projects
-  __shared__ float s_rel[kMaxViews * 16];
-  __shared__ float s_out[2][C * PS];
-  for (int i = threadIdx.x; i < V * 16; i += blockDim.x) s_rel[i] = rel[i];
-  __syncthreads();
-
-  const long long HW = (long long)H * W;
-  const int j = threadIdx.x / L, q = threadIdx.x % L;
-  const long long p0 = (long long)blockIdx.x * P;
-  // a pixel past the image computes the last one (its lanes take part in
-  // the shuffles) and writes nothing
-  const long long pix = min(p0 + j, HW - 1);
-  const int y = (int)(pix / W);
-  const float fx = (float)(pix - (long long)y * W), fy = (float)y;
-  const float lo_p = lo[pix], step_p = step[pix];
-  const float4 ref = __ldg(reinterpret_cast<const float4*>(src + pix * C) + q);
-  const float4 ref_sq = make_float4(__fmul_rn(ref.x, ref.x),
-                                    __fmul_rn(ref.y, ref.y),
-                                    __fmul_rn(ref.z, ref.z),
-                                    __fmul_rn(ref.w, ref.w));
-  const int nv = V - 1;
-
-  // rot * [x, y, 1] of the views this lane projects, once per pixel
-  float rr[S][3];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int v = s * L + q;
-    const float* m = s_rel + (v < nv ? v + 1 : 0) * 16;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) rr[s][r] = warp::rot_row(m + 4 * r, fx, fy);
+  __device__ void begin(float4 r) {
+    ref = r;
+    ref_sq = make_float4(__fmul_rn(r.x, r.x), __fmul_rn(r.y, r.y),
+                         __fmul_rn(r.z, r.z), __fmul_rn(r.w, r.w));
   }
-
-  const float inv_v = 1.f / (float)V;
-  const int d0 = blockIdx.y * DC, d1 = min(D, d0 + DC);
-  for (int d = d0; d < d1; ++d) {
-    const float dv = warp::plane_depth(lo_p, step_p, d);
-    warp::Taps mine[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float* m = s_rel + (s * L + q < nv ? s * L + q + 1 : 0) * 16;
-      mine[s] = warp::taps_of_rows(warp::depth_row(rr[s][0], m[3], dv),
-                                   warp::depth_row(rr[s][1], m[7], dv),
-                                   warp::depth_row(rr[s][2], m[11], dv),
-                                   H, W);
-    }
-    float4 sum = ref, sq = ref_sq;
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      if (v >= nv) break;                  // the same in the whole warp
-      const warp::Taps& o = mine[v / L];   // projected by lane v % L
-      const warp::Taps t{__shfl_sync(0xffffffffu, o.x0, v % L, L),
-                         __shfl_sync(0xffffffffu, o.y0, v % L, L),
-                         __shfl_sync(0xffffffffu, o.wx, v % L, L),
-                         __shfl_sync(0xffffffffu, o.wy, v % L, L)};
-      const float4 val = warp::sample_quad<C>(
-          src + (long long)(v + 1) * HW * C, t, H, W, q);
-      sum.x = __fadd_rn(sum.x, val.x);
-      sum.y = __fadd_rn(sum.y, val.y);
-      sum.z = __fadd_rn(sum.z, val.z);
-      sum.w = __fadd_rn(sum.w, val.w);
-      sq.x = __fadd_rn(sq.x, __fmul_rn(val.x, val.x));
-      sq.y = __fadd_rn(sq.y, __fmul_rn(val.y, val.y));
-      sq.z = __fadd_rn(sq.z, __fmul_rn(val.z, val.z));
-      sq.w = __fadd_rn(sq.w, __fmul_rn(val.w, val.w));
-    }
-
-    // variance of the 4 channels into this plane's staging buffer
-    // [c][pixel]; the buffers alternate, so one barrier a plane suffices
-    float* so = s_out[(d - d0) & 1];
+  __device__ void start(float4& sum, float4& sq) const {
+    sum = ref;
+    sq = ref_sq;
+  }
+  __device__ void add(float4& sum, float4& sq, const float4& val) const {
+    sum.x = __fadd_rn(sum.x, val.x);
+    sum.y = __fadd_rn(sum.y, val.y);
+    sum.z = __fadd_rn(sum.z, val.z);
+    sum.w = __fadd_rn(sum.w, val.w);
+    sq.x = __fadd_rn(sq.x, __fmul_rn(val.x, val.x));
+    sq.y = __fadd_rn(sq.y, __fmul_rn(val.y, val.y));
+    sq.z = __fadd_rn(sq.z, __fmul_rn(val.z, val.z));
+    sq.w = __fadd_rn(sq.w, __fmul_rn(val.w, val.w));
+  }
+  // variance of the 4 channels into staging rows 4q .. 4q + 3
+  template <int L, int S>
+  __device__ void stage(float* so, int PS, int j, int q, const float4& sum,
+                        const float4& sq, const warp::Taps (&)[S]) const {
     const float s4[4] = {sum.x, sum.y, sum.z, sum.w};
     const float q4[4] = {sq.x, sq.y, sq.z, sq.w};
 #pragma unroll
@@ -191,14 +137,25 @@ warp_variance_kernel(const float* __restrict__ src,
       so[(4 * q + k) * PS + j] =
           __fsub_rn(__fmul_rn(q4[k], inv_v), __fmul_rn(mean, mean));
     }
-    __syncthreads();
-    // C runs of P consecutive floats of out[c, d, :, :]
-    for (int i = threadIdx.x; i < C * P; i += kFwdThreads) {
-      const int c = i / P, jj = i - c * P;
-      if (p0 + jj < HW)
-        out[((long long)c * D + d) * HW + p0 + jj] = so[c * PS + jj];
-    }
   }
+  __device__ float* row(int r) const { return out + r * plane; }
+};
+
+// K1: the forward sweep with VarianceEpi; NV bounds the source views
+// (V - 1), the grid is fwd_plan's.
+template <int C, int NV>
+__global__ void __launch_bounds__(warp::kFwdThreads)
+warp_variance_kernel(const float* __restrict__ src,
+                     const float* __restrict__ rel,
+                     const float* __restrict__ lo,
+                     const float* __restrict__ step,
+                     float* __restrict__ out,
+                     int V, int H, int W, int D, int DC) {
+  __shared__ float s_rel[kMaxViews * 16];
+  __shared__ float s_out[2 * C * warp::FwdLanes<C, NV>::PS];
+  VarianceEpi epi{out, 1.f / (float)V, (long long)D * H * W};
+  warp::fwd_sweep<C, NV>(epi, s_rel, rel, src, lo, step, s_out, C, V, H, W,
+                         D, DC);
 }
 
 constexpr int kPlaneChunk = 8;     // planes of g staged per __syncthreads
@@ -291,37 +248,14 @@ warp_variance_bwd_kernel(const float* __restrict__ src,
   dsrc[pix * C + c] = dref;
 }
 
-// K1's grid: P pixels a block, nx pixel blocks, dc planes a block walks,
-// nz plane chunks. A block walks all D planes when the pixel blocks alone
-// reach kTargetBlocks; otherwise the planes are cut into chunks until
-// they do (132 SMs on an H100; tests/test_torch_warp_lanes.py emulates
-// the rule).
-constexpr int kTargetBlocks = 8 * 132;
-
-struct Plan {
-  int P;
-  long long nx;
-  int dc, nz;
-};
-
-Plan plan(int H, int W, int C, int D) {
-  Plan p;
-  p.P = kFwdThreads / (C / 4);
-  p.nx = ((long long)H * W + p.P - 1) / p.P;
-  const long long want = (kTargetBlocks + p.nx - 1) / p.nx;
-  const int nz = (int)(want < 1 ? 1 : want > D ? D : want);
-  p.dc = (D + nz - 1) / nz;
-  p.nz = (D + p.dc - 1) / p.dc;
-  return p;
-}
-
 template <int C, int NV>
 cudaError_t launch(const float* src, const float* rel, const float* lo,
                    const float* step, float* out, int V, int H, int W, int D,
                    cudaStream_t stream) {
-  const Plan p = plan(H, W, C, D);
+  const warp::Plan p = warp::fwd_plan(H, W, C, D);
   warp_variance_kernel<C, NV>
-      <<<dim3((unsigned)p.nx, (unsigned)p.nz), kFwdThreads, 0, stream>>>(
+      <<<dim3((unsigned)p.nx, (unsigned)p.nz), warp::kFwdThreads, 0,
+         stream>>>(
           src, rel, lo, step, out, V, H, W, D, p.dc);
   return cudaGetLastError();
 }

@@ -1,14 +1,33 @@
 // Stage-1 train volume kernel (float32) and its backward, for Hopper.
 //
 // Replaces the TPU kernel rcmvsnet_tpu/ops/pallas_warp_volume.py
-// plane_sweep_volume_fused_train (forward _warp_volume_kernel, backward
-// _warp_volume_bwd_kernel). In ONE sweep over (depth plane d, ref pixel)
-// it writes the three volumes the clean train pass needs at stage 1:
+// plane_sweep_volume_fused_train (:263; forward _warp_vol_fwd_kernel :101,
+// pallas_call :340). In ONE sweep over (depth plane d, ref pixel) it
+// writes the volumes the clean train pass needs at stage 1:
 //   var     variance over all V views (reference included)  -> U-Net
-//   var_nr  variance over the V-1 source views, divided by V (the
-//           reference's no_ref bookkeeping)                  -> render
-//   wimg    the V-1 warped source images, view-major          -> render
+//   vol     the render branch's volume_feature, in its layout:
+//           rows [0, 3(V-1))       the V-1 warped source images,
+//                                  view-major (wimg)
+//           rows [3(V-1), +C)      the variance over the V-1 source
+//                                  views, divided by V (the
+//                                  reference's no_ref bookkeeping)
 // Features and images are separate tensors sampled with the same taps.
+//
+// Forward design: the block skeleton of K1 (warp_fwd.cuh) with its own
+// epilogue (VolumeEpi below): a group of C/4 lanes per reference pixel,
+// one float4 of channels a lane, the plane loop in the block (K1's
+// fwd_plan chunking), rot * [x, y, 1] once per pixel, each view projected
+// by one lane and its taps passed on with __shfl_sync, view v's RGB
+// sampled by the lane that projected it, and per plane the block's var,
+// image and no-ref rows staged in shared memory and written as runs of
+// P consecutive floats. The first port (one thread per (plane, pixel)
+// holding 2C sums and projecting every view) gathered 4C-byte rows a
+// thread apart (K1's old L1-wavefront fault) and swept whole source
+// images once per plane. Writing vol in the render branch's layout saves
+// the caller a concatenation and a stack (two copies of the volume). The
+// per-channel arithmetic is the first port's operation for operation, so
+// the output is the same bit for bit (tools/ab_warp_fwd.py holds builds
+// to each other with torch.equal).
 //
 // Backward: with mean = (ref + sum_v x_v) / V and mean_nr = sum_v x_v / V,
 //   dL/dx_v   = (2/V) g_var (x_v - mean) + (2/V) g_nr (x_v - mean_nr)
@@ -16,39 +35,43 @@
 //   dL/dimg_v = the image cotangent of view v,
 // each applied through Warp_v^T (four bilinear taps) to dfeat and dimg;
 // the reference's lands on its own pixel, dimg[0] is zero. It replaces
-// pallas_warp_volume.py plane_sweep_volume_fused_train (:263;
-// _warp_vol_bwd_kernel :178, pallas_call :406) and is built as K6
-// (warp_variance.cu): a group of C lanes owns one reference pixel and
-// walks its planes in order, samples each source view once per plane
-// (x_v kept in registers), sums the reference's cotangent in a register
-// and merges each view's feature cotangent (every lane) and image
-// cotangent (lanes 0-2) into runs of planes with one top-left tap, which
-// it flushes as 64-bit fixed-point integer adds (warp_bwd.cuh): the
-// result is the same bit for bit in every run. No float atomics. The
-// features and the images get a quantum each.
+// the same function's backward (_warp_vol_bwd_kernel :178, pallas_call
+// :406) and is built as K6 (warp_variance.cu): a group of C lanes owns
+// one reference pixel and walks its planes in order, samples each source
+// view once per plane (x_v kept in registers), sums the reference's
+// cotangent in a register and merges each view's feature cotangent
+// (every lane) and image cotangent (lanes 0-2) into runs of planes with
+// one top-left tap, which it flushes as 64-bit fixed-point integer adds
+// (warp_bwd.cuh): the result is the same bit for bit in every run. No
+// float atomics. The features and the images get a quantum each. The
+// caller passes g_img and g_nr as the two row slices of vol's cotangent.
 //
 // Layouts: feats / dfeat [V, h, w, C], imgs / dimg [V, h, w, 3]
-// channels-last; rel [V, 16]; lo, step [h, w]; var, var_nr, g_var, g_nr
-// [C, D, h, w]; wimg, g_img [3 (V-1), D, h, w]. The backward's scratch:
-// warp_bwd.cuh's Aux, int64 feature quanta [V-1, h, w, C], int64 image
-// quanta [V-1, h, w, 4] (channel 3 unused: one 32-byte sector a pixel).
+// channels-last; rel [V, 16]; lo, step [h, w]; var, g_var, g_nr
+// [C, D, h, w]; vol [3 (V-1) + C, D, h, w], g_img [3 (V-1), D, h, w]. The
+// backward's scratch: warp_bwd.cuh's Aux, int64 feature quanta
+// [V-1, h, w, C], int64 image quanta [V-1, h, w, 4] (channel 3 unused:
+// one 32-byte sector a pixel).
 //
-// Bound: device-memory bytes forward (gathers hot in L2, (2C + 3(V-1))
-// floats written per thread); backward, as K6's, the work per plane and
-// lane (projections, gathers, run bookkeeping), not its integer atomics
-// (one per flushed in-image tap and channel, C + 3 channels). A block
-// stages the cotangents in shared memory 4 planes at a time (g_var, g_nr
-// and g_img are plane-major, so a group's lanes would read them at stride
-// D*h*w).
+// Bound: device-memory bytes forward ((2C + 3(V-1)) floats written per
+// plane and pixel; the gathers hot in L1/L2); backward, as K6's, the work
+// per plane and lane (projections, gathers, run bookkeeping), not its
+// integer atomics (one per flushed in-image tap and channel, C + 3
+// channels). A block stages the cotangents in shared memory 4 planes at a
+// time (g_var, g_nr and g_img are plane-major, so a group's lanes would
+// read them at stride D*h*w).
 #include <cuda_runtime.h>
 
 #include "warp_bwd.cuh"
 #include "warp_common.cuh"
+#include "warp_fwd.cuh"
 
 namespace {
 
 using warp::kMaxViews;
 
+// Bilinear sample of the 3 channels of image base [H, W, 3] at taps t:
+// taps 0..3, one fused multiply-add each, zero outside.
 __device__ __forceinline__ void sample_rgb(const float* base,
                                            const warp::Taps& t, int H, int W,
                                            float* rgb) {
@@ -59,65 +82,135 @@ __device__ __forceinline__ void sample_rgb(const float* base,
     if (p < 0) continue;
     const float wgt = warp::tap_weight(t, k);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) rgb[c] += wgt * __ldg(base + p * 3 + c);
+    for (int c = 0; c < 3; ++c)
+      rgb[c] = __fmaf_rn(wgt, __ldg(base + p * 3 + c), rgb[c]);
   }
 }
 
+// K7's epilogue of the forward sweep (warp_fwd.cuh). Sum x and sum x^2
+// run over the source views only (the no-ref variance's sums); the
+// reference joins them for the variance. A plane stages 2C + 3(V-1)
+// rows: var's C channels, then vol's rows in vol's order, the V-1 warped
+// images (view v's RGB sampled by the lane that projected view v, at its
+// own taps) and the C no-ref variances. The arithmetic per channel is
+// the first port's (one thread per plane and pixel), operation for
+// operation: views in order, x^2 summed with one fused multiply-add,
+// IEEE divisions by V, the reference added last.
 template <int C>
-__global__ void __launch_bounds__(128)
+struct VolumeEpi {
+  const float* imgs;
+  float* var;
+  float* vol;
+  float fv;
+  int nv, H, W;
+  long long HW, plane;                     // h * w, D * h * w
+  float4 ref;
+
+  __device__ void begin(float4 r) { ref = r; }
+  __device__ void start(float4& sum, float4& sq) const {
+    sum = sq = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ void add(float4& sum, float4& sq, const float4& val) const {
+    sum.x = __fadd_rn(sum.x, val.x);
+    sum.y = __fadd_rn(sum.y, val.y);
+    sum.z = __fadd_rn(sum.z, val.z);
+    sum.w = __fadd_rn(sum.w, val.w);
+    sq.x = __fmaf_rn(val.x, val.x, sq.x);
+    sq.y = __fmaf_rn(val.y, val.y, sq.y);
+    sq.z = __fmaf_rn(val.z, val.z, sq.z);
+    sq.w = __fmaf_rn(val.w, val.w, sq.w);
+  }
+  template <int L, int S>
+  __device__ void stage(float* so, int PS, int j, int q, const float4& sum,
+                        const float4& sq, const warp::Taps (&mine)[S]) const {
+    const float s4[4] = {sum.x, sum.y, sum.z, sum.w};
+    const float q4[4] = {sq.x, sq.y, sq.z, sq.w};
+    const float r4[4] = {ref.x, ref.y, ref.z, ref.w};
+    float* nr = so + (C + 3 * nv) * PS;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float m_nr = __fdiv_rn(s4[k], fv);
+      nr[(4 * q + k) * PS + j] =
+          __fmaf_rn(-m_nr, m_nr, __fdiv_rn(q4[k], fv));
+      const float r = r4[k];
+      const float m = __fdiv_rn(__fadd_rn(s4[k], r), fv);
+      so[(4 * q + k) * PS + j] =
+          __fmaf_rn(-m, m, __fdiv_rn(__fmaf_rn(r, r, q4[k]), fv));
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int v = s * L + q;
+      if (v >= nv) break;
+      float rgb[3];
+      sample_rgb(imgs + (long long)(v + 1) * HW * 3, mine[s], H, W, rgb);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) so[(C + 3 * v + c) * PS + j] = rgb[c];
+    }
+  }
+  // var's rows, then vol's
+  __device__ float* row(int r) const {
+    return r < C ? var + r * plane : vol + (r - C) * plane;
+  }
+};
+
+// K7's forward: the sweep with VolumeEpi; NV bounds the source views
+// (V - 1), the grid is fwd_plan's (K1's), the staging buffer dynamic
+// shared memory of fwd_smem_bytes.
+template <int C, int NV>
+__global__ void __launch_bounds__(warp::kFwdThreads)
 warp_volume_kernel(const float* __restrict__ feats,
                    const float* __restrict__ imgs,
                    const float* __restrict__ rel,
                    const float* __restrict__ lo,
                    const float* __restrict__ step,
-                   float* __restrict__ var, float* __restrict__ var_nr,
-                   float* __restrict__ wimg, int V, int H, int W, int D) {
+                   float* __restrict__ var, float* __restrict__ vol,
+                   int V, int H, int W, int D, int DC) {
+  extern __shared__ float s_out[];
   __shared__ float s_rel[kMaxViews * 16];
-  for (int i = threadIdx.x; i < V * 16; i += blockDim.x) s_rel[i] = rel[i];
-  __syncthreads();
-
   const long long HW = (long long)H * W;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= HW * D) return;
-  const int d = (int)(idx / HW);
-  const long long pix = idx - (long long)d * HW;
-  const int y = (int)(pix / W);
-  const int x = (int)(pix - (long long)y * W);
-  const float dv = warp::plane_depth(lo[pix], step[pix], d);
-  const float fx = (float)x, fy = (float)y;
-  const long long plane = (long long)D * HW;
-  const long long at = d * HW + pix;
+  VolumeEpi<C> epi{imgs, var, vol, (float)V, V - 1, H, W, HW, D * HW};
+  warp::fwd_sweep<C, NV>(epi, s_rel, rel, feats, lo, step, s_out,
+                         2 * C + 3 * (V - 1), V, H, W, D, DC);
+}
 
-  // source views only, as the no-ref variance sums them
-  float sum[C], sq[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) sum[c] = sq[c] = 0.f;
-  for (int v = 1; v < V; ++v) {
-    const warp::Taps t = warp::project(s_rel + v * 16, fx, fy, dv, H, W);
-    float val[C];
-    warp::sample_channels<C>(feats + (long long)v * HW * C, t, H, W, val);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      sum[c] += val[c];
-      sq[c] += val[c] * val[c];
-    }
-    float rgb[3];
-    sample_rgb(imgs + (long long)v * HW * 3, t, H, W, rgb);
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      wimg[(long long)(3 * (v - 1) + c) * plane + at] = rgb[c];
-  }
+template <int C, int NV>
+int fwd_smem_bytes(int V) {
+  return 2 * (2 * C + 3 * (V - 1)) * warp::FwdLanes<C, NV>::PS
+      * (int)sizeof(float);
+}
 
-  const float fv = (float)V;
-  const float* ref = feats + pix * C;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float m_nr = sum[c] / fv;
-    var_nr[c * plane + at] = sq[c] / fv - m_nr * m_nr;
-    const float r = __ldg(ref + c);
-    const float m = (sum[c] + r) / fv;
-    var[c * plane + at] = (sq[c] + r * r) / fv - m * m;
+template <int C, int NV>
+cudaError_t launch_fwd(const float* feats, const float* imgs,
+                       const float* rel, const float* lo, const float* step,
+                       float* var, float* vol, int V, int H, int W, int D,
+                       cudaStream_t s) {
+  const warp::Plan p = warp::fwd_plan(H, W, C, D);
+  const int smem = fwd_smem_bytes<C, NV>(V);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        warp_volume_kernel<C, NV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
   }
+  warp_volume_kernel<C, NV>
+      <<<dim3((unsigned)p.nx, (unsigned)p.nz), warp::kFwdThreads, smem,
+         s>>>(feats, imgs, rel, lo, step, var, vol, V, H, W, D, p.dc);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_fwd_views(const float* feats, const float* imgs,
+                             const float* rel, const float* lo,
+                             const float* step, float* var, float* vol,
+                             int V, int H, int W, int D, cudaStream_t s) {
+  if (V <= 4)
+    return launch_fwd<C, 3>(feats, imgs, rel, lo, step, var, vol, V, H, W,
+                            D, s);
+  if (V <= 8)
+    return launch_fwd<C, 7>(feats, imgs, rel, lo, step, var, vol, V, H, W,
+                            D, s);
+  return launch_fwd<C, 15>(feats, imgs, rel, lo, step, var, vol, V, H, W, D,
+                           s);
 }
 
 constexpr int kPlaneChunk = 4;     // planes of cotangents staged at once
@@ -277,30 +370,27 @@ void launch_bwd_views(const float* feats, const float* rel, const float* lo,
                       acc_f, acc_i, q, V, H, W, D, s);
 }
 
-inline unsigned blocks_for(long long n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
-}
-
 }  // namespace
 
+// K7's forward: var [C, D, h, w] and vol [3 (V-1) + C, D, h, w] (the
+// warped source images, view-major, then the no-ref variance).
 extern "C" int warp_volume_f32(const float* feats, const float* imgs,
                                const float* rel, const float* lo,
-                               const float* step, float* var, float* var_nr,
-                               float* wimg, int V, int H, int W, int C, int D,
+                               const float* step, float* var, float* vol,
+                               int V, int H, int W, int C, int D,
                                void* stream) {
-  if (V < 2 || V > kMaxViews) return (int)cudaErrorInvalidValue;
+  if (V < 2 || V > kMaxViews || D < 1 || (long long)H * W < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned b = blocks_for((long long)H * W * D, 128);
   switch (C) {
-    case 8: warp_volume_kernel<8><<<b, 128, 0, s>>>(
-        feats, imgs, rel, lo, step, var, var_nr, wimg, V, H, W, D); break;
-    case 16: warp_volume_kernel<16><<<b, 128, 0, s>>>(
-        feats, imgs, rel, lo, step, var, var_nr, wimg, V, H, W, D); break;
-    case 32: warp_volume_kernel<32><<<b, 128, 0, s>>>(
-        feats, imgs, rel, lo, step, var, var_nr, wimg, V, H, W, D); break;
+    case 8: return (int)launch_fwd_views<8>(feats, imgs, rel, lo, step, var,
+                                            vol, V, H, W, D, s);
+    case 16: return (int)launch_fwd_views<16>(feats, imgs, rel, lo, step,
+                                              var, vol, V, H, W, D, s);
+    case 32: return (int)launch_fwd_views<32>(feats, imgs, rel, lo, step,
+                                              var, vol, V, H, W, D, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // Bytes of the scratch warp_volume_bwd_f32 takes (any contents).

@@ -1,28 +1,29 @@
-"""K4: fused softmax + depth regression + photometric confidence (Triton).
+"""K4: fused softmax + depth regression + photometric confidence.
 
-`depth_tail` launches the Triton kernel below for a CUDA tensor; for a CPU
-tensor it returns `depth_tail_plain`: softmax over D, `depth_regression`
-and the cumsum `photometric_confidence`, as `rcmvsnet_tpu/models/
-cascade.py:40-68,281-288` compute them.
+`depth_tail` launches the CUDA kernel `csrc/depth_tail.cu` for a CUDA
+tensor; for a CPU tensor it returns `depth_tail_plain`: softmax over D,
+`depth_regression` and the cumsum `photometric_confidence`, as
+`rcmvsnet_tpu/models/cascade.py:40-68,281-288` compute them.
 
 Replaces `rcmvsnet_tpu/ops/pallas_tail.py` `fused_depth_tail`. The work is
 a per-pixel reduction over D ≤ 64 with no reuse across pixels, so it is
-bound by reading the cost volume once: one program loads a [D_PAD, BLOCK]
-tile (pixels contiguous, coalesced), and keeps max, exp, Σ, Σp·dv and Σp·d
-in registers. The confidence is Σ_d p[d]·[i−1 ≤ d ≤ i+2] with
-i = clamp(trunc(Σp·d), 0, D−1), which equals the reference's pad-(1, 2)
-window-4 sum gathered at i and needs no shifted tiles.
+bound by reading the cost volume once: one thread owns a pixel and keeps
+its D costs in registers (D a template parameter of the kernel for the
+cascade's 8, 32 and 48 planes, nothing padded), max, exp, Σ, Σp·dv and
+Σp·d with them, and a warp's loads of each plane are one coalesced line.
+The confidence is Σ_d p[d]·[i−1 ≤ d ≤ i+2] with i = clamp(trunc(Σp·d),
+0, D−1), which equals the reference's pad-(1, 2) window-4 sum gathered at
+i and needs no shifted copies.
 """
 from __future__ import annotations
 
-import os
+import ctypes
 
 import torch
 
 from . import _build
 
 MAX_DEPTH = 64
-BLOCK = 128
 
 
 def depth_regression(prob: torch.Tensor,
@@ -63,49 +64,13 @@ def depth_tail_plain(cost: torch.Tensor, lo: torch.Tensor,
             photometric_confidence(prob)[0])
 
 
-def _depth_tail_kernel(cost_ptr, lo_ptr, step_ptr, depth_ptr, conf_ptr,
-                       n_pix, D: tl.constexpr, D_PAD: tl.constexpr,
-                       BLOCK: tl.constexpr):
-    """Triton body for one block of BLOCK pixels (compiled by
-    `_triton_kernel`; `tl` is bound when triton is first imported)."""
-    pid = tl.program_id(0)
-    offs = pid * BLOCK + tl.arange(0, BLOCK)
-    dd = tl.arange(0, D_PAD)
-    pmask = offs < n_pix
-    dmask = dd < D
-    c = tl.load(cost_ptr + dd[:, None] * n_pix + offs[None, :],
-                mask=dmask[:, None] & pmask[None, :], other=0.0)
-    c = tl.where(dmask[:, None], c, float("-inf"))
-    m = tl.max(c, axis=0)
-    e = tl.exp(c - m[None, :])
-    p = e / tl.sum(e, axis=0)[None, :]
-    lo = tl.load(lo_ptr + offs, mask=pmask, other=0.0)
-    st = tl.load(step_ptr + offs, mask=pmask, other=0.0)
-    df = dd.to(tl.float32)
-    dv = lo[None, :] + df[:, None] * st[None, :]
-    depth = tl.sum(p * dv, axis=0)
-    idx = tl.sum(p * df[:, None], axis=0).to(tl.int32)       # truncation
-    idx = tl.minimum(tl.maximum(idx, 0), D - 1)
-    win = (dd[:, None] >= idx[None, :] - 1) & (dd[:, None] <= idx[None, :] + 2)
-    conf = tl.sum(tl.where(win, p, 0.0), axis=0)
-    tl.store(depth_ptr + offs, depth, mask=pmask)
-    tl.store(conf_ptr + offs, conf, mask=pmask)
-
-
-_kernel = None
-
-
-def _triton_kernel():
-    """JIT-wrap the kernel at first use: triton is imported only here, so
-    the module imports on a machine without it."""
-    global _kernel, tl
-    if _kernel is None:
-        os.environ.setdefault("TRITON_CACHE_DIR",
-                              str(_build.BUILD_DIR / "triton"))
-        import triton
-        import triton.language as tl
-        _kernel = triton.jit(_depth_tail_kernel)
-    return _kernel
+def _lib():
+    fn = _build.load("depth_tail").depth_tail_f32
+    if not fn.argtypes:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def depth_tail(cost: torch.Tensor, lo: torch.Tensor, step: torch.Tensor):
@@ -117,14 +82,12 @@ def depth_tail(cost: torch.Tensor, lo: torch.Tensor, step: torch.Tensor):
         raise ValueError(f"depth_tail: D <= {MAX_DEPTH} and lo/step "
                          f"[{h}, {w}] required, got {tuple(cost.shape)}")
     _build.require_cuda("depth_tail", cost, lo, step)
-    n_pix = h * w
     depth = torch.empty((h, w), dtype=torch.float32, device=cost.device)
     conf = torch.empty_like(depth)
-    d_pad = max(16, 1 << (D - 1).bit_length())
-    kernel = _triton_kernel()
-    kernel[(-(-n_pix // BLOCK),)](
-        cost, lo, step, depth, conf, n_pix, D=D, D_PAD=d_pad, BLOCK=BLOCK,
-        num_warps=4)
+    err = _lib()(cost.data_ptr(), lo.data_ptr(), step.data_ptr(),
+                 depth.data_ptr(), conf.data_ptr(), h * w, D,
+                 _build.stream_ptr(cost.device))
+    _build.check(err, "depth_tail")
     depth_tail.launches += 1
     return depth, conf
 

@@ -4,11 +4,17 @@ warped source images in one sweep — and its backward.
 `warp_volume` launches the CUDA kernel `csrc/warp_volume.cu` for a CUDA
 tensor; for a CPU tensor it returns `warp_volume_plain` (`ops/warp.py`'s
 `homo_warp`, variance and `plane_sweep_variance_no_ref`, the composition
-the JAX cascade runs when the kernel is off). `warp_volume_bwd` is the
-backward (the second entry of the same source, deterministic like K6's,
-or autograd through the plain version), and `warp_volume_train` wraps both
-in one `torch.autograd.Function`, differentiable in the features and the
-images.
+the JAX cascade runs when the kernel is off). Both return (var, vol):
+the variance [C, D, h, w] the U-Net reads, and the render branch's
+volume_feature [3(V−1) + C, D, h, w] (warped source images, view-major,
+then the no-ref variance), which the kernel writes in place, so the
+cascade neither concatenates nor stacks it. The kernel shares K1's block
+skeleton (`csrc/warp_fwd.cuh`: a group of C/4 lanes per pixel, the plane
+loop in the block). `warp_volume_bwd` is the backward (the second entry of
+the same source, deterministic like K6's, or autograd through the plain
+version); it takes vol's cotangent whole and hands the kernel its two row
+slices. `warp_volume_train` wraps both in one `torch.autograd.Function`,
+differentiable in the features and the images.
 
 Replaces the TPU kernel `rcmvsnet_tpu/ops/pallas_warp_volume.py`
 `plane_sweep_volume_fused_train` (forward and backward); as for K1, the
@@ -30,8 +36,9 @@ def warp_volume_plain(feats: torch.Tensor, imgs: torch.Tensor,
                       projs: torch.Tensor, lo: torch.Tensor,
                       step: torch.Tensor, ndepth: int):
     """feats [V, h, w, C], imgs [V, h, w, 3] (view 0 = reference), projs
-    [V, 4, 4], lo/step [h, w] → (variance [C, D, h, w], no-ref variance
-    [C, D, h, w], warped source images [3 (V−1), D, h, w], view-major)."""
+    [V, 4, 4], lo/step [h, w] → (variance [C, D, h, w], vol
+    [3 (V−1) + C, D, h, w]: the warped source images, view-major, then the
+    no-ref variance)."""
     idx = torch.arange(ndepth, dtype=lo.dtype, device=lo.device)
     dv = (lo[None] + idx[:, None, None] * step[None])[None]   # [1, D, h, w]
     V = feats.shape[0]
@@ -39,20 +46,20 @@ def warp_volume_plain(feats: torch.Tensor, imgs: torch.Tensor,
     warp = lambda x, v: homo_warp(x[v:v + 1], projs[v:v + 1], ref_p, dv)
     var_nr = plane_sweep_variance_no_ref([warp(feats, v)
                                           for v in range(1, V)])
-    wimg = torch.cat([warp(imgs, v) for v in range(1, V)], dim=-1)
-    cm = lambda t: t[0].permute(3, 0, 1, 2).contiguous()
-    return (warp_variance_plain(feats, projs, lo, step, ndepth), cm(var_nr),
-            cm(wimg))
+    wimg = [warp(imgs, v) for v in range(1, V)]
+    vol = torch.cat(wimg + [var_nr], dim=-1)[0]             # [D, h, w, ·]
+    return (warp_variance_plain(feats, projs, lo, step, ndepth),
+            vol.permute(3, 0, 1, 2).contiguous())
 
 
-def warp_volume_bwd_plain(feats, imgs, projs, lo, step, g_var, g_nr, g_img):
-    """Cotangents of (feats, imgs) for the three output cotangents:
-    autograd through `warp_volume_plain`."""
+def warp_volume_bwd_plain(feats, imgs, projs, lo, step, g_var, g_vol):
+    """Cotangents of (feats, imgs) for the output cotangents (g_var,
+    g_vol): autograd through `warp_volume_plain`."""
     with torch.enable_grad():
         f = feats.detach().requires_grad_(True)
         im = imgs.detach().requires_grad_(True)
         outs = warp_volume_plain(f, im, projs, lo, step, g_var.shape[1])
-        return torch.autograd.grad(outs, (f, im), (g_var, g_nr, g_img))
+        return torch.autograd.grad(outs, (f, im), (g_var, g_vol))
 
 
 def _lib(entry, n_ptr):
@@ -88,37 +95,37 @@ def warp_volume(feats: torch.Tensor, imgs: torch.Tensor,
     _build.require_cuda("warp_volume", feats, imgs, rel, lo, step)
     new = lambda c: torch.empty((c, ndepth, h, w), dtype=torch.float32,
                                 device=feats.device)
-    var, var_nr, wimg = new(C), new(C), new(3 * (V - 1))
-    err = _lib("warp_volume_f32", 8)(
+    var, vol = new(C), new(3 * (V - 1) + C)
+    err = _lib("warp_volume_f32", 7)(
         feats.data_ptr(), imgs.data_ptr(), rel.data_ptr(), lo.data_ptr(),
-        step.data_ptr(), var.data_ptr(), var_nr.data_ptr(), wimg.data_ptr(),
-        V, h, w, C, ndepth, _build.stream_ptr(feats.device))
+        step.data_ptr(), var.data_ptr(), vol.data_ptr(), V, h, w, C, ndepth,
+        _build.stream_ptr(feats.device))
     _build.check(err, "warp_volume")
     warp_volume.launches += 1
-    return var, var_nr, wimg
+    return var, vol
 
 
 warp_volume.launches = 0
 
 
-def warp_volume_bwd(feats, imgs, projs, lo, step, g_var, g_nr, g_img):
+def warp_volume_bwd(feats, imgs, projs, lo, step, g_var, g_vol):
     """Same contract as `warp_volume_bwd_plain`; the kernel on a CUDA
     tensor. Returns (dfeats [V, h, w, C], dimgs [V, h, w, 3])."""
     if feats.device.type == "cpu":
         return warp_volume_bwd_plain(feats, imgs, projs, lo, step, g_var,
-                                     g_nr, g_img)
+                                     g_vol)
     _check("warp_volume_bwd", feats, imgs, lo, step)
     V, h, w, C = feats.shape
     D = g_var.shape[1]
-    want = {"g_var": (C, D, h, w), "g_nr": (C, D, h, w),
-            "g_img": (3 * (V - 1), D, h, w)}
-    for name, t in (("g_var", g_var), ("g_nr", g_nr), ("g_img", g_img)):
+    want = {"g_var": (C, D, h, w), "g_vol": (3 * (V - 1) + C, D, h, w)}
+    for name, t in (("g_var", g_var), ("g_vol", g_vol)):
         if tuple(t.shape) != want[name]:
             raise ValueError(f"warp_volume_bwd: {name} {tuple(t.shape)} "
                              f"!= {want[name]}")
     rel = relative_projections(projs)
     _build.require_cuda("warp_volume_bwd", feats, rel, lo, step, g_var,
-                        g_nr, g_img)
+                        g_vol)
+    g_img, g_nr = g_vol[:3 * (V - 1)], g_vol[3 * (V - 1):]   # row slices
     dfeat = torch.empty_like(feats)
     dimg = torch.empty((V, h, w, 3), dtype=torch.float32,
                        device=feats.device)
@@ -143,11 +150,10 @@ class _WarpVolume(torch.autograd.Function):
         return warp_volume(feats, imgs, projs, lo, step, ndepth)
 
     @staticmethod
-    def backward(ctx, g_var, g_nr, g_img):
+    def backward(ctx, g_var, g_vol):
         feats, imgs, projs, lo, step = ctx.saved_tensors
         dfeat, dimg = warp_volume_bwd(feats, imgs, projs, lo, step,
-                                      g_var.contiguous(), g_nr.contiguous(),
-                                      g_img.contiguous())
+                                      g_var.contiguous(), g_vol.contiguous())
         return dfeat, dimg, None, None, None, None
 
 

@@ -1,19 +1,27 @@
-"""A/B timing of K1 (`ops/warp_variance.warp_variance`, the fused warp +
-variance) for builds of its CUDA source, in turns, on one card, with the
+"""A/B timing of the forward plane sweeps K1 (`ops/warp_variance`, the
+fused warp + variance) and K7 (`ops/warp_volume`, the stage-1 train
+volume) for builds of their CUDA sources, in turns, on one card, with the
 builds' outputs held equal bit for bit.
 
 Each argument is a directory holding `warp_variance.cu`,
-`warp_common.cuh` and `warp_bwd.cuh` with the package's C interface
-(default: the package's own `ops/csrc/`). Every build runs the same
-inputs: K1 at the DTU eval shapes (864×1152, V=5, stages 48/32/8 planes;
-`tools/profile_breakdown.stage_inputs`) and at the train shapes (512×640,
-V=4; `tools/repeat_warp_bwd.train_stages`). The builds take turns A, B,
-..., B, A, A, B, ... for `--rounds` rounds (default 2); each call's time
-is the smallest of its build's turns (each the median of 7 CUDA-event
-timings, `tools/timing`), printed with the largest. Before it is timed,
-each result is held to its plain version (1e-4 of the largest value) and
-to the first build's result with `torch.equal` (every bit); the tool
-fails after its report if any build's output differs.
+`warp_volume.cu` and the shared headers (`warp_common.cuh`,
+`warp_bwd.cuh` and, where the build has it, `warp_fwd.cuh`); default: the
+package's own `ops/csrc/`. Every build runs the same inputs: K1 at the
+DTU eval shapes (864×1152, V=5, stages 48/32/8 planes;
+`tools/profile_breakdown.stage_inputs`) and at the train shapes
+(512×640, V=4; `tools/repeat_warp_bwd.train_stages`), and K7's forward
+at the train stage-1 shape (the same features, the images resized to
+it). K1 runs through the package's wrapper; K7 through its C entry,
+called as the build's source declares it: (var, vol) in the render
+volume's layout, or, for a build from before that layout, (var, var_nr,
+wimg) with var_nr and wimg pointed at vol's two row slices, so both
+write the same tensor. The builds take turns A, B, ..., B, A, A, B, ...
+for `--rounds` rounds (default 2); each call's time is the smallest of
+its build's turns (each the median of 7 CUDA-event timings,
+`tools/timing`), printed with the largest. Before it is timed, each
+result is held to its plain version (1e-4 of the largest value) and to
+the first build's result with `torch.equal` (every bit); the tool fails
+after its report if any build's output differs.
 
 Usage:
   python -m rcmvsnet_tpu_torch.tools.ab_warp_fwd [--rounds N] [SRC_DIR ...]
@@ -21,7 +29,9 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import re
 from pathlib import Path
 
 import torch
@@ -29,19 +39,22 @@ import torch
 from ..cli.eval_dtu import resolve_device
 from ..ops import _build
 from ..ops import warp_variance as K1
+from ..ops import warp_volume as K7
 from .timing import device_label, make_timer
 
-LIBS = ("warp_variance",)
+LIBS = ("warp_variance", "warp_volume")
 SEED = 5
 
 
 def k1_inputs(device, gen, dtu=(864, 1152, 5), train=(512, 640, 4)):
     """[(label, (feats, projs, lo, step, ndepth))] of K1 at the DTU eval
     stages and the train stages, from the golden backbone's FeatureNet on
-    the plane scene."""
+    the plane scene, and K7's (label, (feats, imgs, projs, lo, step,
+    ndepth)) at the train stage 1."""
     from ..data.plane_scene import dtu_samples, plane_scene
     from ..data.synthetic import batch_from_views
     from ..models.cascade import CascadeMVSNet
+    from ..ops.sampling import resize_bilinear
     from ..train.step import batch_to
     from ..weights import ASSET, load_state_dict
     from .profile_breakdown import stage_inputs
@@ -66,7 +79,42 @@ def k1_inputs(device, gen, dtu=(864, 1152, 5), train=(512, 640, 4)):
             V, h, w, C = f.shape
             calls.append((f"train {key} V{V} {h}x{w} C{C} D{nd}",
                           (f, projs, lo, step, nd)))
-    return calls
+            if key == "stage1":
+                im = resize_bilinear(batch["imgs"][0], h, w).contiguous()
+                k7 = (f"K7 train {key} V{V} {h}x{w} C{C} D{nd}",
+                      (f, im, projs, lo, step, nd))
+    return calls, k7
+
+
+def entry_pointers(src_dir: Path, entry: str) -> int:
+    """The float pointers among the parameters of `entry`'s extern "C"
+    declaration in src_dir/warp_volume.cu (the build's C interface)."""
+    text = (Path(src_dir) / "warp_volume.cu").read_text()
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+    return m.group(1).count("float*")
+
+
+def k7_call(lib, n_ptr: int, feats, imgs, projs, lo, step, nd):
+    """K7's forward through one build's C entry: (var, vol), vol in the
+    render volume's layout whichever interface the build has (7 pointers:
+    var, vol; 8: var, var_nr, wimg)."""
+    V, h, w, C = feats.shape
+    rel = K1.relative_projections(projs)
+    var = torch.empty((C, nd, h, w), device=feats.device)
+    vol = torch.empty((3 * (V - 1) + C, nd, h, w), device=feats.device)
+    outs = [var.data_ptr(), vol.data_ptr()]
+    if n_ptr == 8:
+        outs = [var.data_ptr(), vol[3 * (V - 1):].data_ptr(),
+                vol.data_ptr()]
+    fn = lib.warp_volume_f32
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(feats.data_ptr(), imgs.data_ptr(), rel.data_ptr(),
+             lo.data_ptr(), step.data_ptr(), *outs, V, h, w, C, nd,
+             _build.stream_ptr(feats.device))
+    _build.check(err, "warp_volume (ab_warp_fwd)")
+    return var, vol
 
 
 def turns(n: int, rounds: int) -> list[int]:
@@ -87,35 +135,44 @@ def run(device, srcs, rounds=2) -> dict:
     per label, whether each build's output equals the first build's in
     every bit."""
     builds = [_build.load_from(Path(s), LIBS) for s in srcs]
+    k7_ptrs = [entry_pointers(Path(s), "warp_volume_f32") for s in srcs]
     gen = torch.Generator(device=device).manual_seed(SEED)
-    calls = k1_inputs(device, gen)
+    k1_calls, (k7_label, k7_args) = k1_inputs(device, gen)
+    calls = [(label, lambda i, a=args: (K1.warp_variance(*a),),
+              lambda a=args: (K1.warp_variance_plain(*a),))
+             for label, args in k1_calls]
+    calls.append((k7_label,
+                  lambda i: k7_call(builds[i]["warp_volume"], k7_ptrs[i],
+                                    *k7_args),
+                  lambda: K7.warp_volume_plain(*k7_args)))
     timer = make_timer(device)
-    turn_ms = {label: [[] for _ in builds] for label, _ in calls}
-    equal = {label: [True] * len(builds) for label, _ in calls}
+    turn_ms = {label: [[] for _ in builds] for label, _, _ in calls}
+    equal = {label: [True] * len(builds) for label, _, _ in calls}
     plain, first = {}, {}
     with torch.no_grad():
         for i in turns(len(builds), rounds):
             _build._libs.update(builds[i])   # the wrapper now launches build i
-            for label, args in calls:
-                got = K1.warp_variance(*args)
+            for label, fk, fp in calls:
+                got = fk(i)
                 if label not in plain:
-                    plain[label] = K1.warp_variance_plain(*args)
-                want = plain[label]
-                err = float((got - want).abs().max() / want.abs().max())
-                if not err <= 1e-4:
-                    raise AssertionError(f"{srcs[i]} {label}: error "
-                                         f"{err:.2e}")
+                    plain[label] = fp()
+                for a, p in zip(got, plain[label]):
+                    err = float((a - p).abs().max() / p.abs().max())
+                    if not err <= 1e-4:
+                        raise AssertionError(f"{srcs[i]} {label}: error "
+                                             f"{err:.2e}")
                 ref = first.setdefault(label, got)
-                equal[label][i] &= bool(torch.equal(got, ref))
+                equal[label][i] &= all(bool(torch.equal(a, b))
+                                       for a, b in zip(got, ref))
                 del got
-                turn_ms[label][i].append(
-                    timer(lambda a=args: K1.warp_variance(*a)))
+                turn_ms[label][i].append(timer(lambda: fk(i)))
     ms = {label: [min(t) for t in row] for label, row in turn_ms.items()}
     for label, row in turn_ms.items():
         print(spread_line(label, row) + "  equal: " + " ".join(
             "yes" if e else "NO" for e in equal[label]))
-    totals = [sum(row[i] for row in ms.values()) for i in range(len(srcs))]
-    print(f"{'total ms (least)':36s} "
+    totals = [sum(row[i] for label, row in ms.items() if label != k7_label)
+              for i in range(len(srcs))]
+    print(f"{'K1 total ms (least)':36s} "
           + "  ".join(f"{t:15.3f}" for t in totals))
     return {"ms": ms, "turns_ms": turn_ms, "total_ms": totals,
             "bit_equal": equal}

@@ -108,7 +108,7 @@ def train_inputs(device, gen, shape=(H, W, VIEWS)):
             if key == "stage1":
                 im = resize_bilinear(batch["imgs"][0], h, w).contiguous()
                 a = (f, im, projs, lo, step, rand(C, nd, h, w),
-                     rand(C, nd, h, w), rand(3 * (V - 1), nd, h, w))
+                     rand(3 * (V - 1) + C, nd, h, w))
                 calls.append((f"warp_volume_bwd {tag}",
                               lambda a=a: K7.warp_volume_bwd(*a),
                               lambda a=a: K7.warp_volume_bwd_plain(*a)))

@@ -4,6 +4,13 @@ On a CUDA device a time is the median of `reps` CUDA-event timings of one
 call each, after `warmup` calls. On the CPU (`--device cpu`, for tests)
 it is the same median on the host clock, and every line says so: no CPU
 number stands for a device metric.
+
+An event time spans whatever the device does between the two events,
+the host's launch latency included when the device waits for it. Two
+more times split it: `device_ms`, the kernels' own durations as
+`torch.profiler` (CUPTI) records them, and `host_ms`, the host clock
+around one call with the device idle before it (the wrapper's checks,
+allocations and launch).
 """
 from __future__ import annotations
 
@@ -47,3 +54,45 @@ def make_timer(device: torch.device, reps: int = 7, warmup: int = 2):
             torch.cuda.synchronize(device)
         return statistics.median(one_call(fn) for _ in range(reps))
     return timer
+
+
+def device_ms(fn, device: torch.device, reps: int = 20, warmup: int = 2):
+    """(mean device ms of one fn() call, kernel names): the summed
+    durations of the CUDA kernels `torch.profiler` records over `reps`
+    calls, divided by reps. (None, []) on the CPU, or where the profiler
+    records no device activity ("not measured")."""
+    if device.type != "cuda":
+        return None, []
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(device)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None, []
+    us = sum(e.time_range.elapsed_us() for e in kernels)
+    return us / 1e3 / reps, sorted({e.name for e in kernels})
+
+
+def host_ms(fn, device: torch.device, reps: int = 20, warmup: int = 2):
+    """Median host-clock ms of one fn() call with the device idle before
+    it: the time the caller's thread spends in the call (on a CUDA device,
+    to check, allocate and enqueue; on the CPU, the whole call)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return statistics.median(times)

@@ -5,7 +5,8 @@
     is reported (nothing of the port to import);
   * its kernel phases (eval and train) run end to end at a tiny size on
     CPU tensors (where every wrapper returns its plain version, so kernel
-    and plain agree exactly), and its main-path phases (eval and train)
+    and plain agree exactly; K4's rows carry the split of its time, with
+    no device time on the CPU), and its main-path phases (eval and train)
     refuse a run in which no kernel was launched;
   * the Tanks & Temples path and the profiling tools run at a tiny size on
     the CPU and refuse a run that launched no kernel; the tools' K9 and
@@ -59,8 +60,9 @@ def test_phases_run_on_cpu_and_main_path_demands_launches():
         fn()
         return (time.perf_counter() - t0) * 1e3
 
-    ledger = chip_smoke.Ledger(timer=cpu_ms)
     dev = torch.device("cpu")
+    ledger = chip_smoke.Ledger(
+        timer=cpu_ms, split=lambda fn: chip_smoke.split_times(fn, dev))
     with torch.no_grad():
         chip_smoke.phase_kernels(model, samples, scene, ledger, dev)
     calls = {k: ledger.summary(k)["calls"]
@@ -73,6 +75,15 @@ def test_phases_run_on_cpu_and_main_path_demands_launches():
         "direct", "direct", "tc", "lateral"]
     assert all(r["bound_tc_ms"] > 0 for r in k5)
     assert k5[-1]["library_ms"] is None and k5[-1]["library_unfused_ms"] > 0
+    # K4's rows split its time; on the CPU no device time is measured
+    for r in ledger.rows:
+        split = r["kernel"] == "depth_tail"
+        assert ("device_ms" in r) == split
+        if split:
+            assert r["device_ms"] is None and r["device_kernels"] == []
+            assert r["host_ms"] > 0
+    s4 = ledger.summary("depth_tail")
+    assert s4["device_ms"] is None and s4["host_ms"] > 0
     s5 = ledger.summary("conv2d")
     assert s5["library_ms"] is None
     assert s5["library_unfused_ms"] == pytest.approx(

@@ -8,18 +8,20 @@ the plain version and the K10 route, with the grid the built kernel
 reports equal to `plan`'s; K2 in each mode (stride 1, stride 2, transposed with
 skip, the 1-channel prob head, 41 output channels as in the render
 U-Net's conv0 dx, one input channel as in the prob head's dx, 64→64 and
-odd sizes in each mode), K4 at D 8/32/48, K5 at k 1/3/5, stride 1/2
+odd sizes in each mode), K4 at D 2/8/13/32/48/64, K5 at k 1/3/5, stride 1/2
 and the upsample-add epilogue, on both routes (tensor cores and direct),
 in both output layouts, at widths that stage 16-byte row vectors and at
 widths that do not, and K5's lateral head; and the train kernels, forward and
 gradients from a fixed random cotangent against autograd through the plain
 versions: K6 (K1's backward) at C 8/16/32, K7 (volume forward and
-backward), K8 in each mode (forward and dx through K2, dw through its own
-kernel, the 41-channel input, 1-channel prob head, 64→64 and odd sizes in
-each mode included), dw, K6 and K7's backward each repeated bit for bit
-(K6 and K7 also at odd sizes); K9 (K2's kernel as the raw conv) in every
-mode at odd and non-multiple-of-8 sizes; K10 at C 3/8/16/32 (the scalar
-path and the float4 path), and the K10 route's variance against K1's,
+backward at C 8/16/32, V 2/4/5 and odd sizes; the cascade's B=1
+volume_feature shares K7's storage), K8 in each mode (forward and dx
+through K2, dw through its own kernel, the 41-channel input, 1-channel
+prob head, 64→64 and odd sizes in each mode included), dw, K6 and K7's
+backward each repeated bit for bit (K6 and K7 also at odd sizes); K9
+(K2's kernel as the raw conv) in every mode at odd and non-multiple-of-8
+sizes; K10 at C 3/8/16/32 (the scalar path and the float4 path), and the
+K10 route's variance against K1's,
 within 1e-5 of its largest value. The backward kernels sum in another
 order than autograd (K8 dw in per-block partials, K6 and K7 in 64-bit
 fixed point, rounded once per flushed run of planes), so they are held to
@@ -109,15 +111,20 @@ def test_conv3d_matches_plain(dev, mode, ci, co, shape):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("D", [8, 32, 48])
+@pytest.mark.parametrize("D", [2, 8, 13, 32, 48, 64])
 def test_depth_tail_matches_plain(dev, D):
+    """The kernel's instances (8, 32, 48) and its generic one (2, 13, 64),
+    on 40·52 = 2080 pixels (not a multiple of the 128-thread block)."""
     g = _gen(dev, D)
     h, w = 40, 52
     cost = 3 * torch.randn(D, h, w, device=dev, generator=g)
     lo = 425 + 10 * torch.rand(h, w, device=dev, generator=g)
     step = 2.5 + torch.rand(h, w, device=dev, generator=g)
+    n0 = K4.depth_tail.launches
     depth, conf = K4.depth_tail(cost, lo, step)
     d_p, c_p = K4.depth_tail_plain(cost, lo, step)
+    torch.cuda.synchronize()
+    assert K4.depth_tail.launches == n0 + 1
     torch.testing.assert_close(depth, d_p, rtol=1e-5, atol=0)
     assert float(((conf - c_p).abs() > 1e-4).float().mean()) <= 1e-3
 
@@ -234,19 +241,29 @@ def test_warp_variance_train_matches_plain(dev, C, D):
     _close(x.grad, K1.warp_variance_bwd_plain(feats, projs, lo, step, cot))
 
 
-def test_warp_volume_matches_plain(dev):
-    V, h, w, C, D = 4, 32, 40, 32, 48
-    g = _gen(dev, 3)
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (4, 32, 40, 32, 48), (2, 9, 7, 8, 5), (5, 13, 21, 16, 7),
+    (4, 81, 95, 32, 48), (5, 11, 9, 32, 3), (2, 24, 40, 16, 32),
+    (4, 7, 5, 8, 9)])
+def test_warp_volume_matches_plain(dev, V, h, w, C, D):
+    """K7 forward and backward at C 8/16/32, V 2/4/5, odd h, w and D (h·w
+    not a multiple of a block's pixels, D not a multiple of the plane
+    chunk): (var, vol) within 1e-4 of the plain version, vol in the
+    render volume's layout, the gradients of both outputs' cotangents
+    within 1e-4 of autograd through the plain version."""
+    g = _gen(dev, h * w + C + V)
     feats = torch.randn(V, h, w, C, device=dev, generator=g)
     imgs = torch.rand(V, h, w, 3, device=dev, generator=g)
     lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
-    step = torch.full((h, w), 4.0, device=dev)
+    step = 3 + torch.rand(h, w, device=dev, generator=g)
     projs = _projs(V, h, w, dev)
     x = feats.clone().requires_grad_(True)
     im = imgs.clone().requires_grad_(True)
     n0 = (K7.warp_volume.launches, K7.warp_volume_bwd.launches)
     outs = K7.warp_volume_train(x, im, projs, lo, step, D)
     want = K7.warp_volume_plain(feats, imgs, projs, lo, step, D)
+    assert [tuple(o.shape) for o in outs] == [(C, D, h, w),
+                                              (3 * (V - 1) + C, D, h, w)]
     cots = [torch.randn(o.shape, device=dev, generator=g) for o in outs]
     torch.autograd.backward(outs, cots)
     torch.cuda.synchronize()
@@ -257,6 +274,46 @@ def test_warp_volume_matches_plain(dev):
     gf, gi = K7.warp_volume_bwd_plain(feats, imgs, projs, lo, step, *cots)
     _close(x.grad, gf)
     _close(im.grad, gi)
+
+
+def test_forward_train_volume_is_k7_output(dev):
+    """At B=1 forward_train returns K7's vol itself as volume_feature (a
+    view of the same storage): no concatenation and no stack copies it."""
+    from rcmvsnet_tpu_torch.models.cascade import CascadeMVSNet
+    g = _gen(dev, 17)
+    V, H, W = 3, 64, 96             # each stage's h, w divisible by 8
+    model = CascadeMVSNet().to(dev).train()
+    imgs = torch.randn(1, V, H, W, 3, device=dev, generator=g)
+    projs = {}
+    for s, sc in enumerate((4, 2, 1)):
+        p = torch.zeros(1, V, 2, 4, 4, device=dev)
+        p[0, :, 0] = torch.eye(4, device=dev)
+        p[0, :, 0, 0, 3] = -4.0 * torch.arange(V, device=dev)
+        f = 1.2 * max(H, W) / sc
+        p[0, :, 1, :3, :3] = torch.tensor(
+            [[f, 0, W / sc / 2], [0, f, H / sc / 2], [0, 0, 1.0]],
+            device=dev)
+        projs[f"stage{s + 1}"] = p
+    dvals = torch.linspace(425, 935, 192, device=dev)[None]
+    seen = []
+    orig = K7.warp_volume
+
+    def spy(*a):
+        out = orig(*a)
+        seen.append(out[1])
+        return out
+    spy.launches = 0           # the wrapper counts on the name it is bound to
+    try:
+        K7.warp_volume = spy
+        _, vol = model.forward_train(imgs, projs, dvals, return_volume=True)
+    finally:
+        K7.warp_volume = orig
+    torch.cuda.synchronize()
+    assert len(seen) == 1
+    assert vol.shape == (1, *seen[0].shape)
+    assert vol.data_ptr() == seen[0].data_ptr()
+    assert vol.untyped_storage().data_ptr() == \
+        seen[0].untyped_storage().data_ptr()
 
 
 @pytest.mark.parametrize("mode,ci,co,shape", [
@@ -321,7 +378,7 @@ def test_warp_backward_repeats_bit_for_bit(dev, kernel, C, D):
     else:
         imgs = torch.rand(V, h, w, 3, device=dev, generator=g)
         cots = [torch.randn(c, D, h, w, device=dev, generator=g)
-                for c in (C, C, 3 * (V - 1))]
+                for c in (C, 3 * (V - 1) + C)]
         run = lambda: K7.warp_volume_bwd(feats, imgs, projs, lo, step, *cots)
     first, second = run(), run()
     torch.cuda.synchronize()
@@ -356,7 +413,7 @@ def test_warp_backward_odd_sizes_match_plain(dev, kernel, C, D, h, w):
     else:
         imgs = torch.rand(V, h, w, 3, device=dev, generator=g)
         cots = [torch.randn(c, D, h, w, device=dev, generator=g)
-                for c in (C, C, 3 * (V - 1))]
+                for c in (C, 3 * (V - 1) + C)]
         args = (feats, imgs, projs, lo, step, *cots)
         run = lambda: K7.warp_volume_bwd(*args)
         want = K7.warp_volume_bwd_plain(*args)

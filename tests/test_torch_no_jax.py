@@ -32,7 +32,7 @@ for must in ("cli.eval_dtu", "cli.train", "core.io", "data.dtu_test",
              "data.plane_scene", "data.synthetic_tanks", "ops.warp_view",
              "tools.profile_breakdown", "tools.profile_conv3d",
              "tools.timing", "tools.ab_conv3d", "tools.repeat_warp_bwd",
-             "tools.ab_warp_fwd", "tools.ab_conv2d"):
+             "tools.ab_warp_fwd", "tools.ab_conv2d", "tools.ab_depth_tail"):
     assert "rcmvsnet_tpu_torch." + must in names, names
 assert not any(m.split(".")[0] in ("jax", "flax", "rcmvsnet_tpu")
                and sys.modules[m] for m in sys.modules), "JAX package imported"
@@ -53,7 +53,8 @@ for name in ("core.geometry", "data.synthetic", "data.transforms",
              "train.step", "train.state", "weights", "config",
              "data.plane_scene", "ops.warp_view", "tools.profile_breakdown",
              "tools.profile_conv3d", "tools.repeat_warp_bwd",
-             "tools.ab_warp_fwd", "tools.ab_conv2d"):
+             "tools.ab_warp_fwd", "tools.ab_conv2d",
+             "tools.ab_depth_tail"):
     importlib.import_module("rcmvsnet_tpu_torch." + name)
 print("ok")
 """

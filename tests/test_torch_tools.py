@@ -6,16 +6,20 @@ absent (as do the kernel A/B tools, which run on the card only). The
 warp-backward repeat tool reports every call's two runs, which the plain
 versions give equal. The K5 A/B tool imports a tree's package under an
 alias and lists FeatureNet's 13 calls and the eval path's forms of them,
-each of which equals its plain version."""
+each of which equals its plain version. The K4 A/B tool runs its turns
+on the CPU through the plain version, with the device time "not
+measured"; the forward-warp A/B tool lists K1's six calls and K7's, and
+reads each build's K7 interface from its source."""
 import json
 from functools import partial
 
 import pytest
 import torch
 
-from rcmvsnet_tpu_torch.tools import (ab_conv2d, ab_conv3d, ab_warp_bwd,
-                                      ab_warp_fwd, profile_breakdown,
-                                      profile_conv3d, repeat_warp_bwd)
+from rcmvsnet_tpu_torch.tools import (ab_conv2d, ab_conv3d, ab_depth_tail,
+                                      ab_warp_bwd, ab_warp_fwd,
+                                      profile_breakdown, profile_conv3d,
+                                      repeat_warp_bwd)
 from rcmvsnet_tpu_torch.tools.timing import make_timer
 
 torch.set_num_threads(2)
@@ -93,9 +97,50 @@ def test_ab_conv2d_lists_the_calls_of_a_tree_cpu():
         assert folded["stage3"].shape == (2, 16, 24, 8)
 
 
+def test_ab_depth_tail_cpu(capsys):
+    shapes = (("stage1", 48, 6, 8), ("stage2", 32, 12, 16),
+              ("stage3", 8, 24, 32))
+    res = ab_depth_tail.run(torch.device("cpu"), [ab_depth_tail.ROOT] * 2,
+                            rounds=2, shapes=shapes)
+    out = capsys.readouterr().out
+    labels = ["stage1 D48 6x8", "stage2 D32 12x16", "stage3 D8 24x32"]
+    assert list(res["ms"]) == labels
+    for label in labels:
+        for tree in res["ms"][label]:
+            assert len(tree["event"]) == len(tree["host"]) == 2
+            assert tree["device"] == [None, None]
+            assert all(t > 0 for t in tree["event"] + tree["host"])
+        assert all(e == {"depth_max_rel": 0.0, "conf_share_above_tol": 0.0}
+                   for e in res["errors"][label])
+    assert all(t["device"] is None and t["host"] > 0
+               for t in res["per_map"])
+    assert out.count("not measured") == 2 * 3 + 2 * 2
+
+
+def test_ab_warp_fwd_lists_k1_and_k7_calls_cpu(tmp_path):
+    from rcmvsnet_tpu_torch.ops import _build
+    gen = torch.Generator().manual_seed(0)
+    calls, (label, args) = ab_warp_fwd.k1_inputs(
+        torch.device("cpu"), gen, dtu=(64, 96, 3), train=(64, 80, 3))
+    assert [c[0] for c in calls] == [
+        "eval stage1 V3 16x24 C32 D48", "eval stage2 V3 32x48 C16 D32",
+        "eval stage3 V3 64x96 C8 D8", "train stage1 V3 16x20 C32 D48",
+        "train stage2 V3 32x40 C16 D32", "train stage3 V3 64x80 C8 D8"]
+    assert label == "K7 train stage1 V3 16x20 C32 D48"
+    f, im, projs, lo, step, nd = args
+    assert tuple(im.shape) == (3, 16, 20, 3)
+    assert ab_warp_fwd.entry_pointers(_build.CSRC, "warp_volume_f32") == 7
+    (tmp_path / "warp_volume.cu").write_text(
+        'extern "C" int warp_volume_f32(const float* feats, const float* '
+        'imgs,\n    const float* rel, const float* lo, const float* step,\n'
+        '    float* var, float* var_nr, float* wimg, int V, int H, int W,\n'
+        '    int C, int D, void* stream) {\n')
+    assert ab_warp_fwd.entry_pointers(tmp_path, "warp_volume_f32") == 8
+
+
 @pytest.mark.parametrize("tool", [profile_breakdown, profile_conv3d,
                                   ab_conv3d, ab_warp_bwd, repeat_warp_bwd,
-                                  ab_warp_fwd, ab_conv2d])
+                                  ab_warp_fwd, ab_conv2d, ab_depth_tail])
 def test_tools_refuse_missing_cuda(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):

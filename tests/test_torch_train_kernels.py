@@ -5,9 +5,9 @@ the CPU (where each wrapper runs its plain version and each
   * K6 (`warp_variance_train`): forward and the feature gradient against
     jax.grad through the XLA warp + variance, the composition
     tests/test_pallas_warp_train.py holds the TPU kernel to;
-  * K7 (`warp_volume_train`): variance, no-ref variance and warped images,
-    and the feature and image gradients, against the XLA composition of
-    tests/test_pallas_warp_volume.py;
+  * K7 (`warp_volume_train`): the variance and the render volume (warped
+    images, then no-ref variance), and the feature and image gradients,
+    against the XLA composition of tests/test_pallas_warp_volume.py;
   * K8 (`conv3d_train`): each mode's forward, dx and dw against jax.grad
     through XLA's conv (tests/test_pallas_costreg_train.py:46), and the
     plain dw (27 shifted products) against autograd;
@@ -129,7 +129,9 @@ def test_k7_forward_and_grads_match_jax():
 
     x = T(feats).requires_grad_(True)
     im = T(imgs).requires_grad_(True)
-    outs = K7.warp_volume_train(x, im, T(projs), T(lo), T(step), D)
+    var, vol = K7.warp_volume_train(x, im, T(projs), T(lo), T(step), D)
+    # vol: the warped images (view-major), then the no-ref variance
+    outs = (var, vol[3 * (V - 1):], vol[:3 * (V - 1)])
     for got, ref in zip(outs, want):
         np.testing.assert_allclose(got.detach().numpy(), _cm(ref),
                                    rtol=1e-4, atol=1e-4)
@@ -144,7 +146,7 @@ def test_k7_var_only_cotangent_gives_zero_image_grad():
     feats, imgs, projs, lo, step, dv, D = _setup()
     x = T(feats).requires_grad_(True)
     im = T(imgs).requires_grad_(True)
-    var, _, _ = K7.warp_volume_train(x, im, T(projs), T(lo), T(step), D)
+    var, _ = K7.warp_volume_train(x, im, T(projs), T(lo), T(step), D)
     var.sum().backward()
     assert float(im.grad.abs().max()) == 0.0
     g = jax.grad(lambda f: jnp.sum(_jax_variance(

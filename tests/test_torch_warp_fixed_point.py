@@ -253,8 +253,9 @@ def test_fixed_point_scatter_matches_plain_and_jax(kind, C, D, window):
     if kind == "k6":
         plain = (K6.warp_variance_bwd_plain(*args, cots[0]),)
     else:
-        plain = K7.warp_volume_bwd_plain(T(feats), T(imgs), T(projs),
-                                         T(lo), T(step), *cots)
+        plain = K7.warp_volume_bwd_plain(  # vol's cotangent: g_img, g_nr
+            T(feats), T(imgs), T(projs), T(lo), T(step), cots[0],
+            torch.cat([cots[2], cots[1]]))
     want = _jax_grads(kind, feats, imgs, projs, dv, cots)
     exact, _, _, _ = emulate(T(feats), rel, T(lo), T(step), cots,
                              dtype=torch.float64)

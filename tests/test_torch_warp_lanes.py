@@ -1,5 +1,5 @@
-"""K1's lane layout (`ops/csrc/warp_variance.cu`, forward), checked on the
-CPU.
+"""K1's lane layout (`ops/csrc/warp_variance.cu`, forward, on the block
+skeleton of `ops/csrc/warp_fwd.cuh`), checked on the CPU.
 
 CUDA cannot run here, so these tests hold the kernel's mapping of lanes,
 pixels and planes in plain numpy against the plain versions:
@@ -45,7 +45,7 @@ ODD = ((81, 95, 32, 48), (9, 7, 8, 5), (5, 7, 16, 3), (24, 40, 16, 32))
 
 
 def plan(h, w, C, D):
-    """warp_variance.cu's `plan`: (P pixels a block, pixel blocks, DC
+    """warp_fwd.cuh's `fwd_plan`: (P pixels a block, pixel blocks, DC
     planes a block walks, plane chunks). A block walks all D planes when
     the pixel blocks alone reach TARGET_BLOCKS; otherwise the planes are
     cut into chunks until they do (at least one plane a chunk)."""
