@@ -72,7 +72,25 @@ the final "ok" line):
               version, the K10 route's variance against K1's, and K9 at
               the eight cases and at odd sizes (5x9x7, each mode) against
               F.conv3d / F.conv_transpose3d;
-  9. report   one {"kernels": [...]} JSON line (ten kernels), the
+  9. train CLI  `cli.train.fit`, the train CLI's loop, on in-memory
+              plane-scene datasets (`data/plane_scene.plane_items`; the
+              card's host cannot decode the DTU loaders' PNGs): 3 train
+              items at 512x640, V=4, 192 planes, 48/32/8, render v0 at
+              full size, 2 val items at V=5 with depth and mask, the golden
+              backbone and a seeded render branch; 2 epochs, validating
+              and saving each, then --resume for a third. Every train
+              (K1, K2, K6, K7, K8) and eval (K1, K2, K4, K5) kernel must
+              launch; every logged loss is finite; each epoch's
+              `*_cas.ckpt` / `*_nerf.ckpt` hold the reference's keys; the
+              saved pair restores into a fresh state tensor for tensor
+              (`torch.equal`, models and optimizer) at epoch 2 and the
+              saved step; the val step's depth and `infer_views` depth from
+              the last `*_cas.ckpt` (one DTU-shape view) pass phase 4's
+              gate against the plain path; render v1 and v2 each take one
+              step with finite losses, K7 and K8 launched. Prints steps/s
+              (host loading included), val batches/s, save and restore
+              seconds and peak memory;
+ 10. report   one {"kernels": [...]} JSON line (ten kernels), the
               nvidia-smi line, and the final {"ok": true, "device": {...}}
               line.
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM and 67 TFLOP/s
@@ -925,6 +943,188 @@ def phase_train(batch, cascade_sd, smi, dev, cfg=None, warmup=2, timed=5):
     return result
 
 
+def _depth_gate(name, dk, dp):
+    """Phase 4's gate on one kernel-path depth map against the plain
+    path's: finite, max relative delta ≤ DEPTH_REL_MAX, no pixel above
+    DEPTH_GATE. Returns the max relative delta."""
+    import numpy as np
+    dk, dp = np.asarray(dk), np.asarray(dp)
+    rel = np.abs(dk - dp) / np.abs(dp)
+    if dk.shape != dp.shape or not np.isfinite(dk).all() \
+            or float(rel.max()) > DEPTH_REL_MAX or (rel > DEPTH_GATE).any():
+        n_gate = int((rel > DEPTH_GATE).sum())
+        raise AssertionError(f"{name}, kernel vs plain depth: max rel "
+                             f"{float(rel.max()):.3e} (limit "
+                             f"{DEPTH_REL_MAX}), {n_gate} pixels above "
+                             f"{DEPTH_GATE}")
+    return float(rel.max())
+
+
+def _state_tensors(state) -> dict:
+    """Every model and optimizer tensor of a train state, by name."""
+    out = {f"cascade.{k}": v for k, v in state.cascade.state_dict().items()}
+    out.update({f"render.{k}": v
+                for k, v in state.render.state_dict().items()})
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"optimizer.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def phase_train_cli(dtu_sample, smi, dev, logdir, shape=(TH, TW, TV),
+                    ndepth=NDEPTH, steps=3, cfg=None):
+    """Phase 9: the train CLI's loop, `cli.train.fit`, on in-memory
+    plane-scene datasets: `steps` train items at `shape`, 2 val items with
+    one more view, the golden backbone and a seeded render branch; 2
+    epochs (validate and save every epoch), then `--resume` for a third;
+    then one step each of render v1 and v2."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from rcmvsnet_tpu_torch.cli.train import fit
+    from rcmvsnet_tpu_torch.config import Config, DataConfig, RunConfig
+    from rcmvsnet_tpu_torch.data.plane_scene import plane_items
+    from rcmvsnet_tpu_torch.models.cascade import CascadeMVSNet, infer_views
+    from rcmvsnet_tpu_torch.train.checkpoint import (checkpoint_paths,
+                                                     restore_checkpoint)
+    from rcmvsnet_tpu_torch.train.state import create_train_state
+    from rcmvsnet_tpu_torch.train.step import batch_to, make_val_step
+    from rcmvsnet_tpu_torch.weights import ASSET, load_state_dict
+    cuda = dev.type == "cuda"
+    Hs, Ws, Vn = shape
+    logdir = Path(logdir)
+    train_ds = plane_items(steps, Hs, Ws, Vn, ndepth, SEED)
+    val_ds = plane_items(2, Hs, Ws, Vn + 1, ndepth, SEED + 1000, val=True)
+    base = cfg or Config()
+    cfg = base.replace(data=DataConfig(num_views=Vn, numdepth=ndepth),
+                       run=RunConfig(epochs=2, eval_freq=1, save_freq=1,
+                                     summary_freq=1, seed=SEED,
+                                     logdir=str(logdir)))
+    golden = (load_state_dict(ASSET), None)
+    wrappers = zero_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    run1 = fit(cfg, train_ds, val_ds, dev, state_dicts=golden)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    missing = [k for k in dict.fromkeys(TRAIN_KERNELS + EVAL_KERNELS)
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"train CLI never launched {missing}")
+    state = run1["state"]
+    saved_step = state.step
+    recs = [json.loads(line) for line in
+            (logdir / "scalars.jsonl").read_text().splitlines()]
+    modes = {r["mode"] for r in recs}
+    losses = [v for r in recs for k, v in r.items() if "loss" in k]
+    if not {"train", "fulltrain", "fulltest"} <= modes or not losses \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f"train CLI records {sorted(modes)}: losses "
+                             f"{losses}")
+    for epoch in range(cfg.run.epochs):
+        cas, nerf = checkpoint_paths(logdir, epoch)
+        keys = (set(torch.load(cas, map_location="cpu")),
+                set(torch.load(nerf, map_location="cpu")))
+        if keys != ({"epoch", "model", "optimizer", "step"}, {"model"}):
+            raise AssertionError(f"epoch {epoch} checkpoint keys {keys}")
+
+    # one image-summary call alone (ten 512x640 maps, as a step logs them):
+    # the summaries' share of the loop's host time
+    from rcmvsnet_tpu_torch.train.logging import MetricLogger
+    probe = MetricLogger(logdir / "log_probe")
+    maps = {f"map{i}": np.random.RandomState(i).rand(1, Hs, Ws).astype(
+        np.float32) for i in range(10)}
+    t0 = time.perf_counter()
+    probe.log_images("probe", maps, 1)
+    log_images_s = time.perf_counter() - t0
+    tensorboard = probe._tb is not None
+    probe.close()
+
+    # the saved pair restores into a fresh state, tensor for tensor
+    fresh = create_train_state(cfg, Vn, steps, dev, seed=SEED + 1)
+    sync(dev)
+    t0 = time.perf_counter()
+    fresh, start = restore_checkpoint(logdir, fresh)
+    sync(dev)
+    restore_s = time.perf_counter() - t0
+    want, got = _state_tensors(state), _state_tensors(fresh)
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    if set(want) != set(got) or differ or start != cfg.run.epochs \
+            or fresh.step != state.step:
+        raise AssertionError(f"restored state differs: {differ[:5]}, "
+                             f"epoch {start}, step {fresh.step} vs "
+                             f"{state.step}")
+    del fresh
+
+    # the val step's depth, kernels vs plain, on one val batch
+    vb = batch_to({k: ({kk: vv[None] for kk, vv in v.items()}
+                       if isinstance(v, dict) else v[None])
+                   for k, v in val_ds[0].items()}, dev)
+    val_rel = _depth_gate("val step", *(
+        make_val_step(cfg, plain=plain, with_depth=True)(
+            state, vb)["depth"][0].cpu() for plain in (False, True)))
+
+    # the last *_cas.ckpt into a fresh model: a DTU-shape depth map
+    model = CascadeMVSNet()
+    model.load_state_dict(load_state_dict(checkpoint_paths(
+        logdir, cfg.run.epochs - 1)[0]), strict=True)
+    model = model.to(dev).eval()
+    (dk, _), = infer_views(model, [dtu_sample], dev)
+    (dp, _), = infer_views(model, [dtu_sample], dev, plain=True)
+    ckpt_rel = _depth_gate("eval from the saved checkpoint", dk, dp)
+    del model, state, run1["state"]
+
+    # --resume for a third epoch
+    cfg3 = cfg.replace(run=dataclasses.replace(cfg.run, epochs=3))
+    run2 = fit(cfg3, train_ds, val_ds, dev, resume=True, state_dicts=golden)
+    if run2["start_epoch"] != 2 or run2["start_step"] != saved_step \
+            or not checkpoint_paths(logdir, 2)[0].exists():
+        raise AssertionError(f"resume: epoch {run2['start_epoch']}, step "
+                             f"{run2['start_step']}")
+    del run2["state"]
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+
+    # render v1 and v2: one step each through the same loop
+    variants = {}
+    for net in ("v1", "v2"):
+        cfg_n = cfg.replace(
+            render=dataclasses.replace(cfg.render, net_type=net),
+            run=dataclasses.replace(cfg.run, epochs=1,
+                                    logdir=str(logdir / net)))
+        wrappers = zero_launches()
+        run = fit(cfg_n, train_ds, val_ds, dev, max_steps=1,
+                  state_dicts=golden)
+        del run["state"]
+        rec = [json.loads(line) for line in (logdir / net / "scalars.jsonl")
+               .read_text().splitlines() if '"train"' in line][0]
+        variants[net] = {"loss": rec["loss"], "launches": {
+            k: fn.launches for k, fn in wrappers.items()}}
+        used = variants[net]["launches"]
+        if not np.isfinite([v for k, v in rec.items() if "loss" in k]).all() \
+                or not all(used[k] for k in ("warp_volume", "warp_volume_bwd",
+                                             "conv3d_dw")):
+            raise AssertionError(f"render {net}: {variants[net]}")
+    result = {
+        "device": smi, "input": f"{Ws}x{Hs} B=1 V={Vn}, val V={Vn + 1}",
+        "launches": launches,
+        "steps_per_s_with_loading": run1["train_steps"]
+        / sum(run1["epoch_s"]),
+        # the same loop less the summaries it writes at summary_freq 1
+        "steps_per_s_without_summaries": run1["train_steps"]
+        / (sum(run1["epoch_s"]) - run1["log_s"]),
+        "steps_per_s_epoch": [steps / t for t in run1["epoch_s"]],
+        "loading_s": run1["load_s"], "summary_logging_s": run1["log_s"],
+        "one_log_images_call_s": log_images_s, "tensorboard": tensorboard,
+        "val_batches_per_s": run1["val_batches"] / run1["val_s"],
+        "save_s": run1["save_s"], "restore_s": restore_s,
+        "resume_restore_s": run2["restore_s"],
+        "max_memory_allocated": peak,
+        "val_depth_max_rel_delta_vs_plain": val_rel,
+        "ckpt_depth_max_rel_delta_vs_plain": ckpt_rel,
+        "losses": [r["loss"] for r in recs if r["mode"] == "train"],
+        "render_variants": variants}
+    print(json.dumps({"train_cli": result}), flush=True)
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1004,7 +1204,15 @@ def main() -> int:
         tools_path = phase_tools(model, dtu_sample, dev, CASES)
         phase_tools_kernels(model, dtu_sample, ledger, dev, CASES)
 
-    # 9. report
+    # 9. the train CLI's loop: train, validate, save, restore, resume
+    import shutil
+    cli_dir = ROOT / "chiprun_out" / "train_cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    train_cli = phase_train_cli(dtu_sample, smi, dev, cli_dir)
+    shutil.rmtree(cli_dir)
+    torch.cuda.empty_cache()
+
+    # 10. report
     source = "rcmvsnet_tpu_torch/ops/"
     meta = [
         ("warp_variance", "eval", "cuda", source + "csrc/warp_variance.cu",
@@ -1066,7 +1274,8 @@ def main() -> int:
         "sass_tf32_mma": mma,
         "calls": ledger.rows, "main_path": main_path,
         "train_path": train_path, "tanks_path": tanks_path,
-        "tools_path": tools_path, "kernels": kernels}, indent=1))
+        "tools_path": tools_path, "train_cli": train_cli,
+        "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

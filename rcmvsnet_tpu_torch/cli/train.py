@@ -1,44 +1,62 @@
-"""Unsupervised RC-MVSNet training, one device (PyTorch port).
+"""Unsupervised RC-MVSNet training on one device (PyTorch port).
 
-Counterpart of `rcmvsnet_tpu/cli/train.py` on a single device: the fused
+Counterpart of `rcmvsnet_tpu/cli/train.py` on a single device, with the
+JAX CLI's flag names for the flags it keeps, plus `--device` (default
+`cuda`; a missing card is an error, not a CPU run). Per epoch: the fused
 train step (`train/step.py`: clean, aug and render passes, one backward,
-one Adam step) for `--max_steps` steps per epoch, with the JAX CLI's flag
-names for the flags it keeps, plus `--device` (default `cuda`; a missing
-card is an error, not a CPU run). Scalars go to `<logdir>/scalars.jsonl`
-every `--summary_freq` steps.
+one Adam step) over the shuffled train loader (`data/loader.py`, its order
+fixed by (seed, epoch)); every `--summary_freq` steps a `train` record in
+`<logdir>/scalars.jsonl` and the image summaries under `<logdir>/images/`;
+at the epoch's end a `fulltrain` record and, every `--save_freq` epochs,
+the reference-format pair `model_{epoch:06d}_cas.ckpt` /
+`model_{epoch:06d}_nerf.ckpt`; every `--eval_freq` epochs (and the last)
+the supervised validation (`make_val_step`) as a `fulltest` record.
+`--resume` restores the newest pair and continues at the next epoch; the
+random draws restart from the seed, as the JAX CLI's do.
 
-Only `--trainpath synthetic` is supported (textured-plane scenes, no data
-on disk, render branch cut to 128 rays x 32 samples x 32 planes as the JAX
-CLI cuts it); the DTU train / val datasets, validation, checkpoints and
-`--resume` are not ported yet.
+Datasets: `--trainpath synthetic` (textured-plane scenes, no data on disk,
+render branch cut to 128 rays x 32 samples x 32 planes as the JAX CLI cuts
+it, a val set from seed + 1000), or a DTU tree in the reference's layout
+(`DTUTrainDataset` from `--trainpath` / `--trainlist`, `DTUValDataset`
+with 5 views from `--testpath` / `--testlist`). `fit` holds the loop, so
+other callers can drive it on in-memory datasets.
 
 Usage:
-  python -m rcmvsnet_tpu_torch.cli.train --trainpath synthetic \\
-      --max_steps 10 --logdir ./rc-mvsnet [--device cuda]
+  python -m rcmvsnet_tpu_torch.cli.train --trainpath /data/dtu \\
+      --trainlist lists/dtu/train.txt --testlist lists/dtu/test.txt \\
+      --logdir ./rc-mvsnet [--epochs 15] [--net_type v0] [--resume]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from pathlib import Path
 
-import numpy as np
 import torch
 
-from ..config import (BackboneConfig, Config, LossConfig, RenderConfig,
-                      RunConfig)
+from ..config import (BackboneConfig, Config, DataConfig, LossConfig,
+                      RenderConfig, RunConfig)
+from ..data.dtu_train import DTUTrainDataset
+from ..data.dtu_val import DTUValDataset
+from ..data.loader import DataLoader
 from ..data.synthetic_dataset import SyntheticDataset
 from ..losses.aug import adjust_w_aug
+from ..train.checkpoint import restore_checkpoint, save_checkpoint
 from ..train.logging import DictAverageMeter, MetricLogger
 from ..train.state import create_train_state
-from ..train.step import batch_to, draw_step, make_train_step
+from ..train.step import batch_to, draw_step, make_train_step, make_val_step
 from .eval_dtu import resolve_device
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="RC-MVSNet training (PyTorch)")
     p.add_argument("--trainpath", required=True,
-                   help="'synthetic' (the only dataset ported so far)")
+                   help="a DTU train tree, or 'synthetic'")
+    p.add_argument("--testpath", default=None,
+                   help="the DTU tree of the val set (default: trainpath)")
+    p.add_argument("--trainlist", default="lists/dtu/train.txt")
+    p.add_argument("--testlist", default="lists/dtu/test.txt")
     p.add_argument("--logdir", default="./rc-mvsnet")
     p.add_argument("--epochs", type=int, default=15)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -46,11 +64,17 @@ def parse_args(argv=None):
                    help="'e1,e2,..:g' — scale lr by 1/g at those epochs")
     p.add_argument("--wd", type=float, default=0.0,
                    help="L2-into-gradient weight decay (torch Adam style)")
+    p.add_argument("--save_freq", type=int, default=1)
+    p.add_argument("--eval_freq", type=int, default=1)
     p.add_argument("--grad_method", default="detach",
                    choices=["detach", "undetach"])
+    p.add_argument("--net_type", default="v0", choices=["v0", "v1", "v2"],
+                   help="renderer MLP variant (v0 mult-bias / v1 attention "
+                        "/ v2 additive)")
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--num_view", type=int, default=3)
     p.add_argument("--numdepth", type=int, default=192)
+    p.add_argument("--interval_scale", type=float, default=1.06)
     p.add_argument("--ndepths", default="48,32,8")
     p.add_argument("--depth_inter_r", default="4,2,1")
     p.add_argument("--dlossw", default="0.5,1.0,2.0")
@@ -58,10 +82,14 @@ def parse_args(argv=None):
     p.add_argument("--w_aug", type=float, default=0.01)
     p.add_argument("--n_rays", type=int, default=1024)
     p.add_argument("--n_samples", type=int, default=128)
+    p.add_argument("--resume", action="store_true")
     p.add_argument("--random_seed", type=int, default=1)
     p.add_argument("--summary_freq", type=int, default=10)
     p.add_argument("--max_steps", type=int, default=None,
-                   help="cap steps/epoch (smoke runs)")
+                   help="cap steps (and val batches) per epoch (smoke runs)")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="trace N train steps (from step 3) with "
+                        "torch.profiler into <logdir>/profile")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, cuda:N or cpu)")
     return p.parse_args(argv)
@@ -76,77 +104,194 @@ def config_from_args(a) -> Config:
                                                           float),
                                 cr_base_chs=csv(a.cr_base_chs, int),
                                 grad_detach=a.grad_method == "detach"),
-        render=RenderConfig(n_rays=a.n_rays, n_samples=a.n_samples),
+        render=RenderConfig(n_rays=a.n_rays, n_samples=a.n_samples,
+                            net_type=a.net_type),
         loss=LossConfig(dlossw=csv(a.dlossw, float), w_aug=a.w_aug),
+        data=DataConfig(datapath=a.trainpath, testpath=a.testpath or "",
+                        train_list=a.trainlist, test_list=a.testlist,
+                        num_views=a.num_view + 1,
+                        numdepth=a.numdepth, interval_scale=a.interval_scale),
         run=RunConfig(epochs=a.epochs, lr=a.lr, batch_size=a.batch_size,
                       lr_milestone_epochs=csv(milestones, int),
                       lr_gamma=1.0 / float(gamma or 2.0), weight_decay=a.wd,
+                      save_freq=a.save_freq, eval_freq=a.eval_freq,
                       seed=a.random_seed, logdir=a.logdir,
                       summary_freq=a.summary_freq))
 
 
-def collate(items) -> dict:
-    """Stack dataset items (nested dicts of arrays) along a batch axis."""
-    out = {}
-    for k, v in items[0].items():
-        if isinstance(v, dict):
-            out[k] = {kk: np.stack([it[k][kk] for it in items])
-                      for kk in v}
-        else:
-            out[k] = np.stack([it[k] for it in items])
-    return out
-
-
-def main(argv=None):
-    args = parse_args(argv)
-    if args.trainpath != "synthetic":
-        raise SystemExit(f"--trainpath {args.trainpath}: only 'synthetic' "
-                         "is supported (the DTU train datasets are not "
-                         "ported yet)")
-    device = resolve_device(args.device)
-    config = config_from_args(args)
-    config = config.replace(render=dataclasses.replace(
-        config.render, n_rays=min(config.render.n_rays, 128),
-        n_samples=min(config.render.n_samples, 32), num_planes=32))
-    B = config.run.batch_size
-    nviews = args.num_view + 1
-    ds = SyntheticDataset(n_samples=8 * B, nviews=nviews,
-                          ndepths=args.numdepth, seed=config.run.seed)
-    steps_per_epoch = len(ds) // B
-    if args.max_steps:
-        steps_per_epoch = min(steps_per_epoch, args.max_steps)
-
-    state = create_train_state(config, nviews, steps_per_epoch, device,
+def build_datasets(config: Config):
+    """(config, train_ds, val_ds) for `config.data`: the synthetic sets
+    (with the render branch cut to size) or the DTU train and val sets."""
+    data = config.data
+    if data.datapath == "synthetic":
+        B = config.run.batch_size
+        config = config.replace(render=dataclasses.replace(
+            config.render, n_rays=min(config.render.n_rays, 128),
+            n_samples=min(config.render.n_samples, 32), num_planes=32))
+        train_ds = SyntheticDataset(n_samples=8 * B, nviews=data.num_views,
+                                    ndepths=data.numdepth,
+                                    seed=config.run.seed)
+        val_ds = SyntheticDataset(n_samples=2 * B, nviews=data.num_views,
+                                  ndepths=data.numdepth,
+                                  seed=config.run.seed + 1000)
+        return config, train_ds, val_ds
+    train_ds = DTUTrainDataset(data.datapath, data.train_list,
+                               nviews=data.num_views, ndepths=data.numdepth,
+                               interval_scale=data.interval_scale,
                                seed=config.run.seed)
-    train_step = make_train_step(config)
-    gen = torch.Generator(device=device).manual_seed(config.run.seed)
-    order_rng = np.random.RandomState(config.run.seed)
-    logger = MetricLogger(config.run.logdir)
-    for epoch in range(config.run.epochs):
+    val_ds = DTUValDataset(data.testpath or data.datapath, data.test_list,
+                           nviews=data.eval_num_views, ndepths=data.numdepth,
+                           interval_scale=data.interval_scale)
+    return config, train_ds, val_ds
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def make_loaders(config: Config, train_ds, val_ds):
+    """(train, val) loaders: the train set shuffled per (seed, epoch), the
+    val set in order with its last partial batch."""
+    B = config.run.batch_size
+    return (DataLoader(train_ds, B, shuffle=True, seed=config.run.seed),
+            DataLoader(val_ds, B, shuffle=False, drop_last=False))
+
+
+def fit(config: Config, train_ds, val_ds, device, *, resume: bool = False,
+        max_steps=None, profile_steps: int = 0, state_dicts=None) -> dict:
+    """The training loop. train_ds / val_ds: indexable datasets of numpy
+    items (DTUTrainDataset / DTUValDataset keys); state_dicts: optional
+    (cascade, render) reference-named state_dicts to start from, as
+    `create_train_state` takes them (a checkpoint restored by `resume`
+    overrides them). Returns {"state", "start_epoch", "start_step",
+    "train_steps", "epoch_s" (each epoch's train loop, host loading and
+    logging included), "load_s" and "log_s" (the shares of it spent
+    waiting for and uploading batches, and writing the summaries),
+    "val_batches", "val_s", "save_s" (one per save), "restore_s"}."""
+    run = config.run
+    logdir = run.logdir
+    B = run.batch_size
+    train_loader, val_loader = make_loaders(config, train_ds, val_ds)
+    steps_per_epoch = len(train_loader)
+    if max_steps:
+        steps_per_epoch = min(steps_per_epoch, max_steps)
+
+    state = create_train_state(config, config.data.num_views,
+                               steps_per_epoch, device, seed=run.seed,
+                               state_dicts=state_dicts)
+    start_epoch, restore_s = 0, None
+    if resume:
+        t0 = time.perf_counter()
+        state, start_epoch = restore_checkpoint(logdir, state)
+        restore_s = time.perf_counter() - t0
+        print(f"resumed at epoch {start_epoch}", flush=True)
+    stats = {"start_epoch": start_epoch, "start_step": state.step,
+             "train_steps": 0, "epoch_s": [], "load_s": 0.0, "log_s": 0.0,
+             "val_batches": 0,
+             "val_s": 0.0, "save_s": [], "restore_s": restore_s}
+
+    train_step = make_train_step(config, with_images=True)
+    val_step = make_val_step(config)
+    gen = torch.Generator(device=device).manual_seed(run.seed)
+    logger = MetricLogger(logdir)
+    prof, profile_until = None, None
+    for epoch in range(start_epoch, run.epochs):
+        train_loader.set_epoch(epoch)
         w_aug = adjust_w_aug(epoch, config.loss.w_aug)
         meter = DictAverageMeter()
-        order = order_rng.permutation(len(ds))
-        for step_idx in range(steps_per_epoch):
+        gstep0 = epoch * steps_per_epoch
+        _sync(device)
+        t_epoch = t_load = time.perf_counter()
+        for step_idx, batch in enumerate(train_loader):
+            if max_steps and step_idx >= max_steps:
+                break
             t0 = time.time()
-            items = [ds[int(i)] for i in order[step_idx * B:(step_idx + 1) * B]]
-            batch = batch_to(collate(items), device)
+            batch = batch_to(batch, device)
             batch["w_aug"] = torch.tensor(w_aug, device=device)
+            stats["load_s"] += time.perf_counter() - t_load
             H, W = batch["imgs"].shape[2:4]
-            draws = draw_step(gen, config, B, H, W)
-            metrics = train_step(state, batch, draws)
-            gstep = epoch * steps_per_epoch + step_idx + 1
-            if gstep % config.run.summary_freq == 0:
+            if profile_steps and step_idx == 3 and epoch == start_epoch:
+                prof = _start_profile(device)
+                profile_until = gstep0 + step_idx + profile_steps
+            with torch.profiler.record_function("train_step"):
+                metrics = train_step(state, batch,
+                                     draw_step(gen, config, B, H, W))
+            gstep = gstep0 + step_idx + 1
+            stats["train_steps"] += 1
+            if prof is not None and gstep >= profile_until:
+                prof = _stop_profile(prof, logdir, device)
+            images = metrics.pop("images")
+            if gstep % run.summary_freq == 0:
                 host = {k: float(v) for k, v in metrics.items()}
                 host["step_time"] = time.time() - t0
+                t_log = time.perf_counter()
                 logger.log("train", host, gstep)
+                logger.log_images("train", {k: v.cpu().numpy()
+                                            for k, v in images.items()},
+                                  gstep)
                 meter.update(host)
                 print(f"epoch {epoch} step {step_idx}/{steps_per_epoch} "
                       f"loss {host['loss']:.3f} "
                       f"time {host['step_time']:.2f}s", flush=True)
+                stats["log_s"] += time.perf_counter() - t_log
+            t_load = time.perf_counter()
+        if prof is not None:
+            # the epoch ended mid-trace: flush it before saving/validating
+            prof = _stop_profile(prof, logdir, device)
+        _sync(device)
+        stats["epoch_s"].append(time.perf_counter() - t_epoch)
+        gstep = (epoch + 1) * steps_per_epoch
         if meter.count:
-            logger.log("fulltrain", meter.mean(),
-                       (epoch + 1) * steps_per_epoch)
+            logger.log("fulltrain", meter.mean(), gstep)
+            if (epoch + 1) % run.save_freq == 0:
+                t0 = time.perf_counter()
+                save_checkpoint(logdir, state, epoch)
+                stats["save_s"].append(time.perf_counter() - t0)
+
+        # supervised validation (monitoring only)
+        if epoch % run.eval_freq == 0 or epoch == run.epochs - 1:
+            vmeter = DictAverageMeter()
+            t0 = time.perf_counter()
+            for vi, batch in enumerate(val_loader):
+                if max_steps and vi >= max_steps:
+                    break
+                vmetrics = val_step(state, batch_to(batch, device))
+                vmeter.update({k: float(v) for k, v in vmetrics.items()})
+            stats["val_s"] += time.perf_counter() - t0
+            stats["val_batches"] += vmeter.count
+            logger.log("fulltest", vmeter.mean(), gstep)
+            print(f"epoch {epoch} val: {vmeter.mean()}", flush=True)
     logger.close()
+    return {"state": state, **stats}
+
+
+def _start_profile(device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, logdir, device):
+    _sync(device)
+    prof.stop()
+    out = Path(logdir) / "profile"
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "trace.json"))
+    print(f"profile trace -> {out}", flush=True)
+    return None
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    config = config_from_args(args)
+    config, train_ds, val_ds = build_datasets(config)
+    fit(config, train_ds, val_ds, device, resume=args.resume,
+        max_steps=args.max_steps, profile_steps=args.profile_steps)
 
 
 if __name__ == "__main__":

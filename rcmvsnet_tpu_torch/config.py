@@ -2,8 +2,9 @@
 step's render, loss and run settings.
 
 Counterparts of `rcmvsnet_tpu/config.py` without the TPU knobs (`pallas_*`,
-`eval_dtype`, `train_dtype`, `remat`, `ray_major_lookup`): the port picks
-its kernels by the tensor's device, and it computes in float32.
+`eval_dtype`, `train_dtype`, `remat`, `ray_major_lookup`) and the
+multi-device one (`n_devices`): the port picks its kernels by the tensor's
+device, and it computes in float32.
 """
 from __future__ import annotations
 
@@ -23,17 +24,33 @@ class BackboneConfig:
 
 @dataclass(frozen=True)
 class RenderConfig:
-    """The render branch's sizes (net_type 'v0'; its widths are constants
+    """The render branch's sizes and MLP variant (its widths are constants
     of `models/render_net.py`)."""
     n_rays: int = 1024
     n_samples: int = 128
     num_planes: int = 128
+    net_type: str = "v0"  # 'v0' mult feat bias | 'v1' attention | 'v2' additive
 
 
 @dataclass(frozen=True)
 class LossConfig:
     dlossw: Tuple[float, ...] = (0.5, 1.0, 2.0)
     w_aug: float = 0.01
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Where the train and val sets come from and their shapes. datapath
+    is a DTU tree or 'synthetic'; testpath (the val set's tree) defaults
+    to datapath."""
+    datapath: str = ""
+    testpath: str = ""
+    train_list: str = "lists/dtu/train.txt"
+    test_list: str = "lists/dtu/test.txt"
+    num_views: int = 4          # 1 ref + 3 src (train)
+    eval_num_views: int = 5
+    numdepth: int = 192
+    interval_scale: float = 1.06
 
 
 @dataclass(frozen=True)
@@ -46,6 +63,8 @@ class RunConfig:
     batch_size: int = 1
     seed: int = 1
     logdir: str = "./rc-mvsnet"
+    save_freq: int = 1
+    eval_freq: int = 1
     summary_freq: int = 10
 
 
@@ -54,6 +73,7 @@ class Config:
     backbone: BackboneConfig = field(default_factory=BackboneConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
     loss: LossConfig = field(default_factory=LossConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     run: RunConfig = field(default_factory=RunConfig)
 
     def replace(self, **kwargs) -> "Config":

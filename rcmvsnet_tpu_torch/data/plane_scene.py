@@ -8,6 +8,8 @@ depth-range convention:
     scaled by `interval_scale`);
   * `tanks_samples`: `data/tanks.py` (line 11 = min and *max*, ndepth − 1
     intervals).
+`plane_items` makes in-memory train or val datasets of such scenes, keyed
+as `data/dtu_train.py` / `data/dtu_val.py` items, for `cli/train.fit`.
 """
 from __future__ import annotations
 
@@ -101,3 +103,25 @@ def tanks_samples(scene, ndepth):
     interval = (far - near) / (ndepth - 1)
     return _samples(scene, np.arange(near, interval * (ndepth - 0.5) + near,
                                      interval, dtype=np.float32))
+
+
+def plane_items(n, H, W, V, ndepth, seed, val=False):
+    """n items, one plane scene each (seeds seed .. seed + n − 1): train
+    items as `data/synthetic.batch_from_views` builds them (the DTU train
+    item's keys), or with val the val item's keys (raw [0, 1] images,
+    projections, depth_values, depth and mask pyramids)."""
+    from .synthetic import batch_from_views
+    items = []
+    for i in range(n):
+        scene = plane_scene(H, W, V, seed + i)
+        batch = batch_from_views([scene], ndepth, seed + i)
+        batch.pop("w_aug")
+        item = {k: ({kk: vv[0] for kk, vv in v.items()}
+                    if isinstance(v, dict) else v[0])
+                for k, v in batch.items()}
+        if val:
+            item = {"imgs": scene["images"],
+                    **{k: item[k] for k in ("proj_matrices", "depth_values",
+                                            "depth", "mask")}}
+        items.append(item)
+    return items

@@ -2,11 +2,14 @@
 ray colors and the backbone's pseudo-depth.
 
 Counterpart of `rcmvsnet_tpu/models/render_net.py`
-(`RenderingConsistencyNet`, net_type 'v0', `ray_major_lookup` off):
+(`RenderingConsistencyNet`, `ray_major_lookup` off):
 positional encoding (MULTIRES = 10) of the NDC sample points, raw view
 directions, per-sample features = VOLUME_CHANNELS = 8 neural-volume
 channels + 4 per paired source view (color, in-bounds mask), the 6×128
-MLP of `nn/mlp.py`. The per-sample work runs batched over
+MLP of `nn/mlp.py` picked by `net_type`: 'v0' `NerfMLP` (multiplicative
+conditioning), 'v1' `AttentionNerfMLP` (its extra color-prior channels
+are ignored by the compositor), 'v2' `NerfMLP` (additive). The
+per-sample work runs batched over
 all rays × samples; the batch axis is a loop (B = 1 on the train path).
 
 Parameter names are the reference's `*_nerf.ckpt` names:
@@ -23,7 +26,7 @@ from torch import nn
 
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from ..nn.costreg import RenderCostReg
-from ..nn.mlp import NerfMLP, positional_encoding
+from ..nn.mlp import AttentionNerfMLP, NerfMLP, positional_encoding
 from ..nn.neural_volume import neural_volume
 from ..render.rays import (build_color_volume, index_point_feature,
                            sample_rays)
@@ -52,14 +55,22 @@ class RenderResult(NamedTuple):
 
 
 class RenderingConsistencyNet(nn.Module):
-    def __init__(self, volume_in_channels: int, num_planes: int = 128):
+    def __init__(self, volume_in_channels: int, num_planes: int = 128,
+                 net_type: str = "v0"):
         super().__init__()
         self.num_planes = num_planes
         self.MVSNet = nn.ModuleDict({"cost_reg_2": RenderCostReg(
             volume_in_channels, VOLUME_CHANNELS)})
-        self.network_fn = nn.ModuleDict({"nerf": NerfMLP(
-            in_ch_pts=3 + 6 * MULTIRES,
-            in_ch_feat=VOLUME_CHANNELS + 4 * N_COLOR_VIEWS)})
+        kw = dict(in_ch_pts=3 + 6 * MULTIRES,
+                  in_ch_feat=VOLUME_CHANNELS + 4 * N_COLOR_VIEWS)
+        if net_type == "v1":
+            nerf = AttentionNerfMLP(**kw)
+        elif net_type in ("v0", "v2"):
+            nerf = NerfMLP(**kw, bias_mode=("add" if net_type == "v2"
+                                            else "multiply"))
+        else:
+            raise ValueError(f"net_type {net_type!r}: v0, v1 or v2")
+        self.network_fn = nn.ModuleDict({"nerf": nerf})
 
     def forward(self, volume_feature, pseudo_depth, imgs, w2cs, c2ws,
                 intrinsics, near_fars, draws, plain: bool = False):

@@ -34,7 +34,8 @@ def make_models(config: Config, num_views: int):
     cascade = CascadeMVSNet(config.backbone)
     vol_ch = 3 * (num_views - 1) + cascade.feature.out_channels[0]
     render = RenderingConsistencyNet(vol_ch,
-                                     num_planes=config.render.num_planes)
+                                     num_planes=config.render.num_planes,
+                                     net_type=config.render.net_type)
     return cascade, render
 
 

@@ -14,6 +14,11 @@ pass → aug pass → render pass.
 The step's random draws (the aug rectangle's origin, each sample's ray
 pixels and depth noise) are an input, `StepDraws`; `draw_step` makes them
 from a `torch.Generator`.
+
+`make_val_step` is the supervised validation step (JAX
+`train/step.py:200-226`): the eval forward (`CascadeMVSNet.forward`, BN
+folded from the running statistics) and `cas_mvsnet_loss` with the
+monitoring metrics, under `torch.no_grad()`.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from ..losses.aug import (aug_loss_multi_stage, draw_mask_origins,
                           random_image_mask)
 from ..losses.rays import (abs_error, acc_threshold, img2mse, mse2psnr,
                            sl1_loss)
-from ..losses.supervised import abs_depth_error_metric, thres_metric
+from ..losses.supervised import (abs_depth_error_metric, cas_mvsnet_loss,
+                                 thres_metric)
 from ..losses.unsup import unsup_loss_multi_stage
 from ..render.rays import draw_rays
 from .state import TrainState
@@ -55,7 +61,17 @@ def batch_to(batch: dict, device) -> dict:
     return {k: conv(v) for k, v in batch.items()}
 
 
-def make_train_step(config: Config, plain: bool = False):
+def _depth_metrics(est, gt, mask) -> dict:
+    return {
+        "abs_depth_error": abs_depth_error_metric(est, gt, mask),
+        "thres2mm_error": thres_metric(est, gt, mask, 2.0),
+        "thres4mm_error": thres_metric(est, gt, mask, 4.0),
+        "thres8mm_error": thres_metric(est, gt, mask, 8.0),
+    }
+
+
+def make_train_step(config: Config, plain: bool = False,
+                    with_images: bool = False):
     """Returns train_step(state, batch, draws) -> metrics (0-d tensors).
 
     batch (tensors on the models' device, batch-major): imgs, imgs_aug,
@@ -63,7 +79,10 @@ def make_train_step(config: Config, plain: bool = False):
     depth_values [B, Dfull]; w_aug (scalar); w2cs, c2ws [B, V, 4, 4];
     intrinsics [B, V, 3, 3]; near_fars [B, V, 2]; optionally depth / mask
     {stageK: [B, h, w]} for the supervised monitoring metrics.
-    `plain=True` runs every kernel's plain version under autograd."""
+    `plain=True` runs every kernel's plain version under autograd.
+    with_images adds metrics["images"], the reference's image summaries
+    (depth estimate of each pass, masked and not, the ref image and,
+    where the batch has them, stage-1 gt and mask and the error map)."""
     dlossw = tuple(config.loss.dlossw)
 
     def train_step(state: TrainState, batch: dict,
@@ -120,19 +139,60 @@ def make_train_step(config: Config, plain: bool = False):
                                          ray_mask, 2.0),
             **unsup_scalars, **aug_scalars,
         }
-        if "depth" in batch and "mask" in batch:
-            key = f"stage{len(dlossw)}"
+        supervised = "depth" in batch and "mask" in batch
+        key = f"stage{len(dlossw)}"
+        if supervised:
             gt = batch["depth"][key]
-            mask = batch["mask"][key] > 0.5
-            est = pseudo_depth
-            metrics.update({
-                "abs_depth_error": abs_depth_error_metric(est, gt, mask),
-                "thres2mm_error": thres_metric(est, gt, mask, 2.0),
-                "thres4mm_error": thres_metric(est, gt, mask, 4.0),
-                "thres8mm_error": thres_metric(est, gt, mask, 8.0),
-            })
+            metrics.update(_depth_metrics(pseudo_depth, gt,
+                                          batch["mask"][key] > 0.5))
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
         metrics["lr"] = torch.tensor(lr)
+        if with_images:
+            est_aug = outputs_aug["depth"].detach()
+            images = {"depth_est_nomask": pseudo_depth,
+                      "aug_depth_est_nomask": est_aug,
+                      "nerf_depth_est_nomask": pseudo_depth,
+                      "ref_img": imgs[:, 0]}
+            if supervised:
+                fmask = batch["mask"][key]
+                images.update({
+                    "depth_est": pseudo_depth * fmask,
+                    "aug_depth_est": est_aug * fmask,
+                    "nerf_depth_est": pseudo_depth * fmask,
+                    # the reference logs the stage-1 gt and mask images
+                    "depth_gt": batch["depth"]["stage1"],
+                    "mask": batch["mask"]["stage1"],
+                    "errormap": (pseudo_depth - gt).abs() * fmask,
+                })
+            metrics["images"] = images
         return metrics
 
     return train_step
+
+
+def make_val_step(config: Config, plain: bool = False,
+                  with_depth: bool = False):
+    """Returns val_step(state, batch) -> metrics (0-d tensors): loss and
+    depth_loss (`cas_mvsnet_loss`) and the four monitoring metrics at the
+    last stage. batch: imgs [B, V, H, W, 3] as the val loader gives them,
+    proj_matrices, depth_values, depth / mask {stageK: [B, h, w]}.
+    Neither the BN buffers nor the models' train mode change. with_depth
+    adds metrics["depth"], the last stage's depth [B, H, W]."""
+    dlossw = tuple(config.loss.dlossw)
+
+    def val_step(state: TrainState, batch: dict) -> dict:
+        with torch.no_grad():
+            outputs = state.cascade(batch["imgs"], batch["proj_matrices"],
+                                    batch["depth_values"], plain=plain)
+            loss, depth_loss = cas_mvsnet_loss(outputs, batch["depth"],
+                                               batch["mask"], dlossw)
+            key = f"stage{len(dlossw)}"
+            metrics = {"loss": loss, "depth_loss": depth_loss,
+                       **_depth_metrics(outputs["depth"],
+                                        batch["depth"][key],
+                                        batch["mask"][key] > 0.5)}
+        if with_depth:
+            metrics["depth"] = outputs["depth"]
+        return metrics
+
+    return val_step

@@ -111,7 +111,7 @@ def costreg_state_dict_from_jax(params, batch_stats,
 
 def render_state_dict_from_jax(params, batch_stats) -> dict[str,
                                                               torch.Tensor]:
-    """JAX RenderingConsistencyNet variables (net_type 'v0') → the
+    """JAX RenderingConsistencyNet variables (any net_type) → the
     reference's `*_nerf.ckpt` names, for
     `RenderingConsistencyNet.load_state_dict(strict=True)`:
     `MVSNet.cost_reg_2.*` (conv7/9/11 as `.0` ConvTranspose3d + `.1` BN)
@@ -123,21 +123,44 @@ def render_state_dict_from_jax(params, batch_stats) -> dict[str,
     return _tensors(sd)
 
 
-def _nerf(sd, prefix, nerf):
-    dense = [(f"pts_linears.{i}", f"pts_linear_{i}")
-             for i in range(sum(k.startswith("pts_linear_") for k in nerf))]
+def _linear(sd, name, entry):
+    sd[f"{name}.weight"] = np.ascontiguousarray(
+        np.asarray(entry["kernel"]).T)
+    if "bias" in entry:
+        sd[f"{name}.bias"] = np.asarray(entry["bias"])
+
+
+def _nerf(sd, prefix, nerf, depth: int = 6):
+    """A JAX NerfMLP (v0, v2) or AttentionNerfMLP (v1; its shared trunk
+    layer `pts_linear_shared` under each of `pts_linears.1..depth−1`, as
+    the reference's list-replicated trunk names it)."""
+    if "pts_linear_shared" in nerf:
+        dense = [("pts_linears.0", "pts_linear_0")]
+        dense += [(f"pts_linears.{i}", "pts_linear_shared")
+                  for i in range(1, depth)]
+        dense += [("weight_out", "weight_out")]
+        att = nerf["color_attention"]
+        for proj in ("w_qs", "w_ks", "w_vs", "fc"):
+            _linear(sd, f"{prefix}.color_attention.{proj}", att[proj])
+        ln = att["layer_norm"]
+        sd[f"{prefix}.color_attention.layer_norm.weight"] = np.asarray(
+            ln["scale"])
+        sd[f"{prefix}.color_attention.layer_norm.bias"] = np.asarray(
+            ln["bias"])
+    else:
+        dense = [(f"pts_linears.{i}", f"pts_linear_{i}")
+                 for i in range(sum(k.startswith("pts_linear_")
+                                    for k in nerf))]
     dense += [("pts_bias", "pts_bias"), ("views_linears.0", "views_linear_0"),
               ("feature_linear", "feature_linear"),
               ("alpha_linear", "alpha_linear"), ("rgb_linear", "rgb_linear")]
     for torch_name, our_name in dense:
-        entry = nerf[our_name]["Dense_0"]
-        sd[f"{prefix}.{torch_name}.weight"] = np.ascontiguousarray(
-            np.asarray(entry["kernel"]).T)
-        sd[f"{prefix}.{torch_name}.bias"] = np.asarray(entry["bias"])
+        _linear(sd, f"{prefix}.{torch_name}", nerf[our_name]["Dense_0"])
 
 
 def nerf_state_dict_from_jax(params) -> dict[str, torch.Tensor]:
-    """A JAX NerfMLP (v0) → the port's NerfMLP state_dict."""
+    """A JAX NerfMLP (v0, v2) or AttentionNerfMLP (v1) → the port's
+    NerfMLP / AttentionNerfMLP state_dict."""
     sd: dict[str, np.ndarray] = {}
     _nerf(sd, "m", params)
     return _tensors({k[2:]: v for k, v in sd.items()})

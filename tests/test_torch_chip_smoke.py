@@ -10,7 +10,11 @@
     refuse a run in which no kernel was launched;
   * the Tanks & Temples path and the profiling tools run at a tiny size on
     the CPU and refuse a run that launched no kernel; the tools' K9 and
-    K10 checks hold each call against its plain version."""
+    K10 checks hold each call against its plain version;
+  * the train-CLI phase (`cli.train.fit`: train, validate, save, restore,
+    resume, render v1 and v2) refuses a run that launched no kernel and,
+    with the launch counts set as a card would set them, runs through
+    every one of its other checks at a tiny size."""
 import shutil
 import subprocess
 import sys
@@ -158,3 +162,39 @@ def test_tools_phases_run_on_cpu_and_demand_launches():
                      "conv3d_lanewise": 8 + 3}
     assert all(r["max_abs_err"] <= r["tol"] for r in ledger.rows)
     assert all(r["bound_ms"] > 0 for r in ledger.rows)
+
+
+def test_train_cli_phase_runs_on_cpu_and_demands_launches(tmp_path,
+                                                          monkeypatch):
+    from rcmvsnet_tpu_torch.config import Config, RenderConfig
+    # the logger's TensorBoard mirror (importing TensorFlow) is not under
+    # test here
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    scene = chip_smoke.plane_scene(64, 96, 3, chip_smoke.SEED)
+    sample = chip_smoke.dtu_samples(scene, 96)[0]
+    dev = torch.device("cpu")
+    kw = dict(shape=(64, 64, 3), ndepth=64, steps=2, cfg=Config(
+        render=RenderConfig(n_rays=16, n_samples=8, num_planes=16)))
+    with pytest.raises(AssertionError, match="train CLI never launched"):
+        chip_smoke.phase_train_cli(sample, "cpu", dev, tmp_path / "a", **kw)
+
+    real = chip_smoke.zero_launches
+
+    def counted():                      # every kernel "launched" once
+        wrappers = real()
+        for fn in wrappers.values():
+            fn.launches = 1
+        return wrappers
+
+    monkeypatch.setattr(chip_smoke, "zero_launches", counted)
+    r = chip_smoke.phase_train_cli(sample, "cpu", dev, tmp_path / "b", **kw)
+    real()
+    assert r["val_depth_max_rel_delta_vs_plain"] == 0.0
+    assert r["ckpt_depth_max_rel_delta_vs_plain"] == 0.0
+    assert len(r["losses"]) == 2 * 2 and len(r["save_s"]) == 2
+    assert r["steps_per_s_with_loading"] > 0 and r["val_batches_per_s"] > 0
+    assert r["steps_per_s_without_summaries"] >= r["steps_per_s_with_loading"]
+    assert set(r["render_variants"]) == {"v1", "v2"}
+    names = {p.name for p in (tmp_path / "b").iterdir()}
+    assert {f"model_00000{e}_{k}.ckpt" for e in range(3)
+            for k in ("cas", "nerf")} <= names

@@ -2,8 +2,16 @@
 including the Tanks & Temples loader,
 fusion/*, native/) behave as the JAX package's originals: the same numpy
 inputs give equal outputs, and files one side writes the other reads back
-equal. The native geometry library builds into the port's `.ext_build/`."""
+equal. The native geometry library builds into the port's `.ext_build/`.
+The DTU train / val datasets, the data loader and the dataset registry are
+copies too: their code, docstrings aside, is the originals' (the registry
+names the port's modules where the original names the JAX package's);
+tests/test_torch_dtu_data.py holds their items and batches equal."""
+import ast
+from pathlib import Path
+
 import numpy as np
+import pytest
 
 from rcmvsnet_tpu.core import io as jio
 from rcmvsnet_tpu.data import dtu_test as jdtu
@@ -20,6 +28,8 @@ from rcmvsnet_tpu_torch.data import transforms as ttr
 from rcmvsnet_tpu_torch.data.synthetic_dataset import SyntheticDataset
 from rcmvsnet_tpu_torch.data.synthetic_tanks import write_tanks_scan
 from rcmvsnet_tpu_torch.fusion import dtu_eval as teval
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _equal_trees(a, b):
@@ -107,3 +117,31 @@ def test_tanks_dataset_matches_jax(tmp_path, monkeypatch):
         _equal_trees(a.sample_cams(i), b.sample_cams(i))
     dv = a[0]["depth_values"]
     assert len(dv) == 16 and dv[-1] > dv[0]
+
+
+def _code(path) -> str:
+    """The module's AST without its docstrings, dumped."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("name", ["loader", "dtu_train", "dtu_val",
+                                  "registry"])
+def test_data_copies_are_the_originals(name):
+    port = REPO / "rcmvsnet_tpu_torch" / "data" / f"{name}.py"
+    orig = REPO / "rcmvsnet_tpu" / "data" / f"{name}.py"
+    got, want = _code(port), _code(orig)
+    if name == "registry":
+        from rcmvsnet_tpu_torch.data.registry import _ALIASES
+        assert all(m.startswith("rcmvsnet_tpu_torch.data.")
+                   for m, _ in _ALIASES.values()), _ALIASES
+        assert "'rcmvsnet_tpu.data." not in got
+        got = got.replace("'rcmvsnet_tpu_torch.data.", "'rcmvsnet_tpu.data.")
+    assert got == want

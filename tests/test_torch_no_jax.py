@@ -5,7 +5,9 @@ every module of rcmvsnet_tpu_torch imports in a fresh interpreter where
 drive import none of them either (the card's host has no jax, flax, cv2,
 PIL or msgpack); and the CLIs (eval_dtu, eval_tanks with rm_color, train)
 run end to end under the same ban, on the port's own copies of the I/O,
-data and fusion modules."""
+data and fusion modules; the train CLI trains, validates, saves a
+checkpoint and resumes from it. The dataset registry resolves every alias
+to a class of the port."""
 import json
 import subprocess
 import sys
@@ -32,8 +34,15 @@ for must in ("cli.eval_dtu", "cli.train", "core.io", "data.dtu_test",
              "data.plane_scene", "data.synthetic_tanks", "ops.warp_view",
              "tools.profile_breakdown", "tools.profile_conv3d",
              "tools.timing", "tools.ab_conv3d", "tools.repeat_warp_bwd",
-             "tools.ab_warp_fwd", "tools.ab_conv2d", "tools.ab_depth_tail"):
+             "tools.ab_warp_fwd", "tools.ab_conv2d", "tools.ab_depth_tail",
+             "data.loader", "data.dtu_train", "data.dtu_val",
+             "data.registry", "train.checkpoint"):
     assert "rcmvsnet_tpu_torch." + must in names, names
+from rcmvsnet_tpu_torch.data.registry import _ALIASES, find_dataset_def
+for alias, (module, cls) in _ALIASES.items():
+    assert module.startswith("rcmvsnet_tpu_torch.data."), module
+    found = find_dataset_def(alias)
+    assert found.__module__ == module and found.__name__ == cls, found
 assert not any(m.split(".")[0] in ("jax", "flax", "rcmvsnet_tpu")
                and sys.modules[m] for m in sys.modules), "JAX package imported"
 print(len(names))
@@ -54,7 +63,9 @@ for name in ("core.geometry", "data.synthetic", "data.transforms",
              "data.plane_scene", "ops.warp_view", "tools.profile_breakdown",
              "tools.profile_conv3d", "tools.repeat_warp_bwd",
              "tools.ab_warp_fwd", "tools.ab_conv2d",
-             "tools.ab_depth_tail"):
+             "tools.ab_depth_tail", "cli.train", "train.checkpoint",
+             "data.loader", "data.dtu_train", "data.dtu_val", "nn.mlp",
+             "losses.supervised"):
     importlib.import_module("rcmvsnet_tpu_torch." + name)
 print("ok")
 """
@@ -90,10 +101,17 @@ rm_color.main(["--input_dir", str(root / "out")])
 """
 
 _TRAIN_CLI = _BAN + """
+# the logger's TensorBoard mirror (importing TensorFlow, ~10 s) is not
+# under test: it falls back to its JSONL records and PNG images
+sys.modules["torch.utils.tensorboard"] = None
+import torch
+torch.set_num_threads(2)
 from rcmvsnet_tpu_torch.cli import train
-train.main(["--trainpath", "synthetic", "--max_steps", "1", "--epochs",
-            "1", "--device", "cpu", "--logdir", sys.argv[1],
-            "--summary_freq", "1"])
+args = ["--trainpath", "synthetic", "--max_steps", "2", "--num_view", "2",
+        "--numdepth", "16", "--n_rays", "64", "--n_samples", "16",
+        "--device", "cpu", "--logdir", sys.argv[1], "--summary_freq", "1"]
+train.main(args + ["--epochs", "1"])
+train.main(args + ["--epochs", "2", "--resume"])
 """
 
 
@@ -134,11 +152,26 @@ def test_tanks_cli_and_rm_color_run_without_jax(tmp_path):
 
 
 def test_train_cli_runs_without_jax(tmp_path):
-    """One synthetic train step through the port's train CLI under the
-    same ban; it logs finite scalars."""
+    """The counterpart of tests/test_e2e_train.py under the same ban: the
+    port's train CLI on the synthetic set, one epoch of 2 steps (finite
+    train, fulltrain and fulltest records, image summaries, epoch 0's
+    reference-format checkpoint pair), then --resume for a second epoch
+    (it says where it resumed, continues the step count and writes epoch
+    1's pair)."""
     r = _run(_TRAIN_CLI, str(tmp_path))
     assert r.returncode == 0, r.stderr
-    lines = (tmp_path / "scalars.jsonl").read_text().splitlines()
-    rec = json.loads(lines[0])
-    assert rec["mode"] == "train" and rec["step"] == 1
-    assert all(v == v for v in rec.values() if isinstance(v, float))
+    assert "resumed at epoch 1" in r.stdout
+    recs = [json.loads(line) for line in
+            (tmp_path / "scalars.jsonl").read_text().splitlines()]
+    assert [(rec["mode"], rec["step"]) for rec in recs] == [
+        ("train", 1), ("train", 2), ("fulltrain", 2), ("fulltest", 2),
+        ("train", 3), ("train", 4), ("fulltrain", 4), ("fulltest", 4)]
+    assert all(v == v and abs(v) != float("inf") for rec in recs
+               for v in rec.values() if isinstance(v, float))
+    assert {"abs_depth_error", "thres2mm_error"} <= set(recs[3])
+    for epoch in (0, 1):
+        for kind in ("cas", "nerf"):
+            assert (tmp_path / f"model_{epoch:06d}_{kind}.ckpt").is_file()
+    images = {p.name for p in (tmp_path / "images").iterdir()}
+    assert {"train_depth_est_00000001.png", "train_ref_img_00000004.png",
+            "train_errormap_00000002.png"} <= images

@@ -311,17 +311,28 @@ def test_positional_encoding_and_mlp_match_jax():
                                **NTOL)
 
 
-def test_render_branch_matches_jax(batch):
+@pytest.mark.parametrize("net_type", ["v0", "v1", "v2"])
+def test_render_branch_matches_jax(batch, net_type):
     """The whole render branch (neural volume through K8's plain
-    composition, rays, lookups, MLP, compositing): outputs, BN statistics,
-    parameter and volume gradients of img + ray-depth loss."""
+    composition, rays, lookups, MLP of each net_type, compositing):
+    outputs, BN statistics, parameter and volume gradients of img +
+    ray-depth loss, over every ray.
+
+    v2's reference is JAX run op by op, not jitted: rays drawn on an image
+    edge project exactly onto view 0's border, where the color volume's
+    in-bounds mask (grid > −1 and < 1) is decided by the last bit. XLA's
+    fused program rounds one sample of these draws (ray 10, column W−1)
+    to the other side from per-op float32, which both the port and
+    unjitted JAX use; under v2 that moves the ray's rgb by 2e-2, under v0
+    and v1 the sample's weight hides it."""
     B, V, H, W, _ = batch["imgs"].shape
     n, s, planes = 16, 8, 16
     rs = RS(8)
     vf = rs.rand(B, 48, H // 4, W // 4, 3 * (V - 1) + 32).astype(np.float32)
     pseudo = batch["depth"]["stage3"]
     cams = [batch[k] for k in ("w2cs", "c2ws", "intrinsics", "near_fars")]
-    net = JRenderNet(n_rays=n, n_samples=s, num_planes=planes)
+    net = JRenderNet(n_rays=n, n_samples=s, num_planes=planes,
+                     net_type=net_type)
     key = jax.random.PRNGKey(5)
     variables = jax.jit(lambda *a: net.init(*a, rng=key, train=False))(
         jax.random.PRNGKey(4), jnp.asarray(vf), jnp.asarray(pseudo),
@@ -339,10 +350,13 @@ def test_render_branch_matches_jax(batch):
                                  res.rays_depth > 0))
         return loss, (res, mut)
 
-    (loss_j, (res_j, mut)), (gp, gv) = jax.jit(jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True))(variables["params"],
-                                         jnp.asarray(vf))
-    port = RenderingConsistencyNet(3 * (V - 1) + 32, num_planes=planes)
+    grad = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)
+    if net_type != "v2":
+        grad = jax.jit(grad)
+    (loss_j, (res_j, mut)), (gp, gv) = grad(variables["params"],
+                                            jnp.asarray(vf))
+    port = RenderingConsistencyNet(3 * (V - 1) + 32, num_planes=planes,
+                                   net_type=net_type)
     port.load_state_dict(render_state_dict_from_jax(
         variables["params"], variables["batch_stats"]), strict=True)
     port.train()

@@ -255,10 +255,81 @@ def test_train_cli_one_step_on_cpu(tmp_path):
     assert {"fulltrain"} <= {r["mode"] for r in recs}
 
 
-def test_train_cli_refuses_missing_cuda_and_dtu(tmp_path, monkeypatch):
+@pytest.mark.parametrize("profile_steps,traced", [(1, 1), (5, 2)])
+def test_train_cli_writes_profile_trace(tmp_path, profile_steps, traced):
+    """--profile_steps N traces N train steps from step 3 into
+    <logdir>/profile/trace.json; when the epoch ends first (5 steps, N=5)
+    the trace is flushed at its end with the steps it holds."""
+    train_cli.main(["--trainpath", "synthetic", "--max_steps", "5",
+                    "--epochs", "1", "--device", "cpu", "--num_view", "2",
+                    "--numdepth", "16", "--n_rays", "64", "--n_samples", "16",
+                    "--summary_freq", "100", "--profile_steps",
+                    str(profile_steps), "--logdir", str(tmp_path)])
+    trace = json.loads((tmp_path / "profile" / "trace.json").read_text())
+    steps = [e for e in trace["traceEvents"]
+             if e.get("name") == "train_step" and e.get("ph") == "X"]
+    assert len(steps) == traced
+
+
+def test_train_cli_refuses_missing_cuda_and_builds_dtu_sets(tmp_path,
+                                                          monkeypatch):
+    """Without a card and without --device cpu the CLI refuses to run. With
+    a DTU trainpath (the cameras of a 3-view tree; the loop itself is
+    patched out, a DTU step on the CPU being too slow here) it hands
+    `fit` the DTU train and val sets and the config its flags give."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         train_cli.main(["--trainpath", "synthetic", "--logdir",
                         str(tmp_path)])
-    with pytest.raises(SystemExit, match="only 'synthetic'"):
-        train_cli.main(["--trainpath", str(tmp_path), "--device", "cpu"])
+
+    from rcmvsnet_tpu_torch.core.io import write_cam_file, write_pair_file
+    from rcmvsnet_tpu_torch.data.dtu_train import DTUTrainDataset
+    from rcmvsnet_tpu_torch.data.dtu_val import DTUValDataset
+    root = tmp_path / "dtu"
+    (root / "Cameras" / "train").mkdir(parents=True)
+    for v in range(3):
+        write_cam_file(root / "Cameras" / "train" / f"{v:08d}_cam.txt",
+                       np.eye(4, dtype=np.float32),
+                       np.eye(3, dtype=np.float32), [425.0, 2.5])
+    write_pair_file(root / "Cameras" / "pair.txt",
+                    [(v, [u for u in range(3) if u != v]) for v in range(3)])
+    (tmp_path / "train.txt").write_text("scan1\nscan2\n")
+    (tmp_path / "test.txt").write_text("scan3\n")
+    seen = {}
+    monkeypatch.setattr(train_cli, "fit", lambda *a, **kw: seen.update(
+        args=a, kw=kw))
+    train_cli.main(["--trainpath", str(root), "--testpath", str(root),
+                    "--trainlist", str(tmp_path / "train.txt"),
+                    "--testlist", str(tmp_path / "test.txt"),
+                    "--num_view", "2", "--numdepth", "64",
+                    "--interval_scale", "1.2", "--batch_size", "2",
+                    "--net_type", "v1", "--epochs", "4", "--save_freq", "2",
+                    "--eval_freq", "3", "--resume", "--profile_steps", "2",
+                    "--max_steps", "5", "--random_seed", "7",
+                    "--device", "cpu", "--logdir", str(tmp_path / "log")])
+    config, train_ds, val_ds, device = seen["args"]
+    assert seen["kw"] == {"resume": True, "max_steps": 5,
+                          "profile_steps": 2}
+    assert device == torch.device("cpu")
+    assert isinstance(train_ds, DTUTrainDataset)
+    assert isinstance(val_ds, DTUValDataset)
+    assert (train_ds.nviews, train_ds.ndepths, train_ds.interval_scale) \
+        == (3, 64, 1.2)
+    assert (val_ds.nviews, val_ds.ndepths, val_ds.interval_scale) == \
+        (5, 64, 1.2)
+    assert {m[0] for m in train_ds.metas} == {"scan1", "scan2"}
+    assert len(train_ds) == 2 * 3 * 7
+    assert {m[0] for m in val_ds.metas} == {"scan3"}
+    assert config.render.net_type == "v1" and config.render.n_rays == 1024
+    assert (config.data.datapath, config.data.testpath) == (str(root),
+                                                            str(root))
+    assert (config.data.train_list, config.data.test_list) == (
+        str(tmp_path / "train.txt"), str(tmp_path / "test.txt"))
+    assert (config.run.epochs, config.run.save_freq, config.run.eval_freq,
+            config.run.seed) == (4, 2, 3, 7)
+    train_dl, val_dl = train_cli.make_loaders(config, train_ds, val_ds)
+    assert (train_dl.batch_size, train_dl.shuffle, train_dl.seed) == \
+        (2, True, 7)
+    assert (val_dl.batch_size, val_dl.shuffle, val_dl.drop_last) == \
+        (2, False, False)
+    assert len(train_dl) == 21 and len(val_dl) == 11
