@@ -90,6 +90,10 @@ def warp_view(src: torch.Tensor, px: torch.Tensor,
     if px.shape != (D, h, w) or py.shape != px.shape:
         raise ValueError(f"warp_view: px {tuple(px.shape)} / py "
                          f"{tuple(py.shape)} must both be [D, {h}, {w}]")
+    if D > 65535 or (h + 2) * (w + 2) * C > 2**31 - 1:
+        raise ValueError(f"warp_view: D={D} planes or a [{h}, {w}, {C}] "
+                         f"map is past the kernel's grid or its 32-bit "
+                         f"tap offsets")
     _build.require_cuda("warp_view", src, px, py)
     out = torch.empty((D, h, w, C), dtype=torch.float32, device=src.device)
     err = _lib()(src.data_ptr(), px.data_ptr(), py.data_ptr(),

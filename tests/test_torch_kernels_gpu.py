@@ -20,8 +20,10 @@ through K2, dw through its own kernel, the 41-channel input, 1-channel
 prob head, 64→64 and odd sizes in each mode included), dw, K6 and K7's
 backward each repeated bit for bit (K6 and K7 also at odd sizes); K9
 (K2's kernel as the raw conv) in every mode at odd and non-multiple-of-8
-sizes; K10 at C 3/8/16/32 (the scalar path and the float4 path), and the
-K10 route's variance against K1's,
+sizes; K10 at C 3/8/16/32 (the scalar path and the lane path), at odd
+sizes (C 3/4/8/12/16/32, D = 1, sample counts that no block or warp
+divides, coordinates on the clip bounds, whole rows out of the image),
+repeated bit for bit, and the K10 route's variance against K1's,
 within 1e-5 of its largest value. The backward kernels sum in another
 order than autograd (K8 dw in per-block partials, K6 and K7 in 64-bit
 fixed point, rounded once per flushed run of planes), so they are held to
@@ -479,3 +481,55 @@ def test_warp_view_route_matches_k1(dev):
     torch.cuda.synchronize()
     err = float((route - k1).abs().max())
     assert err <= 1e-5 * float(k1.abs().max()), err
+
+
+def _edge_coords(h, w, D, dev, seed):
+    """px, py [D, h, w] in pixel_coords' clip range, with samples on the
+    clip bounds (−2, w+1, h+1) and whole rows out of the image."""
+    g = _gen(dev, seed)
+    px = torch.rand(D, h, w, device=dev, generator=g) * (w + 5.0) - 3.0
+    py = torch.rand(D, h, w, device=dev, generator=g) * (h + 5.0) - 3.0
+    px[:, :, 0], py[:, 0, :] = -2.0, h + 1.0
+    px[:, :, -1] = w + 1.0
+    px[0, h // 2, :] = -1.5                     # a row left of the image
+    py[-1, h - 1, :] = h + 1.0                  # a row below it
+    return px.clamp(-2.0, w + 1.0), py.clamp(-2.0, h + 1.0)
+
+
+# (h, w, C, D): D·h·w not a multiple of a block's or a warp's samples,
+# D = 1, C 3 and 12 (the scalar kernel) and 4..32 (the lane kernel)
+K10_ODD = ((17, 33, 8, 3), (9, 7, 32, 1), (5, 7, 3, 2), (13, 29, 4, 5),
+           (11, 37, 16, 1), (7, 9, 12, 2), (81, 95, 32, 5))
+
+
+@pytest.mark.parametrize("h,w,C,D", K10_ODD)
+def test_warp_view_odd_sizes_match_plain(dev, h, w, C, D):
+    src = torch.randn(h, w, C, device=dev, generator=_gen(dev, C))
+    px, py = _edge_coords(h, w, D, dev, h * w)
+    got = K10.warp_view(src, px, py)
+    want = K10.warp_view_plain(src, px, py)
+    torch.cuda.synchronize()
+    assert not got[0, h // 2].any() and not got[-1, h - 1].any()
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("h,w,C,D", [(54, 72, 32, 48), (108, 144, 16, 32),
+                                     (216, 288, 8, 8), (13, 29, 3, 5)])
+def test_warp_view_repeats_bit_for_bit(dev, h, w, C, D):
+    src = torch.randn(h, w, C, device=dev, generator=_gen(dev, 7))
+    px, py = _edge_coords(h, w, D, dev, 8)
+    first = K10.warp_view(src, px, py)
+    again = K10.warp_view(src, px, py)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def test_warp_view_refuses_past_its_grid(dev):
+    """More planes than the grid's y dimension holds: the wrapper raises
+    before a launch."""
+    src = torch.zeros(2, 2, 8, device=dev)
+    px = torch.zeros(65536, 2, 2, device=dev)
+    n0 = K10.warp_view.launches
+    with pytest.raises(ValueError, match="past the kernel's grid"):
+        K10.warp_view(src, px, px)
+    assert K10.warp_view.launches == n0

@@ -35,8 +35,8 @@ for must in ("cli.eval_dtu", "cli.train", "core.io", "data.dtu_test",
              "tools.profile_breakdown", "tools.profile_conv3d",
              "tools.timing", "tools.ab_conv3d", "tools.repeat_warp_bwd",
              "tools.ab_warp_fwd", "tools.ab_conv2d", "tools.ab_depth_tail",
-             "data.loader", "data.dtu_train", "data.dtu_val",
-             "data.registry", "train.checkpoint"):
+             "tools.ab_warp_view", "data.loader", "data.dtu_train",
+             "data.dtu_val", "data.registry", "train.checkpoint"):
     assert "rcmvsnet_tpu_torch." + must in names, names
 from rcmvsnet_tpu_torch.data.registry import _ALIASES, find_dataset_def
 for alias, (module, cls) in _ALIASES.items():
@@ -63,7 +63,8 @@ for name in ("core.geometry", "data.synthetic", "data.transforms",
              "data.plane_scene", "ops.warp_view", "tools.profile_breakdown",
              "tools.profile_conv3d", "tools.repeat_warp_bwd",
              "tools.ab_warp_fwd", "tools.ab_conv2d",
-             "tools.ab_depth_tail", "cli.train", "train.checkpoint",
+             "tools.ab_depth_tail", "tools.ab_warp_view", "cli.train",
+             "train.checkpoint",
              "data.loader", "data.dtu_train", "data.dtu_val", "nn.mlp",
              "losses.supervised"):
     importlib.import_module("rcmvsnet_tpu_torch." + name)

@@ -9,7 +9,10 @@ alias and lists FeatureNet's 13 calls and the eval path's forms of them,
 each of which equals its plain version. The K4 A/B tool runs its turns
 on the CPU through the plain version, with the device time "not
 measured"; the forward-warp A/B tool lists K1's six calls and K7's, and
-reads each build's K7 interface from its source."""
+reads each build's K7 interface from its source. The K10 A/B tool runs
+its turns on the CPU through the plain version at a tiny DTU shape, with
+each stage's and the total's times beside the bound, F.grid_sample's and
+a fill of the output."""
 import json
 from functools import partial
 
@@ -18,8 +21,8 @@ import torch
 
 from rcmvsnet_tpu_torch.tools import (ab_conv2d, ab_conv3d, ab_depth_tail,
                                       ab_warp_bwd, ab_warp_fwd,
-                                      profile_breakdown, profile_conv3d,
-                                      repeat_warp_bwd)
+                                      ab_warp_view, profile_breakdown,
+                                      profile_conv3d, repeat_warp_bwd)
 from rcmvsnet_tpu_torch.tools.timing import make_timer
 
 torch.set_num_threads(2)
@@ -138,9 +141,35 @@ def test_ab_warp_fwd_lists_k1_and_k7_calls_cpu(tmp_path):
     assert ab_warp_fwd.entry_pointers(tmp_path, "warp_volume_f32") == 8
 
 
+def test_ab_warp_view_cpu(capsys):
+    from rcmvsnet_tpu_torch.ops import _build
+    res = ab_warp_view.run(torch.device("cpu"), [_build.CSRC] * 2,
+                           rounds=2, dtu=(64, 96, 3))
+    out = capsys.readouterr().out.splitlines()
+    labels = ["stage1 view1 16x24 C32 D48", "stage1 view2 16x24 C32 D48",
+              "stage2 view1 32x48 C16 D32", "stage2 view2 32x48 C16 D32",
+              "stage3 view1 64x96 C8 D8", "stage3 view2 64x96 C8 D8"]
+    assert list(res["ms"]) == labels
+    for label in labels:
+        assert all(len(t) == 2 and min(t) > 0
+                   for t in res["turns_ms"][label])
+        assert res["errors"][label] == [0.0, 0.0]
+        assert res["bit_equal"][label] == [True, True]
+    assert list(res["sums"]) == ["stage1", "stage2", "stage3", "total"]
+    tot = res["sums"]["total"]
+    assert tot["ms"] == [sum(res["ms"][lab][i] for lab in labels)
+                         for i in range(2)]
+    # per view: the map once, px, py and 32 channels a sample once each
+    want = 1e3 * 4 * (16 * 24 * 32 + 48 * 16 * 24 * (2 + 32)) / 3.35e12
+    assert res["sums"]["stage1"]["bound_ms"] == pytest.approx(2 * want)
+    assert tot["library_ms"] > 0 and tot["fill_ms"] > 0
+    assert out[-1].startswith("total ms (least)")
+
+
 @pytest.mark.parametrize("tool", [profile_breakdown, profile_conv3d,
                                   ab_conv3d, ab_warp_bwd, repeat_warp_bwd,
-                                  ab_warp_fwd, ab_conv2d, ab_depth_tail])
+                                  ab_warp_fwd, ab_conv2d, ab_depth_tail,
+                                  ab_warp_view])
 def test_tools_refuse_missing_cuda(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
