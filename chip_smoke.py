@@ -23,8 +23,10 @@ the final "ok" line):
               against its plain composition, inner2+up then out3), each
               row with its route; K4's rows split its time: the kernel's
               own device ms (torch.profiler) and the host ms of one
-              wrapper call beside the event ms; print max errors and
-              median ms of both,
+              wrapper call beside the event ms; then K4 past 64 planes
+              (its streaming instance: D 96 and 192 at stage 1's 216x288
+              and a 864x1152 slab), rows of phase "wide"; print max
+              errors and median ms of both,
               the library call's ms where one PyTorch call computes the
               same function (K5 also sums its calls with the lateral
               head's two unfused cuDNN calls: library_unfused_ms), and
@@ -42,7 +44,10 @@ the final "ok" line):
               forward (var and the render volume) and backward at stage
               1, and K8 for every conv of the 3 CostRegNets and the
               render U-Net: forward and dx through K2,
-              dw through its own kernel, each from a fixed random cotangent;
+              dw through its own kernel, each from a fixed random cotangent,
+              and K8 dw at 128 output channels (two Co groups; s1 and s2
+              at --cr_base_chs 16's stage-1 conv5/conv6 shapes, rows of
+              phase "wide");
               K6 and K7's backward are called a second time and must repeat
               bit for bit (their rows give the elements that differ, the
               merge factor and the integer adds of the fixed-point scatter);
@@ -90,7 +95,31 @@ the final "ok" line):
               step with finite losses, K7 and K8 launched. Prints steps/s
               (host loading included), val batches/s, save and restore
               seconds and peak memory;
- 10. report   one {"kernels": [...]} JSON line (ten kernels), the
+ 10. wide     the configurations the repaired kernels serve, end to
+              end: `infer_views` at --ndepths 96,32,8 over phase 4's views
+              (kernels vs plain, phase 4's gate, every eval kernel
+              launched) and one train step at --cr_base_chs 16,16,16
+              from a seeded init (finite losses, every train kernel
+              launched);
+ 11. parallel data parallelism (`parallel/`): (a) a one-rank NCCL group,
+              one step through the data-parallel step on phase 6's
+              inputs: phase 6's kernel step-1 metrics in every bit, and
+              its gradients unchanged by an all-reduce over the group;
+              (b) two ranks on this one card over Gloo (NCCL puts no two
+              ranks on one card), B=1 each, against the single-process
+              kernel step at B=2 on the same global batch and draws, its
+              BatchNorms the cross-rank layer's at one rank, and with
+              PyTorch's own (its render terms printed, not gated: see
+              `phase_parallel`; cudnn.deterministic in both): step-1
+              losses within
+              LOSS_RTOL, every gradient within GRAD_L2_TOL, both ranks'
+              parameters and buffers after Adam equal in every bit, K1,
+              K2, K6, K7 and K8 launched in each rank; steps/s of the two
+              ranks sharing the card (not a scaling figure); (c) two ranks
+              run `infer_views_sharded` over phase 4's views: the gathered
+              depth and confidence equal phase 4's in every bit, or else
+              pass its gate (the result names which held);
+ 12. report   one {"kernels": [...]} JSON line (ten kernels), the
               nvidia-smi line, and the final {"ok": true, "device": {...}}
               line.
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM and 67 TFLOP/s
@@ -592,11 +621,13 @@ def zero_launches():
     return wrappers
 
 
-def phase_main(model, samples, scene, dev, name="main_path", smi=None):
+def phase_main(model, samples, scene, dev, name="main_path", smi=None,
+               keep=None):
     """Phases 4 and 7: an eval path, `infer_views` over every sample
     through the kernels, then through the plain versions. Every eval
     kernel must launch on the first and none on the second; depth must
-    agree within the TPU path's budget."""
+    agree within the TPU path's budget. keep: a list that receives the
+    kernel path's (depth, confidence) per view."""
     import numpy as np
     import torch
     from rcmvsnet_tpu_torch.models.cascade import infer_views
@@ -620,6 +651,8 @@ def phase_main(model, samples, scene, dev, name="main_path", smi=None):
     if any(runs[True]["launches"].values()):
         raise AssertionError(f"{name}: the plain path launched kernels "
                              f"{runs[True]['launches']}")
+    if keep is not None:
+        keep.extend(runs[False]["out"])
 
     rel_max, n_gate, plane_err = 0.0, 0, []
     hw = samples[0]["imgs"].shape[1:3]
@@ -919,6 +952,7 @@ def phase_train(batch, cascade_sd, smi, dev, cfg=None, warmup=2, timed=5):
         "launches": k["launches"], "launches_plain": p["launches"],
         "step1_loss_kernel": k["first"]["loss"],
         "step1_loss_plain": p["first"]["loss"],
+        "step1_metrics_kernel": k["first"],
         "step1_rel_delta": rel,
         "grad_max_l2_rel": max(grad_l2.values()),
         "grad_worst_l2_rel": sorted(grad_l2.items(),
@@ -1124,6 +1158,392 @@ def phase_train_cli(dtu_sample, smi, dev, logdir, shape=(TH, TW, TV),
     print(json.dumps({"train_cli": result}), flush=True)
     return result
 
+# K4 past its register instances (its streaming instance) and K8 dw past
+# one group of 64 output channels, at widths the JAX package runs
+# (--ndepths 96,32,8 or 192 planes in a stage; --cr_base_chs 16,16,16):
+# (label, D, h, w) and (label, Ci, Co, input (D, H, W), mode)
+WIDE_TAIL_CASES = (("stage1 D96 216x288", 96, 216, 288),
+                   ("stage1 D192 216x288", 192, 216, 288),
+                   ("stage3 slab D96 864x1152", 96, 864, 1152),
+                   ("stage3 slab D192 864x1152", 192, 864, 1152))
+WIDE_DW_CASES = (("cr16 stage1 conv5 s2 64>128", 64, 128, (12, 32, 40), "s2"),
+                 ("cr16 stage1 conv6 s1 128>128", 128, 128, (6, 16, 20),
+                  "s1"))
+
+
+def phase_wide_kernels(ledger, dev, tail_cases=WIDE_TAIL_CASES,
+                       dw_cases=WIDE_DW_CASES):
+    """Phases 3 and 5, their rows past the widths the kernels once
+    refused: K4 at D > 64 against `depth_tail_plain` at K4's bounds
+    (costs 3·N(0, 1), the full sweep, as `tools/ab_depth_tail` makes
+    them), K8 dw at 128 output channels (two Co groups) in modes s1 and
+    s2 against `conv3d_dw_plain` at 1e-4 of the largest value. Their rows
+    carry the phase "wide", so the kernels line's sums keep the main
+    paths' calls alone."""
+    import torch
+    from rcmvsnet_tpu_torch.ops import conv3d_train as K8
+    from rcmvsnet_tpu_torch.ops import depth_tail as K4
+    from rcmvsnet_tpu_torch.ops.conv3d import out_shape
+    from rcmvsnet_tpu_torch.tools.ab_depth_tail import inputs
+    ledger.phase = "wide"
+    for label, D, h, w in tail_cases:
+        (cost, lo, step), = inputs(dev, ((label, D, h, w),)).values()
+        ledger.compare("depth_tail", label,
+                       lambda: K4.depth_tail(cost, lo, step),
+                       lambda: K4.depth_tail_plain(cost, lo, step),
+                       nbytes(cost, lo, step) + 8 * h * w, 12 * D * h * w)
+        del cost, lo, step
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for label, ci, co, dhw, mode in dw_cases:
+        x = torch.randn(1, ci, *dhw, generator=gen, device=dev)
+        g = torch.randn(1, co, *out_shape(mode, *dhw), generator=gen,
+                        device=dev)
+        wgt = torch.zeros(co, ci, 3, 3, 3, device=dev)   # shape only
+        _, flops = conv3d_work(x, wgt, g, mode)
+        ledger.compare("conv3d_dw", label, lambda: K8.conv3d_dw(x, g, mode),
+                       lambda: K8.conv3d_dw_plain(x, g, mode),
+                       nbytes(x, g, wgt), flops,
+                       fn_lib=lambda: library_conv3d_dw(x, g, wgt, mode))
+        del x, g
+    sync(dev)
+    ledger.check("wide kernels")
+
+
+def phase_wide_paths(samples, scene, batch, smi, dev, cfg=None):
+    """Phase 10: the configurations the repaired kernels serve, end to
+    end. `infer_views` with the golden backbone at --ndepths 96,32,8
+    (stage 1's K4 through its streaming instance) through the kernels and
+    the plain versions, phase 4's gate; one train step at --cr_base_chs
+    16,16,16 (conv5 and conv6 128 channels wide, K8 dw over two Co
+    groups) from a seeded init through the kernels: finite losses, every
+    train kernel launched."""
+    from rcmvsnet_tpu_torch.config import BackboneConfig
+    from rcmvsnet_tpu_torch.models.cascade import CascadeMVSNet
+    from rcmvsnet_tpu_torch.weights import ASSET, load_state_dict
+    model = CascadeMVSNet(BackboneConfig(ndepths=(96, 32, 8)))
+    model.load_state_dict(load_state_dict(ASSET), strict=True)
+    model = model.to(dev).eval()
+    evaluation = phase_main(model, samples, scene, dev, "wide_eval_path",
+                            smi)
+    del model
+    return {"device": smi, "eval_96_32_8": evaluation,
+            "train_cr_base_chs_16": wide_train_step(batch, smi, dev, cfg)}
+
+
+def wide_train_step(batch, smi, dev, cfg=None):
+    """Phase 10's train step at --cr_base_chs 16,16,16 (see
+    `phase_wide_paths`)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from rcmvsnet_tpu_torch.config import Config
+    from rcmvsnet_tpu_torch.train.state import create_train_state
+    from rcmvsnet_tpu_torch.train.step import draw_step, make_train_step
+    base = cfg or Config()
+    cfg16 = base.replace(backbone=dataclasses.replace(
+        base.backbone, cr_base_chs=(16, 16, 16)))
+    B, Vn, Hs, Ws = batch["imgs"].shape[:4]
+    state = create_train_state(cfg16, Vn, 1000, dev, seed=SEED)
+    wrappers = zero_launches()
+    first = {k: float(v) for k, v in make_train_step(cfg16)(
+        state, batch, draw_step(torch.Generator(device=dev).manual_seed(
+            SEED), cfg16, B, Hs, Ws)).items()}
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    del state
+    result = {"device": smi, "input": f"{Ws}x{Hs} B={B} V={Vn}",
+              "step1_metrics": first, "launches": launches}
+    print(json.dumps({"wide_train_path": result}), flush=True)
+    if not all(np.isfinite(v) for v in first.values()):
+        raise AssertionError(f"cr_base_chs 16 step: {first}")
+    missing = [n for n in TRAIN_KERNELS if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"wide train path never launched {missing}")
+    return result
+
+
+def _device_draws(draws, dev):
+    from rcmvsnet_tpu_torch.render.rays import RayDraws
+    from rcmvsnet_tpu_torch.train.step import StepDraws
+    return StepDraws(draws.mask_origin.to(dev), tuple(
+        RayDraws(*(t.to(dev) for t in r)) for r in draws.rays))
+
+
+def _grads(state) -> dict:
+    out = {f"render.{n}": p.grad.detach().cpu().clone()
+           for n, p in state.render.named_parameters()}
+    out.update({n: p.grad.detach().cpu().clone()
+                for n, p in state.cascade.named_parameters()})
+    return out
+
+
+def _dp_step_rank(rank, world, device, batch, draws, cascade_sd, cfg, out,
+                  timed):
+    """Phase 11 (b), one rank: its rows of the global batch through the
+    data-parallel kernel step; step 1's
+    metrics, gradients (summed over the ranks), launches and parameters
+    after Adam, then `timed` steps."""
+    import torch
+    from rcmvsnet_tpu_torch.core.geometry import set_full_precision
+    from rcmvsnet_tpu_torch.parallel import mesh
+    from rcmvsnet_tpu_torch.train.state import create_train_state
+    from rcmvsnet_tpu_torch.train.step import make_train_step
+    if device.type == "cuda":
+        set_full_precision()
+    torch.backends.cudnn.deterministic = True
+    group = mesh.batch_group()
+    mine = _rows_to(batch, rank, device)
+    state = create_train_state(cfg, mine["imgs"].shape[1], 1000, device,
+                               seed=SEED, state_dicts=(cascade_sd, None),
+                               group=group)
+    step = make_train_step(cfg, group=group)
+    draws = _device_draws(draws, device)
+    wrappers = zero_launches()
+    first = {k: float(v) for k, v in step(state, mine, draws).items()}
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    res = {"first": first, "grads": _grads(state), "launches": launches,
+           "params": {k: v.detach().cpu().clone() for k, v in
+                      _state_tensors(state).items()}}
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step(state, mine, draws)
+    sync(device)
+    res["steps_per_s"] = timed / (time.perf_counter() - t0) if timed else None
+    torch.save(res, Path(out) / f"dp_step{rank}.pt")
+
+
+def _dp_eval_rank(rank, world, device, shape, ndepth, out):
+    """Phase 11 (c), one rank: `infer_views_sharded` over the plane
+    scene's reference views (the scene rebuilt from SEED)."""
+    import torch
+    from rcmvsnet_tpu_torch.core.geometry import set_full_precision
+    from rcmvsnet_tpu_torch.models.cascade import (CascadeMVSNet,
+                                                   infer_views_sharded)
+    from rcmvsnet_tpu_torch.weights import ASSET, load_state_dict
+    if device.type == "cuda":
+        set_full_precision()
+    samples = dtu_samples(plane_scene(*shape, SEED), ndepth)
+    model = CascadeMVSNet()
+    model.load_state_dict(load_state_dict(ASSET), strict=True)
+    model = model.to(device).eval()
+    wrappers = zero_launches()
+    views = [(i, d, c) for i, _, d, c in
+             infer_views_sharded(model, samples, device, rank, world)]
+    torch.save({"views": views, "launches": {
+        k: fn.launches for k, fn in wrappers.items()}},
+        Path(out) / f"dp_eval{rank}.pt")
+
+
+def phase_parallel(batch1, draws1, batch2, draws2, cascade_sd, phase6,
+                   eval_out, smi, dev, out_dir, cfg=None, shape=(H, W, V),
+                   ndepth=NDEPTH, timed=3, timeout=900):
+    """Phase 11, data parallelism (`parallel/`).
+    (a) A group of one rank (NCCL on the card): one train step on phase
+        6's batch and draws (batch1, draws1) through the data-parallel
+        step (group `batch_group()`, None at world 1, so nothing is
+        swapped) must give phase 6's kernel step-1 metrics in every bit,
+        and an all-reduce of its gradients over the one-rank
+        group must return them unchanged.
+    (b) Two ranks on this one card over Gloo (NCCL puts no two ranks on
+        one card), B=1 each, against the single-process kernel step at B=2
+        on the same global batch and draws (cudnn.deterministic in both),
+        held two ways:
+          * against that step with its BatchNorms the cross-rank layer's
+            at one rank (which sums each row alone and the rows in a fixed
+            tree, so two ranks reach its statistics bit for bit): every
+            step-1 loss term within LOSS_RTOL and every parameter gradient
+            within GRAD_L2_TOL in relative L2;
+          * against that step with PyTorch's own BatchNorm: repr_loss and
+            aug_loss within LOSS_RTOL and every gradient outside the
+            render network within GRAD_L2_TOL. img_loss, ray_depth_loss
+            (and so loss) and the render network's gradients are printed,
+            not gated: the render terms are discontinuous (a sample's
+            in-bounds mask in the colour volume flips), and a
+            rounding-level change of the pseudo-depth, such as the two
+            BatchNorms' different summation orders give, moves a single
+            ray's depth by a large share.
+        Both ranks' parameters and buffers after Adam equal in every bit,
+        K1, K2, K6, K7 and K8 launched in each rank; steps/s of 2 ranks
+        sharing one card (not a scaling figure).
+    (c) Two ranks run `infer_views_sharded` over phase 4's reference
+        views; the gathered depth and confidence must equal phase 4's
+        kernel output in every bit, or else pass phase 4's gate (the
+        result names which held)."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from rcmvsnet_tpu_torch.config import Config
+    from rcmvsnet_tpu_torch.parallel import mesh, sync_bn
+    from rcmvsnet_tpu_torch.train.state import create_train_state
+    from rcmvsnet_tpu_torch.train.step import batch_to, make_train_step
+    cfg = cfg or Config()
+    cuda = dev.type == "cuda"
+    result = {"device": smi}
+
+    # (a) one rank
+    store = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    mesh.init_process(0, 1, f"file://{store}/store", dev)
+    try:
+        state = create_train_state(cfg, batch1["imgs"].shape[1], 1000, dev,
+                                   seed=SEED, state_dicts=(cascade_sd, None),
+                                   group=mesh.batch_group())
+        step = make_train_step(cfg, group=mesh.batch_group())
+        first = {k: float(v) for k, v in step(state, batch1, draws1).items()}
+        grads = [p.grad for p in state.optimizer.param_groups[0]["params"]
+                 if p.grad is not None]
+        before = [g.clone() for g in grads]
+        mesh.allreduce_gradients(state.optimizer.param_groups[0]["params"],
+                                 dist.group.WORLD)
+        unchanged = all(torch.equal(a, b) for a, b in zip(before, grads))
+        backend = dist.get_backend()
+        del state, grads, before
+    finally:
+        dist.destroy_process_group()
+    want = phase6["step1_metrics_kernel"]
+    differ = {k: (first[k], want[k]) for k in want
+              if k != "lr" and first[k] != want[k]}
+    result["one_rank"] = {"backend": backend, "step1_metrics": first,
+                          "equal_to_phase6": not differ,
+                          "allreduce_unchanged": unchanged}
+    print(json.dumps({"parallel_one_rank": result["one_rank"]}), flush=True)
+    if differ or not unchanged:
+        raise AssertionError(f"one-rank group: step-1 metrics differ from "
+                             f"phase 6 {differ}, all-reduce unchanged "
+                             f"{unchanged}")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) two ranks against the single-process step at B=2, its
+    # BatchNorms the cross-rank layer's at one rank, and PyTorch's own
+    refs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for bn in ("cross_rank_one_rank", "pytorch"):
+            state = create_train_state(cfg, batch2["imgs"].shape[1], 1000,
+                                       dev, seed=SEED,
+                                       state_dicts=(cascade_sd, None))
+            if bn == "cross_rank_one_rank":
+                for m in (state.cascade, state.render):
+                    sync_bn.convert(m, None, one_rank=True)
+            first = {k: float(v) for k, v in make_train_step(cfg)(
+                state, batch_to(batch2, dev),
+                _device_draws(draws2, dev)).items()}
+            refs[bn] = (first, _grads(state))
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ref, ref_grads = refs["cross_rank_one_rank"]
+    if cuda:
+        torch.cuda.empty_cache()
+    devices = [str(dev)] * 2
+    mesh.spawn(_dp_step_rank, 2, (batch2, draws2, cascade_sd, cfg,
+                                  str(out_dir), timed),
+               devices=devices, backend="gloo", timeout=timeout)
+    ranks = [torch.load(Path(out_dir) / f"dp_step{r}.pt", weights_only=False)
+             for r in range(2)]
+    terms = ("loss", "repr_loss", "aug_loss", "img_loss", "ray_depth_loss")
+    rel = {n: max(abs(r["first"][n] - ref[n]) / max(abs(ref[n]), 1e-12)
+                  for r in ranks) for n in terms}
+    grad_l2 = {n: max(float((r["grads"][n] - g).norm())
+                      / max(float(g.norm()), 1e-30) for r in ranks)
+               for n, g in ref_grads.items()}
+    same = [k for k, v in ranks[0]["params"].items()
+            if not torch.equal(v, ranks[1]["params"][k])]
+    pt, pt_grads = refs["pytorch"]
+    pt_rel = {n: max(abs(r["first"][n] - pt[n]) / max(abs(pt[n]), 1e-12)
+                     for r in ranks) for n in terms}
+    pt_l2 = {n: max(float((r["grads"][n] - g).norm())
+                    / max(float(g.norm()), 1e-30) for r in ranks)
+             for n, g in pt_grads.items()}
+    pt_backbone_l2 = {n: v for n, v in pt_l2.items()
+                      if not n.startswith("render.")}
+    vs_pytorch_bn = {
+        "step1_rel_delta": pt_rel,
+        "grad_max_l2_rel_backbone": max(pt_backbone_l2.values()),
+        "grad_worst_l2_rel_backbone": sorted(
+            pt_backbone_l2.items(), key=lambda t: -t[1])[:5],
+        "not_gated": {"img_loss": pt_rel["img_loss"],
+                      "ray_depth_loss": pt_rel["ray_depth_loss"],
+                      "loss": pt_rel["loss"],
+                      "grad_max_l2_rel_render": max(
+                          v for n, v in pt_l2.items()
+                          if n.startswith("render."))}}
+    result["two_ranks"] = {
+        "input": f"{batch2['imgs'].shape[3]}x{batch2['imgs'].shape[2]} "
+                 f"B=1 per rank, global B=2, V={batch2['imgs'].shape[1]}",
+        "backend": "gloo, 2 ranks on one card",
+        "step1_loss_ranks": [r["first"]["loss"] for r in ranks],
+        "step1_loss_single_b2": ref["loss"], "step1_rel_delta": rel,
+        "step1_metrics_rel_delta": {
+            n: max(abs(r["first"][n] - v) / max(abs(v), 1e-12)
+                   for r in ranks) for n, v in ref.items()},
+        "grad_max_l2_rel": max(grad_l2.values()),
+        "grad_worst_l2_rel": sorted(grad_l2.items(), key=lambda t: -t[1])[:5],
+        "params_differ_across_ranks": same,
+        "vs_b2_pytorch_batchnorm": vs_pytorch_bn,
+        "launches": [r["launches"] for r in ranks],
+        "steps_per_s_2_ranks_sharing_one_card_not_a_scaling_figure":
+            [r["steps_per_s"] for r in ranks]}
+    print(json.dumps({"parallel_two_ranks": result["two_ranks"]}),
+          flush=True)
+    bad = {n: v for n, v in rel.items() if not v <= LOSS_RTOL}
+    bad.update({f"{n} vs PyTorch BN": pt_rel[n]
+                for n in ("repr_loss", "aug_loss")
+                if not pt_rel[n] <= LOSS_RTOL})
+    pt_bad = not vs_pytorch_bn["grad_max_l2_rel_backbone"] <= GRAD_L2_TOL
+    if (bad or not max(grad_l2.values()) <= GRAD_L2_TOL or pt_bad
+            or same):
+        worst = (result["two_ranks"]["grad_worst_l2_rel"],
+                 vs_pytorch_bn["grad_worst_l2_rel_backbone"])
+        raise AssertionError(f"two ranks vs one at B=2: losses {bad}, "
+                             f"gradients (vs cross-rank BN, vs PyTorch BN "
+                             f"outside render) {worst}, parameters "
+                             f"differing {same[:5]}")
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) sharded eval against phase 4's output
+    mesh.spawn(_dp_eval_rank, 2, (shape, ndepth, str(out_dir)),
+               devices=devices, backend="gloo", timeout=timeout)
+    got = {}
+    eval_launches = []
+    for r in range(2):
+        blob = torch.load(Path(out_dir) / f"dp_eval{r}.pt",
+                          weights_only=False)
+        eval_launches.append(blob["launches"])
+        got.update({i: (d, c) for i, d, c in blob["views"]})
+    if sorted(got) != list(range(len(eval_out))):
+        raise AssertionError(f"sharded eval views {sorted(got)}")
+    bitwise = all(np.array_equal(got[i][0], d) and np.array_equal(got[i][1], c)
+                  for i, (d, c) in enumerate(eval_out))
+    rel_max = max(_depth_gate(f"sharded eval view {i}", got[i][0], d)
+                  for i, (d, _) in enumerate(eval_out))
+    result["sharded_eval"] = {
+        "views": len(got), "held": "bit for bit" if bitwise
+        else "phase 4's gate", "depth_max_rel_delta_vs_phase4": rel_max,
+        "launches": eval_launches}
+    print(json.dumps({"parallel_sharded_eval": result["sharded_eval"]}),
+          flush=True)
+    missing = [(r, k) for r, l in enumerate(result["two_ranks"]["launches"])
+               for k in ("warp_variance", "conv3d", "warp_variance_bwd",
+                         "warp_volume", "warp_volume_bwd", "conv3d_dw")
+               if l[k] == 0]
+    missing += [(r, k) for r, l in enumerate(eval_launches)
+                for k in EVAL_KERNELS if l[k] == 0]
+    if missing:
+        raise AssertionError(f"parallel ranks never launched {missing}")
+    return result
+
+
+def _rows_to(batch, r, dev):
+    """Row r of a numpy batch as a B=1 batch of tensors on dev."""
+    from rcmvsnet_tpu_torch.train.step import batch_to
+    return batch_to({k: ({kk: vv[r:r + 1] for kk, vv in v.items()}
+                         if isinstance(v, dict) else
+                         (v[r:r + 1] if v.ndim else v))
+                     for k, v in batch.items()}, dev)
+
 
 def main() -> int:
     import torch
@@ -1167,12 +1587,14 @@ def main() -> int:
     ledger = Ledger(make_timer(dev), split=lambda fn: split_times(fn, dev))
     with torch.no_grad():
         phase_kernels(model, samples, scene, ledger, dev)
+        phase_wide_kernels(ledger, dev, dw_cases=())
     torch.cuda.empty_cache()
 
     # 4. eval main path
-    main_path = phase_main(model, samples, scene, dev, smi=smi)
+    eval_out = []
+    main_path = phase_main(model, samples, scene, dev, smi=smi,
+                           keep=eval_out)
     dtu_sample = samples[0]
-    del samples
     torch.cuda.empty_cache()
 
     # 5. train kernels against their plain versions
@@ -1186,12 +1608,12 @@ def main() -> int:
     render = make_models(Config(), TV)[1].to(dev)
     with torch.no_grad():
         phase_train_kernels(model, render, batch, tscene, ledger, dev)
+        phase_wide_kernels(ledger, dev, tail_cases=())
     del render
     torch.cuda.empty_cache()
 
     # 6. train main path
     train_path = phase_train(batch, load_state_dict(ASSET), smi, dev)
-    del batch
     torch.cuda.empty_cache()
 
     # 7. Tanks & Temples eval path
@@ -1212,7 +1634,29 @@ def main() -> int:
     shutil.rmtree(cli_dir)
     torch.cuda.empty_cache()
 
-    # 10. report
+    # 10. the configurations the repaired kernels serve, end to end
+    wide_path = phase_wide_paths(samples, scene, batch, smi, dev)
+    torch.cuda.empty_cache()
+
+    # 11. data parallelism: one rank over NCCL, two ranks on this card
+    from rcmvsnet_tpu_torch.train.step import draw_step
+    draws1 = draw_step(torch.Generator(device=dev).manual_seed(SEED),
+                       Config(), 1, TH, TW)
+    batch2 = batch_from_views([tscene, plane_scene(TH, TW, TV, SEED + 1)],
+                              NDEPTH, SEED)
+    draws2 = draw_step(torch.Generator().manual_seed(SEED), Config(), 2,
+                       TH, TW)
+    dp_dir = ROOT / "chiprun_out" / "parallel"
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    dp_dir.mkdir(parents=True)
+    parallel = phase_parallel(batch, draws1, batch2, draws2,
+                              load_state_dict(ASSET), train_path, eval_out,
+                              smi, dev, dp_dir)
+    shutil.rmtree(dp_dir)
+    del batch, samples
+    torch.cuda.empty_cache()
+
+    # 12. report
     source = "rcmvsnet_tpu_torch/ops/"
     meta = [
         ("warp_variance", "eval", "cuda", source + "csrc/warp_variance.cu",
@@ -1275,6 +1719,7 @@ def main() -> int:
         "calls": ledger.rows, "main_path": main_path,
         "train_path": train_path, "tanks_path": tanks_path,
         "tools_path": tools_path, "train_cli": train_cli,
+        "wide_path": wide_path, "parallel": parallel,
         "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,13 +1,18 @@
 """DTU inference + fusion command line (PyTorch port).
 
-Counterpart of `rcmvsnet_tpu/cli/eval_dtu.py`, same flags minus
-`--no_pallas` / `--n_devices`, plus `--device` (default `cuda`; a missing
-GPU is an error, not a CPU run).
+Counterpart of `rcmvsnet_tpu/cli/eval_dtu.py`, same flags plus `--device`
+(default `cuda`; a missing GPU is an error, not a CPU run). `--no_pallas`
+runs every kernel's plain PyTorch version. `--n_devices N` spawns N
+workers (one process per device, `parallel/mesh.spawn`; worker r on
+`cuda:r`, or the CPU under `--device cpu`), each inferring and writing the
+reference views i with i % N == r (`infer_views_sharded`, no collectives);
+once every worker has ended, the launching process fuses and scores.
 
-Phase 1 (save_depth): the cascade per reference view (`infer_views`), then
-depth_est / confidence PFMs, cams, images and visualizations — the JAX
-CLI's output tree. Phase 2 (fusion): photometric + geometric filtering
-into mvsnet{scan:03d}_l3.ply (the port's `fusion/fuse.py`).
+Phase 1 (save_depth): the cascade per reference view
+(`infer_views_sharded`), then depth_est / confidence PFMs, cams, images
+and visualizations — the JAX CLI's output tree. Phase 2 (fusion):
+photometric + geometric filtering into mvsnet{scan:03d}_l3.ply (the
+port's `fusion/fuse.py`).
 Optional phase 3: the ported DTU acc/comp benchmark when --gt_dir is given.
 
 Usage:
@@ -22,7 +27,6 @@ import argparse
 import json
 import multiprocessing
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -34,7 +38,8 @@ from ..core.geometry import set_full_precision
 from ..data import dtu_test as _dtu_test
 from ..data import transforms as _transforms
 from ..fusion import fuse as _fuse
-from ..models.cascade import CascadeMVSNet, infer_views
+from ..models.cascade import CascadeMVSNet, infer_views_sharded
+from ..parallel import mesh
 from ..weights import load_state_dict
 
 
@@ -61,7 +66,13 @@ def parse_args(argv=None):
     p.add_argument("--no_test", action="store_true", help="fusion only")
     p.add_argument("--no_filter", action="store_true", help="depth only")
     p.add_argument("--device", default="cuda",
-                   help="torch device for inference (cuda, cuda:N or cpu)")
+                   help="torch device for inference (cuda, cuda:N or cpu; "
+                        "with --n_devices, cuda or cpu)")
+    p.add_argument("--no_pallas", action="store_true",
+                   help="run every kernel's plain PyTorch version")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="shard the reference views over this many devices "
+                        "of this host, one process each (default 1)")
     p.add_argument("--gt_dir", default=None,
                    help="DTU SampleSet/MVS Data dir (Points/stl + ObsMask); "
                         "when given, phase 3 runs the ported acc/comp "
@@ -127,7 +138,9 @@ def _write_view(outdir, sample, depth, conf):
                              cv2.COLOR_RGB2BGR))
 
 
-def save_depth(args, testlist, device):
+def save_depth(args, testlist, device, rank: int = 0, world: int = 1):
+    """Phase 1 for the reference views i % world == rank of every scan
+    (the next one decoded on a worker thread while one runs)."""
     outdir = Path(args.outdir)
     model = build_model(args, device)
     for scan in testlist:
@@ -135,18 +148,31 @@ def save_depth(args, testlist, device):
             args.testpath, [scan], nviews=args.num_view,
             ndepths=args.numdepth, interval_scale=args.interval_scale,
             max_h=args.max_h, max_w=args.max_w)
-        # decode view i+1 on a worker thread while view i runs
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            pending = pool.submit(ds.__getitem__, 0)
-            for i in range(len(ds)):
-                sample = pending.result()
-                if i + 1 < len(ds):
-                    pending = pool.submit(ds.__getitem__, i + 1)
-                t0 = time.time()
-                depth, conf = infer_views(model, [sample], device)[0]
-                print(f"{scan} view {i}/{len(ds)} {time.time() - t0:.3f}s "
-                      f"res {depth.shape}")
-                _write_view(outdir, sample, depth, conf)
+        t0 = time.time()
+        for i, sample, depth, conf in infer_views_sharded(
+                model, ds, device, rank, world, plain=args.no_pallas):
+            print(f"{scan} view {i}/{len(ds)} {time.time() - t0:.3f}s "
+                  f"res {depth.shape}")
+            _write_view(outdir, sample, depth, conf)
+            t0 = time.time()
+
+
+def _save_depth_rank(rank: int, world: int, device, args, testlist):
+    """One worker of `--n_devices`: its share of phase 1."""
+    if device.type == "cuda":
+        set_full_precision()
+    save_depth(args, testlist, device, rank, world)
+
+
+def run_ranks(args, rank_fn, *fn_args) -> None:
+    """rank_fn(rank, world, device, args, *fn_args) on `--device`, or in
+    `--n_devices` spawned workers; returns when every one has ended."""
+    n = args.n_devices or 1
+    if n > 1:
+        mesh.spawn(rank_fn, n, (args, *fn_args),
+                   device_type=torch.device(args.device).type)
+    else:
+        rank_fn(0, 1, resolve_device(args.device), args, *fn_args)
 
 
 def fuse_one(args_tuple):
@@ -171,7 +197,7 @@ def main(argv=None):
         testlist = [s for s in args.testlist.split(",") if s]
 
     if not args.no_test:
-        save_depth(args, testlist, resolve_device(args.device))
+        run_ranks(args, _save_depth_rank, testlist)
     if not args.no_filter:
         work = [(scan, args) for scan in testlist]
         if args.num_worker > 1:

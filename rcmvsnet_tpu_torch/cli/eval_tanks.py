@@ -3,13 +3,17 @@
 Counterpart of `rcmvsnet_tpu/cli/eval_tanks.py`: 1920×1056 inputs, 7
 views, the per-scene fusion tables of the reference's
 eval_rcmvsnet_tanks.py, one .ply per scene for the benchmark website. Same
-flags minus `--no_pallas` / `--n_devices`, plus `--device` (default
-`cuda`; a missing GPU is an error, not a CPU run).
+flags plus `--device` (default `cuda`; a missing GPU is an error, not a
+CPU run).
 
-Phase 1 (depth): the cascade per reference view (`infer_views`, one view
-at a time), the next view decoded on a worker thread meanwhile; depth /
-confidence PFMs, cams and images per view. Phase 2 (fusion): `fuse_scan`
-per scene with that scene's thresholds, into `<outdir>/<scene>.ply`.
+Phase 1 (depth): the cascade per reference view (`infer_views_sharded`,
+one view at a time), the next view decoded on a worker thread meanwhile;
+depth / confidence PFMs, cams and images per view. `--no_pallas` runs
+every kernel's plain PyTorch version; `--n_devices N` shards the
+reference views over N workers, one process per device, as
+`cli/eval_dtu.py` does, and fuses once all have ended. Phase 2
+(fusion): `fuse_scan` per scene with that scene's thresholds, into
+`<outdir>/<scene>.ply`.
 
 Usage:
   python -m rcmvsnet_tpu_torch.cli.eval_tanks --testpath /data/tanks \\
@@ -20,7 +24,6 @@ from __future__ import annotations
 
 import argparse
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -28,9 +31,10 @@ import numpy as np
 from ..core import io as _io
 from ..data import tanks as _tanks
 from ..data import transforms as _transforms
+from ..core.geometry import set_full_precision
 from ..fusion.fuse import fuse_scan
-from ..models.cascade import infer_views
-from .eval_dtu import build_model, resolve_device
+from ..models.cascade import infer_views_sharded
+from .eval_dtu import build_model, run_ranks
 
 # per-scene fusion hyperparameters of the reference's
 # eval_rcmvsnet_tanks.py:400-440 (intermediate) and :460-491 (advanced);
@@ -91,7 +95,13 @@ def parse_args(argv=None):
     p.add_argument("--no_test", action="store_true")
     p.add_argument("--no_filter", action="store_true")
     p.add_argument("--device", default="cuda",
-                   help="torch device for inference (cuda, cuda:N or cpu)")
+                   help="torch device for inference (cuda, cuda:N or cpu; "
+                        "with --n_devices, cuda or cpu)")
+    p.add_argument("--no_pallas", action="store_true",
+                   help="run every kernel's plain PyTorch version")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="shard the reference views over this many devices "
+                        "of this host, one process each (default 1)")
     return p.parse_args(argv)
 
 
@@ -118,25 +128,29 @@ def _write_tanks_view(outdir, sample, depth, conf):
                              cv2.COLOR_RGB2BGR))
 
 
-def save_depth(args, device):
+def save_depth(args, device, rank: int = 0, world: int = 1):
+    """Phase 1 for the reference views i % world == rank; the next one is
+    decoded on a worker thread while one runs (the 1920x1056 decode and
+    resize would otherwise serialise with the card's work)."""
     outdir = Path(args.outdir)
     img_wh = tuple(int(x) for x in args.img_wh.split(","))
     ds = _tanks.TanksDataset(args.testpath, args.split, nviews=args.num_view,
                              img_wh=img_wh, ndepths=args.numdepth)
     model = build_model(args, device)
-    # decode view i+1 on a worker thread while view i runs (the 1920x1056
-    # decode and resize would otherwise serialise with the card's work)
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        pending = pool.submit(ds.__getitem__, 0)
-        for i in range(len(ds)):
-            sample = pending.result()
-            if i + 1 < len(ds):
-                pending = pool.submit(ds.__getitem__, i + 1)
-            t0 = time.time()
-            depth, conf = infer_views(model, [sample], device)[0]
-            print(f"{sample['filename']} {i}/{len(ds)} "
-                  f"{time.time() - t0:.3f}s")
-            _write_tanks_view(outdir, sample, depth, conf)
+    t0 = time.time()
+    for i, sample, depth, conf in infer_views_sharded(
+            model, ds, device, rank, world, plain=args.no_pallas):
+        print(f"{sample['filename']} {i}/{len(ds)} "
+              f"{time.time() - t0:.3f}s")
+        _write_tanks_view(outdir, sample, depth, conf)
+        t0 = time.time()
+
+
+def _save_depth_rank(rank: int, world: int, device, args):
+    """One worker of `--n_devices`: its share of phase 1."""
+    if device.type == "cuda":
+        set_full_precision()
+    save_depth(args, device, rank, world)
 
 
 def main(argv=None):
@@ -145,7 +159,7 @@ def main(argv=None):
     scans = (_tanks.INTERMEDIATE_SCANS if args.split == "intermediate"
              else _tanks.ADVANCED_SCANS)
     if not args.no_test:
-        save_depth(args, resolve_device(args.device))
+        run_ranks(args, _save_depth_rank)
     if not args.no_filter:
         for scan in scans:
             ply = outdir / f"{scan}.ply"

@@ -4,14 +4,16 @@ backbone regressed against the first pass's detached depth.
 Counterpart of `rcmvsnet_tpu/losses/aug.py`. The rectangle origin of
 `random_image_mask` is an explicit input ([B, 2] integer (x0, y0)), drawn
 by `draw_mask_origins` from a `torch.Generator` unless the caller gives it
-(the tests hand in the JAX step's own draws).
+(the tests hand in the JAX step's own draws). With a process group the
+loss is the global batch's masked mean (`parallel/mesh.global_masked_mean`).
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.image import masked_mean, smooth_l1
+from ..ops.image import smooth_l1
 from ..ops.sampling import resize_nearest
+from ..parallel.mesh import global_masked_mean
 from .unsup import STAGE_DOWNSCALE
 
 
@@ -46,9 +48,10 @@ def random_image_mask(img: torch.Tensor, filter_hw, origins: torch.Tensor):
 
 
 def aug_loss_multi_stage(outputs, pseudo_depth, filter_mask,
-                         dlossw=(0.5, 1.0, 2.0)):
+                         dlossw=(0.5, 1.0, 2.0), group=None):
     """Σ_k dlossw[k] · smooth-L1(depth_k, pseudo-depth ↓k) over the
-    unmasked pixels. pseudo_depth [B, H, W]; filter_mask [B, H, W, C]."""
+    unmasked pixels (of every rank of `group`). pseudo_depth [B, H, W];
+    filter_mask [B, H, W, C]."""
     total = 0.0
     scalars = {}
     pseudo = pseudo_depth[..., None]
@@ -58,7 +61,8 @@ def aug_loss_multi_stage(outputs, pseudo_depth, filter_mask,
         s = STAGE_DOWNSCALE[stage_idx]
         pseudo_t = resize_nearest(pseudo, H // s, W // s)[..., 0]
         mask = resize_nearest(filter_mask, H // s, W // s)[..., 0] > 0.5
-        loss = masked_mean(smooth_l1(outputs[key]["depth"], pseudo_t), mask)
+        loss = global_masked_mean(
+            smooth_l1(outputs[key]["depth"], pseudo_t), mask, group)
         total = total + dlossw[stage_idx] * loss
         scalars[f"aug_loss_{key}"] = loss
     return total, scalars

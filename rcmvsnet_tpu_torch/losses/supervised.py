@@ -2,15 +2,19 @@
 (training itself is unsupervised). Counterparts of
 `rcmvsnet_tpu/losses/supervised.py`: `cas_mvsnet_loss`, the stages'
 weighted masked smooth-L1; the metrics are per-image means over the masked
-pixels, NaN for an image whose mask is empty."""
+pixels, NaN for an image whose mask is empty. With a process group the
+loss is the global batch's masked mean
+(`parallel/mesh.global_masked_mean`)."""
 from __future__ import annotations
 
 import torch
 
 from ..ops.image import masked_mean, smooth_l1
+from ..parallel.mesh import global_masked_mean
 
 
-def cas_mvsnet_loss(outputs, depth_gt_ms, mask_ms, dlossw=(0.5, 1.0, 2.0)):
+def cas_mvsnet_loss(outputs, depth_gt_ms, mask_ms, dlossw=(0.5, 1.0, 2.0),
+                    group=None):
     """Σ_k dlossw[k]·smooth-L1(est_k[mask], gt_k[mask]); also returns the
     last stage's unweighted loss (the reference's `depth_loss`)."""
     total = 0.0
@@ -20,7 +24,7 @@ def cas_mvsnet_loss(outputs, depth_gt_ms, mask_ms, dlossw=(0.5, 1.0, 2.0)):
         est = outputs[key]["depth"]
         gt = depth_gt_ms[key]
         mask = mask_ms[key] > 0.5
-        depth_loss = masked_mean(smooth_l1(est, gt), mask)
+        depth_loss = global_masked_mean(smooth_l1(est, gt), mask, group)
         total = total + dlossw[stage_idx] * depth_loss
     return total, depth_loss
 

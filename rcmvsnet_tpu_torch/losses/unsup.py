@@ -7,6 +7,9 @@ of the reference's UnSupLoss:
     views picks the best view's scalar at every valid pixel;
   * SSIM accumulates over the first ≤ 2 source views only (view < 3);
   * stage images are downscaled with torch-default NEAREST interpolation.
+With a process group the per-view reconstruction scalar, which the
+per-pixel top-1 then uses, is the global batch's, as in JAX
+(`parallel/mesh.global_mean`); the other means are each rank's own.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 
 from ..ops.image import depth_smoothness, gradient, smooth_l1, ssim
 from ..ops.sampling import loss_bilinear_sample, resize_nearest
+from ..parallel.mesh import global_mean
 
 STAGE_DOWNSCALE = {0: 4, 1: 2, 2: 1}
 
@@ -55,19 +59,19 @@ def inverse_warping(img: torch.Tensor, ref_cam: torch.Tensor,
     return loss_bilinear_sample(img, px, py)
 
 
-def _compute_reconstr_loss(warped, ref, mask):
+def _compute_reconstr_loss(warped, ref, mask, group=None):
     """0.5·photo smooth-L1 + 0.5·gradient smooth-L1, each mean-reduced to
-    a scalar."""
+    a scalar (over every rank's batch)."""
     alpha = 0.5
     ref_dx, ref_dy = gradient(ref * mask)
     warped_dx, warped_dy = gradient(warped * mask)
-    photo = smooth_l1(warped * mask, ref * mask).mean()
-    grad = (smooth_l1(warped_dx, ref_dx).mean()
-            + smooth_l1(warped_dy, ref_dy).mean())
+    photo = global_mean(smooth_l1(warped * mask, ref * mask), group)
+    grad = (global_mean(smooth_l1(warped_dx, ref_dx), group)
+            + global_mean(smooth_l1(warped_dy, ref_dy), group))
     return (1 - alpha) * photo + alpha * grad
 
 
-def unsup_stage_loss(imgs, cams, depth, stage_idx: int):
+def unsup_stage_loss(imgs, cams, depth, stage_idx: int, group=None):
     """Single-stage UnSupLoss. imgs [B, V, H, W, 3] per-image-normalized
     'center' images at full resolution; cams [B, V, 2, 4, 4] stage
     projection pairs; depth [B, h, w]. Returns (loss, components)."""
@@ -82,7 +86,7 @@ def unsup_stage_loss(imgs, cams, depth, stage_idx: int):
         view_img = resize_nearest(imgs[:, view], h, w)
         warped, mask = inverse_warping(view_img, ref_cam, cams[:, view],
                                        depth)
-        reconstr = _compute_reconstr_loss(warped, ref_img, mask)
+        reconstr = _compute_reconstr_loss(warped, ref_img, mask, group)
         reproj_maps.append(reconstr + 1e4 * (1.0 - mask))     # [B,h,w,1]
         if view < 3:
             ssim_loss = ssim_loss + ssim(ref_img, warped, mask).mean()
@@ -96,7 +100,7 @@ def unsup_stage_loss(imgs, cams, depth, stage_idx: int):
 
 
 def unsup_loss_multi_stage(outputs, imgs, proj_matrices,
-                           dlossw=(0.5, 1.0, 2.0)):
+                           dlossw=(0.5, 1.0, 2.0), group=None):
     """Σ_k dlossw[k] · UnSupLoss(stage k). Returns (total, scalars) with
     the JAX package's scalar names."""
     total = 0.0
@@ -104,7 +108,8 @@ def unsup_loss_multi_stage(outputs, imgs, proj_matrices,
     for stage_idx in range(len(dlossw)):
         key = f"stage{stage_idx + 1}"
         loss, comps = unsup_stage_loss(imgs, proj_matrices[key],
-                                       outputs[key]["depth"], stage_idx)
+                                       outputs[key]["depth"], stage_idx,
+                                       group)
         total = total + dlossw[stage_idx] * loss
         scalars[f"depth_loss_{key}"] = loss
         for name, v in comps.items():

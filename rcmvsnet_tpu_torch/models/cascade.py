@@ -15,11 +15,13 @@ lateral head) write the [V, h, w, C] layout K1 reads, so no feature map
 is permuted or copied between K5 and K1.
 
 Train (`forward_train`, BatchNorm in train mode): FeatureNet as modules;
-per stage the differentiable warp — K7 (variance, no-ref variance and
-warped source images in one sweep, the last two written straight into
-the render branch's volume_feature layout) at stage 1 when the render
-branch's volume is asked for, K1 with K6 as its backward otherwise — then
-the U-Net through K8, then softmax + depth regression in plain PyTorch
+per stage and sample the differentiable warp — K7 (variance, no-ref
+variance and warped source images in one sweep, the last two written
+straight into the render branch's volume_feature layout) at stage 1 when
+the render branch's volume is asked for, K1 with K6 as its backward
+otherwise — then the U-Net through K8 once over the batch (its BatchNorm
+statistics the batch's, as in JAX), then softmax + depth regression in
+plain PyTorch
 (the JAX train tail is XLA code). With `grad_detach` the previous stage's
 depth is detached before it sets the next window.
 
@@ -27,6 +29,8 @@ depth is detached before it sets the next window.
 wrappers do so anyway), with autograd through them on the train path.
 """
 from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -153,8 +157,7 @@ class CascadeMVSNet(nn.Module):
             if want_volume:
                 imgs_s = resize_bilinear(imgs.reshape(B * V, H, W, 3), h,
                                          w).reshape(B, V, h, w, 3)
-            depths, confs, vols = [], [], []
-            idx = torch.arange(nd, dtype=lo.dtype, device=lo.device)
+            variances, vols = [], []
             for b in range(B):
                 f_b = fs[b].contiguous()
                 if want_volume:
@@ -163,9 +166,16 @@ class CascadeMVSNet(nn.Module):
                     vols.append(vol)
                 else:
                     var = warp(f_b, projs[b], lo[b], step[b], nd)
-                cost = self.cost_regularization[s].forward_train(
-                    var[None], plain=plain)[0, 0]                # [D, h, w]
-                prob = torch.softmax(cost, dim=0)[None]
+                variances.append(var)
+            # one U-Net call over the batch: train-mode BN takes its
+            # statistics over every sample, as JAX's batched U-Net does
+            x = variances[0][None] if B == 1 else torch.stack(variances)
+            costs = self.cost_regularization[s].forward_train(
+                x, plain=plain)[:, 0]                         # [B, D, h, w]
+            depths, confs = [], []
+            idx = torch.arange(nd, dtype=lo.dtype, device=lo.device)
+            for b in range(B):
+                prob = torch.softmax(costs[b], dim=0)[None]
                 dv = lo[b][None] + idx[:, None, None] * step[b][None]
                 depths.append(depth_regression(prob, dv[None])[0])
                 confs.append(photometric_confidence(prob.detach())[0])
@@ -202,3 +212,25 @@ def infer_views(model: CascadeMVSNet, samples, device,
             results.append((out["depth"][0].cpu().numpy(),
                             out["photometric_confidence"][0].cpu().numpy()))
     return results
+
+
+def infer_views_sharded(model: CascadeMVSNet, samples, device, rank: int = 0,
+                        world: int = 1, plain: bool = False):
+    """Rank `rank` of `world`'s share of `infer_views`: the reference views
+    i with i % world == rank, one at a time, each through `infer_views`.
+    samples: a sequence (a dataset or a list) of `infer_views` samples;
+    sample i + world is fetched on a worker thread while view i runs.
+    Yields (i, sample, depth, confidence) in order. No collectives: each
+    rank's views are independent (JAX `cli/eval_dtu.py:254-268` gives
+    each device its own reference views the same way)."""
+    views = range(rank, len(samples), world)
+    if not views:
+        return
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = pool.submit(samples.__getitem__, views[0])
+        for k, i in enumerate(views):
+            sample = pending.result()
+            if k + 1 < len(views):
+                pending = pool.submit(samples.__getitem__, views[k + 1])
+            depth, conf = infer_views(model, [sample], device, plain)[0]
+            yield i, sample, depth, conf

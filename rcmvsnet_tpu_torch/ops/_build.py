@@ -10,7 +10,10 @@ PyTorch's headers, so a build takes seconds rather than the minutes a
     hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so
     an edited source rebuilds and an unchanged one is reused. `.gitignore`
     lists the directory.
-  * `build_all()` starts one `nvcc` per source, all at once, and waits.
+  * `build_all()` starts one `nvcc` per source, all at once, and waits,
+    holding an exclusive lock on `.ext_build/.lock` (`fcntl.flock`), so
+    the processes of a data-parallel run that reach their first launch
+    together build each library once and load it whole.
   * A failed build raises with the compiler's output; nothing catches it.
 
 Every C entry point launches on the stream it is given and returns
@@ -18,7 +21,9 @@ Every C entry point launches on the stream it is given and returns
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -61,7 +66,6 @@ def _start(name: str, csrc: Path = CSRC):
     target = _target(name, csrc)
     if target.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -69,11 +73,24 @@ def _start(name: str, csrc: Path = CSRC):
     return proc, tmp, target
 
 
+@contextlib.contextmanager
+def _dir_lock():
+    """This thread's and, through flock, this process's hold on the build
+    directory."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _lock, open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names=SOURCES, csrc: Path = CSRC) -> dict[str, str]:
     """Compile every named source of `csrc` in parallel. Returns {name:
     nvcc output} (the `-Xptxas -v` register and shared-memory report);
     raises on the first failed build."""
-    with _lock:
+    with _dir_lock():
         jobs = {n: _start(n, csrc) for n in names}
         logs = {}
         failed = []

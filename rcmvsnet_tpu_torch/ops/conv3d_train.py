@@ -10,7 +10,8 @@ autograd outside it):
     the other way round; over an odd input size the "t2" adjoint is
     trimmed to it);
   * dw: `conv3d_dw`, the kernel `csrc/conv3d_dw.cu` on a CUDA tensor (a
-    split-K GEMM on the tensor cores over the brick plan of `dw_chunks`),
+    split-K GEMM on the tensor cores over the brick plan of `dw_chunks`,
+    any Co: a block owns a group of ≤ CO_GROUP output channels),
     or `conv3d_dw_plain` (27 shifted products, one einsum each) on a CPU
     one.
 Both halves dispatch by device, so on the CPU the Function runs the plain
@@ -37,7 +38,7 @@ ADJOINT = {"s1": "s1", "s2": "t2", "t2": "s2"}
 # the dw kernel's brick of base positions (z, y, x) per mode
 BRICK = {"s1": (1, 8, 16), "s2": (1, 4, 16), "t2": (1, 8, 16)}
 TARGET_BLOCKS = _build.SMS * 4  # about four dw blocks per SM
-MAX_CO = 64                   # four m16 tiles of output channels
+CO_GROUP = 64                 # output channels of one dw block (4 m16 tiles)
 
 
 class DwPlan(NamedTuple):
@@ -46,8 +47,9 @@ class DwPlan(NamedTuple):
     own blocks) cut into bricks of `brick`, `grid` bricks per axis and
     `bricks` in all (samples included; brick index x fastest, then y, z,
     sample), run as `chunks` runs of `per_chunk` consecutive bricks (the
-    last one shorter), one block per (run, 8-channel chunk of Ci, class);
-    each block writes one partial."""
+    last one shorter), one block per (run, 8-channel chunk of Ci, class,
+    group of CO_GROUP output channels); each block writes its group's rows
+    of one partial."""
     brick: tuple
     grid: tuple
     bricks: int
@@ -129,8 +131,6 @@ def conv3d_dw(x: torch.Tensor, g: torch.Tensor, mode: str) -> torch.Tensor:
     if tuple(g.shape) != (N, Co, Do, Ho, Wo):
         raise ValueError(f"conv3d_dw: g {tuple(g.shape)} is not the "
                          f"{mode} output of x {tuple(x.shape)}")
-    if Co > MAX_CO:
-        raise ValueError(f"conv3d_dw: {Co} output channels > {MAX_CO}")
     _build.require_cuda("conv3d_dw", x, g)
     plan = dw_chunks(mode, N, Ci, D, H, W)
     partial = torch.empty((plan.chunks, Co, Ci, 27), dtype=torch.float32,

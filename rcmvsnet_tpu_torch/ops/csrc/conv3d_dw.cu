@@ -12,12 +12,18 @@
 // 27] of scratch.
 //
 // Design. Pass 1: a block (8 warps) owns one 8-channel chunk of Ci
-// (gridDim.y), all of Co, one parity class in mode 2 (gridDim.z) and a
-// run of consecutive bricks of base positions (gridDim.x: the split-K
-// chunks ops/conv3d_train.dw_chunks plans). For each brick it stages the
-// brick of g (all Co; in mode 2 the class's outputs 2*b + p) and the halo
-// brick of x (tc_conv3d.cuh) in shared memory with cp.async (16-byte row
-// vectors where the rows allow: x in modes 0 and 2, g in modes 0 and 1),
+// (gridDim.y), one group of up to 64 output channels (four m16 tiles) and,
+// in mode 2, one parity class (gridDim.z = classes x Co groups, the class
+// fastest), and a run of consecutive bricks of base positions (gridDim.x:
+// the split-K chunks ops/conv3d_train.dw_chunks plans). For Co <= 64 there
+// is one group, in ceil(Co / 16) m16 tiles; for Co > 64 every group runs
+// the four-tile instance and masks the rows past Co. Each block stages
+// only its group's rows of g and writes only its group's rows of the
+// partials; the chunk sum does not see the groups. For each brick it
+// stages the brick of g (its Co group; in mode 2 the class's outputs
+// 2*b + p) and the halo brick of x (tc_conv3d.cuh) in shared memory with
+// cp.async (16-byte row vectors where the rows allow: x in modes 0 and 2,
+// g in modes 0 and 1),
 // the next brick loading while the tensor cores work on this one, and
 // accumulates 3xTF32 m16n8k8 MMAs over the brick's positions in
 // registers, flushed into float32 totals after every brick: in modes 0
@@ -41,6 +47,8 @@ namespace {
 
 using namespace tc;
 
+constexpr int kCoGroup = 64;       // output channels a block owns: MT <= 4
+
 template <int MODE, int MT>
 struct DwCfg {
   static constexpr int BZ = 1, BY = MODE == 1 ? 4 : 8;   // dw_chunks' BRICK
@@ -55,13 +63,15 @@ struct DwCfg {
   static constexpr size_t SMEM = 2 * STAGE * sizeof(float);
 };
 
-// Stage g of the brick's positions (mode 2: outputs 2*b + p) for all Co
-// into s[co][position]; zero past Co and outside the output. vec (modes 0
+// Stage g of the brick's positions (mode 2: outputs 2*b + p) for the
+// group's channels co0 + co, co < 16 MT, into s[co][position]; zero past
+// Co and outside the output. vec (modes 0
 // and 1, rows of g 16-byte aligned): 4 vectors per row of 16 positions;
 // else one row per half-warp, one float per lane.
 template <int MODE, int MT>
 __device__ __forceinline__ void load_g(float* s, const float* g, int n,
-                                       int Co, int Do, int Ho, int Wo,
+                                       int co0, int Co, int Do, int Ho,
+                                       int Wo,
                                        int bz0, int by0, int bx0, int pz,
                                        int py, int px, bool vec) {
   using C = DwCfg<MODE, MT>;
@@ -72,10 +82,11 @@ __device__ __forceinline__ void load_g(float* s, const float* g, int n,
       const int ry = r % C::BY, rz = (r / C::BY) % C::BZ,
                 co = r / (C::BY * C::BZ);
       const int oz = bz0 + rz, oy = by0 + ry, ox = bx0 + 4 * v;
+      const int cg = co0 + co;
       const int nx =
-          co < Co && oz < Do && oy < Ho ? min(4, max(0, Wo - ox)) : 0;
+          cg < Co && oz < Do && oy < Ho ? min(4, max(0, Wo - ox)) : 0;
       const float* src =
-          nx ? g + ((((long long)n * Co + co) * Do + oz) * Ho + oy) * Wo + ox
+          nx ? g + ((((long long)n * Co + cg) * Do + oz) * Ho + oy) * Wo + ox
              : g;
       cp_async16(s + co * C::PG + (rz * C::BY + ry) * kBX + 4 * v, src,
                  4 * nx);
@@ -90,9 +101,10 @@ __device__ __forceinline__ void load_g(float* s, const float* g, int n,
     const int oz = MODE == 2 ? 2 * (bz0 + rz) + pz : bz0 + rz;
     const int oy = MODE == 2 ? 2 * (by0 + ry) + py : by0 + ry;
     const int ox = MODE == 2 ? 2 * (bx0 + rx) + px : bx0 + rx;
-    const bool ok = co < Co && oz < Do && oy < Ho && ox < Wo;
+    const int cg = co0 + co;
+    const bool ok = cg < Co && oz < Do && oy < Ho && ox < Wo;
     const float* src =
-        ok ? g + ((((long long)n * Co + co) * Do + oz) * Ho + oy) * Wo + ox
+        ok ? g + ((((long long)n * Co + cg) * Do + oz) * Ho + oy) * Wo + ox
            : g;
     cp_async4(s + co * C::PG + (rz * C::BY + ry) * kBX + rx, src, ok);
   }
@@ -145,7 +157,9 @@ conv3d_dw_tc(const float* __restrict__ x, const float* __restrict__ gr,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int c0 = blockIdx.y * kCiChunk;
-  const int cls = blockIdx.z;
+  // gridDim.z = classes x Co groups, the class fastest
+  const int cls = MODE == 2 ? blockIdx.z & 7 : 0;
+  const int co0 = (MODE == 2 ? blockIdx.z >> 3 : blockIdx.z) * kCoGroup;
   const int pz = cls >> 2, py = (cls >> 1) & 1, px = cls & 1;
   // mode 2: T taps in the class, warp -> (tap ti, k-step group pg of npg)
   const int T = 1 << (pz + py + px);
@@ -188,8 +202,8 @@ conv3d_dw_tc(const float* __restrict__ x, const float* __restrict__ gr,
     float* s = stage(i);
     load_halo<MODE, C::BZ, C::BY, C::PS>(s, x, n, c0, Ci, Di, Hi, Wi, bz0,
                                          by0, bx0, vec_x);
-    load_g<MODE, MT>(s + C::X_FLOATS, gr, n, Co, Do, Ho, Wo, bz0, by0, bx0,
-                     pz, py, px, vec_g);
+    load_g<MODE, MT>(s + C::X_FLOATS, gr, n, co0, Co, Do, Ho, Wo, bz0, by0,
+                     bx0, pz, py, px, vec_g);
     cp_async_commit();
   };
 
@@ -253,7 +267,7 @@ conv3d_dw_tc(const float* __restrict__ x, const float* __restrict__ gr,
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int co = mt * 16 + g + ((i & 2) ? 8 : 0);
+          const int co = co0 + mt * 16 + g + ((i & 2) ? 8 : 0);
           const int ci = c0 + 2 * t + (i & 1);
           if (co < Co && ci < Ci)
             out[((long long)co * Ci + ci) * 27 + tap] = acc[j][mt][i];
@@ -278,7 +292,7 @@ conv3d_dw_tc(const float* __restrict__ x, const float* __restrict__ gr,
           float s = 0.f;
           for (int q = 0; q < npg; ++q)
             s += red[(q * T + ti) * F + (mt * 4 + i) * 32 + lane];
-          const int co = mt * 16 + g + ((i & 2) ? 8 : 0);
+          const int co = co0 + mt * 16 + g + ((i & 2) ? 8 : 0);
           const int ci = c0 + 2 * t + (i & 1);
           if (co < Co && ci < Ci)
             out[((long long)co * Ci + ci) * 27 + tap] = s;
@@ -319,8 +333,9 @@ cudaError_t launch(const float* x, const float* g, float* partial, float* dw,
   if (per_chunk < 1 || (long long)chunks * per_chunk < bricks ||
       (long long)(chunks - 1) * per_chunk >= bricks)
     return cudaErrorInvalidValue;
+  const unsigned co_groups = (unsigned)((Co + kCoGroup - 1) / kCoGroup);
   dim3 grid((unsigned)chunks, (unsigned)((Ci + kCiChunk - 1) / kCiChunk),
-            MODE == 2 ? 8u : 1u);
+            (MODE == 2 ? 8u : 1u) * co_groups);
   // 16-byte row vectors need 16-byte aligned rows
   const int vec_x = Wi % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int vec_g = Wo % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
@@ -340,7 +355,8 @@ cudaError_t by_mt(const float* x, const float* g, float* partial, float* dw,
                   int N, int Ci, int Di, int Hi, int Wi, int Co, int Do,
                   int Ho, int Wo, int chunks, long long per_chunk,
                   cudaStream_t s) {
-  switch ((Co + 15) / 16) {
+  // Co > 64: groups of 64 channels, each in four m16 tiles
+  switch (min((Co + 15) / 16, kCoGroup / 16)) {
     case 1: return launch<MODE, 1>(x, g, partial, dw, N, Ci, Di, Hi, Wi, Co,
                                    Do, Ho, Wo, chunks, per_chunk, s);
     case 2: return launch<MODE, 2>(x, g, partial, dw, N, Ci, Di, Hi, Wi, Co,
@@ -349,7 +365,7 @@ cudaError_t by_mt(const float* x, const float* g, float* partial, float* dw,
                                    Do, Ho, Wo, chunks, per_chunk, s);
     case 4: return launch<MODE, 4>(x, g, partial, dw, N, Ci, Di, Hi, Wi, Co,
                                    Do, Ho, Wo, chunks, per_chunk, s);
-    default: return cudaErrorInvalidValue;   // Co > 64
+    default: return cudaErrorInvalidValue;   // Co < 1
   }
 }
 

@@ -5,12 +5,16 @@ tensor; for a CPU tensor it returns `depth_tail_plain`: softmax over D,
 `depth_regression` and the cumsum `photometric_confidence`, as
 `rcmvsnet_tpu/models/cascade.py:40-68,281-288` compute them.
 
-Replaces `rcmvsnet_tpu/ops/pallas_tail.py` `fused_depth_tail`. The work is
-a per-pixel reduction over D ≤ 64 with no reuse across pixels, so it is
-bound by reading the cost volume once: one thread owns a pixel and keeps
-its D costs in registers (D a template parameter of the kernel for the
-cascade's 8, 32 and 48 planes, nothing padded), max, exp, Σ, Σp·dv and
-Σp·d with them, and a warp's loads of each plane are one coalesced line.
+Replaces `rcmvsnet_tpu/ops/pallas_tail.py` `fused_depth_tail`, which takes
+any D. The work is a per-pixel reduction over D with no reuse across
+pixels, so it is bound by reading the cost volume once: one thread owns a
+pixel and, for D ≤ MAX_DEPTH, keeps its D costs in registers (D a template
+parameter of the kernel for the cascade's 8, 32 and 48 planes, nothing
+padded), max, exp, Σ, Σp·dv and Σp·d with them; a warp's loads of each
+plane are one coalesced line. Above MAX_DEPTH a streaming instance makes
+one pass with an online max and rescaled sums, divides once, and re-reads
+the ≤ 4 planes of the confidence window (its order of operations is in the
+source's header).
 The confidence is Σ_d p[d]·[i−1 ≤ d ≤ i+2] with i = clamp(trunc(Σp·d),
 0, D−1), which equals the reference's pad-(1, 2) window-4 sum gathered at
 i and needs no shifted copies.
@@ -23,7 +27,7 @@ import torch
 
 from . import _build
 
-MAX_DEPTH = 64
+MAX_DEPTH = 64          # the largest D of the register instances
 
 
 def depth_regression(prob: torch.Tensor,
@@ -78,9 +82,9 @@ def depth_tail(cost: torch.Tensor, lo: torch.Tensor, step: torch.Tensor):
     if cost.device.type == "cpu":
         return depth_tail_plain(cost, lo, step)
     D, h, w = cost.shape
-    if D > MAX_DEPTH or lo.shape != (h, w) or step.shape != (h, w):
-        raise ValueError(f"depth_tail: D <= {MAX_DEPTH} and lo/step "
-                         f"[{h}, {w}] required, got {tuple(cost.shape)}")
+    if lo.shape != (h, w) or step.shape != (h, w):
+        raise ValueError(f"depth_tail: lo/step [{h}, {w}] required, got "
+                         f"{tuple(lo.shape)}, {tuple(step.shape)}")
     _build.require_cuda("depth_tail", cost, lo, step)
     depth = torch.empty((h, w), dtype=torch.float32, device=cost.device)
     conf = torch.empty_like(depth)

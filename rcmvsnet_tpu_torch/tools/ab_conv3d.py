@@ -8,8 +8,11 @@ Each argument is a directory holding `conv3d.cu`, `conv3d_dw.cu` and
 shapes (CASES); the builds take turns A, B, ..., B, A, each case's time is
 the smaller of its build's two turns (each the median of 7 CUDA-event
 timings, `tools/timing`), and each result is held to its plain version
-(1e-4 of the largest value) before it is timed. The wrappers stay the
-package's: a build that changes the C interface cannot be compared.
+(1e-4 of the largest value) and to the first build's output in every bit
+(`torch.equal`, reported per case and build) before it is timed; after
+its report the tool exits non-zero if any output differs from the first
+build's. The wrappers stay the package's: a build that changes the C
+interface cannot be compared.
 
 Usage:
   python -m rcmvsnet_tpu_torch.tools.ab_conv3d [SRC_DIR ...]
@@ -77,6 +80,7 @@ def run(device, srcs) -> dict:
     timer = make_timer(device)
     order = list(range(len(builds))) + list(reversed(range(len(builds))))
     ms = {label: [float("inf")] * len(builds) for label, _, _ in calls}
+    first, same = {}, {label: [True] * len(builds) for label, _, _ in calls}
     for i in order:
         _build._libs.update(builds[i])    # the wrappers now launch build i
         for label, fk, fp in calls:
@@ -84,12 +88,16 @@ def run(device, srcs) -> dict:
             err = float((got - want).abs().max() / want.abs().max())
             if not err <= 1e-4:
                 raise AssertionError(f"{srcs[i]} {label}: error {err:.2e}")
+            ref = first.setdefault(label, got)
+            same[label][i] = same[label][i] and torch.equal(got, ref)
             ms[label][i] = min(ms[label][i], timer(fk))
     for label, row in ms.items():
-        print(f"{label:24s} " + "  ".join(f"{t:8.3f}" for t in row))
+        print(f"{label:24s} " + "  ".join(
+            f"{t:8.3f}{'' if ok else ' (differs)'}"
+            for t, ok in zip(row, same[label])))
     totals = [sum(row[i] for row in ms.values()) for i in range(len(srcs))]
     print(f"{'total ms':24s} " + "  ".join(f"{t:8.3f}" for t in totals))
-    return {"ms": ms, "total_ms": totals}
+    return {"ms": ms, "total_ms": totals, "equal_to_first": same}
 
 
 def main(argv=None):
@@ -101,6 +109,9 @@ def main(argv=None):
     print(f"device: {label} | builds: {' '.join(args.srcs)}")
     res = run(device, args.srcs)
     print(json.dumps({"device": label, "builds": args.srcs, **res}))
+    if not all(all(v) for v in res["equal_to_first"].values()):
+        raise SystemExit("ab_conv3d: a build's output differs from the "
+                         "first build's")
     return res
 
 

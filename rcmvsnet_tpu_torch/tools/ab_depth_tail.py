@@ -20,8 +20,11 @@ seeded generator). The trees take turns A, B, ..., B, A, A, B, ... for
             (checks, allocations, launch), median of 20, least over the
             turns;
 and per depth map (the three calls) the sums and device + host. Before it
-is timed each result is held to the plain version: depth within relative
-1e-5 per pixel, confidence beyond 1e-4 on at most 1e-3 of pixels.
+is timed each result is held to the plain version (depth within relative
+1e-5 per pixel, confidence beyond 1e-4 on at most 1e-3 of pixels) and to
+the first tree's output in every bit (`torch.equal` on depth and
+confidence, reported per call and tree); after its report the tool exits
+non-zero if any output differs from the first tree's.
 
 Usage:
   python -m rcmvsnet_tpu_torch.tools.ab_depth_tail [--rounds N] [TREE ...]
@@ -90,12 +93,17 @@ def run(device, roots, rounds=2, shapes=SHAPES) -> dict:
           for label in calls}
     kernels = [set() for _ in k4]
     errors = {label: [None] * len(k4) for label in calls}
+    first, same = {}, {label: [True] * len(k4) for label in calls}
     with torch.no_grad():
         plain = {label: depth_tail_plain(*a) for label, a in calls.items()}
         for i in turns(len(k4), rounds):
             for label, args in calls.items():
                 fn = lambda a=args, m=k4[i]: m.depth_tail(*a)
-                err = check(fn(), plain[label])
+                got = fn()
+                ref = first.setdefault(label, got)
+                same[label][i] = same[label][i] and all(
+                    torch.equal(a, b) for a, b in zip(got, ref))
+                err = check(got, plain[label])
                 if not (err["depth_max_rel"] <= DEPTH_REL
                         and err["conf_share_above_tol"] <= CONF_SHARE):
                     raise AssertionError(f"{roots[i]} {label}: {err}")
@@ -122,7 +130,8 @@ def run(device, roots, rounds=2, shapes=SHAPES) -> dict:
             r = ms[label][i]
             print(f"  {root:24s} event {min(r['event']):.4f}-"
                   f"{max(r['event']):.4f}  device "
-                  f"{fmt(least(r['device']))}  host {least(r['host']):.4f}")
+                  f"{fmt(least(r['device']))}  host {least(r['host']):.4f}"
+                  f"{'' if same[label][i] else '  (differs from the first)'}")
     for i, root in enumerate(roots):
         t = per_map[i]
         print(f"per map {root:20s} event {t['event']:.4f}  device "
@@ -130,7 +139,7 @@ def run(device, roots, rounds=2, shapes=SHAPES) -> dict:
               f"{fmt(t['device_plus_host'])}  kernels "
               f"{sorted(kernels[i])}")
     return {"ms": ms, "per_map": per_map, "errors": errors,
-            "kernels": [sorted(k) for k in kernels]}
+            "kernels": [sorted(k) for k in kernels], "equal_to_first": same}
 
 
 def main(argv=None):
@@ -143,6 +152,9 @@ def main(argv=None):
     print(f"device: {label} | trees: {' '.join(args.roots)}")
     res = run(device, args.roots, args.rounds)
     print(json.dumps({"device": label, "trees": args.roots, **res}))
+    if not all(all(v) for v in res["equal_to_first"].values()):
+        raise SystemExit("ab_depth_tail: a tree's output differs from the "
+                         "first tree's")
     return res
 
 

@@ -10,7 +10,10 @@ Counterpart of `rcmvsnet_tpu/train/checkpoint.py` (`save_checkpoint`,
     state_dict}.
 Names are the reference's, so the JAX package's `train/convert.py` and the
 port's `weights.load_state_dict` read them. Resuming takes the newest
-epoch (the reference's resume scan, train_rcmvsnet.py:542-557).
+epoch (the reference's resume scan, train_rcmvsnet.py:542-557). In data
+parallelism only rank 0 writes (`save_checkpoint` does nothing on the
+others); every rank restores, and `check_restored` refuses ranks that
+restored different states.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import gather_probe, is_main_process
 from .state import TrainState
 
 _CAS_RE = re.compile(r"model_(\d+)_cas\.ckpt$")
@@ -34,7 +38,9 @@ def checkpoint_paths(logdir, epoch: int) -> tuple[Path, Path]:
 
 
 def save_checkpoint(logdir, state: TrainState, epoch: int) -> None:
-    """Write epoch's cas and nerf files."""
+    """Write epoch's cas and nerf files (on rank 0 only)."""
+    if not is_main_process():
+        return
     Path(logdir).mkdir(parents=True, exist_ok=True)
     cas, nerf = checkpoint_paths(logdir, epoch)
     torch.save({"epoch": epoch, "model": state.cascade.state_dict(),
@@ -71,3 +77,21 @@ def restore_checkpoint(logdir, state: TrainState,
     state.optimizer.load_state_dict(cas["optimizer"])
     state.step = int(cas["step"])
     return state, int(cas["epoch"]) + 1
+
+
+def check_restored(state: TrainState, start_epoch: int, group) -> None:
+    """Refuse a data-parallel resume whose ranks restored different states
+    (JAX `cli/train.py:247-270`): every rank's (epoch, step, Σ|p| of the
+    first 8 parameter tensors) is gathered and must agree."""
+    if group is None:
+        return
+    params = list(state.cascade.parameters()) + list(
+        state.render.parameters())
+    probe = [float(start_epoch), float(state.step)] + [
+        float(p.detach().abs().sum()) for p in params[:8]]
+    got = gather_probe(probe, group)
+    if not torch.allclose(got, got[0].expand_as(got)):
+        raise SystemExit("data-parallel --resume restored inconsistent "
+                         "state across ranks (epoch, step or parameters "
+                         "differ): every rank must read the same "
+                         f"checkpoint\n{got.numpy()}")

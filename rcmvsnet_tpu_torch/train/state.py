@@ -7,6 +7,11 @@ Counterpart of `rcmvsnet_tpu/train/state.py`. The optimizer is
 which is what `optax.chain(add_decayed_weights, adam)` computes; both
 divide by sqrt(v̂) + eps, eps outside the root. The learning rate is set
 from `warmup_multistep_schedule` before every step.
+
+In data parallelism (`group`) every rank initialises from the same seed,
+its BatchNorms are swapped for the cross-rank ones (`parallel/sync_bn`)
+and rank 0's models are broadcast to the others (`parallel/mesh.
+replicate`), so every rank starts from the same state.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ import torch
 from ..config import Config
 from ..models.cascade import CascadeMVSNet
 from ..models.render_net import RenderingConsistencyNet
+from ..parallel import sync_bn
+from ..parallel.mesh import replicate
 from .schedule import warmup_multistep_schedule
 
 
@@ -50,12 +57,12 @@ def make_optimizer(config: Config, params, steps_per_epoch: int):
 
 
 def create_train_state(config: Config, num_views: int, steps_per_epoch: int,
-                       device, seed: int = 0,
-                       state_dicts=None) -> TrainState:
+                       device, seed: int = 0, state_dicts=None,
+                       group=None) -> TrainState:
     """Both models on `device`, initialized from `seed`, then loaded from
     `state_dicts` = (cascade, render) reference-named state_dicts where
     given (either may be None), and the optimizer over their
-    parameters."""
+    parameters. group: the data-parallel ranks (see the module doc)."""
     torch.manual_seed(seed)
     cascade, render = make_models(config, num_views)
     for model, sd in zip((cascade, render), state_dicts or (None, None)):
@@ -63,6 +70,10 @@ def create_train_state(config: Config, num_views: int, steps_per_epoch: int,
             model.load_state_dict(sd, strict=True)
     cascade.to(device).train()
     render.to(device).train()
+    if group is not None:
+        sync_bn.convert(cascade, group)
+        sync_bn.convert(render, group)
+        replicate(cascade, render, group=group)
     params = list(cascade.parameters()) + list(render.parameters())
     opt, schedule = make_optimizer(config, params, steps_per_epoch)
     return TrainState(cascade, render, opt, schedule)

@@ -341,8 +341,9 @@ def emulate_conv3d(x, w27, mode, out_dhw=None):
 
 
 def emulate_dw(x, g, mode):
-    """conv3d_dw.cu run by run: partials [chunks, Co, Ci, 27], then their
-    sum in order; returns dW [Co, Ci, 27]."""
+    """conv3d_dw.cu run by run: partials [chunks, Co, Ci, 27], each block
+    one group of ≤ 64 output channels (`CO_GROUP`), then their sum in
+    order; returns dW [Co, Ci, 27]."""
     m = K2.MODES[mode]
     N, Ci, D, H, W = x.shape
     Co, Do, Ho, Wo = g.shape[1:]
@@ -353,13 +354,15 @@ def emulate_dw(x, g, mode):
     P = bz * by * bx
     pg = _pad_to(P, 4)
     assert ps % 32 == 4 and pg % 32 == 4
-    rows = 16 * -(-Co // 16)
+    group = K8.CO_GROUP
+    rows = 16 * min(-(-Co // 16), group // 16)
     partial = np.full((plan.chunks, Co, Ci, 27), np.nan)
     p = np.arange(P)
     prx, pry, prz = p % 16, (p // 16) % by, p // (16 * by)
     for ch in range(plan.chunks):
         for c0 in range(0, Ci, 8):
-            for cls in range(plan.classes):
+            for cls, co0 in ((c, o) for o in range(0, Co, group)
+                             for c in range(plan.classes)):
                 pz, py, px = cls >> 2, (cls >> 1) & 1, cls & 1
                 taps = (_t2_taps(cls) if mode == "t2" else
                         [(k, None) for k in range(27)])
@@ -371,9 +374,9 @@ def emulate_dw(x, g, mode):
                         oz, oy, ox = 2 * oz + pz, 2 * oy + py, 2 * ox + px
                     ok = (oz < Do) & (oy < Ho) & (ox < Wo)
                     sg = np.zeros(rows * pg)
-                    for co in range(Co):
+                    for co in range(min(rows, Co - co0)):
                         sg[co * pg + p] = np.where(
-                            ok, g[n, co, oz.clip(0, Do - 1),
+                            ok, g[n, co0 + co, oz.clip(0, Do - 1),
                                   oy.clip(0, Ho - 1), ox.clip(0, Wo - 1)], 0)
                     for ks in range(P // 8):
                         p0 = 8 * ks
@@ -397,8 +400,9 @@ def emulate_dw(x, g, mode):
                                    + np.arange(8)[:, None]]
                             acc[:, :, k] += _mm3(a, b)
                 ks = [k for k, _ in taps]
-                ncl = min(8, Ci - c0)
-                partial[ch, :, c0:c0 + ncl][..., ks] = acc[:Co, :ncl][..., ks]
+                ncl, nco = min(8, Ci - c0), min(rows, Co - co0)
+                partial[ch, co0:co0 + nco, c0:c0 + ncl][..., ks] = \
+                    acc[:nco, :ncl][..., ks]
     assert not np.isnan(partial).any()
     return partial.sum(0)
 
@@ -439,7 +443,9 @@ def test_conv3d_kernel_emulation_trims_odd_t2():
     ("s1", 8, 16, (3, 10, 20)), ("s1", 41, 8, (2, 9, 17)),
     ("s1", 8, 1, (2, 9, 7)), ("s2", 16, 32, (5, 9, 7)),
     ("s2", 32, 64, (4, 10, 6)), ("t2", 16, 8, (3, 5, 6)),
-    ("t2", 64, 32, (2, 4, 3))])
+    ("t2", 64, 32, (2, 4, 3)), ("s1", 8, 128, (2, 9, 17)),
+    ("s2", 8, 128, (3, 6, 5)), ("t2", 8, 128, (2, 3, 3)),
+    ("s1", 16, 72, (1, 8, 16))])
 def test_dw_kernel_emulation_matches_plain(mode, ci, co, shape):
     x = _rand((1, ci, *shape), ci * co).numpy()
     g = _rand((1, co, *K2.out_shape(mode, *shape)), co).numpy()

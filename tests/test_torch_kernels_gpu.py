@@ -8,7 +8,8 @@ the plain version and the K10 route, with the grid the built kernel
 reports equal to `plan`'s; K2 in each mode (stride 1, stride 2, transposed with
 skip, the 1-channel prob head, 41 output channels as in the render
 U-Net's conv0 dx, one input channel as in the prob head's dx, 64→64 and
-odd sizes in each mode), K4 at D 2/8/13/32/48/64, K5 at k 1/3/5, stride 1/2
+odd sizes in each mode), K4 at D 2/8/13/32/48/64 (its register
+instances) and 65/96/192 (its streaming instance), K5 at k 1/3/5, stride 1/2
 and the upsample-add epilogue, on both routes (tensor cores and direct),
 in both output layouts, at widths that stage 16-byte row vectors and at
 widths that do not, and K5's lateral head; and the train kernels, forward and
@@ -17,7 +18,8 @@ versions: K6 (K1's backward) at C 8/16/32, K7 (volume forward and
 backward at C 8/16/32, V 2/4/5 and odd sizes; the cascade's B=1
 volume_feature shares K7's storage), K8 in each mode (forward and dx
 through K2, dw through its own kernel, the 41-channel input, 1-channel
-prob head, 64→64 and odd sizes in each mode included), dw, K6 and K7's
+prob head, 64→64, 128 output channels (two Co groups of the dw kernel)
+and odd sizes in each mode included), dw, K6 and K7's
 backward each repeated bit for bit (K6 and K7 also at odd sizes); K9
 (K2's kernel as the raw conv) in every mode at odd and non-multiple-of-8
 sizes; K10 at C 3/8/16/32 (the scalar path and the lane path), at odd
@@ -113,10 +115,11 @@ def test_conv3d_matches_plain(dev, mode, ci, co, shape):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("D", [2, 8, 13, 32, 48, 64])
+@pytest.mark.parametrize("D", [2, 8, 13, 32, 48, 64, 65, 96, 192])
 def test_depth_tail_matches_plain(dev, D):
-    """The kernel's instances (8, 32, 48) and its generic one (2, 13, 64),
-    on 40·52 = 2080 pixels (not a multiple of the 128-thread block)."""
+    """The kernel's instances (8, 32, 48), its generic one (2, 13, 64) and
+    its streaming one (65, 96, 192), on 40·52 = 2080 pixels (not a
+    multiple of the 128-thread block)."""
     g = _gen(dev, D)
     h, w = 40, 52
     cost = 3 * torch.randn(D, h, w, device=dev, generator=g)
@@ -324,7 +327,9 @@ def test_forward_train_volume_is_k7_output(dev):
     ("s1", 41, 8, (16, 16, 20)), ("s1", 1, 8, (8, 12, 20)),
     ("s1", 64, 64, (4, 6, 10)), ("s2", 64, 64, (4, 6, 10)),
     ("t2", 64, 64, (2, 3, 5)), ("s1", 16, 8, (5, 9, 7)),
-    ("s2", 16, 8, (7, 13, 11)), ("t2", 16, 8, (3, 5, 6))])
+    ("s2", 16, 8, (7, 13, 11)), ("t2", 16, 8, (3, 5, 6)),
+    ("s1", 64, 128, (4, 6, 10)), ("s2", 64, 128, (4, 6, 10)),
+    ("t2", 128, 128, (2, 3, 5)), ("s1", 16, 72, (5, 9, 7))])
 def test_conv3d_train_matches_plain(dev, mode, ci, co, shape):
     g = _gen(dev, ci * co)
     x = torch.randn(1, ci, *shape, device=dev, generator=g)
@@ -349,7 +354,7 @@ def test_conv3d_train_matches_plain(dev, mode, ci, co, shape):
 
 @pytest.mark.parametrize("mode,ci,co,shape", [
     ("s1", 41, 8, (16, 16, 20)), ("s2", 32, 64, (8, 12, 20)),
-    ("t2", 16, 8, (4, 6, 10))])
+    ("t2", 16, 8, (4, 6, 10)), ("s1", 64, 128, (4, 6, 10))])
 def test_conv3d_dw_repeats_bit_for_bit(dev, mode, ci, co, shape):
     """No atomics: two calls on the same inputs agree in every bit."""
     g = _gen(dev, ci + 3 * co)

@@ -7,7 +7,8 @@ PIL or msgpack); and the CLIs (eval_dtu, eval_tanks with rm_color, train)
 run end to end under the same ban, on the port's own copies of the I/O,
 data and fusion modules; the train CLI trains, validates, saves a
 checkpoint and resumes from it. The dataset registry resolves every alias
-to a class of the port."""
+to a class of the port. The data-parallel modules (`parallel/mesh.py`,
+`parallel/sync_bn.py`) are among the modules imported."""
 import json
 import subprocess
 import sys
@@ -36,7 +37,8 @@ for must in ("cli.eval_dtu", "cli.train", "core.io", "data.dtu_test",
              "tools.timing", "tools.ab_conv3d", "tools.repeat_warp_bwd",
              "tools.ab_warp_fwd", "tools.ab_conv2d", "tools.ab_depth_tail",
              "tools.ab_warp_view", "data.loader", "data.dtu_train",
-             "data.dtu_val", "data.registry", "train.checkpoint"):
+             "data.dtu_val", "data.registry", "train.checkpoint",
+             "parallel.mesh", "parallel.sync_bn"):
     assert "rcmvsnet_tpu_torch." + must in names, names
 from rcmvsnet_tpu_torch.data.registry import _ALIASES, find_dataset_def
 for alias, (module, cls) in _ALIASES.items():
@@ -66,7 +68,7 @@ for name in ("core.geometry", "data.synthetic", "data.transforms",
              "tools.ab_depth_tail", "tools.ab_warp_view", "cli.train",
              "train.checkpoint",
              "data.loader", "data.dtu_train", "data.dtu_val", "nn.mlp",
-             "losses.supervised"):
+             "losses.supervised", "parallel.mesh", "parallel.sync_bn"):
     importlib.import_module("rcmvsnet_tpu_torch." + name)
 print("ok")
 """

@@ -401,6 +401,20 @@ def test_cascade_train_forward_matches_jax(batch):
     the golden backbone: per-stage depth, the stage-1 volume, BN statistics
     and every parameter gradient of Σ depth·w + Σ volume·u (to 1e-3 of the
     largest; see test_torch_train_step.py for why not per tensor)."""
+    _check_cascade_train_forward(batch)
+
+
+def test_cascade_train_forward_b2_matches_jax():
+    """The same at B=2 (two different scenes): train-mode BatchNorm takes
+    its statistics over both samples, as JAX's batched U-Net does, so the
+    depths, running statistics and gradients hold only if the port's
+    U-Net sees the batch in one call."""
+    b2 = make_synthetic_batch(B=2, V=3, H=32, W=32, ndepth=64, seed=5)
+    assert not np.array_equal(b2["imgs"][0], b2["imgs"][1])
+    _check_cascade_train_forward(b2)
+
+
+def _check_cascade_train_forward(batch):
     rs = RS(9)
     imgs = jnp.asarray(batch["imgs"])
     projs = {k: jnp.asarray(v) for k, v in batch["proj_matrices"].items()}

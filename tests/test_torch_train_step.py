@@ -309,7 +309,7 @@ def test_train_cli_refuses_missing_cuda_and_builds_dtu_sets(tmp_path,
                     "--device", "cpu", "--logdir", str(tmp_path / "log")])
     config, train_ds, val_ds, device = seen["args"]
     assert seen["kw"] == {"resume": True, "max_steps": 5,
-                          "profile_steps": 2}
+                          "profile_steps": 2, "plain": False}
     assert device == torch.device("cpu")
     assert isinstance(train_ds, DTUTrainDataset)
     assert isinstance(val_ds, DTUValDataset)
