@@ -9,10 +9,11 @@ Phases (none catches its own failure; any failure exits non-zero without
 the final "ok" line):
   1. device   require CUDA, print the card's name and power limit, TF32 off;
   2. build    compile the seven CUDA sources (sm_90a, one nvcc each, in
-              parallel) and print the build seconds; count the TF32
-              tensor-core MMAs (HMMA ... TF32) that `cuobjdump -sass` finds
-              in each tensor-core kernel of K2/K9, K8 dw and K5, which
-              must be > 0;
+              parallel) and print the build seconds; count the tensor-core
+              MMAs that `cuobjdump -sass` finds in each tensor-core kernel
+              of K2/K9, K8 dw and K5: TF32 ones (HMMA ... TF32) in each
+              float32 instance and bf16 ones (HMMA ... BF16) in each bf16
+              instance of K2 and K5, which must be > 0;
   3. kernels  hold each eval kernel against its plain PyTorch version on
               the card, at the DTU eval shapes (864x1152, V=5, stages
               216x288x32/48, 432x576x16/32, 864x1152x8/8): K1 at all 3
@@ -119,14 +120,32 @@ the final "ok" line):
               run `infer_views_sharded` over phase 4's views: the gathered
               depth and confidence equal phase 4's in every bit, or else
               pass its gate (the result names which held);
- 12. report   one {"kernels": [...]} JSON line (ten kernels), the
-              nvidia-smi line, and the final {"ok": true, "device": {...}}
-              line.
+ 12. bf16     the bf16 eval path (eval_dtype bfloat16): phase 3 again
+              with the bf16 instances of K5 (every call), K1 (3 stages) and
+              K2 (every mode of the 3 U-Nets, the prob head writing
+              float32), each against its bf16 plain version to one bf16
+              ulp of each element plus 1e-4 of the largest value (rows
+              "<kernel>_bf16", phase "bf16"; library: cuDNN on bf16
+              tensors with the same folded weights); then `infer_views`
+              at bf16 over phase 4's DTU views and phase 7's T&T views
+              through the kernels (every bf16 instance and K4 launched
+              once per call of the path, 12 + 3 + 33 + 3 a map, so no
+              plain version ran there; no float32 instance of K5, K1 or
+              K2; phases 4, 7 and 10 in turn bar the bf16 instances) and the plain versions (no
+              pixel beyond 0.01 relative), and against the float32 kernel
+              path's depth (at most 1e-3 of pixels beyond 0.01: the fused
+              TPU path's budget); prints max, mean, p99 and p999 of the
+              relative deltas and both dtypes' maps/s and peak memory;
+ 13. report   one {"kernels": [...]} JSON line (ten kernels and the three
+              bf16 instances), the nvidia-smi line, and the final
+              {"ok": true, "device": {...}} line.
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM and 67 TFLOP/s
 of float32 outside the tensor cores (TF32 is off in PyTorch on this path);
 the convs (K2, K5, K8 dw, K9), which run 3xTF32 on the tensor cores (K5
 on its "tc" route), also get `bound_tc_ms`: bytes over HBM against 3 TF32
-products per multiply-add over 495 TFLOP/s. Per-call
+products per multiply-add over 495 TFLOP/s. The bf16 convs' bound and
+`bound_tc_ms` count one bf16 product per multiply-add over 989 TFLOP/s,
+and bytes at each tensor's own element size (2 for bf16). Per-call
 details go to chip_smoke.json in the output directory `main` names; every
 printed result carries the card's name and power limit.
 
@@ -154,8 +173,22 @@ TT_H, TT_W, TT_V = 1056, 1920, 7            # Tanks & Temples' eval input
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12                     # f32, outside the tensor cores
 TF32_FLOPS_PER_S = 495e12                   # TF32 tensor cores, dense
+BF16_FLOPS_PER_S = 989e12                   # bf16 tensor cores, dense
 # the kernels that run 3xTF32 MMAs: three TF32 products per multiply-add
 TC_KERNELS = ("conv3d", "conv3d_dw", "conv3d_lanewise", "conv2d")
+# the bf16 instances (the bf16 eval path, phase 12); the convs among them
+# run one bf16 MMA per multiply-add
+BF16_KERNELS = ("conv2d_bf16", "warp_variance_bf16", "conv3d_bf16")
+BF16_TC_KERNELS = ("conv2d_bf16", "conv3d_bf16")
+# a bf16 instance against its bf16 plain version, per element: one bf16
+# ulp of the plain value (2^-7 of its magnitude) plus BF16_ATOL of the
+# largest; both sum in float32 in different orders and round once, so a
+# result may land one ulp away
+BF16_ULP, BF16_ATOL = 2.0 ** -7, 1e-4
+# bf16 kernels against the float32 kernel path, end to end: at most this
+# share of pixels beyond DEPTH_GATE (tests/test_parity_budget.py's budget
+# for the fused bf16 TPU path against XLA float32)
+BF16_SHARE = 1e-3
 # plain-vs-kernel tolerances: |kernel - plain| <= atol + rtol * max|plain|.
 # Sums run in another order than cuDNN's / torch's (and the warp's
 # coordinates in another association), so float32 rounding differs.
@@ -223,14 +256,24 @@ def bound_ms(n_bytes: float, flops: float, rate: float = F32_FLOPS_PER_S):
     return max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
 
-def bound_tc_ms(n_bytes: float, flops: float):
-    """bound_ms of a 3xTF32 kernel: 3 TF32 products per multiply-add."""
+def bound_tc_ms(n_bytes: float, flops: float, kernel: str = "conv3d"):
+    """bound_ms of a tensor-core kernel: 3 TF32 products per multiply-add
+    (3xTF32), or one bf16 product (a bf16 instance)."""
+    if kernel in BF16_TC_KERNELS:
+        return bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
     return bound_ms(n_bytes, 3 * flops, TF32_FLOPS_PER_S)
 
 
+def op_rate(kernel: str) -> float:
+    """The card's peak rate for the kind of operation a kernel issues: the
+    bf16 tensor cores for a bf16 conv, else float32 outside them."""
+    return BF16_FLOPS_PER_S if kernel in BF16_TC_KERNELS else F32_FLOPS_PER_S
+
+
 def sass_mma_counts() -> dict:
-    """{library: {"kernels": {kernel: TF32 HMMA count}, "example": one
-    such instruction}} of the conv libraries (K2/K9, K8 dw, K5), from
+    """{library: {"kernels": {kernel: {"tf32": n, "bf16": n}}, "example":
+    one TF32 HMMA, "example_bf16": one bf16 HMMA}} of the conv libraries
+    (K2/K9 and their bf16 instance, K8 dw, K5 and its bf16 instance), from
     `cuobjdump -sass` of the built files (the CUDA toolkit's)."""
     import re
     from rcmvsnet_tpu_torch.ops import _build
@@ -240,17 +283,29 @@ def sass_mma_counts() -> dict:
         sass = subprocess.run([tool, "-sass", str(_build._target(lib))],
                               capture_output=True, text=True,
                               check=True).stdout
-        counts, name, example = {}, None, None
+        counts, name, example = {}, None, {}
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 name = m.group(1)
-                counts[name] = 0
-            elif name and re.search(r"HMMA\.\S*TF32", line):
-                counts[name] += 1
-                example = example or " ".join(line.split())
-        out[lib] = {"kernels": counts, "example": example}
+                counts[name] = {"tf32": 0, "bf16": 0}
+                continue
+            kind = ("tf32" if re.search(r"HMMA\.\S*TF32", line) else
+                    "bf16" if re.search(r"HMMA\.\S*BF16", line) else None)
+            if name and kind:
+                counts[name][kind] += 1
+                example.setdefault(kind, " ".join(line.split()))
+        out[lib] = {"kernels": counts, "example": example.get("tf32"),
+                    "example_bf16": example.get("bf16")}
     return out
+
+
+def missing_mma(mma: dict) -> list:
+    """Tensor-core kernels without their MMAs: a float32 instance without
+    TF32 HMMAs, a bf16 one (its name carries __nv_bfloat16) without bf16
+    HMMAs."""
+    return [k for lib in mma.values() for k, n in lib["kernels"].items()
+            if "_tc" in k and n["bf16" if "bfloat16" in k else "tf32"] == 0]
 
 
 class Ledger:
@@ -279,8 +334,11 @@ class Ledger:
         pairs = list(zip(outs_k, outs_p))
         if kernel == "depth_tail":
             pairs = pairs[:1]
-        err, scale, rel = 0.0, 0.0, 0.0
+        err, scale, rel, over = 0.0, 0.0, 0.0, 0
         for a, p in pairs:
+            if a.dtype != p.dtype:
+                self.failures.append(f"{kernel} {label}: dtype {a.dtype} "
+                                     f"vs the plain version's {p.dtype}")
             a, p = a.float(), p.float()
             if a.shape != p.shape or not bool(torch.isfinite(a).all()):
                 self.failures.append(
@@ -297,16 +355,32 @@ class Ledger:
             rel = max(rel, float(((a - p).abs() / p.abs().clamp_min(1e-12))
                                  .max()) if kernel == "depth_tail"
                       else e / max(m, 1e-12))
-        atol, rtol = TOL[kernel]
-        b_ms, b_by = bound_ms(n_bytes, flops)
+            if kernel in BF16_KERNELS:
+                over += int(((a - p).abs()
+                             > BF16_ULP * p.abs() + BF16_ATOL * m).sum())
+        b_ms, b_by = bound_ms(n_bytes, flops, op_rate(kernel))
         row = {"kernel": kernel, "phase": self.phase, "label": label,
-               "shape": list(outs_p[0].shape), "max_abs_err": err,
-               "max_rel_err": rel, "tol": atol + rtol * scale,
+               "shape": list(outs_p[0].shape), "dtype": str(outs_k[0].dtype),
+               "max_abs_err": err, "max_rel_err": rel,
                "bytes": n_bytes, "flops": flops, "bound_ms": b_ms,
                "bound_by": b_by}
-        if kernel in TC_KERNELS:
-            row["bound_tc_ms"], row["bound_tc_by"] = bound_tc_ms(n_bytes,
-                                                                 flops)
+        if kernel in BF16_KERNELS:
+            row["tol"] = (f"{BF16_ULP:.4g}·|plain| + {BF16_ATOL:g}·"
+                          f"max|plain| per element")
+            row["elements_over_tol"] = over
+            if over or err == float("inf"):
+                self.failures.append(f"{kernel} {label}: {over} elements "
+                                     f"beyond {row['tol']} (max|Δ| "
+                                     f"{err:.3e})")
+        else:
+            atol, rtol = TOL[kernel]
+            row["tol"] = atol + rtol * scale
+            if not err <= row["tol"]:
+                self.failures.append(f"{kernel} {label}: max|Δ| {err:.3e} "
+                                     f"> {row['tol']:.3e}")
+        if kernel in TC_KERNELS + BF16_TC_KERNELS:
+            row["bound_tc_ms"], row["bound_tc_by"] = bound_tc_ms(
+                n_bytes, flops, kernel)
         if kernel == "depth_tail":
             flips = float(((outs_k[1] - outs_p[1]).abs() > CONF_TOL)
                           .float().mean())
@@ -314,9 +388,6 @@ class Ledger:
             if flips > CONF_SHARE:
                 self.failures.append(f"{kernel} {label}: confidence differs "
                                      f"on {flips:.2e} of pixels")
-        if not err <= atol + rtol * scale:
-            self.failures.append(f"{kernel} {label}: max|Δ| {err:.3e} > "
-                                 f"{atol + rtol * scale:.3e}")
         if repeat:
             again = fn_k()
             row["repeat"] = differ(outs_k, again if isinstance(again, tuple)
@@ -339,7 +410,7 @@ class Ledger:
                 and (phase is None or r["phase"] == phase)]
         libs = [r["library_ms"] for r in rows]
         t_b = sum(bound_ms(r["bytes"], 0)[0] for r in rows)
-        t_f = sum(bound_ms(0, r["flops"])[0] for r in rows)
+        t_f = sum(bound_ms(0, r["flops"], op_rate(kernel))[0] for r in rows)
         out = {"max_abs_err": max(r["max_abs_err"] for r in rows),
                "ms": sum(r["ms"] for r in rows),
                "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -360,8 +431,8 @@ class Ledger:
         if any("repeat" in r for r in rows):
             out["repeats_bit_for_bit"] = all(
                 r["repeat"]["differing"] == 0 for r in rows if "repeat" in r)
-        if kernel in TC_KERNELS:
-            t_f = sum(bound_tc_ms(0, r["flops"])[0] for r in rows)
+        if kernel in TC_KERNELS + BF16_TC_KERNELS:
+            t_f = sum(bound_tc_ms(0, r["flops"], kernel)[0] for r in rows)
             out["bound_tc_ms"] = sum(r["bound_tc_ms"] for r in rows)
             out["bound_tc_by"] = "bytes" if t_b >= t_f else "operations"
         return out
@@ -428,17 +499,21 @@ def conv2d_work(x, w, out, *extra):
 
 def lateral_work(up, lat, wi, bi, w):
     """K5's lateral head: reads up, lat and the weights once, writes the
-    [N, H, W, Co] output; the 1x1 lateral conv and out3's 3x3 conv."""
+    [N, H, W, Co] output in lat's element type; the 1x1 lateral conv and
+    out3's 3x3 conv."""
     N, Cl, H, W = lat.shape
     Co, Cu = w.shape[:2]
-    out_bytes = 4 * N * H * W * Co
+    out_bytes = lat.element_size() * N * H * W * Co
     return (nbytes(up, lat, wi, bi, w) + out_bytes,
             2 * N * H * W * (Cu * Cl + Co * Cu * 9))
 
 
-def phase_kernels(model, samples, scene, ledger, dev):
+def phase_kernels(model, samples, scene, ledger, dev, dtype=None):
     """Phase 3: each kernel against its plain version at the main path's
-    shapes, on realistic inputs (the plain path's own intermediates)."""
+    shapes, on realistic inputs (the plain path's own intermediates).
+    dtype=torch.bfloat16 (phase 12): the bf16 instances of K5, K1 and K2
+    on the bf16 path's inputs and weights, rows "<kernel>_bf16" (K4 is
+    the float32 kernel there, held here in float32)."""
     import torch
     import torch.nn.functional as F
     from rcmvsnet_tpu_torch.core.geometry import compose_projection
@@ -448,8 +523,14 @@ def phase_kernels(model, samples, scene, ledger, dev):
     from rcmvsnet_tpu_torch.ops import depth_tail as K4
     from rcmvsnet_tpu_torch.ops import warp_variance as K1
 
+    bf16 = dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else ""
+    # the weights as the eval path hands them to the kernels (bf16: rounded
+    # once, BN's scale folded into the bf16-rounded conv weight first)
+    cast = (lambda w: w.to(torch.bfloat16)) if bf16 else (lambda w: w)
     s0 = samples[0]
     x = torch.from_numpy(s0["imgs"]).to(dev).permute(0, 3, 1, 2).contiguous()
+    x = x.to(dtype) if bf16 else x
 
     # K5: every call of the eval FeatureNet, 5 views at 864x1152
     fn = model.feature
@@ -459,7 +540,7 @@ def phase_kernels(model, samples, scene, ledger, dev):
         way = K5.route(wgt.shape[-1], kw.get("stride", 1),
                        kw.get("padding", 0), x.shape[1])
         return ledger.compare(
-            "conv2d", f"{label} {tuple(x.shape)}",
+            "conv2d" + sfx, f"{label} {tuple(x.shape)}",
             lambda: K5.conv2d(x, wgt, **kw),
             lambda: K5.conv2d_plain(x, wgt, **kw),
             *conv2d_work(x, wgt, y, *extra), fn_lib=fn_lib,
@@ -469,39 +550,46 @@ def phase_kernels(model, samples, scene, ledger, dev):
     for si, seq in enumerate((fn.conv0, fn.conv1, fn.conv2)):
         for li, blk in enumerate(seq):
             sc, sh = bn_scale_shift(blk.bn)
+            wgt = blk.conv.weight
+            if bf16:
+                wgt, sc = cast(cast(wgt) * sc[:, None, None, None]), None
             kw = dict(scale=sc, shift=sh, stride=blk.conv.stride[0],
                       padding=blk.conv.padding[0], relu=True)
-            x = k5(f"conv{si}.{li}", x, blk.conv.weight, (sc, sh),
-                   lambda x=x, kw=kw, w=blk.conv.weight: F.conv2d(
+            x = k5(f"conv{si}.{li}", x, wgt, [t for t in (sc, sh)
+                                               if t is not None],
+                   lambda x=x, kw=kw, w=wgt: F.conv2d(
                        x, w, stride=kw["stride"], padding=kw["padding"]),
                    **kw)
         acts.append(x)
     conv0, conv1, intra = acts
-    feats = {"stage1": k5("out1 warp", intra, fn.out1.weight, (),
-                          lambda: F.conv2d(intra, fn.out1.weight),
+    w_out1, w_in1, w_out2 = (cast(fn.out1.weight), cast(fn.inner1.weight),
+                             cast(fn.out2.weight))
+    feats = {"stage1": k5("out1 warp", intra, w_out1, (),
+                          lambda: F.conv2d(intra, w_out1),
                           out_layout="warp")}
-    intra = k5("inner1+up", conv1, fn.inner1.weight, (fn.inner1.bias, intra),
-               lambda: F.conv2d(conv1, fn.inner1.weight, fn.inner1.bias),
-               shift=fn.inner1.bias, up=intra)
-    feats["stage2"] = k5("out2 warp", intra, fn.out2.weight, (),
-                         lambda: F.conv2d(intra, fn.out2.weight, padding=1),
+    b_in1 = fn.inner1.bias
+    intra = k5("inner1+up", conv1, w_in1, (b_in1, intra),
+               lambda: F.conv2d(conv1, w_in1, cast(b_in1)),
+               shift=b_in1, up=intra)
+    feats["stage2"] = k5("out2 warp", intra, w_out2, (),
+                         lambda: F.conv2d(intra, w_out2, padding=1),
                          padding=1, out_layout="warp")
     # stage 3's lateral head against its plain composition; no one PyTorch
     # call fuses the two convs: the row's "library_unfused_ms" times the
     # two cuDNN calls of the unfused head (inner2 1x1 with bias, then out3
     # on the sum as the plain path writes it)
-    lat = (intra, conv0, fn.inner2.weight, fn.inner2.bias, fn.out3.weight)
-    s3 = K5.conv2d_plain(conv0, fn.inner2.weight, shift=fn.inner2.bias,
-                         up=intra)
+    w_in2, w_out3 = cast(fn.inner2.weight), cast(fn.out3.weight)
+    lat = (intra, conv0, w_in2, fn.inner2.bias, w_out3)
+    s3 = K5.conv2d_plain(conv0, w_in2, shift=fn.inner2.bias, up=intra)
     feats["stage3"] = ledger.compare(
-        "conv2d", f"out3 lateral warp {tuple(conv0.shape)} up "
+        "conv2d" + sfx, f"out3 lateral warp {tuple(conv0.shape)} up "
         f"{tuple(intra.shape)}",
         lambda: K5.lateral_conv2d(*lat, out_layout="warp"),
         lambda: K5.lateral_conv2d_plain(*lat, out_layout="warp"),
         *lateral_work(*lat),
         extra={"route": "lateral", "library_unfused_ms": ledger.timer(
-            lambda: (F.conv2d(conv0, fn.inner2.weight, fn.inner2.bias),
-                     F.conv2d(s3, fn.out3.weight, padding=1)))})
+            lambda: (F.conv2d(conv0, w_in2, cast(fn.inner2.bias)),
+                     F.conv2d(s3, w_out3, padding=1)))})
     del acts, conv0, conv1, intra, x, s3, lat
 
     gt = torch.from_numpy(scene["depths"][0]).to(dev)
@@ -532,10 +620,10 @@ def phase_kernels(model, samples, scene, ledger, dev):
             torch.from_numpy(s0["proj_matrices"][key]).to(dev))
         Vn, C = f.shape[0], f.shape[-1]
         var = ledger.compare(
-            "warp_variance", f"{key} V{Vn} {h}x{w} C{C} D{nd}",
+            "warp_variance" + sfx, f"{key} V{Vn} {h}x{w} C{C} D{nd}",
             lambda: K1.warp_variance(f, projs, lo, step, nd),
             lambda: K1.warp_variance_plain(f, projs, lo, step, nd),
-            nbytes(f, projs, lo, step) + 4 * C * nd * h * w,
+            nbytes(f, projs, lo, step) + f.element_size() * C * nd * h * w,
             warp_flops(Vn, h, w, C, nd))
 
         cr = model.cost_regularization[s]
@@ -548,35 +636,38 @@ def phase_kernels(model, samples, scene, ledger, dev):
                 ("conv6", "s1", None), ("conv7", "t2", "conv4"),
                 ("conv9", "t2", "conv2"), ("conv11", "t2", "conv0")):
             wgt, b = fold_block(getattr(cr, name))
+            wgt = cast(wgt)
             sk = saved.get(skip)
             y = K2.conv3d_plain(t, wgt, b, mode, skip=sk)
             t = ledger.compare(
-                "conv3d", f"{key} {name} {mode} {tuple(t.shape)}",
+                "conv3d" + sfx, f"{key} {name} {mode} {tuple(t.shape)}",
                 lambda t=t, wgt=wgt, b=b, mode=mode, sk=sk: K2.conv3d(
                     t, wgt, b, mode, skip=sk),
                 lambda t=t, wgt=wgt, b=b, mode=mode, sk=sk: K2.conv3d_plain(
                     t, wgt, b, mode, skip=sk),
                 *conv3d_work(t, wgt, y, mode, (b, sk)),
                 fn_lib=lambda t=t, wgt=wgt, b=b, mode=mode: library_conv3d(
-                    t, wgt, b, mode))
+                    t, wgt, cast(b), mode))
             saved[name] = t
         zero = torch.zeros(1, device=dev)
-        y = K2.conv3d_plain(t, cr.prob.weight, zero, "s1", relu=False)
+        w_prob = cast(cr.prob.weight)
+        prob = dict(relu=False, out_dtype=torch.float32)
+        y = K2.conv3d_plain(t, w_prob, zero, "s1", **prob)
         cost = ledger.compare(
-            "conv3d", f"{key} prob s1 {tuple(t.shape)}",
-            lambda: K2.conv3d(t, cr.prob.weight, zero, "s1", relu=False),
-            lambda: K2.conv3d_plain(t, cr.prob.weight, zero, "s1",
-                                    relu=False),
-            *conv3d_work(t, cr.prob.weight, y, "s1"),
-            fn_lib=lambda: library_conv3d(t, cr.prob.weight, zero, "s1"))
+            "conv3d" + sfx, f"{key} prob s1 {tuple(t.shape)}",
+            lambda: K2.conv3d(t, w_prob, zero, "s1", **prob),
+            lambda: K2.conv3d_plain(t, w_prob, zero, "s1", **prob),
+            *conv3d_work(t, w_prob, y, "s1"),
+            fn_lib=lambda: library_conv3d(t, w_prob, cast(zero), "s1"))
         del saved, t, var
         c = cost[0, 0].contiguous()
-        ledger.compare("depth_tail", f"{key} D{nd} {h}x{w}",
-                       lambda: K4.depth_tail(c, lo, step),
-                       lambda: K4.depth_tail_plain(c, lo, step),
-                       nbytes(c, lo, step) + 8 * h * w, 12 * nd * h * w)
+        if not bf16:
+            ledger.compare("depth_tail", f"{key} D{nd} {h}x{w}",
+                           lambda: K4.depth_tail(c, lo, step),
+                           lambda: K4.depth_tail_plain(c, lo, step),
+                           nbytes(c, lo, step) + 8 * h * w, 12 * nd * h * w)
     sync(dev)
-    ledger.check("eval kernels")
+    ledger.check("bf16 eval kernels" if bf16 else "eval kernels")
 
 
 def library_conv3d(x, w, b, mode):
@@ -589,6 +680,16 @@ def library_conv3d(x, w, b, mode):
 
 
 EVAL_KERNELS = ("warp_variance", "conv3d", "depth_tail", "conv2d")
+# the bf16 eval path: K5, K1 and K2's bf16 instances and K4; none of the
+# three's float32 instances may run on it, and no bf16 instance on the
+# float32 path
+BF16_EVAL_KERNELS = BF16_KERNELS + ("depth_tail",)
+F32_ONLY = ("warp_variance", "conv3d", "conv2d")
+# one depth map's calls of each on the bf16 path (12 FeatureNet calls, one
+# warp, 11 U-Net convs and one tail per stage): launches of exactly this
+# many a map show that no call of the path ran a plain version
+BF16_LAUNCHES_PER_MAP = {"conv2d_bf16": 12, "warp_variance_bf16": 3,
+                         "conv3d_bf16": 33, "depth_tail": 3}
 TRAIN_KERNELS = ("warp_variance", "conv3d", "warp_variance_bwd",
                  "warp_volume", "warp_volume_bwd", "conv3d_dw")
 TOOLS_KERNELS = EVAL_KERNELS + ("warp_view", "conv3d_lanewise")
@@ -598,13 +699,18 @@ ODD_CONV_CASES = tuple((f"odd 5x9x7 {m}", 5, 9, 7, 16, 8, m)
 
 
 def kernel_wrappers():
-    """{name: wrapper} of every kernel; each counts its launches."""
+    """{name: launch count} of every kernel instance: its wrapper, or for
+    a bf16 instance the wrapper's `bf16` count; each `launches` counts
+    that instance's launches."""
     from rcmvsnet_tpu_torch.ops import (conv2d, conv3d, conv3d_train,
                                         depth_tail, warp_variance,
                                         warp_view, warp_volume)
     return {"warp_variance": warp_variance.warp_variance,
             "conv3d": conv3d.conv3d, "depth_tail": depth_tail.depth_tail,
             "conv2d": conv2d.conv2d,
+            "warp_variance_bf16": warp_variance.warp_variance.bf16,
+            "conv3d_bf16": conv3d.conv3d.bf16,
+            "conv2d_bf16": conv2d.conv2d.bf16,
             "warp_variance_bwd": warp_variance.warp_variance_bwd,
             "warp_volume": warp_volume.warp_volume,
             "warp_volume_bwd": warp_volume.warp_volume_bwd,
@@ -622,12 +728,15 @@ def zero_launches():
 
 
 def phase_main(model, samples, scene, dev, name="main_path", smi=None,
-               keep=None):
+               keep=None, kernels=EVAL_KERNELS, barred=BF16_KERNELS,
+               rel_max=DEPTH_REL_MAX):
     """Phases 4 and 7: an eval path, `infer_views` over every sample
-    through the kernels, then through the plain versions. Every eval
-    kernel must launch on the first and none on the second; depth must
-    agree within the TPU path's budget. keep: a list that receives the
-    kernel path's (depth, confidence) per view."""
+    through the kernels, then through the plain versions. Every one of
+    `kernels` must launch on the first, none of `barred` there and nothing
+    on the second; depth must agree within the TPU path's budget (max
+    relative delta `rel_max`, None: not gated; no pixel above DEPTH_GATE).
+    keep: a list that receives the kernel path's (depth, confidence) per
+    view."""
     import numpy as np
     import torch
     from rcmvsnet_tpu_torch.models.cascade import infer_views
@@ -645,16 +754,21 @@ def phase_main(model, samples, scene, dev, name="main_path", smi=None,
             "out": out, "s": time.perf_counter() - t0,
             "launches": {k: fn.launches for k, fn in wrappers.items()},
             "peak": torch.cuda.max_memory_allocated(dev) if cuda else None}
-        missing = [k for k in EVAL_KERNELS if runs[plain]["launches"][k] == 0]
+        missing = [k for k in kernels if runs[plain]["launches"][k] == 0]
         if not plain and missing:
             raise AssertionError(f"{name} never launched {missing}")
+    wrong = {k: runs[False]["launches"][k] for k in barred
+             if runs[False]["launches"][k]}
+    if wrong:
+        raise AssertionError(f"{name} launched instances of another dtype: "
+                             f"{wrong}")
     if any(runs[True]["launches"].values()):
         raise AssertionError(f"{name}: the plain path launched kernels "
                              f"{runs[True]['launches']}")
     if keep is not None:
         keep.extend(runs[False]["out"])
 
-    rel_max, n_gate, plane_err = 0.0, 0, []
+    rel_all, n_gate, plane_err = [], 0, []
     hw = samples[0]["imgs"].shape[1:3]
     for i, ((dk, ck), (dp, cp)) in enumerate(zip(runs[False]["out"],
                                                   runs[True]["out"])):
@@ -663,9 +777,10 @@ def phase_main(model, samples, scene, dev, name="main_path", smi=None,
             raise AssertionError(f"{name} view {i}: depth {dk.shape} not "
                                  f"finite {hw}")
         rel = np.abs(dk - dp) / np.abs(dp)
-        rel_max = max(rel_max, float(rel.max()))
+        rel_all.append(rel.ravel())
         n_gate += int((rel > DEPTH_GATE).sum())
         plane_err.append(float(np.median(np.abs(dk - scene["depths"][i]))))
+    rel_all = np.concatenate(rel_all)
     n = len(samples)
     launches = runs[False]["launches"]
     result = {
@@ -677,24 +792,91 @@ def phase_main(model, samples, scene, dev, name="main_path", smi=None,
         "depth_maps_per_s_plain": n / runs[True]["s"],
         "max_memory_allocated_kernel": runs[False]["peak"],
         "max_memory_allocated_plain": runs[True]["peak"],
-        "depth_max_rel_delta_vs_plain": rel_max,
+        "depth_max_rel_delta_vs_plain": float(rel_all.max()),
+        "depth_rel_delta_vs_plain": depth_stats(rel_all),
         "depth_pixels_above_gate": n_gate,
         "median_abs_depth_err_vs_plane": plane_err,
     }
     print(json.dumps({name: result}), flush=True)
-    if rel_max > DEPTH_REL_MAX or n_gate:
+    if (rel_max is not None and rel_all.max() > rel_max) or n_gate:
         raise AssertionError(f"{name}, kernel vs plain depth: max rel "
-                             f"{rel_max:.3e} (limit {DEPTH_REL_MAX}), "
+                             f"{rel_all.max():.3e} (limit {rel_max}), "
                              f"{n_gate} pixels above {DEPTH_GATE}")
     return result
 
 
-def phase_tanks(model, dev, smi, shape=(TT_H, TT_W, TT_V)):
+def depth_stats(rel) -> dict:
+    """max, mean, p99 and p999 of per-pixel relative depth deltas, and the
+    share of pixels beyond DEPTH_GATE."""
+    import numpy as np
+    return {"max": float(rel.max()), "mean": float(rel.mean()),
+            "p99": float(np.quantile(rel, 0.99)),
+            "p999": float(np.quantile(rel, 0.999)),
+            "share_above_gate": float((rel > DEPTH_GATE).mean())}
+
+
+def phase_tanks(model, dev, smi, shape=(TT_H, TT_W, TT_V), keep=None,
+                name="tanks_path", **gates):
     """Phase 7: the eval path at Tanks & Temples' input, with the T&T
     loader's depth range."""
     scene = plane_scene(*shape, SEED)
     return phase_main(model, tanks_samples(scene, NDEPTH), scene, dev,
-                      "tanks_path", smi)
+                      name, smi, keep, **gates)
+
+
+def phase_bf16(model, samples, scene, ref_dtu, ref_tanks, f32_paths, smi,
+               dev, tanks_shape=(TT_H, TT_W, TT_V)):
+    """Phase 12, end to end: `infer_views` with eval_dtype bfloat16 over
+    phase 4's DTU views and phase 7's T&T views, through the bf16 kernels
+    (every bf16 instance and K4 launched, no float32 instance of K5, K1 or
+    K2) and through the bf16 plain versions (no pixel beyond DEPTH_GATE);
+    then against the float32 kernel path's depth (ref_dtu, ref_tanks: its
+    (depth, confidence) per view): at most BF16_SHARE of pixels beyond
+    DEPTH_GATE. Prints both dtypes' maps/s and peak memory (f32_paths:
+    phases 4 and 7's results)."""
+    import numpy as np
+    from rcmvsnet_tpu_torch.config import BackboneConfig
+    from rcmvsnet_tpu_torch.models.cascade import CascadeMVSNet
+    bf = CascadeMVSNet(BackboneConfig(eval_dtype="bfloat16"))
+    bf.load_state_dict(model.state_dict(), strict=True)
+    bf = bf.to(dev).eval()
+    gates = dict(kernels=BF16_EVAL_KERNELS, barred=F32_ONLY, rel_max=None)
+    out, results = {}, {}
+    for name, run, ref, f32 in (
+            ("dtu", lambda keep: phase_main(
+                bf, samples, scene, dev, "bf16_dtu_path", smi, keep,
+                **gates), ref_dtu, f32_paths[0]),
+            ("tanks", lambda keep: phase_tanks(
+                bf, dev, smi, tanks_shape, keep, "bf16_tanks_path",
+                **gates), ref_tanks, f32_paths[1])):
+        keep = []
+        res = run(keep)
+        rel = np.concatenate([(np.abs(db - d32) / np.abs(d32)).ravel()
+                              for (db, _), (d32, _) in zip(keep, ref)])
+        res["depth_rel_delta_vs_float32_kernels"] = depth_stats(rel)
+        res["float32"] = {k: f32[k] for k in (
+            "depth_maps_per_s_kernel", "depth_maps_per_s_plain",
+            "max_memory_allocated_kernel", "max_memory_allocated_plain")}
+        results[name] = res
+        out[name] = {"vs_float32_kernels": depth_stats(rel),
+                     "maps_per_s": {"bf16": res["depth_maps_per_s_kernel"],
+                                    "float32": f32["depth_maps_per_s_kernel"]},
+                     "peak_bytes": {
+                         "bf16": res["max_memory_allocated_kernel"],
+                         "float32": f32["max_memory_allocated_kernel"]}}
+    print(json.dumps({"bf16_paths": {"device": smi, **out}}), flush=True)
+    for name, res in results.items():
+        per_map = {k: res["launches_per_map"].get(k, 0)
+                   for k in BF16_LAUNCHES_PER_MAP}
+        if per_map != BF16_LAUNCHES_PER_MAP:
+            raise AssertionError(f"bf16 {name}: launches a map {per_map}, "
+                                 f"not one per call {BF16_LAUNCHES_PER_MAP}")
+        share = res["depth_rel_delta_vs_float32_kernels"]["share_above_gate"]
+        if share > BF16_SHARE:
+            raise AssertionError(f"bf16 {name}: {share:.2e} of pixels beyond "
+                                 f"{DEPTH_GATE} against the float32 kernel "
+                                 f"path (limit {BF16_SHARE})")
+    return results
 
 
 def phase_tools(model, sample, dev, conv_cases):
@@ -1570,11 +1752,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {len(logs)} CUDA sources in {build_s:.1f} s", flush=True)
     mma = sass_mma_counts()
-    print(json.dumps({"sass_tf32_mma": mma}), flush=True)
-    no_mma = [k for lib in mma.values() for k, n in lib["kernels"].items()
-              if "_tc" in k and n == 0]
+    print(json.dumps({"sass_mma": mma}), flush=True)
+    no_mma = missing_mma(mma)
     if not all(lib["kernels"] for lib in mma.values()) or no_mma:
-        raise AssertionError(f"3D-conv kernels without TF32 MMAs: {no_mma}"
+        raise AssertionError(f"tensor-core kernels without their MMAs "
+                             f"(TF32, or bf16 in a bf16 instance): {no_mma}"
                              f" of {mma}")
 
     # 3. kernels against their plain versions
@@ -1617,7 +1799,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. Tanks & Temples eval path
-    tanks_path = phase_tanks(model, dev, smi)
+    tanks_out = []
+    tanks_path = phase_tanks(model, dev, smi, keep=tanks_out)
     torch.cuda.empty_cache()
 
     # 8. profiling tools, and K9 / K10 against their plain versions
@@ -1653,10 +1836,21 @@ def main() -> int:
                               load_state_dict(ASSET), train_path, eval_out,
                               smi, dev, dp_dir)
     shutil.rmtree(dp_dir)
-    del batch, samples
+    del batch
     torch.cuda.empty_cache()
 
-    # 12. report
+    # 12. the bf16 eval path: its kernels against their plain versions,
+    # then end to end at DTU and T&T against the plain path and float32
+    ledger.phase = "bf16"
+    with torch.no_grad():
+        phase_kernels(model, samples, scene, ledger, dev, torch.bfloat16)
+    torch.cuda.empty_cache()
+    bf16_paths = phase_bf16(model, samples, scene, eval_out, tanks_out,
+                            (main_path, tanks_path), smi, dev)
+    del samples, eval_out, tanks_out
+    torch.cuda.empty_cache()
+
+    # 13. report
     source = "rcmvsnet_tpu_torch/ops/"
     meta = [
         ("warp_variance", "eval", "cuda", source + "csrc/warp_variance.cu",
@@ -1681,8 +1875,17 @@ def main() -> int:
          "rcmvsnet_tpu/ops/pallas_conv3d.py:167 (pallas_call :139)"),
         ("warp_view", "tools", "cuda", source + "csrc/warp_view.cu",
          "rcmvsnet_tpu/ops/pallas_warp.py:88 (pallas_call :109)"),
+        ("conv2d_bf16", "bf16", "cuda", source + "csrc/conv2d.cu",
+         "rcmvsnet_tpu/ops/pallas_conv2d.py:306"),
+        ("warp_variance_bf16", "bf16", "cuda",
+         source + "csrc/warp_variance.cu",
+         "rcmvsnet_tpu/ops/pallas_warp2.py:393"),
+        ("conv3d_bf16", "bf16", "cuda", source + "csrc/conv3d.cu",
+         "rcmvsnet_tpu/ops/pallas_costreg.py:383 + "
+         "rcmvsnet_tpu/ops/pallas_resample.py:59,117"),
     ]
-    paths = {"eval": main_path, "train": train_path, "tools": tools_path}
+    paths = {"eval": main_path, "train": train_path, "tools": tools_path,
+             "bf16": bf16_paths["dtu"]}
     kernels = []
     for name, phase, route, src, replaces in meta:
         s = ledger.summary(name, phase)
@@ -1693,7 +1896,7 @@ def main() -> int:
                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                "calls_timed": s["calls"], "shapes": phase}
-        if name in TC_KERNELS:
+        if name in TC_KERNELS + BF16_TC_KERNELS:
             row.update(bound_tc_ms=s["bound_tc_ms"],
                        bound_tc_by=s["bound_tc_by"])
         if "library_unfused_ms" in s:
@@ -1715,12 +1918,12 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s, "nvcc": logs,
-        "sass_tf32_mma": mma,
+        "sass_mma": mma,
         "calls": ledger.rows, "main_path": main_path,
         "train_path": train_path, "tanks_path": tanks_path,
         "tools_path": tools_path, "train_cli": train_cli,
         "wide_path": wide_path, "parallel": parallel,
-        "kernels": kernels}, indent=1))
+        "bf16_paths": bf16_paths, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

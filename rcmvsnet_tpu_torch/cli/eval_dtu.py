@@ -2,7 +2,10 @@
 
 Counterpart of `rcmvsnet_tpu/cli/eval_dtu.py`, same flags plus `--device`
 (default `cuda`; a missing GPU is an error, not a CPU run). `--no_pallas`
-runs every kernel's plain PyTorch version. `--n_devices N` spawns N
+runs every kernel's plain PyTorch version. `--eval_dtype bfloat16` runs
+the bf16 eval path (`BackboneConfig.eval_dtype`: K5, K1 and K2 in their
+bf16 instances, the path the JAX eval CLI takes on its chip; with
+`--no_pallas` their bf16 plain versions); the default is float32. `--n_devices N` spawns N
 workers (one process per device, `parallel/mesh.spawn`; worker r on
 `cuda:r`, or the CPU under `--device cpu`), each inferring and writing the
 reference views i with i % N == r (`infer_views_sharded`, no collectives);
@@ -43,6 +46,13 @@ from ..parallel import mesh
 from ..weights import load_state_dict
 
 
+def add_eval_dtype(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--eval_dtype", choices=("float32", "bfloat16"),
+                   default="float32",
+                   help="compute dtype of the eval path's convs and warp "
+                        "(bfloat16: the bf16 instances of K5, K1 and K2)")
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="DTU eval: depth + fusion")
     p.add_argument("--testpath", required=True)
@@ -70,6 +80,7 @@ def parse_args(argv=None):
                         "with --n_devices, cuda or cpu)")
     p.add_argument("--no_pallas", action="store_true",
                    help="run every kernel's plain PyTorch version")
+    add_eval_dtype(p)
     p.add_argument("--n_devices", type=int, default=None,
                    help="shard the reference views over this many devices "
                         "of this host, one process each (default 1)")
@@ -97,7 +108,8 @@ def build_model(args, device) -> CascadeMVSNet:
     model = CascadeMVSNet(BackboneConfig(
         ndepths=csv(args.ndepths, int),
         depth_intervals_ratio=csv(args.depth_inter_r, float),
-        cr_base_chs=csv(args.cr_base_chs, int)))
+        cr_base_chs=csv(args.cr_base_chs, int),
+        eval_dtype=args.eval_dtype))
     model.load_state_dict(load_state_dict(args.loadckpt), strict=True)
     return model.to(device).eval()
 

@@ -9,7 +9,8 @@ CPU run).
 Phase 1 (depth): the cascade per reference view (`infer_views_sharded`,
 one view at a time), the next view decoded on a worker thread meanwhile;
 depth / confidence PFMs, cams and images per view. `--no_pallas` runs
-every kernel's plain PyTorch version; `--n_devices N` shards the
+every kernel's plain PyTorch version; `--eval_dtype bfloat16` the bf16
+eval path (as in `cli/eval_dtu.py`); `--n_devices N` shards the
 reference views over N workers, one process per device, as
 `cli/eval_dtu.py` does, and fuses once all have ended. Phase 2
 (fusion): `fuse_scan` per scene with that scene's thresholds, into
@@ -34,7 +35,7 @@ from ..data import transforms as _transforms
 from ..core.geometry import set_full_precision
 from ..fusion.fuse import fuse_scan
 from ..models.cascade import infer_views_sharded
-from .eval_dtu import build_model, run_ranks
+from .eval_dtu import add_eval_dtype, build_model, run_ranks
 
 # per-scene fusion hyperparameters of the reference's
 # eval_rcmvsnet_tanks.py:400-440 (intermediate) and :460-491 (advanced);
@@ -99,6 +100,7 @@ def parse_args(argv=None):
                         "with --n_devices, cuda or cpu)")
     p.add_argument("--no_pallas", action="store_true",
                    help="run every kernel's plain PyTorch version")
+    add_eval_dtype(p)
     p.add_argument("--n_devices", type=int, default=None,
                    help="shard the reference views over this many devices "
                         "of this host, one process each (default 1)")

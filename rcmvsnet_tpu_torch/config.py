@@ -2,15 +2,18 @@
 step's render, loss and run settings.
 
 Counterparts of `rcmvsnet_tpu/config.py` without the TPU knobs (`pallas_*`,
-`eval_dtype`, `train_dtype`, `remat`, `ray_major_lookup`) and the
-multi-device one (`n_devices`): the port picks its kernels by the tensor's
-device, and it computes in float32.
+`train_dtype`, `remat`, `ray_major_lookup`) and the multi-device one
+(`n_devices`): the port picks its kernels by the tensor's device. It
+computes in float32, except the eval path under
+`BackboneConfig.eval_dtype = "bfloat16"` (JAX's field and meaning: the
+conv stacks and the warp in bf16; geometry, softmax and depth regression
+float32).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -20,6 +23,10 @@ class BackboneConfig:
     cr_base_chs: Tuple[int, ...] = (8, 8, 8)
     base_channels: int = 8
     grad_detach: bool = True
+    # eval compute dtype ('bfloat16': K5, K1 and K2 in their bf16
+    # instances, the path the JAX eval CLI runs on its chip); None (or
+    # 'float32') = float32
+    eval_dtype: Optional[str] = None
 
 
 @dataclass(frozen=True)

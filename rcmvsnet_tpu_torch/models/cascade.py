@@ -13,6 +13,12 @@ K4 directly; the [D, h, w] hypothesis volume exists only inside the plain
 versions. FeatureNet's three heads (out1, out2 and stage 3's fused
 lateral head) write the [V, h, w, C] layout K1 reads, so no feature map
 is permuted or copied between K5 and K1.
+With `config.eval_dtype == "bfloat16"` the eval path is the JAX eval
+CLI's on its chip (`cli/eval_dtu.build_forward`: the packed bf16 FeatureNet,
+the fused warp and lanes U-Net at their bf16 defaults): the images are
+cast to bf16 on the device, K5, K1 and K2 run their bf16 instances on
+bf16 activations and weights rounded once, the prob head writes the
+float32 cost, and K4 is unchanged.
 
 Train (`forward_train`, BatchNorm in train mode): FeatureNet as modules;
 per stage and sample the differentiable warp — K7 (variance, no-ref
@@ -48,6 +54,18 @@ from ..ops.warp_variance import (warp_variance, warp_variance_plain,
 from ..ops.warp_volume import warp_volume_plain, warp_volume_train
 
 STAGE_SCALES = (4, 2, 1)
+# `config.eval_dtype` → the eval path's compute dtype (None: float32, as
+# in JAX; "float32" names it too, as `--eval_dtype` does)
+EVAL_DTYPES = {None: torch.float32, "float32": torch.float32,
+               "bfloat16": torch.bfloat16}
+
+
+def eval_dtype(config: BackboneConfig) -> torch.dtype:
+    """The eval path's compute dtype named by `config.eval_dtype`."""
+    if config.eval_dtype not in EVAL_DTYPES:
+        raise ValueError(f"eval_dtype must be one of {list(EVAL_DTYPES)}, "
+                         f"got {config.eval_dtype!r}")
+    return EVAL_DTYPES[config.eval_dtype]
 
 
 class CascadeMVSNet(nn.Module):
@@ -71,7 +89,8 @@ class CascadeMVSNet(nn.Module):
         B, V, H, W, _ = imgs.shape
         x = imgs.reshape(B * V, H, W, 3).permute(0, 3, 1, 2).contiguous()
         feats = self.feature.forward_folded(x, plain=plain,
-                                            out_layout="warp")
+                                            out_layout="warp",
+                                            dtype=eval_dtype(self.config))
 
         outputs = {}
         depth = None

@@ -13,7 +13,10 @@ base-channel volume.
   * `CostRegNet.forward`: the modules as they stand.
   * `CostRegNet.forward_folded`: the eval path, all 11 layers through K2
     (`ops/conv3d.conv3d`) on BN-folded weights. `plain=True` runs K2's
-    plain version instead.
+    plain version instead. A bf16 volume runs K2's bf16 instance: the
+    weights folded in float32 and rounded to bf16 once, the biases
+    float32, bf16 activations, and the prob head writes the float32 cost
+    (`pallas_costreg.costreg_lanes` at compute_dtype bf16).
   * `forward_train` (both nets): every conv through K8
     (`ops/conv3d_train.conv3d_train`) with train-mode BatchNorm, ReLU and
     the skip adds in autograd between them; `plain=True` runs the plain
@@ -91,9 +94,15 @@ class CostRegNet(nn.Module):
 
     def forward_folded(self, x: torch.Tensor,
                        plain: bool = False) -> torch.Tensor:
-        """x [N, C, D, H, W] → cost [N, 1, D, H, W]; same as `forward`."""
+        """x [N, C, D, H, W] → cost [N, 1, D, H, W] float32; same as
+        `forward` (x float32 or bfloat16)."""
         conv = conv3d_plain if plain else conv3d
-        f = lambda name: fold_block(getattr(self, name))
+        dt = x.dtype
+
+        def f(name):
+            w, b = fold_block(getattr(self, name))
+            return w.to(dt), b
+
         conv0 = conv(x, *f("conv0"), "s1")
         t = conv(conv0, *f("conv1"), "s2")
         conv2 = conv(t, *f("conv2"), "s1")
@@ -105,7 +114,8 @@ class CostRegNet(nn.Module):
         t = conv(t, *f("conv9"), "t2", skip=conv2)
         t = conv(t, *f("conv11"), "t2", skip=conv0)
         zero = torch.zeros(1, dtype=torch.float32, device=x.device)
-        return conv(t, self.prob.weight, zero, "s1", relu=False)
+        return conv(t, self.prob.weight.to(dt), zero, "s1", relu=False,
+                    out_dtype=torch.float32)
 
     def forward_train(self, x: torch.Tensor,
                       plain: bool = False) -> torch.Tensor:

@@ -12,7 +12,13 @@ Tensors are NCHW. Outputs: stage1 [N, 4c, H/4, W/4], stage2
     nearest-×2(intra) + inner2(conv0) + b tile by tile and never writes
     that full-resolution sum; with out_layout="warp" the three heads
     write [N, h, w, C], the layout K1 reads. `plain=True` runs K5's plain
-    versions instead (for comparing the two on the card).
+    versions instead (for comparing the two on the card). With
+    dtype=torch.bfloat16 (the bf16 eval path) the images are cast to
+    bf16 and every call runs K5's bf16 instance on bf16 weights, BN's
+    scale folded in float32 into the bf16-rounded conv weight and the
+    product rounded again (`featurenet_packed` casts the kernel before
+    `conv2d_cm` folds the scale and casts), its shift the float32 bias;
+    the activations and the three outputs are bf16.
 """
 from __future__ import annotations
 
@@ -59,27 +65,37 @@ class FeatureNet(nn.Module):
         return out
 
     def forward_folded(self, x: torch.Tensor, plain: bool = False,
-                       out_layout: str = "nchw") -> dict[str, torch.Tensor]:
+                       out_layout: str = "nchw",
+                       dtype: torch.dtype = torch.float32
+                       ) -> dict[str, torch.Tensor]:
         """Eval forward through K5; the outputs of `forward`, as NCHW or
-        (out_layout="warp") as [N, h, w, C]."""
+        (out_layout="warp") as [N, h, w, C], in `dtype` (float32 or
+        bfloat16)."""
         conv = conv2d_plain if plain else conv2d
         lateral = lateral_conv2d_plain if plain else lateral_conv2d
+        bf16 = dtype == torch.bfloat16
+        cast = (lambda w: w.to(torch.bfloat16)) if bf16 else (lambda w: w)
+        x = x.to(dtype)
         acts = []
         for seq in (self.conv0, self.conv1, self.conv2):
             for blk in seq:
                 scale, shift = bn_scale_shift(blk.bn)
-                x = conv(x, blk.conv.weight, scale, shift,
+                weight = blk.conv.weight
+                if bf16:
+                    weight = cast(cast(weight) * scale[:, None, None, None])
+                    scale = None
+                x = conv(x, weight, scale, shift,
                          stride=blk.conv.stride[0],
                          padding=blk.conv.padding[0], relu=True)
             acts.append(x)
         conv0, conv1, intra = acts
-        out = {"stage1": conv(intra, self.out1.weight,
+        out = {"stage1": conv(intra, cast(self.out1.weight),
                               out_layout=out_layout)}
-        intra = conv(conv1, self.inner1.weight, shift=self.inner1.bias,
+        intra = conv(conv1, cast(self.inner1.weight), shift=self.inner1.bias,
                      up=intra)
-        out["stage2"] = conv(intra, self.out2.weight, padding=1,
+        out["stage2"] = conv(intra, cast(self.out2.weight), padding=1,
                              out_layout=out_layout)
-        out["stage3"] = lateral(intra, conv0, self.inner2.weight,
-                                self.inner2.bias, self.out3.weight,
+        out["stage3"] = lateral(intra, conv0, cast(self.inner2.weight),
+                                self.inner2.bias, cast(self.out3.weight),
                                 out_layout=out_layout)
         return out

@@ -138,14 +138,20 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda(name: str, *tensors) -> None:
-    """A kernel takes float32, contiguous tensors on one CUDA device."""
-    dev = tensors[0].device
-    for t in tensors:
+def require_cuda(name: str, *tensors, bf16=()) -> None:
+    """A kernel takes contiguous tensors on one CUDA device: float32, and
+    bfloat16 for the ones in `bf16` (a bf16 instance's operands)."""
+    every = tensors + tuple(bf16)
+    dev = every[0].device
+    for t in every:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: all tensors must be on one CUDA "
-                             f"device, got {[x.device for x in tensors]}")
-        if t.dtype.is_floating_point and t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 only, got {t.dtype}")
+                             f"device, got {[x.device for x in every]}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    for t in tensors:
+        if t.dtype.is_floating_point and t.dtype != torch.float32:
+            raise TypeError(f"{name}: float32 expected, got {t.dtype}")
+    for t in bf16:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: bfloat16 expected, got {t.dtype}")

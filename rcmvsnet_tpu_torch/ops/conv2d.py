@@ -12,11 +12,22 @@ its 3 input channels and the 1×1 heads, which are bound by bytes).
 `lateral_conv2d` is stage 3's head: out3(nearest×2(up) + inner(lat) + b)
 with the lateral sum formed tile by tile in shared memory and never
 written; `lateral_conv2d_plain` is the composition of the two plain calls.
-Its launches count as K5's (`conv2d.launches`).
+Its launches count as K5's.
 
 Both write NCHW or, with out_layout="warp", [N, H, W, Co]: the source
 layout of the warp kernels (K1), so the eval heads feed K1 without a
 permute.
+
+bfloat16 (the bf16 eval path, `BackboneConfig.eval_dtype`): a bf16 `x`
+selects the kernel's bf16 instance (counted in `conv2d.bf16.launches`,
+the float32 one in `conv2d.launches`): x, weight and up bf16, scale and shift float32,
+float32 accumulation and epilogue, the output rounded to bf16 once; with
+`up` the conv's result is rounded first and the sum again, as the JAX
+path adds two bf16 arrays. Its plain version is the float32 one on the
+bf16 operands (`.float()`), rounded where JAX rounds; its 1×1 convs sum
+the input channels in order (the kernel's order: products of bf16 values
+are exact in float32, so the two agree in every bit and a rounding to
+bf16 after them cannot fall on different sides).
 
 Replaces `rcmvsnet_tpu/ops/pallas_conv2d.py` `conv2d_cm` as
 `nn/featurenet_fast.featurenet_packed` chains it, plus the 1×1 heads and
@@ -26,6 +37,7 @@ and its stage-3 head `_stage3_polyphase`.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -78,17 +90,55 @@ def tile(k: int, stride: int, n: int, co: int, ho: int, wo: int,
     raise AssertionError(f"no tile with {ntb} channel tiles in {tiles}")
 
 
-def scratch_floats(k: int, ci: int, co: int, ntb: int) -> int:
-    """Floats of the prepared weights the tensor-core route lays out:
-    [groups][chunks of 8 ci][k·k][8][8·ntb]."""
+def scratch_floats(k: int, ci: int, co: int, ntb: int,
+                   chunk: int = 8) -> int:
+    """4-byte words of the prepared weights the tensor-core route lays
+    out: [groups][chunks of `chunk` ci][k·k][8][8·ntb] (chunk 8 for
+    float32, 16 for the bf16 instance, two channels a word)."""
     nw = 8 * ntb
-    return -(-co // nw) * -(-ci // 8) * k * k * 8 * nw
+    return -(-co // nw) * -(-ci // chunk) * k * k * 8 * nw
+
+
+def _chunk(dtype) -> int:
+    """Input channels a tensor-core chunk stages."""
+    return 16 if dtype == torch.bfloat16 else 8
 
 
 def _layout(y: torch.Tensor, out_layout: str) -> torch.Tensor:
     if out_layout not in LAYOUTS:
         raise ValueError(f"out_layout must be one of {LAYOUTS}")
     return y.permute(0, 2, 3, 1).contiguous() if out_layout == "warp" else y
+
+
+def _conv1x1_ordered(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """A 1×1 conv as Σ_ci x[:, ci] · w[:, ci], the input channels in
+    order: the bf16 kernels' order of operations for their 1×1 sums."""
+    w = weight[:, :, 0, 0]
+    y = x[:, None, 0] * w[None, :, 0, None, None]
+    for ci in range(1, x.shape[1]):
+        y = y + x[:, None, ci] * w[None, :, ci, None, None]
+    return y
+
+
+def _conv2d_plain_bf16(x, weight, scale, shift, stride, padding, relu, up,
+                       out_layout):
+    """`conv2d_plain` for a bf16 x: float32 on the bf16 operands, the
+    result rounded to bf16 (before and after the up-add)."""
+    xf, wf = x.float(), weight.to(torch.bfloat16).float()
+    if wf.shape[-1] == 1 and stride == 1 and padding == 0:
+        y = _conv1x1_ordered(xf, wf)
+    else:
+        y = F.conv2d(xf, wf, stride=stride, padding=padding)
+    if scale is not None:
+        y = y * scale[None, :, None, None]
+    if shift is not None:
+        y = y + shift[None, :, None, None]
+    if relu:
+        y = torch.relu(y)
+    if up is not None:
+        y = F.interpolate(up.float(), scale_factor=2, mode="nearest") \
+            + y.to(torch.bfloat16).float()
+    return _layout(y.to(torch.bfloat16), out_layout)
 
 
 def conv2d_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -100,7 +150,11 @@ def conv2d_plain(x: torch.Tensor, weight: torch.Tensor,
     """x [N, Ci, H, W]; weight [Co, Ci, k, k]; y = conv·scale + shift
     (per output channel; None means 1 and 0); ReLU if asked; then, if `up`
     [N, Co, H'/2, W'/2] is given, y += nearest-×2(up). NCHW, or [N, H',
-    W', Co] with out_layout="warp"."""
+    W', Co] with out_layout="warp". A bf16 x gives a bf16 result (see the
+    module's note)."""
+    if x.dtype == torch.bfloat16:
+        return _conv2d_plain_bf16(x, weight, scale, shift, stride, padding,
+                                  relu, up, out_layout)
     y = F.conv2d(x, weight, stride=stride, padding=padding)
     if scale is not None:
         y = y * scale[None, :, None, None]
@@ -119,7 +173,8 @@ def lateral_conv2d_plain(up: torch.Tensor, lat: torch.Tensor,
                          out_layout: str = "nchw") -> torch.Tensor:
     """conv3×3(nearest-×2(up) + inner(lat) + inner_b), padding 1: up [N,
     Cu, H/2, W/2], lat [N, Cl, H, W], inner_w [Cu, Cl, 1, 1], weight [Co,
-    Cu, 3, 3]; the two plain calls the FPN makes."""
+    Cu, 3, 3]; the two plain calls the FPN makes (bf16: the sum rounded to
+    bf16 as the kernel stages it)."""
     s = conv2d_plain(lat, inner_w, shift=inner_b, up=up)
     return conv2d_plain(s, weight, padding=1, out_layout=out_layout)
 
@@ -137,6 +192,19 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def _kind(x: torch.Tensor) -> str:
+    """The C entries' suffix for x's element type."""
+    return "bf16" if x.dtype == torch.bfloat16 else "f32"
+
+
+def _require(name, x, weight, f32, typed):
+    """f32: the float32 operands; typed: the ones of x's element type."""
+    if x.dtype == torch.bfloat16:
+        _build.require_cuda(name, *f32, bf16=(x, weight, *typed))
+    else:
+        _build.require_cuda(name, x, weight, *f32, *typed)
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            scale: torch.Tensor | None = None,
            shift: torch.Tensor | None = None, stride: int = 1,
@@ -144,7 +212,7 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
            up: torch.Tensor | None = None,
            out_layout: str = "nchw") -> torch.Tensor:
     """Same contract as `conv2d_plain`; the kernel on a CUDA tensor, by
-    the route `route` picks."""
+    the route `route` picks, the instance of x's element type."""
     if x.device.type == "cpu":
         return conv2d_plain(x, weight, scale, shift, stride, padding, relu,
                             up, out_layout)
@@ -157,8 +225,8 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"conv2d: out_layout must be one of {LAYOUTS}")
     Ho = (H + 2 * padding - k) // stride + 1
     Wo = (W + 2 * padding - k) // stride + 1
-    extra = [t for t in (scale, shift, up) if t is not None]
-    _build.require_cuda("conv2d", x, weight, *extra)
+    _require("conv2d", x, weight, [t for t in (scale, shift) if t is not None],
+             [up] if up is not None else [])
     for t in (scale, shift):
         if t is not None and t.shape != (Co,):
             raise ValueError(f"conv2d: scale/shift must be [{Co}]")
@@ -167,27 +235,35 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
                          f"{(N, Co, Ho, Wo)}")
     nhwc = out_layout == "warp"
     shape = (N, Ho, Wo, Co) if nhwc else (N, Co, Ho, Wo)
-    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
     stream = _build.stream_ptr(x.device)
+    kind = _kind(x)
     if route(k, stride, padding, Ci) == "tc":
         mt, ntb = tile(k, stride, N, Co, Ho, Wo)
-        wt = torch.empty(scratch_floats(k, Ci, Co, ntb), dtype=torch.float32,
-                         device=x.device)
-        err = _lib("conv2d_tc_f32", 7, 13)(
+        wt = torch.empty(scratch_floats(k, Ci, Co, ntb, _chunk(x.dtype)),
+                         dtype=torch.int32, device=x.device)
+        err = _lib(f"conv2d_tc_{kind}", 7, 13)(
             x.data_ptr(), weight.data_ptr(), _ptr(scale), _ptr(shift),
             _ptr(up), out.data_ptr(), wt.data_ptr(), N, Ci, H, W, Co, Ho, Wo,
             k, stride, int(relu), int(nhwc), mt, ntb, stream)
     else:
-        err = _lib("conv2d_f32", 6, 12)(
+        err = _lib(f"conv2d_{kind}", 6, 12)(
             x.data_ptr(), weight.data_ptr(), _ptr(scale), _ptr(shift),
             _ptr(up), out.data_ptr(), N, Ci, H, W, Co, Ho, Wo, k, stride,
             padding, int(relu), int(nhwc), stream)
     _build.check(err, "conv2d")
-    conv2d.launches += 1
+    _count(x).launches += 1
     return out
 
 
 conv2d.launches = 0
+conv2d.bf16 = SimpleNamespace(launches=0)
+
+
+def _count(x: torch.Tensor):
+    """The launch count of x's instance: `conv2d` (float32) or
+    `conv2d.bf16`."""
+    return conv2d.bf16 if x.dtype == torch.bfloat16 else conv2d
 
 
 def lateral_conv2d(up: torch.Tensor, lat: torch.Tensor,
@@ -195,7 +271,8 @@ def lateral_conv2d(up: torch.Tensor, lat: torch.Tensor,
                    weight: torch.Tensor,
                    out_layout: str = "nchw") -> torch.Tensor:
     """Same contract as `lateral_conv2d_plain`; on a CUDA tensor one
-    launch of K5's lateral head (counted in `conv2d.launches`)."""
+    launch of K5's lateral head (counted as `conv2d`'s launch of lat's
+    element type)."""
     if lat.device.type == "cpu":
         return lateral_conv2d_plain(up, lat, inner_w, inner_b, weight,
                                     out_layout)
@@ -211,18 +288,18 @@ def lateral_conv2d(up: torch.Tensor, lat: torch.Tensor,
     if out_layout not in LAYOUTS:
         raise ValueError(f"lateral_conv2d: out_layout must be one of "
                          f"{LAYOUTS}")
-    extra = [inner_b] if inner_b is not None else []
-    _build.require_cuda("lateral_conv2d", up, lat, inner_w, weight, *extra)
+    _require("lateral_conv2d", lat, weight,
+             [inner_b] if inner_b is not None else [], [up, inner_w])
     nhwc = out_layout == "warp"
     out = torch.empty((N, H, W, Co) if nhwc else (N, Co, H, W),
-                      dtype=torch.float32, device=lat.device)
+                      dtype=lat.dtype, device=lat.device)
     mt, ntb = tile(3, 1, N, Co, H, W, LATERAL_TILES)
-    wt = torch.empty(scratch_floats(3, Cu, Co, ntb), dtype=torch.float32,
-                     device=lat.device)
-    err = _lib("lateral_conv2d_f32", 7, 9)(
+    wt = torch.empty(scratch_floats(3, Cu, Co, ntb, _chunk(lat.dtype)),
+                     dtype=torch.int32, device=lat.device)
+    err = _lib(f"lateral_conv2d_{_kind(lat)}", 7, 9)(
         up.data_ptr(), lat.data_ptr(), inner_w.data_ptr(), _ptr(inner_b),
         weight.data_ptr(), out.data_ptr(), wt.data_ptr(), N, Cu, Cl, H, W,
         Co, int(nhwc), mt, ntb, _build.stream_ptr(lat.device))
     _build.check(err, "lateral_conv2d")
-    conv2d.launches += 1
+    _count(lat).launches += 1
     return out

@@ -25,6 +25,14 @@ The kernel is an implicit GEMM on the tensor cores (3xTF32 m16n8k8 MMAs,
 float32 accumulators; see `csrc/tc_conv3d.cuh`); `tile` picks its block
 tile from the shapes.
 
+bfloat16 (the bf16 eval path): a bf16 `x` selects the kernel's bf16
+instance (counted in `conv3d.bf16.launches`, the float32 one in
+`conv3d.launches`; one bf16 m16n8k16 MMA per multiply-add): x, weight
+and skip bf16, bias float32, float32 accumulation, bias, ReLU and skip
+add, the output rounded to bf16 once, or written float32 with
+`out_dtype=torch.float32` (the prob head, as `costreg_lanes` writes it). The plain version is the float32 one on
+the bf16 operands, rounded where the kernel rounds.
+
 Replaces `rcmvsnet_tpu/ops/pallas_costreg.py` `conv_lanes` and
 `rcmvsnet_tpu/ops/pallas_resample.py` `subsample_lanes` / `stuff_lanes`
 (K2, K3), and `rcmvsnet_tpu/ops/pallas_conv3d.py:167` `conv3d_lanewise`
@@ -33,6 +41,7 @@ Replaces `rcmvsnet_tpu/ops/pallas_costreg.py` `conv_lanes` and
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -88,12 +97,18 @@ def _t2_padding(d: int, h: int, w: int, out_dhw) -> tuple:
 def conv3d_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                  mode: str = "s1", relu: bool = True,
                  skip: torch.Tensor | None = None,
-                 out_dhw=None) -> torch.Tensor:
+                 out_dhw=None, out_dtype=None) -> torch.Tensor:
     """x [N, Ci, D, H, W]; weight [Co, Ci, 3, 3, 3] for "s1"/"s2" or the
     ConvTranspose3d layout [Ci, Co, 3, 3, 3] for "t2"; bias [Co]; skip, if
     given, is added after the ReLU. Returns [N, Co, D', H', W']. `out_dhw`
     ("t2" only) trims the output to 2n − 1 on an axis, as the adjoint of a
-    stride-2 conv over an odd size needs."""
+    stride-2 conv over an odd size needs. A bf16 x: float32 on the bf16
+    operands, the result in `out_dtype` (default bf16)."""
+    if x.dtype == torch.bfloat16:
+        y = conv3d_plain(x.float(), weight.to(torch.bfloat16).float(), bias,
+                         mode, relu,
+                         skip.float() if skip is not None else None, out_dhw)
+        return y.to(out_dtype or torch.bfloat16)
     if mode == "t2":
         y = F.conv_transpose3d(x, weight, bias, stride=2, padding=1,
                                output_padding=_t2_padding(*x.shape[2:],
@@ -108,10 +123,10 @@ def conv3d_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y
 
 
-def _lib():
-    fn = _build.load("conv3d").conv3d_f32
+def _lib(entry: str = "conv3d_f32", n_int: int = 13):
+    fn = getattr(_build.load("conv3d"), entry)
     if not fn.argtypes:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -119,9 +134,12 @@ def _lib():
 
 def _launch(name: str, x: torch.Tensor, weight: torch.Tensor,
             bias: torch.Tensor, mode: str, relu: bool,
-            skip: torch.Tensor | None, out_dhw=None) -> torch.Tensor:
-    """Check the arguments and launch `csrc/conv3d.cu` once."""
+            skip: torch.Tensor | None, out_dhw=None,
+            out_dtype=None) -> torch.Tensor:
+    """Check the arguments and launch `csrc/conv3d.cu` once, the instance
+    of x's element type."""
     N, Ci, D, H, W = x.shape
+    bf16 = x.dtype == torch.bfloat16
     if mode == "t2":
         w = weight.permute(1, 0, 2, 3, 4)                   # [Co, Ci, 3,3,3]
     else:
@@ -139,39 +157,59 @@ def _launch(name: str, x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"{name}: out_dhw is for mode t2 only")
     else:
         Do, Ho, Wo = out_shape(mode, D, H, W)
-    tensors = [x, w, bias] + ([skip] if skip is not None else [])
-    _build.require_cuda(name, *tensors)
+    out_dtype = out_dtype or x.dtype
+    out_f32 = bf16 and out_dtype == torch.float32
+    if out_dtype not in (x.dtype, torch.float32) or (
+            out_f32 and (mode != "s1" or skip is not None)):
+        raise ValueError(f"{name}: out_dtype {out_dtype} for a {x.dtype} "
+                         f"input in mode {mode} (float32 out of bf16: s1 "
+                         f"without skip)")
+    skips = [skip] if skip is not None else []
+    if bf16:
+        _build.require_cuda(name, bias, bf16=(x, w, *skips))
+    else:
+        _build.require_cuda(name, x, w, bias, *skips)
     if skip is not None and skip.shape != (N, Co, Do, Ho, Wo):
         raise ValueError(f"{name}: skip {tuple(skip.shape)} != output "
                          f"{(N, Co, Do, Ho, Wo)}")
     mt, ntb = tile(mode, N, Co, (D, H, W) if mode == "t2" else (Do, Ho, Wo))
-    out = torch.empty((N, Co, Do, Ho, Wo), dtype=torch.float32,
-                      device=x.device)
-    # the kernel's weight layout, one [27, 8, 8·ntb] block per (group of
-    # 8·ntb output channels, chunk of 8 input channels)
-    wt = torch.empty(-(-Co // (8 * ntb)) * -(-Ci // 8) * 27 * 64 * ntb,
-                     dtype=torch.float32, device=x.device)
-    err = _lib()(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                 skip.data_ptr() if skip is not None else None,
-                 out.data_ptr(), wt.data_ptr(), N, Ci, D, H, W, Co, Do, Ho, Wo,
-                 MODES[mode], int(relu), mt, ntb,
-                 _build.stream_ptr(x.device))
+    out = torch.empty((N, Co, Do, Ho, Wo), dtype=out_dtype, device=x.device)
+    # the kernel's weight layout, one [27, 8, 8·ntb] block of 4-byte words
+    # per (group of 8·ntb output channels, chunk of 8 input channels, or
+    # of 16 as bf16 pairs)
+    chunk = 16 if bf16 else 8
+    wt = torch.empty(-(-Co // (8 * ntb)) * -(-Ci // chunk) * 27 * 64 * ntb,
+                     dtype=torch.int32, device=x.device)
+    args = [x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+            skip.data_ptr() if skip is not None else None,
+            out.data_ptr(), wt.data_ptr(), N, Ci, D, H, W, Co, Do, Ho, Wo,
+            MODES[mode], int(relu)]
+    if bf16:
+        err = _lib("conv3d_bf16", 14)(*args, int(out_f32), mt, ntb,
+                                      _build.stream_ptr(x.device))
+    else:
+        err = _lib()(*args, mt, ntb, _build.stream_ptr(x.device))
     _build.check(err, name)
     return out
 
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
            mode: str = "s1", relu: bool = True,
-           skip: torch.Tensor | None = None, out_dhw=None) -> torch.Tensor:
-    """Same contract as `conv3d_plain`; the kernel on a CUDA tensor."""
+           skip: torch.Tensor | None = None, out_dhw=None,
+           out_dtype=None) -> torch.Tensor:
+    """Same contract as `conv3d_plain`; the kernel on a CUDA tensor, the
+    instance of x's element type."""
     if x.device.type == "cpu":
-        return conv3d_plain(x, weight, bias, mode, relu, skip, out_dhw)
-    out = _launch("conv3d", x, weight, bias, mode, relu, skip, out_dhw)
-    conv3d.launches += 1
+        return conv3d_plain(x, weight, bias, mode, relu, skip, out_dhw,
+                            out_dtype)
+    out = _launch("conv3d", x, weight, bias, mode, relu, skip, out_dhw,
+                  out_dtype)
+    (conv3d.bf16 if x.dtype == torch.bfloat16 else conv3d).launches += 1
     return out
 
 
 conv3d.launches = 0
+conv3d.bf16 = SimpleNamespace(launches=0)
 
 
 def conv3d_lanewise_plain(x: torch.Tensor, weight: torch.Tensor,

@@ -1,4 +1,5 @@
-// 2D convolution of the FeatureNet FPN (float32), for Hopper.
+// 2D convolution of the FeatureNet FPN, for Hopper: float32, and bfloat16
+// for the bf16 eval path (each kernel a template on the element type T).
 //
 // Replaces the TPU kernel rcmvsnet_tpu/ops/pallas_conv2d.py conv2d_cm
 // (_band_kernel), as nn/featurenet_fast.featurenet_packed chains it, and
@@ -16,6 +17,12 @@
 // k in {1, 3, 5}, stride in {1, 2}; N = views are batched in one launch.
 // Layouts: x, up NCHW; w [Co, Ci, K, K]; out NCHW or, with nhwc, [N, H, W,
 // Co] (the warp kernels' source layout, so the heads feed K1 directly).
+// bf16: x, w, up and out bf16, scale and shift float32 (the JAX path folds
+// BN's scale into w before the cast, so the caller passes none); products
+// exact in float32, float32 accumulation and epilogue, the output rounded
+// once, as conv2d_cm writes out_ref.dtype (pallas_conv2d.py:296-298). With
+// up the conv's result is rounded first and the sum again: the JAX path's
+// intra = up + matmul_cm(...) adds two bf16 arrays.
 //
 // What bounds it. At 3..32 channels a direct conv on the CUDA cores is
 // bound by FMA issue (one FMA per multiply-add, 67 TFLOP/s), ~4x above
@@ -25,12 +32,14 @@
 //     tensor cores, M = 16 consecutive output x of a row, N = Co, K =
 //     Ci * k * k in chunks of 8 input channels per tap, 3xTF32 m16n8k8
 //     MMAs with the short-chain flush of tc_conv3d.cuh (one TF32 product
-//     misses the 1e-4 gates). A block (8 warps, two per SM) owns a tile
+//     misses the 1e-4 gates); bf16: chunks of 16 channels (zero past Ci),
+//     one m16n8k16 bf16 MMA per step. A block (8 warps, two per SM) owns a tile
 //     of output rows x columns x NTB n8 tiles of Co (see Tile); per
 //     8-channel chunk it stages the input tile plus its halo in shared
-//     memory with cp.async (16-byte row vectors at stride 1 when rows are
-//     16-byte aligned), zero-filled outside the image, stride-2 rows
-//     stored as two parity halves so that a strided read is contiguous,
+//     memory with cp.async (row vectors when rows are aligned: 16 bytes at
+//     stride 1; bf16 8 bytes at both strides), zero-filled outside the
+//     image, float stride-2 rows stored as two parity halves so that a
+//     strided read is contiguous,
 //     and the chunk's weights [tap][ci][co], laid out once per call by
 //     prep_weights; the k * k taps read shifted windows of that one tile,
 //     and two chunks are in flight where there are two. At stride 1 a
@@ -64,14 +73,32 @@
 namespace {
 
 constexpr int kThreads = 128;
+using tc::bf16;
+using tc::from_f32;
+using tc::round_to;
+using tc::to_f32;
+
+// The epilogue of one output value: r = acc * scale + shift, ReLU, and the
+// upsample-add (for bf16 the conv's result rounded before the add).
+template <class T>
+__device__ __forceinline__ float epilogue(float r, const float* scale,
+                                          const float* shift, int relu,
+                                          const T* up, long long up_idx,
+                                          int co) {
+  if (scale != nullptr) r *= scale[co];
+  if (shift != nullptr) r += shift[co];
+  if (relu) r = fmaxf(r, 0.f);
+  if (up != nullptr) r = round_to<T>(r) + to_f32(up[up_idx]);
+  return r;
+}
 
 // NHWC: out is [N, H, W, Co]; the NCHW instance is the first port's kernel.
-template <int K, int CO_T, bool NHWC>
+template <int K, int CO_T, bool NHWC, class T>
 __global__ void __launch_bounds__(kThreads)
-conv2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
+conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
               const float* __restrict__ scale,
               const float* __restrict__ shift,
-              const float* __restrict__ up, float* __restrict__ out,
+              const T* __restrict__ up, T* __restrict__ out,
               int N, int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
               int stride, int pad, int relu) {
   extern __shared__ float s_w[];  // [Ci][K*K][CO_T]
@@ -80,7 +107,7 @@ conv2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int j = i % CO_T;
     const int k = (i / CO_T) % (K * K);
     const int c = i / (CO_T * K * K);
-    s_w[i] = w[((long long)(co0 + j) * Ci + c) * K * K + k];
+    s_w[i] = to_f32(w[((long long)(co0 + j) * Ci + c) * K * K + k]);
   }
   __syncthreads();
 
@@ -99,7 +126,7 @@ conv2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   const long long in_sp = (long long)Hi * Wi;
   for (int c = 0; c < Ci; ++c) {
-    const float* xc = x + ((long long)n * Ci + c) * in_sp;
+    const T* xc = x + ((long long)n * Ci + c) * in_sp;
 #pragma unroll
     for (int ky = 0; ky < K; ++ky) {
       const int yi = y0 + ky;
@@ -108,7 +135,7 @@ conv2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int kx = 0; kx < K; ++kx) {
         const int xi = x0 + kx;
         if (xi < 0 || xi >= Wi) continue;
-        const float v = __ldg(xc + (long long)yi * Wi + xi);
+        const float v = to_f32(__ldg(xc + (long long)yi * Wi + xi));
         const float* wk = s_w + (c * K * K + ky * K + kx) * CO_T;
 #pragma unroll
         for (int j = 0; j < CO_T; ++j) acc[j] = fmaf(v, wk[j], acc[j]);
@@ -117,59 +144,55 @@ conv2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 
   const int Hu = Ho / 2, Wu = Wo / 2;
-  auto epilogue = [&](int j) {
+  auto result = [&](int j) {
     const int co = co0 + j;
-    float res = acc[j];
-    if (scale != nullptr) res *= scale[co];
-    if (shift != nullptr) res += shift[co];
-    if (relu) res = fmaxf(res, 0.f);
-    if (up != nullptr)
-      res += up[(((long long)n * Co + co) * Hu + oy / 2) * Wu + ox / 2];
-    return res;
+    return epilogue(acc[j], scale, shift, relu, up,
+                    (((long long)n * Co + co) * Hu + oy / 2) * Wu + ox / 2,
+                    co);
   };
   if constexpr (!NHWC) {
 #pragma unroll
     for (int j = 0; j < CO_T; ++j)
-      out[((long long)n * Co + co0 + j) * out_sp + r] = epilogue(j);
+      out[((long long)n * Co + co0 + j) * out_sp + r] = from_f32<T>(result(j));
   } else {
     // the thread's CO_T channels are contiguous (16-byte aligned where
     // CO_T, which divides Co, is a multiple of 4)
-    float* o = out + (n * out_sp + r) * Co + co0;
-    if constexpr (CO_T % 4 == 0) {
+    T* o = out + (n * out_sp + r) * Co + co0;
+    if constexpr (CO_T % 4 == 0 && sizeof(T) == 4) {
 #pragma unroll
       for (int j = 0; j < CO_T; j += 4)
         *reinterpret_cast<float4*>(o + j) = make_float4(
-            epilogue(j), epilogue(j + 1), epilogue(j + 2), epilogue(j + 3));
+            result(j), result(j + 1), result(j + 2), result(j + 3));
     } else {
 #pragma unroll
-      for (int j = 0; j < CO_T; ++j) o[j] = epilogue(j);
+      for (int j = 0; j < CO_T; ++j) o[j] = from_f32<T>(result(j));
     }
   }
 }
 
-template <int K, int CO_T, bool NHWC>
-cudaError_t launch(const float* x, const float* w, const float* scale,
-                   const float* shift, const float* up, float* out, int N,
-                   int Ci, int Hi, int Wi, int Co, int Ho, int Wo, int stride,
+template <int K, int CO_T, bool NHWC, class T>
+cudaError_t launch(const T* x, const T* w, const float* scale,
+                   const float* shift, const T* up, T* out, int N, int Ci,
+                   int Hi, int Wi, int Co, int Ho, int Wo, int stride,
                    int pad, int relu, cudaStream_t stream) {
   const size_t smem = sizeof(float) * Ci * K * K * CO_T;
   cudaError_t e = cudaFuncSetAttribute(
-      conv2d_kernel<K, CO_T, NHWC>,
+      conv2d_kernel<K, CO_T, NHWC, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const long long n = (long long)N * Ho * Wo;
   dim3 grid((unsigned)((n + kThreads - 1) / kThreads), Co / CO_T);
-  conv2d_kernel<K, CO_T, NHWC><<<grid, kThreads, smem, stream>>>(
+  conv2d_kernel<K, CO_T, NHWC, T><<<grid, kThreads, smem, stream>>>(
       x, w, scale, shift, up, out, N, Ci, Hi, Wi, Co, Ho, Wo, stride, pad,
       relu);
   return cudaGetLastError();
 }
 
-template <int K, int CO_T>
-cudaError_t launch_layout(const float* x, const float* w, const float* scale,
-                          const float* shift, const float* up, float* out,
-                          int N, int Ci, int Hi, int Wi, int Co, int Ho,
-                          int Wo, int stride, int pad, int relu, int nhwc,
+template <int K, int CO_T, class T>
+cudaError_t launch_layout(const T* x, const T* w, const float* scale,
+                          const float* shift, const T* up, T* out, int N,
+                          int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
+                          int stride, int pad, int relu, int nhwc,
                           cudaStream_t s) {
   if (nhwc)
     return launch<K, CO_T, true>(x, w, scale, shift, up, out, N, Ci, Hi, Wi,
@@ -178,10 +201,10 @@ cudaError_t launch_layout(const float* x, const float* w, const float* scale,
                                 Co, Ho, Wo, stride, pad, relu, s);
 }
 
-template <int K>
-cudaError_t dispatch_co(const float* x, const float* w, const float* scale,
-                        const float* shift, const float* up, float* out,
-                        int N, int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
+template <int K, class T>
+cudaError_t dispatch_co(const T* x, const T* w, const float* scale,
+                        const float* shift, const T* up, T* out, int N,
+                        int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
                         int stride, int pad, int relu, int nhwc,
                         cudaStream_t s) {
   if (Co % 16 == 0)
@@ -192,6 +215,22 @@ cudaError_t dispatch_co(const float* x, const float* w, const float* scale,
                                Co, Ho, Wo, stride, pad, relu, nhwc, s);
   return launch_layout<K, 1>(x, w, scale, shift, up, out, N, Ci, Hi, Wi, Co,
                              Ho, Wo, stride, pad, relu, nhwc, s);
+}
+
+template <class T>
+cudaError_t direct(const T* x, const T* w, const float* scale,
+                   const float* shift, const T* up, T* out, int N, int Ci,
+                   int Hi, int Wi, int Co, int Ho, int Wo, int K, int stride,
+                   int pad, int relu, int nhwc, cudaStream_t s) {
+  switch (K) {
+    case 1: return dispatch_co<1>(x, w, scale, shift, up, out, N, Ci, Hi, Wi,
+                                  Co, Ho, Wo, stride, pad, relu, nhwc, s);
+    case 3: return dispatch_co<3>(x, w, scale, shift, up, out, N, Ci, Hi, Wi,
+                                  Co, Ho, Wo, stride, pad, relu, nhwc, s);
+    case 5: return dispatch_co<5>(x, w, scale, shift, up, out, N, Ci, Hi, Wi,
+                                  Co, Ho, Wo, stride, pad, relu, nhwc, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ------------------------------------------------------ tensor-core route
@@ -205,135 +244,138 @@ using tc::kWarps;
 // columns bx0 + 16 * wx + [0, 16), so a block covers BY = WY * MT rows x
 // BX = 16 * WX columns. Its input halo is EY x EX from (S * by0 - K/2,
 // S * bx0 - K/2).
-// Rows in shared memory: stride 1, inputs bx0 - 4 .. bx0 + BX + 3 as whole
-// 16-byte vectors (column = halo x + 4 - K/2); stride 2, the even then the
-// odd halo columns (column = (rx & 1) * XH + rx / 2).
-template <int K, int S, int MT>
+// Rows in shared memory: inputs S * bx0 - 4 .. as whole four-element
+// vectors (column = halo x + 4 - K/2), output positions PSTR columns
+// apart; but float at stride 2 stores the even then the odd halo columns
+// (column = (rx & 1) * XH + rx / 2), since two floats apart two lanes of
+// a fragment load would share a bank (two bf16 apart they do not).
+template <int K, int S, int MT, class T = float>
 struct Tile {
   static constexpr int WX = S == 1 ? 4 : 1, WY = kWarps / WX;
   static constexpr int BY = WY * MT, BX = 16 * WX, PAD = K / 2;
   static constexpr int EY = S * (BY - 1) + K, EX = S * (BX - 1) + K;
   static constexpr int XH = (EX + 1) / 2;
-  static constexpr int XS = S == 2 ? 2 * XH : BX + 8;
-  static constexpr int NV = XS / 4;                 // 16-byte vectors a row
+  static constexpr bool SPLIT = S == 2 && sizeof(T) == 4;  // parity halves
+  static constexpr int PSTR = SPLIT ? 1 : S;
+  static constexpr int XS = SPLIT ? 2 * XH : S * BX + 8;
+  static constexpr int NV = XS / 4;                 // vectors a row
   static constexpr int PS = tc::pad_to(EY * XS, 8); // channel plane stride
-  static_assert(S == 2 || EX + 4 - PAD <= XS, "stride-1 row fits");
+  static_assert(SPLIT || EX + 4 - PAD <= XS, "row fits");
   static __device__ __forceinline__ int xcol(int rx) {
-    return S == 2 ? (rx & 1) * XH + (rx >> 1) : rx + 4 - PAD;
+    return SPLIT ? (rx & 1) * XH + (rx >> 1) : rx + 4 - PAD;
   }
 };
 
-template <int K, int S, int MT, int NTB>
+template <int K, int S, int MT, int NTB, class T>
 struct Cfg {
-  using T = Tile<K, S, MT>;
+  using T_ = Tile<K, S, MT, T>;
+  using E = tc::Elem<T>;
   static constexpr int NW = 8 * NTB;                // channels per block
   static constexpr int NPS = tc::weight_stride(NW); // B loads: t*NPS + g
-  static constexpr int X_FLOATS = kCiChunk * T::PS;
+  // a chunk's staged tile, CK planes of PS elements, in 4-byte words
+  static constexpr int X_FLOATS = E::CK * T_::PS * (int)sizeof(T) / 4;
   static constexpr int W_FLOATS = K * K * kCiChunk * NPS;
   static constexpr int STAGE = X_FLOATS + W_FLOATS;
+  static_assert(E::CK * sizeof(T) == 32, "a chunk is 32 bytes a position");
 };
 
-// Channels [c0, c0 + 8) of the halo tile of sample n into s (plane stride
-// PS): zero outside the image and for channels >= C. vec (stride 1, rows
-// of x 16-byte aligned): whole rows of 16-byte vectors; else one float a
-// thread and step.
-template <int K, int S, int MT>
-__device__ __forceinline__ void load_tile(float* s, const float* x, int n,
-                                          int c0, int C, int H, int W,
-                                          int by0, int bx0, bool vec) {
-  using T = Tile<K, S, MT>;
-  const int iy0 = S * by0 - T::PAD;
-  if (S == 1 && vec) {
-    const int gx0 = bx0 - 4;
-    constexpr int total = kCiChunk * T::EY * T::NV;
+// Channels [c0, c0 + CK) of the halo tile of sample n into s (plane
+// stride PS): zero outside the image and for channels >= C. vec (rows kept
+// whole, rows of x aligned for whole vectors): whole rows of four-element
+// vectors; else one element a thread and step.
+template <int K, int S, int MT, class T>
+__device__ __forceinline__ void load_tile(T* s, const T* x, int n, int c0,
+                                          int C, int H, int W, int by0,
+                                          int bx0, bool vec) {
+  using Tl = Tile<K, S, MT, T>;
+  constexpr int CK = tc::Elem<T>::CK;
+  const int iy0 = S * by0 - Tl::PAD;
+  if (!Tl::SPLIT && vec) {
+    const int gx0 = S * bx0 - 4;
+    constexpr int total = CK * Tl::EY * Tl::NV;
     for (int e = threadIdx.x; e < total; e += tc::kThreads) {
-      const int v = e % T::NV;
-      const int r = e / T::NV;
-      const int ry = r % T::EY, c = r / T::EY;
+      const int v = e % Tl::NV;
+      const int r = e / Tl::NV;
+      const int ry = r % Tl::EY, c = r / Tl::EY;
       const int gy = iy0 + ry, gx = gx0 + 4 * v;
       const int nx = (c0 + c < C && gy >= 0 && gy < H && gx >= 0)
                          ? min(4, max(0, W - gx))
                          : 0;
-      const float* src =
+      const T* src =
           nx ? x + (((long long)n * C + c0 + c) * H + gy) * W + gx : x;
-      tc::cp_async16(s + c * T::PS + ry * T::XS + 4 * v, src, 4 * nx);
+      tc::cp_async_vec(s + c * Tl::PS + ry * Tl::XS + 4 * v, src, nx);
     }
     return;
   }
-  const int ix0 = S * bx0 - T::PAD;
-  constexpr int total = kCiChunk * T::EY * T::EX;
+  const int ix0 = S * bx0 - Tl::PAD;
+  constexpr int total = CK * Tl::EY * Tl::EX;
   for (int e = threadIdx.x; e < total; e += tc::kThreads) {
-    const int rx = e % T::EX;
-    const int r = e / T::EX;
-    const int ry = r % T::EY, c = r / T::EY;
+    const int rx = e % Tl::EX;
+    const int r = e / Tl::EX;
+    const int ry = r % Tl::EY, c = r / Tl::EY;
     const int gy = iy0 + ry, gx = ix0 + rx;
     const bool ok =
         c0 + c < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    const float* src =
+    const T* src =
         ok ? x + (((long long)n * C + c0 + c) * H + gy) * W + gx : x;
-    tc::cp_async4(s + c * T::PS + ry * T::XS + T::xcol(rx), src, ok);
+    tc::stage_one(s + c * Tl::PS + ry * Tl::XS + Tl::xcol(rx), src, ok);
   }
 }
 
 // B fragment of tap `tap` (b0: row t, b1: row t + 4; column g of n-tile
-// nt), split hi + lo.
-template <int NPS>
-__device__ __forceinline__ void load_b(uint32_t (&bh)[2], uint32_t (&bl)[2],
-                                       const float* sw, int tap, int nt,
-                                       int g, int t) {
-  const float* wp = sw + (tap * kCiChunk + t) * NPS + nt * 8 + g;
-  tc::split_tf32(wp[0], bh[0], bl[0]);
-  tc::split_tf32(wp[4 * NPS], bh[1], bl[1]);
+// nt).
+template <class T, int NPS>
+__device__ __forceinline__ typename tc::Elem<T>::B load_b(const float* sw,
+                                                          int tap, int nt,
+                                                          int g, int t) {
+  return tc::Elem<T>::load_b(sw + (tap * kCiChunk + t) * NPS + nt * 8 + g,
+                             NPS);
 }
 
-// A fragment at smem row `row`, x column `col` (row g / g + 8 = x, column
-// t / t + 4 = input channel), split hi + lo.
-template <int XS, int PS>
-__device__ __forceinline__ void load_a(uint32_t (&ah)[4], uint32_t (&al)[4],
-                                       const float* sx, int row, int col,
-                                       int g, int t) {
-  const float* ap = sx + row * XS + col + t * PS + g;
-  tc::split_tf32(ap[0], ah[0], al[0]);
-  tc::split_tf32(ap[8], ah[1], al[1]);
-  tc::split_tf32(ap[4 * PS], ah[2], al[2]);
-  tc::split_tf32(ap[4 * PS + 8], ah[3], al[3]);
+// A fragment at smem row `row`, x column `col` (row g / g + 8 = x, PSTR
+// columns apart; the channels of the lane per tc::Elem).
+template <int XS, int PS, int PSTR, class T>
+__device__ __forceinline__ typename tc::Elem<T>::A load_a(const T* sx,
+                                                          int row, int col,
+                                                          int g, int t) {
+  return tc::Elem<T>::template load_a<PSTR>(sx + row * XS + col, PS, g, t);
 }
 
 // The K x K taps of one staged chunk: acc[mt][nt] += window(tap) x w[tap].
 // Stride 1: per tap column kx, the K B fragments stay in registers and the
-// warp walks its MT + K - 1 halo rows; each row's A fragment is loaded and
-// split once and feeds every (output row mt, tap row ky) with mt + ky =
-// that row (up to K of them). Stride 2: per tap, the MT rows' fragments.
-// Short MMA chains flushed into acc after each tap column (stride 1) or
-// each tap row (stride 2).
-template <int K, int S, int MT, int NTB>
+// warp walks its MT + K - 1 halo rows; each row's A fragment is loaded
+// (and split) once and feeds every (output row mt, tap row ky) with mt +
+// ky = that row (up to K of them). Stride 2: per tap, the MT rows'
+// fragments. Short MMA chains flushed into acc after each tap column
+// (stride 1) or each tap row (stride 2).
+template <int K, int S, int MT, int NTB, class T, int SS>
 __device__ __forceinline__ void chunk_mma(float (&acc)[MT][NTB][4],
-                                          float (&part)[MT][NTB][3][4],
-                                          const float* sx, const float* sw,
+                                          float (&part)[MT][NTB][SS][4],
+                                          const T* sx, const float* sw,
                                           int wy, int wx, int g, int t) {
-  using C = Cfg<K, S, MT, NTB>;
-  using T = typename C::T;
+  using C = Cfg<K, S, MT, NTB, T>;
+  using Tl = typename C::T_;
+  using E = typename C::E;
   if constexpr (S == 1) {
 #pragma unroll
     for (int kx = 0; kx < K; ++kx) {
-      uint32_t bh[K][NTB][2], bl[K][NTB][2];
+      typename E::B b[K][NTB];
 #pragma unroll
       for (int ky = 0; ky < K; ++ky)
 #pragma unroll
         for (int nt = 0; nt < NTB; ++nt)
-          load_b<C::NPS>(bh[ky][nt], bl[ky][nt], sw, ky * K + kx, nt, g, t);
+          b[ky][nt] = load_b<T, C::NPS>(sw, ky * K + kx, nt, g, t);
 #pragma unroll
       for (int z = 0; z < MT + K - 1; ++z) {
-        uint32_t ah[4], al[4];
-        load_a<T::XS, T::PS>(ah, al, sx, wy * MT + z,
-                             16 * wx + kx + 4 - T::PAD, g, t);
+        const typename E::A a = load_a<Tl::XS, Tl::PS, 1>(
+            sx, wy * MT + z, 16 * wx + kx + 4 - Tl::PAD, g, t);
 #pragma unroll
         for (int ky = 0; ky < K; ++ky) {
           const int mt = z - ky;
           if (mt >= 0 && mt < MT) {
 #pragma unroll
             for (int nt = 0; nt < NTB; ++nt)
-              tc::mma_3xtf32(part[mt][nt], ah, al, bh[ky][nt], bl[ky][nt]);
+              E::mma(part[mt][nt], a, b[ky][nt]);
           }
         }
       }
@@ -344,19 +386,17 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[MT][NTB][4],
     for (int ky = 0; ky < K; ++ky) {
 #pragma unroll
       for (int kx = 0; kx < K; ++kx) {
-        uint32_t bh[NTB][2], bl[NTB][2];
+        typename E::B b[NTB];
 #pragma unroll
         for (int nt = 0; nt < NTB; ++nt)
-          load_b<C::NPS>(bh[nt], bl[nt], sw, ky * K + kx, nt, g, t);
-        const int col = (kx & 1) * T::XH + (kx >> 1) + 16 * wx;
+          b[nt] = load_b<T, C::NPS>(sw, ky * K + kx, nt, g, t);
+        const int col = Tl::xcol(S * 16 * wx + kx);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          uint32_t ah[4], al[4];
-          load_a<T::XS, T::PS>(ah, al, sx, S * (wy * MT + mt) + ky, col, g,
-                               t);
+          const typename E::A a = load_a<Tl::XS, Tl::PS, Tl::PSTR>(
+              sx, S * (wy * MT + mt) + ky, col, g, t);
 #pragma unroll
-          for (int nt = 0; nt < NTB; ++nt)
-            tc::mma_3xtf32(part[mt][nt], ah, al, bh[nt], bl[nt]);
+          for (int nt = 0; nt < NTB; ++nt) E::mma(part[mt][nt], a, b[nt]);
         }
       }
       tc::flush(acc, part);
@@ -366,13 +406,13 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[MT][NTB][4],
 
 // acc: C fragment (row g / g + 8 = x position, col 2t / 2t + 1 = co) of
 // output rows oy0 + mt, columns ox0 + [0, 16). In [N, H, W, Co] the two
-// channels of a lane are one 8-byte store.
-template <int MT, int NTB>
+// channels of a lane are one 8-byte (bf16: 4-byte) store.
+template <int MT, int NTB, class T>
 __device__ __forceinline__ void store_tile(
     const float (&acc)[MT][NTB][4], const float* __restrict__ scale,
-    const float* __restrict__ shift, const float* __restrict__ up,
-    float* __restrict__ out, int n, int oy0, int ox0, int co0, int Co,
-    int Ho, int Wo, int relu, int nhwc, int g, int t) {
+    const float* __restrict__ shift, const T* __restrict__ up,
+    T* __restrict__ out, int n, int oy0, int ox0, int co0, int Co, int Ho,
+    int Wo, int relu, int nhwc, int g, int t) {
   const int Hu = Ho / 2, Wu = Wo / 2;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -389,17 +429,19 @@ __device__ __forceinline__ void store_tile(
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = min(co + e, Co - 1);
-          r[e] = acc[mt][nt][2 * h + e];
-          if (scale != nullptr) r[e] *= scale[c];
-          if (shift != nullptr) r[e] += shift[c];
-          if (relu) r[e] = fmaxf(r[e], 0.f);
-          if (up != nullptr)
-            r[e] += up[(((long long)n * Co + c) * Hu + oy / 2) * Wu + ox / 2];
+          r[e] = epilogue(acc[mt][nt][2 * h + e], scale, shift, relu, up,
+                          (((long long)n * Co + c) * Hu + oy / 2) * Wu +
+                              ox / 2,
+                          c);
         }
         const long long pix = ((long long)n * Ho + oy) * Wo + ox;
         if (nhwc && co + 1 < Co && Co % 2 == 0) {
-          *reinterpret_cast<float2*>(out + pix * Co + co) =
-              make_float2(r[0], r[1]);
+          if constexpr (sizeof(T) == 4)
+            *reinterpret_cast<float2*>(out + pix * Co + co) =
+                make_float2(r[0], r[1]);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(out + pix * Co + co) =
+                __floats2bfloat162_rn(r[0], r[1]);
           continue;
         }
 #pragma unroll
@@ -407,15 +449,15 @@ __device__ __forceinline__ void store_tile(
           if (co + e >= Co) continue;
           out[nhwc ? pix * Co + co + e
                    : (((long long)n * Co + co + e) * Ho + oy) * Wo + ox] =
-              r[e];
+              from_f32<T>(r[e]);
         }
       }
   }
 }
 
-template <int MT, int NTB>
+template <int MT, int NTB, int SS>
 __device__ __forceinline__ void zero(float (&acc)[MT][NTB][4],
-                                     float (&part)[MT][NTB][3][4]) {
+                                     float (&part)[MT][NTB][SS][4]) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -424,45 +466,48 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NTB][4],
       for (int i = 0; i < 4; ++i) {
         acc[mt][nt][i] = 0.f;
 #pragma unroll
-        for (int k = 0; k < 3; ++k) part[mt][nt][k][i] = 0.f;
+        for (int k = 0; k < SS; ++k) part[mt][nt][k][i] = 0.f;
       }
 }
 
 // Two blocks per SM: the compiler keeps each thread within 128 registers.
 constexpr int kMinBlocks = 2;
 
-template <int K, int S, int MT, int NTB>
+template <int K, int S, int MT, int NTB, class T>
 __global__ void __launch_bounds__(tc::kThreads, kMinBlocks)
-conv2d_tc(const float* __restrict__ x, const float* __restrict__ wt,
+conv2d_tc(const T* __restrict__ x, const void* __restrict__ wt,
           const float* __restrict__ scale, const float* __restrict__ shift,
-          const float* __restrict__ up, float* __restrict__ out, int Ci,
-          int Hi, int Wi, int Co, int Ho, int Wo, int relu, int nhwc,
-          int nby, int nbx, int vec) {
-  using C = Cfg<K, S, MT, NTB>;
-  using T = typename C::T;
+          const T* __restrict__ up, T* __restrict__ out, int Ci, int Hi,
+          int Wi, int Co, int Ho, int Wo, int relu, int nhwc, int nby,
+          int nbx, int vec) {
+  using C = Cfg<K, S, MT, NTB, T>;
+  using Tl = typename C::T_;
+  using E = typename C::E;
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wx = warp % T::WX, wy = warp / T::WX;
+  const int wx = warp % Tl::WX, wy = warp / Tl::WX;
   int b = blockIdx.x;
-  const int bx0 = (b % nbx) * T::BX;
+  const int bx0 = (b % nbx) * Tl::BX;
   b /= nbx;
-  const int by0 = (b % nby) * T::BY;
+  const int by0 = (b % nby) * Tl::BY;
   const int n = b / nby;
   const int co0 = blockIdx.y * C::NW;
 
-  float acc[MT][NTB][4], part[MT][NTB][3][4];
+  float acc[MT][NTB][4], part[MT][NTB][E::S][4];
   zero(acc, part);
-  const int nch = (Ci + kCiChunk - 1) / kCiChunk;
+  const int nch = (Ci + E::CK - 1) / E::CK;
   auto stage = [&](int ch) -> float* {
     return smem + (nch > 1 ? (ch & 1) * C::STAGE : 0);
   };
   auto load = [&](int ch) {
     float* s = stage(ch);
-    load_tile<K, S, MT>(s, x, n, ch * kCiChunk, Ci, Hi, Wi, by0, bx0, vec);
+    load_tile<K, S, MT>(reinterpret_cast<T*>(s), x, n, ch * E::CK, Ci, Hi,
+                        Wi, by0, bx0, vec);
     tc::load_weights<K * K, C::NW, C::NPS>(
         s + C::X_FLOATS,
-        wt + ((long long)blockIdx.y * nch + ch) * K * K * kCiChunk * C::NW);
+        static_cast<const uint32_t*>(wt) +
+            ((long long)blockIdx.y * nch + ch) * K * K * kCiChunk * C::NW);
     tc::cp_async_commit();
   };
 
@@ -475,9 +520,9 @@ conv2d_tc(const float* __restrict__ x, const float* __restrict__ wt,
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    const float* sx = stage(ch);
-    chunk_mma<K, S, MT, NTB>(acc, part, sx, sx + C::X_FLOATS, wy, wx, g,
-                             t);
+    const float* st = stage(ch);
+    chunk_mma<K, S, MT, NTB>(acc, part, reinterpret_cast<const T*>(st),
+                             st + C::X_FLOATS, wy, wx, g, t);
     __syncthreads();
   }
   store_tile(acc, scale, shift, up, out, n, by0 + wy * MT, bx0 + 16 * wx,
@@ -485,34 +530,36 @@ conv2d_tc(const float* __restrict__ x, const float* __restrict__ wt,
 }
 
 // The lateral head: out = conv3x3(sum) with sum = nearest_x2(up) +
-// (inner . lat + bi), formed per 8-channel chunk of sum in shared memory
-// and never written. up [N, Cu, H/2, W/2], lat [N, Cl, H, W] (Cl <= 8),
-// wi [Cu, Cl], bi [Cu]; the sum's rounding is the direct kernel's for
-// the 1x1 conv with its up-add: fma over ci in order, + bi, + up. Each
-// thread forms whole halo positions: the 8 lateral channels in registers,
-// then the chunk's 8 sums.
-template <int MT, int NTB>
+// (inner . lat + bi), formed per chunk of sum in shared memory and never
+// written. up [N, Cu, H/2, W/2], lat [N, Cl, H, W] (Cl <= 8), wi [Cu, Cl],
+// bi [Cu]; the sum's rounding is the direct kernel's for the 1x1 conv
+// with its up-add: fma over ci in order, + bi, (bf16: rounded,) + up
+// (bf16: rounded again as the staged operand). Each thread forms whole
+// halo positions: the 8 lateral channels in registers, then the chunk's
+// CK sums.
+template <int MT, int NTB, class T>
 __global__ void __launch_bounds__(tc::kThreads, kMinBlocks)
-lateral_conv2d_tc(const float* __restrict__ up, const float* __restrict__ lat,
-                  const float* __restrict__ wi, const float* __restrict__ bi,
-                  const float* __restrict__ wt, float* __restrict__ out,
-                  int Cu, int Cl, int H, int W, int Co, int nhwc, int nby,
-                  int nbx, int vec) {
-  using C = Cfg<3, 1, MT, NTB>;
-  using T = typename C::T;
+lateral_conv2d_tc(const T* __restrict__ up, const T* __restrict__ lat,
+                  const T* __restrict__ wi, const float* __restrict__ bi,
+                  const void* __restrict__ wt, T* __restrict__ out, int Cu,
+                  int Cl, int H, int W, int Co, int nhwc, int nby, int nbx,
+                  int vec) {
+  using C = Cfg<3, 1, MT, NTB, T>;
+  using Tl = typename C::T_;
+  constexpr int CK = C::E::CK;
   extern __shared__ __align__(16) float smem[];
-  float* s_lat = smem;                               // [8][PS]
-  float* sx = s_lat + C::X_FLOATS;                   // [8][PS]
-  float* sw = sx + C::X_FLOATS;                      // [9][8][NPS]
+  T* s_lat = reinterpret_cast<T*>(smem);             // [CK][PS]
+  T* sx = reinterpret_cast<T*>(smem + C::X_FLOATS);  // [CK][PS]
+  float* sw = smem + 2 * C::X_FLOATS;                // [9][8][NPS]
   float* s_wi = sw + C::W_FLOATS;                    // [Cu][8]
   float* s_bi = s_wi + Cu * kCiChunk;                // [Cu]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wx = warp % T::WX, wy = warp / T::WX;
+  const int wx = warp % Tl::WX, wy = warp / Tl::WX;
   int b = blockIdx.x;
-  const int bx0 = (b % nbx) * T::BX;
+  const int bx0 = (b % nbx) * Tl::BX;
   b /= nbx;
-  const int by0 = (b % nby) * T::BY;
+  const int by0 = (b % nby) * Tl::BY;
   const int n = b / nby;
   const int co0 = blockIdx.y * C::NW;
   const int iy0 = by0 - 1, ix0 = bx0 - 1;
@@ -523,38 +570,39 @@ lateral_conv2d_tc(const float* __restrict__ up, const float* __restrict__ lat,
   tc::cp_async_commit();
   for (int i = threadIdx.x; i < Cu * kCiChunk; i += tc::kThreads) {
     const int c = i / kCiChunk, ci = i % kCiChunk;
-    s_wi[i] = ci < Cl ? wi[c * Cl + ci] : 0.f;
+    s_wi[i] = ci < Cl ? to_f32(wi[c * Cl + ci]) : 0.f;
   }
   for (int i = threadIdx.x; i < Cu; i += tc::kThreads)
     s_bi[i] = bi != nullptr ? bi[i] : 0.f;
 
-  float acc[MT][NTB][4], part[MT][NTB][3][4];
+  float acc[MT][NTB][4], part[MT][NTB][C::E::S][4];
   zero(acc, part);
-  const int nch = (Cu + kCiChunk - 1) / kCiChunk;
+  const int nch = (Cu + CK - 1) / CK;
   for (int ch = 0; ch < nch; ++ch) {
     __syncthreads();              // the last chunk's MMAs are done with sx
     tc::load_weights<9, C::NW, C::NPS>(
-        sw, wt + ((long long)blockIdx.y * nch + ch) * 9 * kCiChunk * C::NW);
+        sw, static_cast<const uint32_t*>(wt) +
+                ((long long)blockIdx.y * nch + ch) * 9 * kCiChunk * C::NW);
     tc::cp_async_commit();
     if (ch == 0) {
       tc::cp_async_wait<1>();     // the lateral tile has landed
       __syncthreads();
     }
-    const int c0 = ch * kCiChunk;
-    for (int e = threadIdx.x; e < T::EY * T::EX; e += tc::kThreads) {
-      const int rx = e % T::EX, ry = e / T::EX;
+    const int c0 = ch * CK;
+    for (int e = threadIdx.x; e < Tl::EY * Tl::EX; e += tc::kThreads) {
+      const int rx = e % Tl::EX, ry = e / Tl::EX;
       const int gy = iy0 + ry, gx = ix0 + rx;
-      const int off = ry * T::XS + T::xcol(rx);
-      float v[kCiChunk];
+      const int off = ry * Tl::XS + Tl::xcol(rx);
+      float v[CK];
       if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
         float l[kCiChunk];
 #pragma unroll
-        for (int ci = 0; ci < kCiChunk; ++ci) l[ci] = s_lat[ci * T::PS + off];
-        const float* upp =
-            up + ((long long)n * Cu + c0) * up_plane +
-            (long long)(gy >> 1) * Wu + (gx >> 1);
+        for (int ci = 0; ci < kCiChunk; ++ci)
+          l[ci] = to_f32(s_lat[ci * Tl::PS + off]);
+        const T* upp = up + ((long long)n * Cu + c0) * up_plane +
+                       (long long)(gy >> 1) * Wu + (gx >> 1);
 #pragma unroll
-        for (int c = 0; c < kCiChunk; ++c) {
+        for (int c = 0; c < CK; ++c) {
           v[c] = 0.f;
           if (c0 + c < Cu) {
             const float* wc = s_wi + (c0 + c) * kCiChunk;
@@ -562,22 +610,23 @@ lateral_conv2d_tc(const float* __restrict__ up, const float* __restrict__ lat,
 #pragma unroll
             for (int ci = 0; ci < kCiChunk; ++ci) a = fmaf(l[ci], wc[ci], a);
             a += s_bi[c0 + c];
-            v[c] = a + __ldg(upp + c * up_plane);
+            v[c] = round_to<T>(a) + to_f32(__ldg(upp + c * up_plane));
           }
         }
       } else {
 #pragma unroll
-        for (int c = 0; c < kCiChunk; ++c) v[c] = 0.f;
+        for (int c = 0; c < CK; ++c) v[c] = 0.f;
       }
 #pragma unroll
-      for (int c = 0; c < kCiChunk; ++c) sx[c * T::PS + off] = v[c];
+      for (int c = 0; c < CK; ++c) sx[c * Tl::PS + off] = from_f32<T>(v[c]);
     }
     tc::cp_async_wait<0>();
     __syncthreads();
-    chunk_mma<3, 1, MT, NTB>(acc, part, sx, sw, wy, wx, g, t);
+    chunk_mma<3, 1, MT, NTB>(acc, part, static_cast<const T*>(sx), sw, wy,
+                             wx, g, t);
   }
-  store_tile(acc, nullptr, nullptr, nullptr, out, n, by0 + wy * MT,
-             bx0 + 16 * wx, co0, Co, H, W, 0, nhwc, g, t);
+  store_tile(acc, nullptr, nullptr, static_cast<const T*>(nullptr), out, n,
+             by0 + wy * MT, bx0 + 16 * wx, co0, Co, H, W, 0, nhwc, g, t);
 }
 
 template <class Kern>
@@ -586,42 +635,43 @@ cudaError_t allow(Kern* kern, size_t bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// Every block's 16-byte row vectors need 16-byte aligned rows of x.
-int vec_rows(const float* x, int W) {
-  return W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+// Every block's row vectors need rows of x aligned to a vector's bytes.
+template <class T>
+int vec_rows(const T* x, int W) {
+  return W % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
 }
 
-template <int K, int S, int MT, int NTB>
-cudaError_t launch_tc(const float* x, const float* w, const float* scale,
-                      const float* shift, const float* up, float* out,
-                      float* wt, int N, int Ci, int Hi, int Wi, int Co,
-                      int Ho, int Wo, int relu, int nhwc, cudaStream_t s) {
-  using C = Cfg<K, S, MT, NTB>;
-  const int nch = (Ci + kCiChunk - 1) / kCiChunk;
+template <int K, int S, int MT, int NTB, class T>
+cudaError_t launch_tc(const T* x, const T* w, const float* scale,
+                      const float* shift, const T* up, T* out, void* wt,
+                      int N, int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
+                      int relu, int nhwc, cudaStream_t s) {
+  using C = Cfg<K, S, MT, NTB, T>;
+  const int nch = (Ci + C::E::CK - 1) / C::E::CK;
   const size_t smem = sizeof(float) * C::STAGE * (nch > 1 ? 2 : 1);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = allow(conv2d_tc<K, S, MT, NTB>, smem);
+  cudaError_t err = allow(conv2d_tc<K, S, MT, NTB, T>, smem);
   if (err != cudaSuccess) return err;
   err = tc::prep(w, wt, Ci, Co, K * K, C::NW, s);
   if (err != cudaSuccess) return err;
-  const int nby = (Ho + C::T::BY - 1) / C::T::BY;
-  const int nbx = (Wo + C::T::BX - 1) / C::T::BX;
+  const int nby = (Ho + C::T_::BY - 1) / C::T_::BY;
+  const int nbx = (Wo + C::T_::BX - 1) / C::T_::BX;
   const long long blocks = (long long)N * nby * nbx;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   dim3 grid((unsigned)blocks, (unsigned)((Co + C::NW - 1) / C::NW));
-  conv2d_tc<K, S, MT, NTB><<<grid, tc::kThreads, smem, s>>>(
+  conv2d_tc<K, S, MT, NTB, T><<<grid, tc::kThreads, smem, s>>>(
       x, wt, scale, shift, up, out, Ci, Hi, Wi, Co, Ho, Wo, relu, nhwc, nby,
-      nbx, S == 1 ? vec_rows(x, Wi) : 0);
+      nbx, C::T_::SPLIT ? 0 : vec_rows(x, Wi));
   return cudaGetLastError();
 }
 
 // The tiles ops/conv2d.py's TILES lists for each (K, S): (MT, NTB).
-template <int K, int S>
-cudaError_t by_tile(int mt, int ntb, const float* x, const float* w,
-                    const float* scale, const float* shift, const float* up,
-                    float* out, float* wt, int N, int Ci, int Hi, int Wi,
-                    int Co, int Ho, int Wo, int relu, int nhwc,
-                    cudaStream_t s) {
+template <int K, int S, class T>
+cudaError_t by_tile(int mt, int ntb, const T* x, const T* w,
+                    const float* scale, const float* shift, const T* up,
+                    T* out, void* wt, int N, int Ci, int Hi, int Wi, int Co,
+                    int Ho, int Wo, int relu, int nhwc, cudaStream_t s) {
 #define CONV2D_TILE(M, B)                                                  \
   if (mt == M && ntb == B)                                                 \
     return launch_tc<K, S, M, B>(x, w, scale, shift, up, out, wt, N, Ci,   \
@@ -638,28 +688,60 @@ cudaError_t by_tile(int mt, int ntb, const float* x, const float* w,
   return cudaErrorInvalidValue;
 }
 
-template <int MT, int NTB>
-cudaError_t launch_lateral(const float* up, const float* lat,
-                           const float* wi, const float* bi, const float* w,
-                           float* out, float* wt, int N, int Cu, int Cl,
-                           int H, int W, int Co, int nhwc, cudaStream_t s) {
-  using C = Cfg<3, 1, MT, NTB>;
+template <class T>
+cudaError_t tensor_cores(const T* x, const T* w, const float* scale,
+                         const float* shift, const T* up, T* out, void* wt,
+                         int N, int Ci, int Hi, int Wi, int Co, int Ho,
+                         int Wo, int K, int stride, int relu, int nhwc,
+                         int mt, int ntb, cudaStream_t s) {
+  if (K == 3 && stride == 1)
+    return by_tile<3, 1>(mt, ntb, x, w, scale, shift, up, out, wt, N, Ci, Hi,
+                         Wi, Co, Ho, Wo, relu, nhwc, s);
+  if (K == 5 && stride == 2)
+    return by_tile<5, 2>(mt, ntb, x, w, scale, shift, up, out, wt, N, Ci, Hi,
+                         Wi, Co, Ho, Wo, relu, nhwc, s);
+  return cudaErrorInvalidValue;
+}
+
+template <int MT, int NTB, class T>
+cudaError_t launch_lateral(const T* up, const T* lat, const T* wi,
+                           const float* bi, const T* w, T* out, void* wt,
+                           int N, int Cu, int Cl, int H, int W, int Co,
+                           int nhwc, cudaStream_t s) {
+  using C = Cfg<3, 1, MT, NTB, T>;
   const size_t smem =
       sizeof(float) * (2 * C::X_FLOATS + C::W_FLOATS + Cu * (kCiChunk + 1));
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = allow(lateral_conv2d_tc<MT, NTB>, smem);
+  cudaError_t err = allow(lateral_conv2d_tc<MT, NTB, T>, smem);
   if (err != cudaSuccess) return err;
   err = tc::prep(w, wt, Cu, Co, 9, C::NW, s);
   if (err != cudaSuccess) return err;
-  const int nby = (H + C::T::BY - 1) / C::T::BY;
-  const int nbx = (W + C::T::BX - 1) / C::T::BX;
+  const int nby = (H + C::T_::BY - 1) / C::T_::BY;
+  const int nbx = (W + C::T_::BX - 1) / C::T_::BX;
   const long long blocks = (long long)N * nby * nbx;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   dim3 grid((unsigned)blocks, (unsigned)((Co + C::NW - 1) / C::NW));
-  lateral_conv2d_tc<MT, NTB><<<grid, tc::kThreads, smem, s>>>(
+  lateral_conv2d_tc<MT, NTB, T><<<grid, tc::kThreads, smem, s>>>(
       up, lat, wi, bi, wt, out, Cu, Cl, H, W, Co, nhwc, nby, nbx,
       vec_rows(lat, W));
   return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t lateral(const T* up, const T* lat, const T* wi, const float* bi,
+                    const T* w, T* out, void* wt, int N, int Cu, int Cl,
+                    int H, int W, int Co, int nhwc, int mt, int ntb,
+                    cudaStream_t s) {
+  if (Cl < 1 || Cl > kCiChunk || H % 2 || W % 2) return cudaErrorInvalidValue;
+#define LATERAL_TILE(M, B)                                                 \
+  if (mt == M && ntb == B)                                                 \
+    return launch_lateral<M, B>(up, lat, wi, bi, w, out, wt, N, Cu, Cl, H, \
+                                W, Co, nhwc, s);
+  LATERAL_TILE(4, 1)
+  LATERAL_TILE(2, 1)
+  LATERAL_TILE(1, 1)
+#undef LATERAL_TILE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -671,38 +753,22 @@ extern "C" int conv2d_f32(const float* x, const float* w, const float* scale,
                           int N, int Ci, int Hi, int Wi, int Co, int Ho,
                           int Wo, int K, int stride, int pad, int relu,
                           int nhwc, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (K) {
-    case 1: return (int)dispatch_co<1>(x, w, scale, shift, up, out, N, Ci, Hi,
-                                       Wi, Co, Ho, Wo, stride, pad, relu,
-                                       nhwc, s);
-    case 3: return (int)dispatch_co<3>(x, w, scale, shift, up, out, N, Ci, Hi,
-                                       Wi, Co, Ho, Wo, stride, pad, relu,
-                                       nhwc, s);
-    case 5: return (int)dispatch_co<5>(x, w, scale, shift, up, out, N, Ci, Hi,
-                                       Wi, Co, Ho, Wo, stride, pad, relu,
-                                       nhwc, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)direct(x, w, scale, shift, up, out, N, Ci, Hi, Wi, Co, Ho, Wo,
+                     K, stride, pad, relu, nhwc, (cudaStream_t)stream);
 }
 
 // The tensor-core route: (K, stride) in {(3, 1), (5, 2)}, padding K / 2;
 // (mt, ntb) one of ops/conv2d.py's TILES; wt: scratch of ceil(Co / 8ntb)
-// * ceil(Ci / 8) * K * K * 8 * 8ntb floats.
+// * ceil(Ci / 8) * K * K * 8 * 8ntb words.
 extern "C" int conv2d_tc_f32(const float* x, const float* w,
                              const float* scale, const float* shift,
-                             const float* up, float* out, float* wt, int N,
+                             const float* up, float* out, void* wt, int N,
                              int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
                              int K, int stride, int relu, int nhwc, int mt,
                              int ntb, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (K == 3 && stride == 1)
-    return (int)by_tile<3, 1>(mt, ntb, x, w, scale, shift, up, out, wt, N,
-                              Ci, Hi, Wi, Co, Ho, Wo, relu, nhwc, s);
-  if (K == 5 && stride == 2)
-    return (int)by_tile<5, 2>(mt, ntb, x, w, scale, shift, up, out, wt, N,
-                              Ci, Hi, Wi, Co, Ho, Wo, relu, nhwc, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)tensor_cores(x, w, scale, shift, up, out, wt, N, Ci, Hi, Wi,
+                           Co, Ho, Wo, K, stride, relu, nhwc, mt, ntb,
+                           (cudaStream_t)stream);
 }
 
 // The lateral head (3x3, padding 1): up [N, Cu, H/2, W/2], lat [N, Cl, H,
@@ -711,19 +777,41 @@ extern "C" int conv2d_tc_f32(const float* x, const float* w,
 // ops/conv2d.py's LATERAL_TILES.
 extern "C" int lateral_conv2d_f32(const float* up, const float* lat,
                                   const float* wi, const float* bi,
-                                  const float* w, float* out, float* wt,
+                                  const float* w, float* out, void* wt,
                                   int N, int Cu, int Cl, int H, int W, int Co,
                                   int nhwc, int mt, int ntb, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (Cl < 1 || Cl > kCiChunk || H % 2 || W % 2)
-    return (int)cudaErrorInvalidValue;
-#define LATERAL_TILE(M, B)                                                 \
-  if (mt == M && ntb == B)                                                 \
-    return (int)launch_lateral<M, B>(up, lat, wi, bi, w, out, wt, N, Cu,   \
-                                     Cl, H, W, Co, nhwc, s);
-  LATERAL_TILE(4, 1)
-  LATERAL_TILE(2, 1)
-  LATERAL_TILE(1, 1)
-#undef LATERAL_TILE
-  return (int)cudaErrorInvalidValue;
+  return (int)lateral(up, lat, wi, bi, w, out, wt, N, Cu, Cl, H, W, Co, nhwc,
+                      mt, ntb, (cudaStream_t)stream);
+}
+
+// The bf16 instances of the three entries above: x, w, up, lat, wi and out
+// bf16; scale, shift and bi float32; the tensor-core scratch wt holds
+// ceil(Co / 8ntb) * ceil(Ci / 16) * K * K * 8 * 8ntb words.
+extern "C" int conv2d_bf16(const bf16* x, const bf16* w, const float* scale,
+                           const float* shift, const bf16* up, bf16* out,
+                           int N, int Ci, int Hi, int Wi, int Co, int Ho,
+                           int Wo, int K, int stride, int pad, int relu,
+                           int nhwc, void* stream) {
+  return (int)direct(x, w, scale, shift, up, out, N, Ci, Hi, Wi, Co, Ho, Wo,
+                     K, stride, pad, relu, nhwc, (cudaStream_t)stream);
+}
+
+extern "C" int conv2d_tc_bf16(const bf16* x, const bf16* w,
+                              const float* scale, const float* shift,
+                              const bf16* up, bf16* out, void* wt, int N,
+                              int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
+                              int K, int stride, int relu, int nhwc, int mt,
+                              int ntb, void* stream) {
+  return (int)tensor_cores(x, w, scale, shift, up, out, wt, N, Ci, Hi, Wi,
+                           Co, Ho, Wo, K, stride, relu, nhwc, mt, ntb,
+                           (cudaStream_t)stream);
+}
+
+extern "C" int lateral_conv2d_bf16(const bf16* up, const bf16* lat,
+                                   const bf16* wi, const float* bi,
+                                   const bf16* w, bf16* out, void* wt, int N,
+                                   int Cu, int Cl, int H, int W, int Co,
+                                   int nhwc, int mt, int ntb, void* stream) {
+  return (int)lateral(up, lat, wi, bi, w, out, wt, N, Cu, Cl, H, W, Co, nhwc,
+                      mt, ntb, (cudaStream_t)stream);
 }

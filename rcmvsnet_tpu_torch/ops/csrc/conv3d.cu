@@ -1,5 +1,11 @@
-// 3x3x3 convolution of the cost-volume U-Net (float32) on Hopper's tensor
-// cores: an implicit GEMM, M = output positions, N = Co, K = 27 * Ci.
+// 3x3x3 convolution of the cost-volume U-Net on Hopper's tensor cores: an
+// implicit GEMM, M = output positions, N = Co, K = 27 * Ci. Two instances
+// of one template: float32 (3xTF32 products) and bfloat16 (the bf16 eval
+// path: bf16 x, w and skip, one bf16 m16n8k16 product per multiply-add,
+// float32 accumulation, bias, ReLU and skip add, the output rounded to
+// bf16 once; the prob head writes float32), as pallas_costreg.conv_lanes
+// computes at compute_dtype bf16 (:356-379, the skip upcast and added
+// before the output cast, :379).
 //
 // Replaces the TPU kernels rcmvsnet_tpu/ops/pallas_costreg.py conv_lanes
 // (_conv_lanes_kernel, _conv_lanes_k9_kernel, composed by costreg_lanes;
@@ -22,21 +28,25 @@
 // Layouts: x [N, Ci, Di, Hi, Wi]; w [Co, Ci, 27] (for mode 2 the caller
 // hands the ConvTranspose3d weight [Ci, Co, 3, 3, 3] transposed to
 // [Co, Ci, 27]), laid out per block group and chunk by prep_weights into
-// the caller's scratch wt; bias [Co]; skip and out [N, Co, Do, Ho, Wo].
+// the caller's scratch wt; bias [Co] float32; skip and out [N, Co, Do,
+// Ho, Wo].
 //
 // Design. A block (8 warps) owns a brick of MT x 8 x 16 base positions
 // (warp w: the MT rows of 16 x positions at y = w, one m16 tile each) and
 // NTB n8 tiles of output channels (Co padded with zeros to a multiple of
 // 8; blocks along gridDim.y cover the rest); in mode 2 it computes all 8
 // parity classes of its brick. Per 8-channel chunk of Ci it stages the
-// halo brick (16-byte row vectors in modes 0 and 2) and the chunk's
+// halo brick (16-byte row vectors in modes 0 and 2; bf16: 8-byte ones
+// in every mode) and the chunk's
 // weights [tap][ci][co] (laid out once per call by prep_weights) in shared
-// memory with cp.async, double-buffered so the next chunk loads while the
-// tensor cores work on this one. The 27 taps read shifted windows of that
+// memory with cp.async (bf16: 16 channels a chunk, the same bytes),
+// double-buffered so the next chunk loads while the tensor cores work on
+// this one. The 27 taps read shifted windows of that
 // one brick: an input value leaves device memory once per block, not once
 // per tap. In mode 0 each halo row is split once per (ky, kx) and feeds
 // every (tile, kz) that reads it. Products are 3xTF32 m16n8k8 MMAs into
-// three accumulators, flushed every 9 taps (tc_conv3d.cuh).
+// three accumulators (bf16: one m16n8k16 MMA into one), flushed every 9
+// taps (tc_conv3d.cuh).
 //
 // Bound: at these widths (Ci, Co 1..64) the MMAs are small (k = 8 per
 // chunk and tap), so staging, fragment loads and the hi/lo splits on the
@@ -52,97 +62,86 @@ namespace {
 
 using namespace tc;
 
-template <int MODE, int MT, int NTB>
+template <int MODE, int MT, int NTB, class T>
 struct Cfg {
+  using E = Elem<T>;
   static constexpr int BZ = MT, BY = kWarps;
   static constexpr int NCLS = MODE == 2 ? 8 : 1;    // parity classes
-  using Hl = Halo<MODE, BZ, BY>;
+  using Hl = Halo<MODE, BZ, BY, T>;
   static constexpr int PS = pad_to(Hl::PLANE, 8);   // A loads: t*PS + g
   static constexpr int NW = 8 * NTB;                // channels per block
   static constexpr int NPS = weight_stride(NW);     // B loads: t*NPS + g
-  static constexpr int X_FLOATS = kCiChunk * PS;
+  // a chunk's staged input, CK planes of PS elements, in 4-byte words
+  static constexpr int X_FLOATS = E::CK * PS * (int)sizeof(T) / 4;
   static constexpr int STAGE = X_FLOATS + 27 * kCiChunk * NPS;
   static constexpr size_t SMEM = 2 * STAGE * sizeof(float);
+  static_assert(E::CK * sizeof(T) == 32, "a chunk is 32 bytes a position");
 };
 
 // One tap of one chunk: acc[mt][nt] += window(rz, ry, xc) x w[tap].
 // (rz0, ry) is the halo-brick row of the warp's first tile for this tap,
 // dz the row step between its tiles, xc the smem column of x position 0.
-template <int MODE, int MT, int NTB>
-__device__ __forceinline__ void tap_mma(float (&acc)[MT][NTB][3][4],
-                                        const float* sx, const float* sw,
+template <int MODE, int MT, int NTB, class T, int S>
+__device__ __forceinline__ void tap_mma(float (&acc)[MT][NTB][S][4],
+                                        const T* sx, const float* sw,
                                         int tap, int rz0, int dz, int ry,
                                         int xc, int g, int t) {
-  using C = Cfg<MODE, MT, NTB>;
+  using C = Cfg<MODE, MT, NTB, T>;
+  using E = typename C::E;
   using Hl = typename C::Hl;
-  uint32_t bh[NTB][2], bl[NTB][2];
+  typename E::B b[NTB];
 #pragma unroll
-  for (int nt = 0; nt < NTB; ++nt) {
-    const float* wp = sw + (tap * kCiChunk + t) * C::NPS + nt * 8 + g;
-    split_tf32(wp[0], bh[nt][0], bl[nt][0]);
-    split_tf32(wp[4 * C::NPS], bh[nt][1], bl[nt][1]);
-  }
+  for (int nt = 0; nt < NTB; ++nt)
+    b[nt] = E::load_b(sw + (tap * kCiChunk + t) * C::NPS + nt * 8 + g,
+                      C::NPS);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    const float* ap =
-        sx + ((rz0 + mt * dz) * Hl::EY + ry) * Hl::XS + xc + t * C::PS + g;
-    uint32_t ah[4], al[4];
-    split_tf32(ap[0], ah[0], al[0]);
-    split_tf32(ap[8], ah[1], al[1]);
-    split_tf32(ap[4 * C::PS], ah[2], al[2]);
-    split_tf32(ap[4 * C::PS + 8], ah[3], al[3]);
+    const typename E::A a = E::template load_a<Hl::PSTR>(
+        sx + ((rz0 + mt * dz) * Hl::EY + ry) * Hl::XS + xc, C::PS, g, t);
 #pragma unroll
-    for (int nt = 0; nt < NTB; ++nt)
-      mma_3xtf32(acc[mt][nt], ah, al, bh[nt], bl[nt]);
+    for (int nt = 0; nt < NTB; ++nt) E::mma(acc[mt][nt], a, b[nt]);
   }
 }
 
 // Mode 0, one (ky, kx) for all kz: the warp's MT tiles sit at z = mt, so
 // tile mt with tap kz reads halo row z = mt + kz. Each of the MT + 2 rows
-// is loaded and split once and feeds every (mt, kz) that reads it.
-template <int MT, int NTB>
-__device__ __forceinline__ void s1_column(float (&part)[MT][NTB][3][4],
-                                          const float* sx, const float* sw,
+// is loaded (and split) once and feeds every (mt, kz) that reads it.
+template <int MT, int NTB, class T, int S>
+__device__ __forceinline__ void s1_column(float (&part)[MT][NTB][S][4],
+                                          const T* sx, const float* sw,
                                           int ky, int kx, int warp, int g,
                                           int t) {
-  using C = Cfg<0, MT, NTB>;
+  using C = Cfg<0, MT, NTB, T>;
+  using E = typename C::E;
   using Hl = typename C::Hl;
-  uint32_t bh[3][NTB][2], bl[3][NTB][2];
+  typename E::B b[3][NTB];
 #pragma unroll
   for (int kz = 0; kz < 3; ++kz)
 #pragma unroll
-    for (int nt = 0; nt < NTB; ++nt) {
-      const float* wp =
-          sw + ((kz * 9 + ky * 3 + kx) * kCiChunk + t) * C::NPS + nt * 8 + g;
-      split_tf32(wp[0], bh[kz][nt][0], bl[kz][nt][0]);
-      split_tf32(wp[4 * C::NPS], bh[kz][nt][1], bl[kz][nt][1]);
-    }
+    for (int nt = 0; nt < NTB; ++nt)
+      b[kz][nt] = E::load_b(
+          sw + ((kz * 9 + ky * 3 + kx) * kCiChunk + t) * C::NPS + nt * 8 + g,
+          C::NPS);
 #pragma unroll
   for (int z = 0; z < MT + 2; ++z) {
-    const float* ap = sx + (z * Hl::EY + warp + ky) * Hl::XS + Hl::xcol(kx) +
-                      t * C::PS + g;
-    uint32_t ah[4], al[4];
-    split_tf32(ap[0], ah[0], al[0]);
-    split_tf32(ap[8], ah[1], al[1]);
-    split_tf32(ap[4 * C::PS], ah[2], al[2]);
-    split_tf32(ap[4 * C::PS + 8], ah[3], al[3]);
+    const typename E::A a = E::load_a(
+        sx + (z * Hl::EY + warp + ky) * Hl::XS + Hl::xcol(kx), C::PS, g, t);
 #pragma unroll
     for (int kz = 0; kz < 3; ++kz) {
       const int mt = z - kz;
       if (mt >= 0 && mt < MT) {
 #pragma unroll
-        for (int nt = 0; nt < NTB; ++nt)
-          mma_3xtf32(part[mt][nt], ah, al, bh[kz][nt], bl[kz][nt]);
+        for (int nt = 0; nt < NTB; ++nt) E::mma(part[mt][nt], a, b[kz][nt]);
       }
     }
   }
 }
 
 // The taps of parity class CLS (mode 2) into part, then flushed to acc.
-template <int MT, int NTB, int CLS>
+template <int MT, int NTB, int CLS, class T, int S>
 __device__ __forceinline__ void class_taps(float (&acc)[MT][NTB][4],
-                                           float (&part)[MT][NTB][3][4],
-                                           const float* sx, const float* sw,
+                                           float (&part)[MT][NTB][S][4],
+                                           const T* sx, const float* sw,
                                            int warp, int g, int t) {
   constexpr int pz = CLS >> 2, py = (CLS >> 1) & 1, px = CLS & 1;
 #pragma unroll
@@ -158,22 +157,26 @@ __device__ __forceinline__ void class_taps(float (&acc)[MT][NTB][4],
         int kx, ox;
         t2_tap(px, ix, kx, ox);
         tap_mma<2, MT, NTB>(part, sx, sw, kz * 9 + ky * 3 + kx, oz, 1,
-                            warp + oy, Halo<2, MT, kWarps>::xcol(ox), g, t);
+                            warp + oy, Cfg<2, MT, NTB, T>::Hl::xcol(ox), g,
+                            t);
       }
     }
   }
   flush(acc, part);
 }
 
-template <int MODE, int MT, int NTB>
+// T: the element type of x, w and the staged operands; TO: of skip and
+// out (float for the bf16 instance's prob head).
+template <int MODE, int MT, int NTB, class T, class TO>
 __global__ void __launch_bounds__(kThreads)
-conv3d_tc(const float* __restrict__ x, const float* __restrict__ wt,
-          const float* __restrict__ bias, const float* __restrict__ skip,
-          float* __restrict__ out, int Ci, int Di, int Hi, int Wi, int Co,
+conv3d_tc(const T* __restrict__ x, const void* __restrict__ wt,
+          const float* __restrict__ bias, const TO* __restrict__ skip,
+          TO* __restrict__ out, int Ci, int Di, int Hi, int Wi, int Co,
           int Do, int Ho, int Wo, int relu, int nbz, int nby, int nbx,
           int vec) {
-  using C = Cfg<MODE, MT, NTB>;
-  using Hl = typename C::Hl;
+  using C = Cfg<MODE, MT, NTB, T>;
+  using E = typename C::E;
+  constexpr int S = E::S;
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -188,9 +191,9 @@ conv3d_tc(const float* __restrict__ x, const float* __restrict__ wt,
   const int co0 = blockIdx.y * C::NW;
 
   // acc: the float32 totals (one per parity class); part: the MMAs of at
-  // most 9 taps, one accumulator per 3xTF32 product, before they are
-  // flushed into acc
-  float acc[C::NCLS][MT][NTB][4], part[MT][NTB][3][4];
+  // most 9 taps, one accumulator per product of a step (3xTF32: 3), before
+  // they are flushed into acc
+  float acc[C::NCLS][MT][NTB][4], part[MT][NTB][S][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -198,20 +201,22 @@ conv3d_tc(const float* __restrict__ x, const float* __restrict__ wt,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) part[mt][nt][k][i] = 0.f;
+        for (int k = 0; k < S; ++k) part[mt][nt][k][i] = 0.f;
 #pragma unroll
         for (int k = 0; k < C::NCLS; ++k) acc[k][mt][nt][i] = 0.f;
       }
 
-  const int nch = (Ci + kCiChunk - 1) / kCiChunk;
+  const int nch = (Ci + E::CK - 1) / E::CK;
   auto stage = [&](int ch) -> float* { return smem + (ch & 1) * C::STAGE; };
   auto load = [&](int ch) {
     float* s = stage(ch);
-    load_halo<MODE, C::BZ, C::BY, C::PS>(s, x, n, ch * kCiChunk, Ci, Di, Hi,
-                                         Wi, bz0, by0, bx0, vec);
+    load_halo<MODE, C::BZ, C::BY, C::PS>(reinterpret_cast<T*>(s), x, n,
+                                         ch * E::CK, Ci, Di, Hi, Wi, bz0,
+                                         by0, bx0, vec);
     load_weights<27, C::NW, C::NPS>(
         s + C::X_FLOATS,
-        wt + ((long long)blockIdx.y * nch + ch) * 27 * kCiChunk * C::NW);
+        static_cast<const uint32_t*>(wt) +
+            ((long long)blockIdx.y * nch + ch) * 27 * kCiChunk * C::NW);
     cp_async_commit();
   };
 
@@ -224,8 +229,8 @@ conv3d_tc(const float* __restrict__ x, const float* __restrict__ wt,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* sx = stage(ch);
-    const float* sw = sx + C::X_FLOATS;
+    const T* sx = reinterpret_cast<const T*>(stage(ch));
+    const float* sw = stage(ch) + C::X_FLOATS;
     if constexpr (MODE == 0) {
       // s1: row z = mt + kz, y = warp + ky, x = r + kx; flush every 9 taps
 #pragma unroll 1
@@ -244,7 +249,7 @@ conv3d_tc(const float* __restrict__ x, const float* __restrict__ wt,
 #pragma unroll
           for (int kx = 0; kx < 3; ++kx) {
             tap_mma<MODE, MT, NTB>(part, sx, sw, kz * 9 + ky * 3 + kx, kz,
-                                   2, 2 * warp + ky, Hl::xcol(kx), g, t);
+                                   2, 2 * warp + ky, C::Hl::xcol(kx), g, t);
           }
         }
         flush(acc[0], part);
@@ -262,7 +267,8 @@ conv3d_tc(const float* __restrict__ x, const float* __restrict__ wt,
     __syncthreads();
   }
 
-  // epilogue: C fragment (row g / g + 8 = x position, col 2t / 2t + 1)
+  // epilogue: C fragment (row g / g + 8 = x position, col 2t / 2t + 1),
+  // float32 throughout, rounded to TO at the store
 #pragma unroll
   for (int cls = 0; cls < C::NCLS; ++cls) {
     const int pz = cls >> 2, py = (cls >> 1) & 1, px = cls & 1;
@@ -284,22 +290,22 @@ conv3d_tc(const float* __restrict__ x, const float* __restrict__ wt,
               ((((long long)n * Co + co) * Do + oz) * Ho + oy) * Wo + ox;
           float r = acc[cls][mt][nt][i] + bias[co];
           if (relu) r = fmaxf(r, 0.f);
-          if (skip != nullptr) r += skip[o];
-          out[o] = r;
+          if (skip != nullptr) r += to_f32(skip[o]);
+          out[o] = from_f32<TO>(r);
         }
       }
     }
   }
 }
 
-template <int MODE, int MT, int NTB>
-cudaError_t launch(const float* x, const float* w, const float* bias,
-                   const float* skip, float* out, float* wt, int N, int Ci,
-                   int Di, int Hi, int Wi, int Co, int Do, int Ho, int Wo,
-                   int relu, cudaStream_t stream) {
-  using C = Cfg<MODE, MT, NTB>;
+template <int MODE, int MT, int NTB, class T, class TO>
+cudaError_t launch(const T* x, const T* w, const float* bias, const TO* skip,
+                   TO* out, void* wt, int N, int Ci, int Di, int Hi, int Wi,
+                   int Co, int Do, int Ho, int Wo, int relu,
+                   cudaStream_t stream) {
+  using C = Cfg<MODE, MT, NTB, T>;
   static_assert(C::SMEM <= 227 * 1024, "shared memory per block");
-  auto kern = conv3d_tc<MODE, MT, NTB>;
+  auto kern = conv3d_tc<MODE, MT, NTB, T, TO>;
   static bool smem_set = false;
   cudaError_t err = allow_smem(kern, C::SMEM, smem_set);
   if (err != cudaSuccess) return err;
@@ -312,8 +318,9 @@ cudaError_t launch(const float* x, const float* w, const float* bias,
   err = prep(w, wt, Ci, Co, 27, C::NW, stream);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)bricks, (unsigned)((Co + C::NW - 1) / C::NW));
-  // 16-byte row vectors need 16-byte aligned rows of x
-  const int vec = Wi % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  // four-element row vectors need rows of x aligned to a vector's bytes
+  const int vec = C::Hl::VEC && Wi % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
   kern<<<grid, kThreads, C::SMEM, stream>>>(x, wt, bias, skip, out, Ci, Di,
                                             Hi, Wi, Co, Do, Ho, Wo, relu,
                                             nbz, nby, nbx, vec);
@@ -321,11 +328,11 @@ cudaError_t launch(const float* x, const float* w, const float* bias,
 }
 
 // The tiles ops/conv3d.py's TILES lists for each mode: (MT, NTB).
-template <int MODE>
-cudaError_t by_tile(int mt, int ntb, const float* x, const float* w,
-                    const float* bias, const float* skip, float* out,
-                    float* wt, int N, int Ci, int Di, int Hi, int Wi, int Co,
-                    int Do, int Ho, int Wo, int relu, cudaStream_t s) {
+template <int MODE, class T, class TO>
+cudaError_t by_tile(int mt, int ntb, const T* x, const T* w,
+                    const float* bias, const TO* skip, TO* out, void* wt,
+                    int N, int Ci, int Di, int Hi, int Wi, int Co, int Do,
+                    int Ho, int Wo, int relu, cudaStream_t s) {
 #define CONV3D_TILE(M, B)                                                   \
   if (mt == M && ntb == B)                                                  \
     return launch<MODE, M, B>(x, w, bias, skip, out, wt, N, Ci, Di, Hi, Wi, \
@@ -346,26 +353,55 @@ cudaError_t by_tile(int mt, int ntb, const float* x, const float* w,
   return cudaErrorInvalidValue;
 }
 
+template <class T, class TO>
+cudaError_t by_mode(int mode, int mt, int ntb, const T* x, const T* w,
+                    const float* bias, const TO* skip, TO* out, void* wt,
+                    int N, int Ci, int Di, int Hi, int Wi, int Co, int Do,
+                    int Ho, int Wo, int relu, cudaStream_t s) {
+  switch (mode) {
+    case 0: return by_tile<0>(mt, ntb, x, w, bias, skip, out, wt, N, Ci, Di,
+                              Hi, Wi, Co, Do, Ho, Wo, relu, s);
+    case 1: return by_tile<1>(mt, ntb, x, w, bias, skip, out, wt, N, Ci, Di,
+                              Hi, Wi, Co, Do, Ho, Wo, relu, s);
+    case 2: return by_tile<2>(mt, ntb, x, w, bias, skip, out, wt, N, Ci, Di,
+                              Hi, Wi, Co, Do, Ho, Wo, relu, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // mode: 0 stride 1, 1 stride 2, 2 transposed (see above). skip may be null.
 // mt, ntb: the block tile (rows of 16 x positions per warp, n8 channel
 // tiles per block), one of ops/conv3d.py's TILES[mode]. wt: scratch for
 // the prepared weights, ceil(Co / 8ntb) * ceil(Ci / 8) * 27 * 8 * 8ntb
-// floats.
+// words.
 extern "C" int conv3d_f32(const float* x, const float* w, const float* bias,
-                          const float* skip, float* out, float* wt, int N,
+                          const float* skip, float* out, void* wt, int N,
                           int Ci, int Di, int Hi, int Wi, int Co, int Do,
                           int Ho, int Wo, int mode, int relu, int mt, int ntb,
                           void* stream) {
+  return (int)by_mode(mode, mt, ntb, x, w, bias, skip, out, wt, N, Ci, Di,
+                      Hi, Wi, Co, Do, Ho, Wo, relu, (cudaStream_t)stream);
+}
+
+// The bf16 instance: x, w bf16; bias float32; skip and out bf16, or with
+// out_f32 (mode 0 only: the prob head) out float32 and no skip. wt:
+// ceil(Co / 8ntb) * ceil(Ci / 16) * 27 * 8 * 8ntb words.
+extern "C" int conv3d_bf16(const bf16* x, const bf16* w, const float* bias,
+                           const void* skip, void* out, void* wt, int N,
+                           int Ci, int Di, int Hi, int Wi, int Co, int Do,
+                           int Ho, int Wo, int mode, int relu, int out_f32,
+                           int mt, int ntb, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (mode) {
-    case 0: return (int)by_tile<0>(mt, ntb, x, w, bias, skip, out, wt, N, Ci,
-                                   Di, Hi, Wi, Co, Do, Ho, Wo, relu, s);
-    case 1: return (int)by_tile<1>(mt, ntb, x, w, bias, skip, out, wt, N, Ci,
-                                   Di, Hi, Wi, Co, Do, Ho, Wo, relu, s);
-    case 2: return (int)by_tile<2>(mt, ntb, x, w, bias, skip, out, wt, N, Ci,
-                                   Di, Hi, Wi, Co, Do, Ho, Wo, relu, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (out_f32) {
+    if (mode != 0 || skip != nullptr) return (int)cudaErrorInvalidValue;
+    return (int)by_tile<0>(mt, ntb, x, w, bias,
+                           static_cast<const float*>(nullptr),
+                           static_cast<float*>(out), wt, N, Ci, Di, Hi, Wi,
+                           Co, Do, Ho, Wo, relu, s);
   }
+  return (int)by_mode(mode, mt, ntb, x, w, bias,
+                      static_cast<const bf16*>(skip), static_cast<bf16*>(out),
+                      wt, N, Ci, Di, Hi, Wi, Co, Do, Ho, Wo, relu, s);
 }

@@ -2,14 +2,25 @@
 // 3x3x3 ones (conv3d.cu, K2/K9, and conv3d_dw.cu, K8's weight gradient)
 // and FeatureNet's 2D convs (conv2d.cu, K5).
 //
-// Products: mma.sync.aligned.m16n8k8 with TF32 operands and float32
-// accumulators. The port is float32 end to end and its gates hold each
-// call to 1e-4 of its largest value; one TF32 product (10-bit mantissa)
-// misses that by 3x, so every product is 3xTF32: a = a_hi + a_lo with both
-// halves rounded to TF32 as cvt.rna.tf32.f32 rounds (nearest, ties away;
-// done as an integer add and mask, the same bits on full-rate ALU ops),
-// acc += a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (a_lo*b_lo, ~2^-22 of the
-// product, is dropped).
+// Products, per element type of the staged operands (Elem below):
+//   float: mma.sync.aligned.m16n8k8 with TF32 operands and float32
+//   accumulators. The float32 path's gates hold each call to 1e-4 of its
+//   largest value; one TF32 product (10-bit mantissa) misses that by 3x,
+//   so every product is 3xTF32: a = a_hi + a_lo with both halves rounded
+//   to TF32 as cvt.rna.tf32.f32 rounds (nearest, ties away; done as an
+//   integer add and mask, the same bits on full-rate ALU ops), acc +=
+//   a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (a_lo*b_lo, ~2^-22 of the product,
+//   is dropped).
+//   bf16 (the bfloat16 eval path): mma.sync.aligned.m16n8k16 with bf16
+//   operands and float32 accumulators, one product per multiply-add (a
+//   bf16 x bf16 product is exact in float32), 16 input channels a chunk:
+//   a fragment's 32-bit word holds channels 2j and 2j + 1, so the A word
+//   is packed from two channel planes of the staged tile and the weights
+//   are laid out in channel pairs (prep_weights).
+// A chunk of CK channels is 32 bytes a position in either type (8 floats
+// or 16 bf16), so a stage has the same bytes and planes and rows keep
+// their element strides; the weights are rows of 32-bit words [tap][8
+// rows][NW co] (a row: one float channel, or a bf16 channel pair).
 // Accumulation: the tensor cores add into their float32 accumulators
 // with truncation, so an error of up to ~2^-23 of the running sum per MMA
 // grows with the length of the chain (measured: 2e-4 of the largest dw
@@ -35,9 +46,13 @@
 //   rows are staged as whole 16-byte vectors (s1: inputs bx0 - 4 ..
 //   bx0 + 19, t2: bx0 .. bx0 + 19) with 16-byte cp.async when the rows of
 //   the volume are 16-byte aligned (W % 4 == 0), one float at a time
-//   otherwise.
+//   otherwise. bf16 stages the same four-element vectors with 8-byte
+//   cp.async, its s2 rows too (kept whole: Halo::RAW), and one element at
+//   a time as plain loads and stores where rows are not aligned
+//   (cp.async copies 4 bytes at least).
 #pragma once
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace tc {
@@ -45,7 +60,9 @@ namespace tc {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBX = 16;      // brick width in x
-constexpr int kCiChunk = 8;  // input channels staged at a time (mma k = 8)
+constexpr int kCiChunk = 8;  // float input channels staged at a time
+                             // (mma k = 8); rows of a weight chunk
+using bf16 = __nv_bfloat16;
 
 // Smallest m >= n with m = r (mod 32): the stride between channel planes
 // (or rows) that puts the lanes of one fragment load on distinct banks.
@@ -57,30 +74,42 @@ constexpr int weight_stride(int nw) {
   return (nw % 32 == 8 || nw % 32 == 24) ? nw : nw + 8;
 }
 
-template <int MODE, int BZ, int BY>
+template <int MODE, int BZ, int BY, class T = float>
 struct Halo {
   static constexpr int EZ = MODE == 0 ? BZ + 2 : MODE == 1 ? 2 * BZ + 1 : BZ + 1;
   static constexpr int EY = MODE == 0 ? BY + 2 : MODE == 1 ? 2 * BY + 1 : BY + 1;
   static constexpr int EX = MODE == 0 ? kBX + 2 : MODE == 1 ? 2 * kBX + 1 : kBX + 1;
   static constexpr int XH = kBX + 1;                       // even half (s2)
-  // smem row: s2 two parity halves; s1 inputs bx0 - 4 .. bx0 + 19 and t2
-  // bx0 .. bx0 + 19, whole 16-byte vectors
-  static constexpr int XS = MODE == 1 ? 2 * XH : MODE == 0 ? kBX + 8 : kBX + 4;
-  static_assert(MODE == 1 || (MODE == 0 ? EX + 3 : EX) <= XS, "row fits");
-  static constexpr int NV = XS / 4;                        // 16-byte vectors
+  // bf16 keeps the s2 rows whole (RAW, inputs 2 bx0 - 4 .. 2 bx0 + 35):
+  // the lanes of a bf16 A word then read consecutive 32-bit words two
+  // elements apart (no bank conflict, where two floats apart would put two
+  // lanes on a bank: float splits the row into parity halves), and the row
+  // stages as whole four-element vectors with cp.async
+  static constexpr bool RAW = MODE == 1 && sizeof(T) == 2;
+  static constexpr bool VEC = MODE != 1 || RAW;            // vector rows
+  static constexpr int PSTR = RAW ? 2 : 1;  // columns between positions
+  // smem row: s2 two parity halves (float) or whole (bf16); s1 inputs
+  // bx0 - 4 .. bx0 + 19 and t2 bx0 .. bx0 + 19, whole vectors
+  static constexpr int XS = RAW ? 2 * kBX + 8
+                            : MODE == 1 ? 2 * XH : MODE == 0 ? kBX + 8
+                                                             : kBX + 4;
+  static_assert((MODE == 1 && !RAW) ||
+                    (MODE == 2 ? EX : EX + 3) <= XS, "row fits");
+  static constexpr int NV = XS / 4;                        // vectors a row
   static constexpr int PLANE = EZ * EY * XS;
 
   // brick-relative x (input origin(bx0) + rx) -> column in the smem row
   static __device__ __forceinline__ int xcol(int rx) {
-    return MODE == 1 ? (rx & 1) * XH + (rx >> 1) : MODE == 0 ? rx + 3 : rx;
+    return MODE == 1 && !RAW ? (rx & 1) * XH + (rx >> 1)
+                             : MODE == 2 ? rx : rx + 3;
   }
   // first input index of the halo brick for base origin b0
   static __device__ __forceinline__ int origin(int b0) {
     return MODE == 0 ? b0 - 1 : MODE == 1 ? 2 * b0 - 1 : b0;
   }
-  // first input x of the staged row (modes 0 and 2): column 0
+  // first input x of the staged row (VEC rows): column 0
   static __device__ __forceinline__ int row_origin(int bx0) {
-    return MODE == 0 ? bx0 - 4 : bx0;
+    return MODE == 0 ? bx0 - 4 : MODE == 1 ? 2 * bx0 - 4 : bx0;
   }
 };
 
@@ -161,6 +190,115 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[S][4],
   mma_tf32(d[2 % S], ah, bh[0], bh[1]);
 }
 
+// d += a * b: m16n8k16, bf16 operands, float32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two bf16 as one 32-bit fragment word, lo in bits 0-15.
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// The operands of one element type. A fragments are read from a staged
+// tile of channel planes (plane stride PS elements) at `base`, the tile's
+// (row 0, channel 0) for the warp's m16 tile; B fragments from a weight
+// chunk's row-of-words layout at `wp`, the lane's (row t, column g).
+// S: the accumulators of a short MMA chain (one per product of a step).
+template <class T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr int CK = kCiChunk;
+  static constexpr int S = 3;
+  struct A { uint32_t h[4], l[4]; };
+  struct B { uint32_t h[2], l[2]; };
+  // row g / g + 8 = position (PSTR columns apart), column t / t + 4 =
+  // channel, split hi + lo
+  template <int PSTR = 1>
+  static __device__ __forceinline__ A load_a(const float* base, int PS,
+                                             int g, int t) {
+    const float* ap = base + t * PS + g * PSTR;
+    A a;
+    split_tf32(ap[0], a.h[0], a.l[0]);
+    split_tf32(ap[8 * PSTR], a.h[1], a.l[1]);
+    split_tf32(ap[4 * PS], a.h[2], a.l[2]);
+    split_tf32(ap[4 * PS + 8 * PSTR], a.h[3], a.l[3]);
+    return a;
+  }
+  // b0: row t, b1: row t + 4, split hi + lo
+  static __device__ __forceinline__ B load_b(const float* wp, int NPS) {
+    B b;
+    split_tf32(wp[0], b.h[0], b.l[0]);
+    split_tf32(wp[4 * NPS], b.h[1], b.l[1]);
+    return b;
+  }
+  template <int SS>
+  static __device__ __forceinline__ void mma(float (&d)[SS][4], const A& a,
+                                             const B& b) {
+    mma_3xtf32<SS>(d, a.h, a.l, b.h, b.l);
+  }
+};
+
+template <>
+struct Elem<bf16> {
+  static constexpr int CK = 2 * kCiChunk;
+  static constexpr int S = 1;
+  struct A { uint32_t v[4]; };
+  struct B { uint32_t v[2]; };
+  // row g / g + 8 = position (PSTR columns apart); word j holds channels
+  // 2t, 2t + 1 (j = 0, 1) or 2t + 8, 2t + 9 (j = 2, 3), each pair from
+  // two adjacent planes
+  template <int PSTR = 1>
+  static __device__ __forceinline__ A load_a(const bf16* base, int PS,
+                                             int g, int t) {
+    constexpr int R8 = 8 * PSTR;
+    const bf16* ap = base + 2 * t * PS + g * PSTR;
+    A a;
+    a.v[0] = pack_bf16(ap[0], ap[PS]);
+    a.v[1] = pack_bf16(ap[R8], ap[PS + R8]);
+    a.v[2] = pack_bf16(ap[8 * PS], ap[9 * PS]);
+    a.v[3] = pack_bf16(ap[8 * PS + R8], ap[9 * PS + R8]);
+    return a;
+  }
+  // b0: pair row t (channels 2t, 2t + 1), b1: pair row t + 4
+  static __device__ __forceinline__ B load_b(const float* wp, int NPS) {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(wp);
+    return B{{w[0], w[4 * NPS]}};
+  }
+  template <int SS>
+  static __device__ __forceinline__ void mma(float (&d)[SS][4], const A& a,
+                                             const B& b) {
+    mma_bf16(d[0], a.v, b.v[0], b.v[1]);
+  }
+};
+
+// An element's value as float, and a float rounded to the element type
+// (round to nearest even, as torch's and JAX's casts round).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+template <class T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// v rounded to T and back: the rounding of an intermediate that the JAX
+// bf16 path stores in bf16 (identity for float)
+template <class T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
 // Asynchronous copies global -> shared; the bytes past `bytes` (all of
 // them when 0, and src is then not read) are written as zeros.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
@@ -175,6 +313,33 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(bytes));
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+// Four consecutive elements (16 bytes of float, 8 of bf16), `n` of them
+// copied (0..4), the rest zero.
+__device__ __forceinline__ void cp_async_vec(float* dst, const float* src,
+                                             int n) {
+  cp_async16(dst, src, 4 * n);
+}
+__device__ __forceinline__ void cp_async_vec(bf16* dst, const bf16* src,
+                                             int n) {
+  cp_async8(dst, src, 2 * n);
+}
+// One element, or zero when !valid (src is then not read): float by
+// cp.async; bf16 by a plain load and store (cp.async copies 4 bytes at
+// least), visible after the barrier that follows a stage's loads.
+__device__ __forceinline__ void stage_one(float* dst, const float* src,
+                                          bool valid) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void stage_one(bf16* dst, const bf16* src,
+                                          bool valid) {
+  *dst = valid ? src[0] : __ushort_as_bfloat16((unsigned short)0);
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -184,11 +349,30 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The weights laid out once per call for the blocks' 16-byte copies:
-// wt[group][chunk][tap][ci 8][NW] (group = co / NW, chunk = ci / 8), zero
-// past Co and Ci, from w [Co, Ci, KK].
+// wt[group][chunk][tap][row 8][NW] 32-bit words (group = co / NW, chunk =
+// ci / CK; a row is channel chunk * 8 + row of a float w, the pair chunk
+// * 16 + 2 row, + 1 of a bf16 w), zero past Co and Ci, from w [Co, Ci,
+// KK].
+__device__ __forceinline__ uint32_t weight_word(const float* w, int co,
+                                                int ci, int Ci, int Co,
+                                                int KK, int tap) {
+  return __float_as_uint(
+      co < Co && ci < Ci ? w[((long long)co * Ci + ci) * KK + tap] : 0.f);
+}
+__device__ __forceinline__ uint32_t weight_word(const bf16* w, int co,
+                                                int ci, int Ci, int Co,
+                                                int KK, int tap) {
+  const bf16 z = __ushort_as_bfloat16((unsigned short)0);
+  const long long o = ((long long)co * Ci + ci) * KK + tap;
+  return pack_bf16(co < Co && ci < Ci ? w[o] : z,
+                   co < Co && ci + 1 < Ci ? w[o + KK] : z);
+}
+
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-prep_weights(const float* __restrict__ w, float* __restrict__ wt, int Ci,
+prep_weights(const T* __restrict__ w, uint32_t* __restrict__ wt, int Ci,
              int Co, int KK, int NW, int nch, long long total) {
+  constexpr int per_row = Elem<T>::CK / kCiChunk;   // channels a row
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   long long r = i / NW;
@@ -198,25 +382,29 @@ prep_weights(const float* __restrict__ w, float* __restrict__ wt, int Ci,
   const int tap = (int)(r % KK);
   r /= KK;
   const int ch = (int)(r % nch), grp = (int)(r / nch);
-  const int co = grp * NW + col, ci = ch * kCiChunk + c;
-  wt[i] = co < Co && ci < Ci ? w[((long long)co * Ci + ci) * KK + tap] : 0.f;
+  const int co = grp * NW + col, ci = ch * Elem<T>::CK + per_row * c;
+  wt[i] = weight_word(w, co, ci, Ci, Co, KK, tap);
 }
 
 // Launch prep_weights for all of w into the caller's scratch wt
-// (ceil(Co / NW) * ceil(Ci / 8) * KK * 8 * NW floats).
-inline cudaError_t prep(const float* w, float* wt, int Ci, int Co, int KK,
-                        int NW, cudaStream_t stream) {
-  const int groups = (Co + NW - 1) / NW, nch = (Ci + kCiChunk - 1) / kCiChunk;
+// (ceil(Co / NW) * ceil(Ci / CK) * KK * 8 * NW words).
+template <class T>
+inline cudaError_t prep(const T* w, void* wt, int Ci, int Co, int KK, int NW,
+                        cudaStream_t stream) {
+  const int groups = (Co + NW - 1) / NW;
+  const int nch = (Ci + Elem<T>::CK - 1) / Elem<T>::CK;
   const long long n = (long long)groups * nch * KK * kCiChunk * NW;
-  prep_weights<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                 stream>>>(w, wt, Ci, Co, KK, NW, nch, n);
+  prep_weights<T><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
+                    stream>>>(w, static_cast<uint32_t*>(wt), Ci, Co, KK, NW,
+                              nch, n);
   return cudaGetLastError();
 }
 
-// One chunk of one group's prepared weights (KK * 8 rows of NW floats)
-// into s[tap][ci][co] with row stride NPS, 16 bytes per copy.
+// One chunk of one group's prepared weights (KK * 8 rows of NW words)
+// into s[tap][row][co] with row stride NPS, 16 bytes per copy.
 template <int KK, int NW, int NPS>
-__device__ __forceinline__ void load_weights(float* s, const float* wt) {
+__device__ __forceinline__ void load_weights(float* s, const void* wt_) {
+  const float* wt = static_cast<const float*>(wt_);
   constexpr int nv = NW / 4, total = KK * kCiChunk * nv;
   for (int e = threadIdx.x; e < total; e += kThreads) {
     const int v = e % nv, r = e / nv;
@@ -224,20 +412,22 @@ __device__ __forceinline__ void load_weights(float* s, const float* wt) {
   }
 }
 
-// Stage channels [c0, c0 + 8) of the halo brick of sample n into s (plane
-// stride PS, row stride XS): zero outside the volume and for channels >=
-// C. vec (modes 0 and 2, rows of the volume 16-byte aligned): whole rows
-// of 16-byte vectors; else one float per thread and step, x fastest.
-template <int MODE, int BZ, int BY, int PS>
-__device__ __forceinline__ void load_halo(float* s, const float* x, int n,
-                                          int c0, int C, int Di, int Hi,
-                                          int Wi, int bz0, int by0, int bx0,
+// Stage channels [c0, c0 + CK) of the halo brick of sample n into s
+// (plane stride PS, row stride XS, in elements): zero outside the volume
+// and for channels >= C. vec (Halo::VEC rows, rows of the volume aligned
+// for whole vectors): whole rows of four-element vectors; else one
+// element per thread and step, x fastest.
+template <int MODE, int BZ, int BY, int PS, class T>
+__device__ __forceinline__ void load_halo(T* s, const T* x, int n, int c0,
+                                          int C, int Di, int Hi, int Wi,
+                                          int bz0, int by0, int bx0,
                                           bool vec) {
-  using Hl = Halo<MODE, BZ, BY>;
+  using Hl = Halo<MODE, BZ, BY, T>;
+  constexpr int CK = Elem<T>::CK;
   const int iz0 = Hl::origin(bz0), iy0 = Hl::origin(by0);
-  if (MODE != 1 && vec) {
+  if (Hl::VEC && vec) {
     const int gx0 = Hl::row_origin(bx0);
-    constexpr int total = kCiChunk * Hl::EZ * Hl::EY * Hl::NV;
+    constexpr int total = CK * Hl::EZ * Hl::EY * Hl::NV;
     for (int e = threadIdx.x; e < total; e += kThreads) {
       const int v = e % Hl::NV;
       int r = e / Hl::NV;
@@ -250,17 +440,17 @@ __device__ __forceinline__ void load_halo(float* s, const float* x, int n,
                       gy < Hi && gx >= 0)
                          ? min(4, max(0, Wi - gx))
                          : 0;
-      const float* src =
+      const T* src =
           nx ? x + ((((long long)n * C + c0 + c) * Di + gz) * Hi + gy) * Wi +
                    gx
              : x;
-      cp_async16(s + c * PS + (rz * Hl::EY + ry) * Hl::XS + 4 * v, src,
-                 4 * nx);
+      cp_async_vec(s + c * PS + (rz * Hl::EY + ry) * Hl::XS + 4 * v, src,
+                   nx);
     }
     return;
   }
   const int ix0 = Hl::origin(bx0);
-  constexpr int total = kCiChunk * Hl::EZ * Hl::EY * Hl::EX;
+  constexpr int total = CK * Hl::EZ * Hl::EY * Hl::EX;
   for (int e = threadIdx.x; e < total; e += kThreads) {
     const int rx = e % Hl::EX;
     int r = e / Hl::EX;
@@ -271,10 +461,10 @@ __device__ __forceinline__ void load_halo(float* s, const float* x, int n,
     const int gz = iz0 + rz, gy = iy0 + ry, gx = ix0 + rx;
     const bool ok = c0 + c < C && gz >= 0 && gz < Di && gy >= 0 && gy < Hi &&
                     gx >= 0 && gx < Wi;
-    const float* src =
+    const T* src =
         ok ? x + ((((long long)n * C + c0 + c) * Di + gz) * Hi + gy) * Wi + gx
            : x;
-    cp_async4(s + c * PS + (rz * Hl::EY + ry) * Hl::XS + Hl::xcol(rx), src,
+    stage_one(s + c * PS + (rz * Hl::EY + ry) * Hl::XS + Hl::xcol(rx), src,
               ok);
   }
 }

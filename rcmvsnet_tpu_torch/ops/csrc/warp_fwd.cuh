@@ -71,13 +71,20 @@ struct FwdLanes {
   static constexpr int S = (NV + L - 1) / L;      // views a lane projects
 };
 
-// The sweep of one block: src [V, H, W, C] (view 0 the reference), rel
-// [V, 16] relative projections, lo / step [H, W]; s_rel holds
-// kMaxViews * 16 floats of shared memory, s_out 2 * rows * PS.
-template <int C, int NV, class Epi>
+// An output element from its float32 value (bf16: rounded to nearest even).
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// The sweep of one block: src [V, H, W, C] (view 0 the reference; float or
+// bf16, sampled by warp::sample_quad's rule for its type), rel [V, 16]
+// relative projections, lo / step [H, W]; s_rel holds kMaxViews * 16
+// floats of shared memory, s_out 2 * rows * PS.
+template <int C, int NV, class Epi, class T>
 __device__ __forceinline__ void fwd_sweep(Epi& epi, float* s_rel,
                                           const float* __restrict__ rel,
-                                          const float* __restrict__ src,
+                                          const T* __restrict__ src,
                                           const float* __restrict__ lo,
                                           const float* __restrict__ step,
                                           float* s_out, int rows, int V,
@@ -94,7 +101,7 @@ __device__ __forceinline__ void fwd_sweep(Epi& epi, float* s_rel,
   const int y = (int)(pix / W);
   const float fx = (float)(pix - (long long)y * W), fy = (float)y;
   const float lo_p = lo[pix], step_p = step[pix];
-  epi.begin(__ldg(reinterpret_cast<const float4*>(src + pix * C) + q));
+  epi.begin(load4(src + pix * C + 4 * q));
   const int nv = V - 1;
 
   // rot * [x, y, 1] of the views this lane projects, once per pixel
@@ -139,7 +146,7 @@ __device__ __forceinline__ void fwd_sweep(Epi& epi, float* s_rel,
     for (int i = threadIdx.x; i < rows * P; i += kFwdThreads) {
       const int r = i / P, jj = i - r * P;
       if (p0 + jj < HW)
-        epi.row(r)[(long long)d * HW + p0 + jj] = so[r * PS + jj];
+        store_out(epi.row(r) + (long long)d * HW + p0 + jj, so[r * PS + jj]);
     }
   }
 }

@@ -1,5 +1,5 @@
 // Fused plane-sweep warp + multi-view variance (float32) and its
-// backward, for Hopper.
+// backward, for Hopper; and the forward's bf16 instance.
 //
 // Forward (K1) replaces the TPU kernel rcmvsnet_tpu/ops/pallas_warp2.py
 // plane_sweep_variance_lanes (planes mode: _warp_var_plane_kernel, coords
@@ -48,6 +48,14 @@
 // (reference first, taps 0..3 with one fma each, then views in order), so
 // the output is the same bit for bit (tools/ab_warp_fwd.py checks builds
 // with torch.equal).
+//
+// bf16 instance (the bf16 eval path, warp_variance_bf16): the same sweep
+// over bf16 feature maps [V, h, w, C] (a lane's 4 channels one 8-byte
+// gather a tap), each bilinear x weight rounded to bf16 before it
+// multiplies the float32 y weight (warp_common.cuh), sums, squares and
+// variance in float32 as above, the variance rounded to bf16 once as it
+// is written: the JAX kernel at compute_dtype = out_dtype = bf16
+// (pallas_warp2.py:228-243, :151).
 //
 // Backward (K6) replaces the backward kernel of
 // rcmvsnet_tpu/ops/pallas_warp_train.py plane_sweep_variance_fused_train
@@ -99,9 +107,11 @@ using warp::kMaxViews;
 
 // K1's epilogue of the forward sweep (warp_fwd.cuh): sum x and sum x^2 start
 // at the reference view, each source view adds its float4, and the plane
-// stages its C variances, one row per channel of out [C, D, h, w].
+// stages its C variances, one row per channel of out [C, D, h, w] (TO:
+// float, or bf16 for the bf16 instance).
+template <class TO>
 struct VarianceEpi {
-  float* out;
+  TO* out;
   float inv_v;
   long long plane;                         // D * h * w
   float4 ref, ref_sq;
@@ -138,22 +148,22 @@ struct VarianceEpi {
           __fsub_rn(__fmul_rn(q4[k], inv_v), __fmul_rn(mean, mean));
     }
   }
-  __device__ float* row(int r) const { return out + r * plane; }
+  __device__ TO* row(int r) const { return out + r * plane; }
 };
 
 // K1: the forward sweep with VarianceEpi; NV bounds the source views
-// (V - 1), the grid is fwd_plan's.
-template <int C, int NV>
+// (V - 1), the grid is fwd_plan's. T: the element type of src and out.
+template <int C, int NV, class T>
 __global__ void __launch_bounds__(warp::kFwdThreads)
-warp_variance_kernel(const float* __restrict__ src,
+warp_variance_kernel(const T* __restrict__ src,
                      const float* __restrict__ rel,
                      const float* __restrict__ lo,
                      const float* __restrict__ step,
-                     float* __restrict__ out,
+                     T* __restrict__ out,
                      int V, int H, int W, int D, int DC) {
   __shared__ float s_rel[kMaxViews * 16];
   __shared__ float s_out[2 * C * warp::FwdLanes<C, NV>::PS];
-  VarianceEpi epi{out, 1.f / (float)V, (long long)D * H * W};
+  VarianceEpi<T> epi{out, 1.f / (float)V, (long long)D * H * W};
   warp::fwd_sweep<C, NV>(epi, s_rel, rel, src, lo, step, s_out, C, V, H, W,
                          D, DC);
 }
@@ -248,21 +258,21 @@ warp_variance_bwd_kernel(const float* __restrict__ src,
   dsrc[pix * C + c] = dref;
 }
 
-template <int C, int NV>
-cudaError_t launch(const float* src, const float* rel, const float* lo,
-                   const float* step, float* out, int V, int H, int W, int D,
+template <int C, int NV, class T>
+cudaError_t launch(const T* src, const float* rel, const float* lo,
+                   const float* step, T* out, int V, int H, int W, int D,
                    cudaStream_t stream) {
   const warp::Plan p = warp::fwd_plan(H, W, C, D);
-  warp_variance_kernel<C, NV>
+  warp_variance_kernel<C, NV, T>
       <<<dim3((unsigned)p.nx, (unsigned)p.nz), warp::kFwdThreads, 0,
          stream>>>(
           src, rel, lo, step, out, V, H, W, D, p.dc);
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_views(const float* src, const float* rel, const float* lo,
-                         const float* step, float* out, int V, int H, int W,
+template <int C, class T>
+cudaError_t launch_views(const T* src, const float* rel, const float* lo,
+                         const float* step, T* out, int V, int H, int W,
                          int D, cudaStream_t s) {
   if (V <= 4) return launch<C, 3>(src, rel, lo, step, out, V, H, W, D, s);
   if (V <= 8) return launch<C, 7>(src, rel, lo, step, out, V, H, W, D, s);
@@ -295,24 +305,37 @@ void launch_bwd_views(const float* src, const float* rel, const float* lo,
                       stream);
 }
 
+template <class T>
+cudaError_t forward(const T* src, const float* rel, const float* lo,
+                    const float* step, T* out, int V, int H, int W, int C,
+                    int D, cudaStream_t s) {
+  if (V < 1 || V > kMaxViews || D < 1 || (long long)H * W < 1)
+    return cudaErrorInvalidValue;
+  switch (C) {
+    case 8: return launch_views<8>(src, rel, lo, step, out, V, H, W, D, s);
+    case 16: return launch_views<16>(src, rel, lo, step, out, V, H, W, D, s);
+    case 32: return launch_views<32>(src, rel, lo, step, out, V, H, W, D, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int warp_variance_f32(const float* src, const float* rel,
                                  const float* lo, const float* step,
                                  float* out, int V, int H, int W, int C,
                                  int D, void* stream) {
-  if (V < 1 || V > kMaxViews || D < 1 || (long long)H * W < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 8: return (int)launch_views<8>(src, rel, lo, step, out, V, H, W, D,
-                                        s);
-    case 16: return (int)launch_views<16>(src, rel, lo, step, out, V, H, W,
-                                          D, s);
-    case 32: return (int)launch_views<32>(src, rel, lo, step, out, V, H, W,
-                                          D, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)forward(src, rel, lo, step, out, V, H, W, C, D,
+                      (cudaStream_t)stream);
+}
+
+// K1's bf16 instance: src [V, H, W, C] and out [C, D, H, W] bf16.
+extern "C" int warp_variance_bf16(const __nv_bfloat16* src, const float* rel,
+                                  const float* lo, const float* step,
+                                  __nv_bfloat16* out, int V, int H, int W,
+                                  int C, int D, void* stream) {
+  return (int)forward(src, rel, lo, step, out, V, H, W, C, D,
+                      (cudaStream_t)stream);
 }
 
 // Bytes of the scratch warp_variance_bwd_f32 takes (any contents).

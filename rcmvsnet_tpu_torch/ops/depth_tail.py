@@ -58,14 +58,22 @@ def photometric_confidence(prob: torch.Tensor) -> torch.Tensor:
 
 def depth_tail_plain(cost: torch.Tensor, lo: torch.Tensor,
                      step: torch.Tensor):
-    """cost [D, h, w]; hypotheses dv(d) = lo + d·step with lo, step
-    [h, w]. Returns (depth, confidence), each [h, w] float32."""
+    """cost [D, h, w] float32 (the bf16 path's prob head writes float32,
+    as the JAX tail takes it); hypotheses dv(d) = lo + d·step with lo,
+    step [h, w]. Returns (depth, confidence), each [h, w] float32."""
+    _float32_cost("depth_tail_plain", cost)
     D = cost.shape[0]
     idx = torch.arange(D, dtype=lo.dtype, device=lo.device)
     dv = lo[None] + idx[:, None, None] * step[None]
     prob = torch.softmax(cost.float(), dim=0)[None]
     return (depth_regression(prob, dv[None])[0],
             photometric_confidence(prob)[0])
+
+
+def _float32_cost(name: str, cost: torch.Tensor) -> None:
+    if cost.dtype != torch.float32:
+        raise TypeError(f"{name}: the cost volume must be float32, got "
+                        f"{cost.dtype}")
 
 
 def _lib():
@@ -81,6 +89,7 @@ def depth_tail(cost: torch.Tensor, lo: torch.Tensor, step: torch.Tensor):
     """Same contract as `depth_tail_plain`; the kernel on a CUDA tensor."""
     if cost.device.type == "cpu":
         return depth_tail_plain(cost, lo, step)
+    _float32_cost("depth_tail", cost)
     D, h, w = cost.shape
     if lo.shape != (h, w) or step.shape != (h, w):
         raise ValueError(f"depth_tail: lo/step [{h}, {w}] required, got "

@@ -16,6 +16,15 @@ bit. `warp_variance_train` wraps the pair in one `torch.autograd.Function`;
 the projections and depth planes get no gradient (the sampling grid carries
 none).
 
+bfloat16 (the bf16 eval path): bf16 feats select the forward's bf16
+instance (counted in `warp_variance.bf16.launches`, the float32 one in
+`warp_variance.launches`):
+the same sweep over bf16 maps, each bilinear x weight rounded to bf16, the
+y weights, Σx and Σx² float32, the variance rounded to bf16, as the JAX
+kernel at its default compute and output dtype bf16. Its plain version
+samples at K1's own coordinates (`ops/warp_view.pixel_coords`) with the
+same weights and sums in K1's order.
+
 Replaces the TPU kernels `rcmvsnet_tpu/ops/pallas_warp2.py`
 `plane_sweep_variance_lanes` (planes mode) and the backward of
 `rcmvsnet_tpu/ops/pallas_warp_train.py` `plane_sweep_variance_fused_train`.
@@ -26,6 +35,7 @@ such precondition.
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
@@ -49,7 +59,10 @@ def warp_variance_plain(feats: torch.Tensor, projs: torch.Tensor,
                         lo: torch.Tensor, step: torch.Tensor,
                         ndepth: int) -> torch.Tensor:
     """feats [V, h, w, C] (view 0 = reference), projs [V, 4, 4], lo/step
-    [h, w] → variance [C, D, h, w] over dv(d) = lo + d·step."""
+    [h, w] → variance [C, D, h, w] over dv(d) = lo + d·step (bf16 feats:
+    a bf16 variance, see the module's note)."""
+    if feats.dtype == torch.bfloat16:
+        return _warp_variance_plain_bf16(feats, projs, lo, step, ndepth)
     idx = torch.arange(ndepth, dtype=lo.dtype, device=lo.device)
     dv = lo[None] + idx[:, None, None] * step[None]               # [D, h, w]
     V = feats.shape[0]
@@ -57,6 +70,50 @@ def warp_variance_plain(feats: torch.Tensor, projs: torch.Tensor,
         feats[:1], [feats[v:v + 1] for v in range(1, V)],
         [projs[v:v + 1] for v in range(1, V)], projs[:1], dv[None])
     return var[0].permute(3, 0, 1, 2).contiguous()
+
+
+def _bilinear_bf16_weights(src: torch.Tensor, px: torch.Tensor,
+                           py: torch.Tensor) -> torch.Tensor:
+    """src [h, w, C] (float32 values of a bf16 map) sampled at pixel
+    coordinates px, py [D, h, w] → [D, h, w, C]: zeros padding per tap,
+    tap k's weight bf16(x weight) · (y weight), taps summed 0..3."""
+    h, w, C = src.shape
+    x0f, y0f = torch.floor(px), torch.floor(py)
+    wx, wy = px - x0f, py - y0f
+    x0, y0 = x0f.long(), y0f.long()
+    flat = src.reshape(h * w, C)
+    out = None
+    for k in range(4):
+        xi, yi = x0 + (k & 1), y0 + (k >> 1)
+        inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        wxk = (wx if k & 1 else 1.0 - wx).to(torch.bfloat16).float()
+        wgt = wxk * (wy if k >> 1 else 1.0 - wy) * inside
+        val = flat[yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)]
+        term = wgt[..., None] * val
+        out = term if out is None else out + term
+    return out
+
+
+def _warp_variance_plain_bf16(feats, projs, lo, step, ndepth):
+    """`warp_variance_plain` for bf16 feats: K1's coordinates, bf16 x
+    weights, float32 sums, the variance rounded to bf16."""
+    from .warp_view import pixel_coords
+    V, h, w, C = feats.shape
+    idx = torch.arange(ndepth, dtype=lo.dtype, device=lo.device)
+    dv = lo[None] + idx[:, None, None] * step[None]               # [D, h, w]
+    rel = relative_projections(projs).reshape(-1, 4, 4)
+    f = feats.float()
+    inv_v = 1.0 / V
+    vol_sum = f[0][None].expand(ndepth, h, w, C)
+    vol_sq = vol_sum * vol_sum
+    for v in range(1, V):
+        px, py = pixel_coords(rel[v:v + 1], dv[None], h, w)
+        x = _bilinear_bf16_weights(f[v], px[0], py[0])
+        vol_sum = vol_sum + x
+        vol_sq = vol_sq + x * x
+    mean = vol_sum * inv_v
+    var = vol_sq * inv_v - mean * mean
+    return var.permute(3, 0, 1, 2).contiguous().to(torch.bfloat16)
 
 
 def warp_variance_bwd_plain(feats: torch.Tensor, projs: torch.Tensor,
@@ -103,24 +160,30 @@ def _check(name, feats, lo, step):
 def warp_variance(feats: torch.Tensor, projs: torch.Tensor,
                   lo: torch.Tensor, step: torch.Tensor,
                   ndepth: int) -> torch.Tensor:
-    """Same contract as `warp_variance_plain`; the kernel on a CUDA tensor."""
+    """Same contract as `warp_variance_plain`; the kernel on a CUDA tensor,
+    the instance of feats' element type."""
     if feats.device.type == "cpu":
         return warp_variance_plain(feats, projs, lo, step, ndepth)
     _check("warp_variance", feats, lo, step)
     V, h, w, C = feats.shape
     rel = relative_projections(projs)
-    _build.require_cuda("warp_variance", feats, rel, lo, step)
-    out = torch.empty((C, ndepth, h, w), dtype=torch.float32,
+    bf16 = feats.dtype == torch.bfloat16
+    if bf16:
+        _build.require_cuda("warp_variance", rel, lo, step, bf16=(feats,))
+    else:
+        _build.require_cuda("warp_variance", feats, rel, lo, step)
+    out = torch.empty((C, ndepth, h, w), dtype=feats.dtype,
                       device=feats.device)
-    err = _lib()(feats.data_ptr(), rel.data_ptr(), lo.data_ptr(),
-                 step.data_ptr(), out.data_ptr(), V, h, w, C, ndepth,
-                 _build.stream_ptr(feats.device))
+    err = _lib("warp_variance_bf16" if bf16 else "warp_variance_f32")(
+        feats.data_ptr(), rel.data_ptr(), lo.data_ptr(), step.data_ptr(),
+        out.data_ptr(), V, h, w, C, ndepth, _build.stream_ptr(feats.device))
     _build.check(err, "warp_variance")
-    warp_variance.launches += 1
+    (warp_variance.bf16 if bf16 else warp_variance).launches += 1
     return out
 
 
 warp_variance.launches = 0
+warp_variance.bf16 = SimpleNamespace(launches=0)
 
 
 def warp_variance_bwd(feats: torch.Tensor, projs: torch.Tensor,

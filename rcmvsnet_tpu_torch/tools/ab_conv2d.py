@@ -15,7 +15,9 @@ eval cascade calls it. Each call runs as the tree's wrapper runs it. The trees t
 `--rounds` rounds (default 2); each time is the smallest of its tree's
 turns (each the median of 7 CUDA-event timings, `tools/timing`), printed
 with the largest, and each result is held to its plain version (1e-4 of
-the largest value) before it is timed. One cuDNN call per conv (TF32 off)
+the largest value) and to the first tree's result in every bit
+(`torch.equal`; the tool exits non-zero after its report where one
+differs) before it is timed. One cuDNN call per conv (TF32 off)
 is timed once. Each tree's build prints the registers ptxas gave each
 of its direct kernels (`-Xptxas -v`).
 
@@ -62,8 +64,8 @@ def load_tree(root: Path, alias: str) -> SimpleNamespace:
 
 
 def direct_registers(log: str) -> dict:
-    """{"K<k> CO_T<c> <layout>": registers} of the direct kernels in one
-    build's ptxas report (a first-port instance, with no layout
+    """{"K<k> CO_T<c> <layout>": registers} of the float32 direct kernels
+    in one build's ptxas report (a first-port instance, with no layout
     parameter, writes NCHW)."""
     out, name = {}, None
     for line in log.splitlines():
@@ -71,8 +73,8 @@ def direct_registers(log: str) -> dict:
         if m:
             name = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
-        k = name and re.search(r"conv2d_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)E)?",
-                               name)
+        k = (name and "bfloat16" not in name and re.search(
+            r"conv2d_kernelILi(\d+)ELi(\d+)E(?:Lb(\d)E)?", name))
         if m and k:
             layout = "nhwc" if k.group(3) == "1" else "nchw"
             out[f"K{k.group(1)} CO_T{k.group(2)} {layout}"] = int(m.group(1))
@@ -145,6 +147,12 @@ def _err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def _equal(got, ref) -> bool:
+    if isinstance(got, dict):
+        return all(_equal(got[k], ref[k]) for k in ref)
+    return torch.equal(got, ref)
+
+
 def run(device, roots, rounds=2) -> dict:
     """{label: [least ms of each tree (None where a tree lacks the
     form)]}, every turn's ms, cuDNN's ms per conv and the totals of the 13
@@ -177,14 +185,19 @@ def run(device, roots, rounds=2) -> dict:
                 a[0], a[1], stride=k.get("stride", 1),
                 padding=k.get("padding", 0)))
         per_tree = [tree_calls(t, calls, lateral, net) for t in trees]
-        checked = set()
+        checked, first = set(), {}
+        same = {}
         for i in turns(len(trees), rounds):
             for label, (fk, fp) in per_tree[i].items():
                 if (i, label) not in checked:
-                    err = _err(fk(), fp())
+                    got = fk()
+                    err = _err(got, fp())
                     if not err <= 1e-4:
                         raise AssertionError(f"{roots[i]} {label}: error "
                                              f"{err:.2e}")
+                    ref = first.setdefault(label, got)
+                    same.setdefault(label, [None] * len(trees))[i] = _equal(
+                        got, ref)
                     checked.add((i, label))
                 row = turn_ms.setdefault(label, [[] for _ in trees])
                 row[i].append(timer(fk))
@@ -194,14 +207,16 @@ def run(device, roots, rounds=2) -> dict:
     lib = lambda v: f"{v:8.3f}" if v is not None else "       -"
     for label, row in turn_ms.items():
         print(f"{label:28s} " + "  ".join(fmt(t) for t in row)
-              + f"  cudnn {lib(library.get(label))}")
+              + f"  cudnn {lib(library.get(label))}  equal: "
+              + " ".join({True: "yes", False: "NO", None: "-"}[v]
+                         for v in same[label]))
     base = [lab for lab, _, _ in calls]
     totals = [sum(ms[lab][i] for lab in base) for i in range(len(trees))]
     print(f"{'total ms (13 NCHW, least)':28s} "
           + "  ".join(f"{t:15.3f}" for t in totals)
           + f"  cudnn {sum(library.values()):8.3f}")
     return {"ms": ms, "turns_ms": turn_ms, "library_ms": library,
-            "registers": registers,
+            "registers": registers, "equal_to_first": same,
             "total_ms": totals}
 
 
@@ -215,6 +230,9 @@ def main(argv=None):
     print(f"device: {label} | trees: {' '.join(args.roots)}")
     res = run(device, args.roots, args.rounds)
     print(json.dumps({"device": label, "trees": args.roots, **res}))
+    if any(v is False for row in res["equal_to_first"].values() for v in row):
+        raise SystemExit("ab_conv2d: a tree's output differs from the first "
+                         "tree's")
     return res
 
 

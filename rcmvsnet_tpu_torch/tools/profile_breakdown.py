@@ -14,8 +14,11 @@ Hypotheses as the JAX tool sets them: the full sweep at stage 1, a ±10
 window around the middle depth at stages 2 and 3.
 
 Usage:
-  python -m rcmvsnet_tpu_torch.tools.profile_breakdown [--device cuda]
+  python -m rcmvsnet_tpu_torch.tools.profile_breakdown [--device cuda] \
+      [--eval_dtype bfloat16]
 `--device cpu` runs the plain versions and times them with the host clock.
+`--eval_dtype bfloat16` times the bf16 eval path (K5, K1 and K2 in their
+bf16 instances; the K10 route samples the bf16 features in float32).
 """
 from __future__ import annotations
 
@@ -25,10 +28,11 @@ import json
 import numpy as np
 import torch
 
-from ..cli.eval_dtu import resolve_device
+from ..cli.eval_dtu import add_eval_dtype, resolve_device
+from ..config import BackboneConfig
 from ..core.geometry import compose_projection
 from ..data.plane_scene import dtu_samples, plane_scene
-from ..models.cascade import STAGE_SCALES, CascadeMVSNet
+from ..models.cascade import STAGE_SCALES, CascadeMVSNet, eval_dtype
 from ..ops.depth_tail import depth_tail
 from ..ops.warp_variance import warp_variance
 from ..ops.warp_view import plane_sweep_variance_views
@@ -60,7 +64,8 @@ def stage_inputs(model: CascadeMVSNet, sample: dict, device) -> list[dict]:
     imgs = torch.from_numpy(sample["imgs"]).to(device)
     V, Hs, Ws, _ = imgs.shape
     feats = model.feature.forward_folded(
-        imgs.permute(0, 3, 1, 2).contiguous(), out_layout="warp")
+        imgs.permute(0, 3, 1, 2).contiguous(), out_layout="warp",
+        dtype=eval_dtype(model.config))
     stages = []
     for s, nd in enumerate(model.config.ndepths):
         key = f"stage{s + 1}"
@@ -100,7 +105,7 @@ def run(model: CascadeMVSNet, sample: dict, device) -> dict:
             f"({1000 / res['total']:.2f} maps/s)")
         x = imgs[0].permute(0, 3, 1, 2).contiguous()
         res["featurenet"] = timer(lambda: model.feature.forward_folded(
-            x, out_layout="warp"))
+            x, out_layout="warp", dtype=eval_dtype(model.config)))
         print(f"featurenet K5 ({V} views): {res['featurenet']:.2f} ms")
         for s, st in enumerate(stage_inputs(model, sample, device)):
             key, nd, f = st["key"], st["nd"], st["feats"]
@@ -128,15 +133,19 @@ def run(model: CascadeMVSNet, sample: dict, device) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default="cuda")
-    device = resolve_device(p.parse_args(argv).device)
+    add_eval_dtype(p)
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
     label = device_label(device)
-    print(f"device: {label} | {W}x{H} V={VIEWS} {NDEPTH} planes")
+    bf16 = "" if args.eval_dtype == "float32" else f" {args.eval_dtype}"
+    print(f"device: {label} | {W}x{H} V={VIEWS} {NDEPTH} planes{bf16}")
     sample = dtu_samples(plane_scene(H, W, VIEWS, SEED), NDEPTH)[0]
-    model = CascadeMVSNet()
+    model = CascadeMVSNet(BackboneConfig(eval_dtype=args.eval_dtype))
     model.load_state_dict(load_state_dict(ASSET), strict=True)
     model = model.to(device).eval()
     res = run(model, sample, device)
-    print(json.dumps({"device": label, "ms": res}))
+    print(json.dumps({"device": label, "eval_dtype": args.eval_dtype,
+                      "ms": res}))
     return res
 
 

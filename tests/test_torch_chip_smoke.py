@@ -3,8 +3,8 @@
   * without a CUDA device it exits non-zero and prints no "ok" line;
   * in a directory holding only chip_smoke.py it fails even when a device
     is reported (nothing of the port to import);
-  * its kernel phases (eval and train) run end to end at a tiny size on
-    CPU tensors (where every wrapper returns its plain version, so kernel
+  * its kernel phases (eval, train and bf16) run end to end at a tiny
+    size on CPU tensors (where every wrapper returns its plain version, so kernel
     and plain agree exactly; K4's rows carry the split of its time, with
     no device time on the CPU), and its main-path phases (eval and train)
     refuse a run in which no kernel was launched;
@@ -94,6 +94,36 @@ def test_phases_run_on_cpu_and_main_path_demands_launches():
         sum(r["library_ms"] for r in k5[:-1]) + k5[-1]["library_unfused_ms"])
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.phase_main(model, samples[:1], scene, dev)
+
+
+def test_bf16_phases_run_on_cpu_and_demand_launches():
+    """Phase 12 at a tiny size on the CPU: every bf16 call of K5, K1 and K2
+    against its plain version (here the same function, so no element is
+    beyond its ulp gate), bounds at the bf16 tensor cores' rate; the end
+    to end part refuses a run that launched no bf16 instance."""
+    scene = chip_smoke.plane_scene(64, 96, 3, chip_smoke.SEED)
+    samples = chip_smoke.dtu_samples(scene, 96)
+    model = _golden_model()
+    dev = torch.device("cpu")
+    ledger = chip_smoke.Ledger(timer=lambda fn: 1.0)
+    ledger.phase = "bf16"
+    with torch.no_grad():
+        chip_smoke.phase_kernels(model, samples, scene, ledger, dev,
+                                 torch.bfloat16)
+    calls = {k: ledger.summary(k, "bf16")["calls"]
+             for k in chip_smoke.BF16_KERNELS}
+    assert calls == {"conv2d_bf16": 12, "warp_variance_bf16": 3,
+                     "conv3d_bf16": 33}
+    assert all(r["elements_over_tol"] == 0 and r["max_abs_err"] == 0.0
+               for r in ledger.rows)
+    dtypes = {r["dtype"] for r in ledger.rows}
+    assert dtypes == {"torch.bfloat16", "torch.float32"}   # + the prob head
+    for r in ledger.rows:
+        if r["kernel"] != "warp_variance_bf16":
+            assert r["bound_tc_ms"] == r["bound_ms"] > 0
+    with pytest.raises(AssertionError, match="bf16_dtu_path never launched"):
+        chip_smoke.phase_bf16(model, samples[:1], scene, [], [], ({}, {}),
+                              "cpu", dev)
 
 
 def test_train_phases_run_on_cpu_and_demand_launches():

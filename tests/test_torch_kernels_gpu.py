@@ -26,10 +26,16 @@ sizes; K10 at C 3/8/16/32 (the scalar path and the lane path), at odd
 sizes (C 3/4/8/12/16/32, D = 1, sample counts that no block or warp
 divides, coordinates on the clip bounds, whole rows out of the image),
 repeated bit for bit, and the K10 route's variance against K1's,
-within 1e-5 of its largest value. The backward kernels sum in another
-order than autograd (K8 dw in per-block partials, K6 and K7 in 64-bit
-fixed point, rounded once per flushed run of planes), so they are held to
-1e-4 of the largest value, and to themselves bit for bit. Run on the card
+within 1e-5 of its largest value. The bf16 instances of K1, K2 and K5
+(the bf16 eval path) against their bf16 plain versions, to one bf16 ulp
+of each element plus 1e-4 of the largest value, at the same kinds of
+shapes (every K2 mode, the float32 prob head, K5's two routes, the
+upsample-add and the lateral head), and the bf16 cascade on the card
+launching only the bf16 instances of the three, and K4. The backward
+kernels sum in another order than autograd (K8 dw in per-block
+partials, K6 and K7 in 64-bit fixed point, rounded once per flushed run
+of planes), so they are held to 1e-4 of the largest value, and to
+themselves bit for bit. Run on the card
 without the JAX test configuration (its host has no jax):
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
@@ -538,3 +544,160 @@ def test_warp_view_refuses_past_its_grid(dev):
     with pytest.raises(ValueError, match="past the kernel's grid"):
         K10.warp_view(src, px, px)
     assert K10.warp_view.launches == n0
+
+
+# ---- the bf16 instances (the bf16 eval path): each against its bf16
+# plain version, which is the float32 plain version on the bf16 operands
+# rounded where the kernel rounds; both round their float32 result once,
+# after sums in another order, so they may land one bf16 ulp apart.
+
+def _close_bf16(got, want):
+    """|got − want| ≤ 2^-7·|want| + 1e-4·max|want| per element: one bf16
+    ulp of each element plus 1e-4 of the largest value."""
+    g, w = got.float(), want.float()
+    tol = w.abs() * 2.0 ** -7 + 1e-4 * float(w.abs().max())
+    over = int(((g - w).abs() > tol).sum())
+    assert torch.isfinite(g).all() and over == 0, (
+        over, float((g - w).abs().max()))
+
+
+def _bf16(*tensors):
+    return [t.to(torch.bfloat16) for t in tensors]
+
+
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (4, 24, 40, 8, 8), (4, 24, 40, 16, 32), (4, 24, 40, 32, 48),
+    (3, 9, 7, 8, 5), (5, 13, 21, 16, 7), (8, 24, 40, 32, 8)])
+def test_warp_variance_bf16_matches_plain(dev, V, h, w, C, D):
+    g = _gen(dev, 3 * C + h)
+    feats, = _bf16(torch.randn(V, h, w, C, device=dev, generator=g))
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = 3 + torch.rand(h, w, device=dev, generator=g)
+    projs = _projs(V, h, w, dev)
+    n0 = (K1.warp_variance.launches, K1.warp_variance.bf16.launches)
+    got = K1.warp_variance(feats, projs, lo, step, D)
+    want = K1.warp_variance_plain(feats, projs, lo, step, D)
+    torch.cuda.synchronize()
+    assert (K1.warp_variance.launches,
+            K1.warp_variance.bf16.launches) == (n0[0], n0[1] + 1)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == (C, D, h, w)
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("mode,ci,co,shape", [
+    ("s1", 8, 16, None), ("s2", 16, 32, None), ("t2", 64, 32, None),
+    ("s1", 8, 1, None), ("s1", 32, 8, None), ("s1", 64, 64, None),
+    ("s2", 64, 64, None), ("t2", 16, 8, None), ("s1", 16, 8, (5, 9, 7)),
+    ("s2", 8, 16, (7, 13, 11)), ("t2", 32, 16, (3, 5, 6))])
+def test_conv3d_bf16_matches_plain(dev, mode, ci, co, shape):
+    """Every mode, Ci 8 (one zero-padded k16 chunk) to 64, widths that
+    stage 8-byte row vectors and widths that do not; the prob head (one
+    output channel) writes float32."""
+    g = _gen(dev, 5 * ci + co)
+    d, h, w = shape or ((4, 6, 10) if mode == "t2" else (8, 12, 20))
+    x, = _bf16(torch.randn(1, ci, d, h, w, device=dev, generator=g))
+    shape = (ci, co, 3, 3, 3) if mode == "t2" else (co, ci, 3, 3, 3)
+    wgt, = _bf16(0.1 * torch.randn(*shape, device=dev, generator=g))
+    b = torch.randn(co, device=dev, generator=g)
+    skip = None
+    if mode == "t2":
+        skip, = _bf16(torch.randn(1, co, 2 * d, 2 * h, 2 * w, device=dev,
+                                  generator=g))
+    prob = co == 1
+    kw = dict(relu=not prob, skip=skip,
+              out_dtype=torch.float32 if prob else None)
+    n0 = (K2.conv3d.launches, K2.conv3d.bf16.launches)
+    got = K2.conv3d(x, wgt, b, mode, **kw)
+    want = K2.conv3d_plain(x, wgt, b, mode, **kw)
+    torch.cuda.synchronize()
+    assert (K2.conv3d.launches, K2.conv3d.bf16.launches) == (n0[0],
+                                                             n0[1] + 1)
+    assert got.dtype == want.dtype == (torch.float32 if prob
+                                       else torch.bfloat16)
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("k,stride,ci,co,h,w,layout,way,up", [
+    (3, 1, 8, 8, 24, 40, "nchw", "tc", False),
+    (3, 1, 16, 16, 19, 38, "warp", "tc", False),
+    (3, 1, 32, 32, 9, 18, "nchw", "tc", False),
+    (3, 1, 32, 16, 24, 40, "warp", "tc", False),
+    (5, 2, 8, 16, 24, 40, "nchw", "tc", False),
+    (5, 2, 16, 32, 17, 30, "warp", "tc", False),
+    (1, 1, 32, 32, 12, 20, "warp", "direct", False),
+    (1, 1, 16, 32, 12, 20, "nchw", "direct", True),
+    (3, 1, 3, 8, 24, 40, "nchw", "direct", False),
+    (3, 1, 3, 8, 19, 38, "warp", "direct", False)])
+def test_conv2d_bf16_routes_match_plain(dev, k, stride, ci, co, h, w,
+                                        layout, way, up):
+    """Both routes of K5's bf16 instance, both layouts, aligned and
+    unaligned widths, the upsample-add (inner1's call)."""
+    assert K5.route(k, stride, k // 2, ci) == way
+    g = _gen(dev, k * 100 + ci + co)
+    x, wgt = _bf16(torch.randn(2, ci, h, w, device=dev, generator=g),
+                   0.2 * torch.randn(co, ci, k, k, device=dev, generator=g))
+    shift = torch.randn(co, device=dev, generator=g)
+    upt = None
+    if up:
+        upt, = _bf16(torch.randn(2, co, h // 2, w // 2, device=dev,
+                                 generator=g))
+    kw = dict(stride=stride, padding=k // 2, relu=not up, up=upt,
+              out_layout=layout)
+    n0 = (K5.conv2d.launches, K5.conv2d.bf16.launches)
+    got = K5.conv2d(x, wgt, None, shift, **kw)
+    want = K5.conv2d_plain(x, wgt, None, shift, **kw)
+    torch.cuda.synchronize()
+    assert (K5.conv2d.launches, K5.conv2d.bf16.launches) == (n0[0],
+                                                             n0[1] + 1)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("n,h,w,layout", [
+    (3, 24, 40, "warp"), (2, 18, 38, "nchw"), (1, 40, 72, "warp")])
+def test_lateral_conv2d_bf16_matches_plain(dev, n, h, w, layout):
+    g = _gen(dev, h * w + 1)
+    up, lat, wi, wgt = _bf16(
+        torch.randn(n, 32, h // 2, w // 2, device=dev, generator=g),
+        torch.randn(n, 8, h, w, device=dev, generator=g),
+        0.3 * torch.randn(32, 8, 1, 1, device=dev, generator=g),
+        0.1 * torch.randn(8, 32, 3, 3, device=dev, generator=g))
+    bi = torch.randn(32, device=dev, generator=g)
+    n0 = K5.conv2d.bf16.launches
+    got = K5.lateral_conv2d(up, lat, wi, bi, wgt, layout)
+    want = K5.lateral_conv2d_plain(up, lat, wi, bi, wgt, layout)
+    torch.cuda.synchronize()
+    assert K5.conv2d.bf16.launches == n0 + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close_bf16(got, want)
+
+
+def test_bf16_cascade_runs_the_bf16_instances(dev):
+    """eval_dtype='bfloat16' on the card: K5, K1 and K2 run only their bf16
+    instances, K4 its float32 one, the plain path launches nothing, and
+    the depth agrees with the bf16 plain path (no pixel beyond 0.01
+    relative)."""
+    import numpy as np
+    from rcmvsnet_tpu_torch.config import BackboneConfig
+    from rcmvsnet_tpu_torch.data.plane_scene import dtu_samples, plane_scene
+    from rcmvsnet_tpu_torch.models.cascade import CascadeMVSNet, infer_views
+    from rcmvsnet_tpu_torch.weights import ASSET, load_state_dict
+    model = CascadeMVSNet(BackboneConfig(ndepths=(16, 8, 8),
+                                         eval_dtype="bfloat16"))
+    model.load_state_dict(load_state_dict(ASSET), strict=True)
+    model = model.to(dev).eval()
+    samples = dtu_samples(plane_scene(64, 96, 3, 5), 64)[:1]
+    wrappers = [K5.conv2d, K1.warp_variance, K2.conv3d, K5.conv2d.bf16,
+                K1.warp_variance.bf16, K2.conv3d.bf16, K4.depth_tail]
+    counts, depths = [], []
+    for plain in (False, True):
+        for fn in wrappers:
+            fn.launches = 0
+        depths.append(infer_views(model, samples, dev, plain=plain)[0][0])
+        counts.append([fn.launches for fn in wrappers])
+    dk, dp = depths
+    assert counts[0][:3] == [0, 0, 0] and min(counts[0][3:]) > 0, counts
+    assert counts[1] == [0] * len(wrappers), counts
+    assert np.isfinite(dk).all()
+    assert float((np.abs(dk - dp) / np.abs(dp)).max()) <= 0.01

@@ -3,8 +3,8 @@ every module of rcmvsnet_tpu_torch imports in a fresh interpreter where
 `jax`, `flax` and `rcmvsnet_tpu` cannot be imported; `chip_smoke.py` and
 `chip_train_probe.py` with the model, op, data and weight modules they
 drive import none of them either (the card's host has no jax, flax, cv2,
-PIL or msgpack); and the CLIs (eval_dtu, eval_tanks with rm_color, train)
-run end to end under the same ban, on the port's own copies of the I/O,
+PIL or msgpack); and the CLIs (eval_dtu, in float32 and in bfloat16,
+eval_tanks with rm_color, train) run end to end under the same ban, on the port's own copies of the I/O,
 data and fusion modules; the train CLI trains, validates, saves a
 checkpoint and resumes from it. The dataset registry resolves every alias
 to a class of the port. The data-parallel modules (`parallel/mesh.py`,
@@ -84,7 +84,7 @@ eval_dtu.main(["--testpath", root + "/data", "--testlist", "scan1",
                "--num_view", "3", "--numdepth", "64", "--max_h", "64",
                "--max_w", "96", "--prob_thres", "0.0",
                "--num_consistency", "1", "--num_worker", "1",
-               "--device", "cpu"])
+               "--device", "cpu", *sys.argv[2:]])
 """
 
 _TANKS_CLI = _BAN + """
@@ -139,6 +139,16 @@ def test_cli_runs_without_jax(tmp_path):
     """Depth, fusion and the output tree on a host with no jax, flax or JAX
     package: I/O, dataset and fusion are the port's own modules."""
     r = _run(_CLI, str(tmp_path))
+    assert r.returncode == 0, r.stderr
+    assert (tmp_path / "out" / "mvsnet001_l3.ply").stat().st_size > 0
+    assert len(list((tmp_path / "out" / "scan1" / "depth_est").glob(
+        "*.pfm"))) == 3
+
+
+def test_bf16_cli_runs_without_jax(tmp_path):
+    """The bf16 eval path (`--eval_dtype bfloat16`) under the same ban:
+    depth and fusion through K5, K1 and K2's bf16 plain versions."""
+    r = _run(_CLI, str(tmp_path), "--eval_dtype", "bfloat16")
     assert r.returncode == 0, r.stderr
     assert (tmp_path / "out" / "mvsnet001_l3.ply").stat().st_size > 0
     assert len(list((tmp_path / "out" / "scan1" / "depth_est").glob(

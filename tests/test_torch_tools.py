@@ -45,6 +45,22 @@ def test_profile_breakdown_cpu(capsys, monkeypatch):
     assert "stage1 per-view warp+var K10 route [2 views]" in "\n".join(out)
 
 
+def test_profile_breakdown_bf16_cpu(capsys, monkeypatch):
+    """--eval_dtype bfloat16 times the bf16 eval path's components (the
+    plain versions here): the same components, the dtype in the header
+    and the JSON line."""
+    for name, value in (("H", 64), ("W", 96), ("VIEWS", 3), ("NDEPTH", 32)):
+        monkeypatch.setattr(profile_breakdown, name, value)
+    monkeypatch.setattr(profile_breakdown, "make_timer",
+                        partial(make_timer, reps=1, warmup=0))
+    res = profile_breakdown.main(["--device", "cpu", "--eval_dtype",
+                                  "bfloat16"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].endswith("96x64 V=3 32 planes bfloat16")
+    assert len(res) == 14 and all(v > 0 for v in res.values())
+    assert json.loads(out[-1])["eval_dtype"] == "bfloat16"
+
+
 def test_profile_conv3d_cpu(capsys, monkeypatch):
     tiny = tuple((label, D, H // 32, W // 32, ci, co, mode) for
                  label, D, H, W, ci, co, mode in profile_conv3d.CASES)
