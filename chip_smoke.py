@@ -13,7 +13,8 @@ the final "ok" line):
               MMAs that `cuobjdump -sass` finds in each tensor-core kernel
               of K2/K9, K8 dw and K5: TF32 ones (HMMA ... TF32) in each
               float32 instance and bf16 ones (HMMA ... BF16) in each bf16
-              instance of K2 and K5, which must be > 0;
+              instance of K2, K5 and K8 dw, which must be > 0, with no
+              TF32 one in a bf16 instance;
   3. kernels  hold each eval kernel against its plain PyTorch version on
               the card, at the DTU eval shapes (864x1152, V=5, stages
               216x288x32/48, 432x576x16/32, 864x1152x8/8): K1 at all 3
@@ -136,9 +137,32 @@ the final "ok" line):
               path's depth (at most 1e-3 of pixels beyond 0.01: the fused
               TPU path's budget); prints max, mean, p99 and p999 of the
               relative deltas and both dtypes' maps/s and peak memory;
- 13. report   one {"kernels": [...]} JSON line (ten kernels and the three
-              bf16 instances), the nvidia-smi line, and the final
-              {"ok": true, "device": {...}} line.
+ 13. report   one {"kernels": [...]} JSON line (ten kernels, the three
+              bf16 eval instances and the four bf16 train instances), the
+              nvidia-smi line, and the final {"ok": true, "device": {...}}
+              line.
+ 14. bf16 train  (run before the report) the bf16 train path
+              (train_dtype bfloat16 for the backbone and the render
+              U-Net) at phase 6's cell: (a) phase
+              5 again with the bf16 instances (rows "<kernel>_bf16", phase
+              "bf16_train": K1 and K6 at the 3 stages, K7 forward and
+              backward at stage 1, K2 in its train modes and K8 dw for
+              every conv of the 3 CostRegNets and the render U-Net), each
+              against its bf16 plain version to one bf16 ulp of each
+              element + 1e-4 of the largest value (dw, float32 out: 1e-4
+              of the largest), K6-bf16 and K7's bf16 backward twice, bit
+              for bit; library: cuDNN on bf16 tensors for K2 and dw, none
+              for the warps; (b) the bf16 train step, 2 warm-up and 5 timed
+              steps through the kernels then the bf16 plain versions:
+              every bf16 train instance launched, no float32 instance of
+              K1, K2, K6, K7 or K8 dw; step-1 losses within
+              BF16_STEP_LOSS_RTOL, each network's gradients within its
+              BF16_GRAD_NET_TOL in relative L2;
+              parameters, BN buffers and Adam's moments float32; (c) the
+              first five steps of the bf16 kernel step against phase 6's
+              float32 kernel step (same init and draws), each logged loss
+              within BF16_VS_F32 (the JAX package's own budget); (d) steps/s
+              and peak memory of both dtypes;
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM and 67 TFLOP/s
 of float32 outside the tensor cores (TF32 is off in PyTorch on this path);
 the convs (K2, K5, K8 dw, K9), which run 3xTF32 on the tensor cores (K5
@@ -176,10 +200,15 @@ TF32_FLOPS_PER_S = 495e12                   # TF32 tensor cores, dense
 BF16_FLOPS_PER_S = 989e12                   # bf16 tensor cores, dense
 # the kernels that run 3xTF32 MMAs: three TF32 products per multiply-add
 TC_KERNELS = ("conv3d", "conv3d_dw", "conv3d_lanewise", "conv2d")
-# the bf16 instances (the bf16 eval path, phase 12); the convs among them
-# run one bf16 MMA per multiply-add
+# the bf16 instances of the bf16 eval path (phase 12); the convs among
+# them run one bf16 MMA per multiply-add (K8 dw's bf16 instance too, phase
+# 14)
 BF16_KERNELS = ("conv2d_bf16", "warp_variance_bf16", "conv3d_bf16")
-BF16_TC_KERNELS = ("conv2d_bf16", "conv3d_bf16")
+BF16_TC_KERNELS = ("conv2d_bf16", "conv3d_bf16", "conv3d_dw_bf16")
+# held to one bf16 ulp of their plain versions: the bf16 instances with a
+# bf16 output (K8 dw's bf16 instance writes float32: TOL["conv3d_dw_bf16"])
+BF16_ULP_KERNELS = BF16_KERNELS + ("warp_variance_bwd_bf16",
+                                   "warp_volume_bf16", "warp_volume_bwd_bf16")
 # a bf16 instance against its bf16 plain version, per element: one bf16
 # ulp of the plain value (2^-7 of its magnitude) plus BF16_ATOL of the
 # largest; both sum in float32 in different orders and round once, so a
@@ -200,7 +229,7 @@ TOL = {"warp_variance": (1e-4, 1e-4), "conv3d": (1e-4, 1e-4),
        "warp_variance_bwd": (1e-4, 1e-4), "warp_volume": (1e-4, 1e-4),
        "warp_volume_bwd": (1e-4, 1e-4), "conv3d_dw": (1e-4, 1e-4),
        "conv3d_lanewise": (0.0, 1e-4), "warp_view": (0.0, 1e-5),
-       "warp_view_route": (0.0, 1e-5)}
+       "warp_view_route": (0.0, 1e-5), "conv3d_dw_bf16": (0.0, 1e-4)}
 # K9 is held to 1e-4 of its largest value (cuDNN sums in another order);
 # K10 to 1e-5: its plain version samples the same coordinates in float64,
 # and the K10 route's variance ("warp_view_route") computes K1's function
@@ -220,6 +249,30 @@ LOSS_RTOL = 1e-4
 # K7's backward or K8's dw scaled by 1.1 reads ≥ 0.10. A 1 % fault hides
 # in that noise end to end; phase 5 holds each backward to 1e-4.
 GRAD_L2_TOL = 3e-2
+# The bf16 train step, kernels vs the bf16 plain versions, step-1 losses
+# relative, each term: both round to bf16 at the same places, but sums in
+# another order flip a rounding now and then
+BF16_STEP_LOSS_RTOL = 2e-3
+# The bf16 step's gradients, kernels vs plain, per network (relative L2
+# over the network's gradients). Both round to bf16 at the same places, but
+# each conv sums in another order, which flips a rounding now and then,
+# and the flips multiply layer by layer and through the render losses.
+# Limits: 1.25 × the largest of six seeds (`chip_train_probe.py --bf16`,
+# NVIDIA H100 80GB HBM3, 700 W; seed SEED read 0.061, 0.0039, 0.015,
+# 0.030, 0.017, 0.0079). They catch K8 dw scaled by 1.01 in the first
+# U-Net and by 1.1 in three of the four; K6 or K7 scaled by 1.1 stays
+# inside FeatureNet's limit (its gradient is mostly the render terms'),
+# so those two rest on (a)'s per-call gates and repeat checks
+BF16_GRAD_NET_TOL = {"feature.": 0.123, "cost_regularization.0.": 0.0053,
+                     "cost_regularization.1.": 0.039,
+                     "cost_regularization.2.": 0.11,
+                     "render.MVSNet.": 0.080, "render.network_fn.": 0.0235}
+NETWORKS = ("feature.", "cost_regularization.0.", "cost_regularization.1.",
+            "cost_regularization.2.", "render.MVSNet.", "render.network_fn.")
+# bf16 train step against the float32 one, each logged loss of the first
+# five steps: |bf16 − f32| ≤ 0.05·|f32| + 1e-3 (the JAX package's own
+# budget, tests/test_train_bf16.py:41-46)
+BF16_VS_F32 = (0.05, 1e-3)
 CONF_TOL, CONF_SHARE = 1e-4, 1e-3   # per-pixel |Δconf| and allowed share
 DEPTH_REL_MAX, DEPTH_GATE = 2e-3, 0.01   # the fused TPU path's budget
 # kernels whose rows also carry the kernel's own device ms (torch.profiler)
@@ -303,9 +356,10 @@ def sass_mma_counts() -> dict:
 def missing_mma(mma: dict) -> list:
     """Tensor-core kernels without their MMAs: a float32 instance without
     TF32 HMMAs, a bf16 one (its name carries __nv_bfloat16) without bf16
-    HMMAs."""
+    HMMAs or with TF32 ones."""
     return [k for lib in mma.values() for k, n in lib["kernels"].items()
-            if "_tc" in k and n["bf16" if "bfloat16" in k else "tf32"] == 0]
+            if "_tc" in k and (n["bf16" if "bfloat16" in k else "tf32"] == 0
+                               or "bfloat16" in k and n["tf32"] > 0)]
 
 
 class Ledger:
@@ -355,7 +409,7 @@ class Ledger:
             rel = max(rel, float(((a - p).abs() / p.abs().clamp_min(1e-12))
                                  .max()) if kernel == "depth_tail"
                       else e / max(m, 1e-12))
-            if kernel in BF16_KERNELS:
+            if kernel in BF16_ULP_KERNELS:
                 over += int(((a - p).abs()
                              > BF16_ULP * p.abs() + BF16_ATOL * m).sum())
         b_ms, b_by = bound_ms(n_bytes, flops, op_rate(kernel))
@@ -364,7 +418,7 @@ class Ledger:
                "max_abs_err": err, "max_rel_err": rel,
                "bytes": n_bytes, "flops": flops, "bound_ms": b_ms,
                "bound_by": b_by}
-        if kernel in BF16_KERNELS:
+        if kernel in BF16_ULP_KERNELS:
             row["tol"] = (f"{BF16_ULP:.4g}·|plain| + {BF16_ATOL:g}·"
                           f"max|plain| per element")
             row["elements_over_tol"] = over
@@ -692,6 +746,9 @@ BF16_LAUNCHES_PER_MAP = {"conv2d_bf16": 12, "warp_variance_bf16": 3,
                          "conv3d_bf16": 33, "depth_tail": 3}
 TRAIN_KERNELS = ("warp_variance", "conv3d", "warp_variance_bwd",
                  "warp_volume", "warp_volume_bwd", "conv3d_dw")
+# the bf16 train path's instances of the same kernels (phase 14); neither
+# path may launch the other's
+BF16_TRAIN_KERNELS = tuple(f"{k}_bf16" for k in TRAIN_KERNELS)
 TOOLS_KERNELS = EVAL_KERNELS + ("warp_view", "conv3d_lanewise")
 # K9 at odd sizes, each mode (Ci=16, Co=8): (label, D, H, W, Ci, Co, mode)
 ODD_CONV_CASES = tuple((f"odd 5x9x7 {m}", 5, 9, 7, 16, 8, m)
@@ -711,6 +768,10 @@ def kernel_wrappers():
             "warp_variance_bf16": warp_variance.warp_variance.bf16,
             "conv3d_bf16": conv3d.conv3d.bf16,
             "conv2d_bf16": conv2d.conv2d.bf16,
+            "warp_variance_bwd_bf16": warp_variance.warp_variance_bwd.bf16,
+            "warp_volume_bf16": warp_volume.warp_volume.bf16,
+            "warp_volume_bwd_bf16": warp_volume.warp_volume_bwd.bf16,
+            "conv3d_dw_bf16": conv3d_train.conv3d_dw.bf16,
             "warp_variance_bwd": warp_variance.warp_variance_bwd,
             "warp_volume": warp_volume.warp_volume,
             "warp_volume_bwd": warp_volume.warp_volume_bwd,
@@ -728,7 +789,8 @@ def zero_launches():
 
 
 def phase_main(model, samples, scene, dev, name="main_path", smi=None,
-               keep=None, kernels=EVAL_KERNELS, barred=BF16_KERNELS,
+               keep=None, kernels=EVAL_KERNELS,
+               barred=BF16_KERNELS + BF16_TRAIN_KERNELS,
                rel_max=DEPTH_REL_MAX):
     """Phases 4 and 7: an eval path, `infer_views` over every sample
     through the kernels, then through the plain versions. Every one of
@@ -956,9 +1018,14 @@ def phase_tools_kernels(model, sample, ledger, dev, conv_cases):
 
 
 
-def phase_train_kernels(cascade, render, batch, scene, ledger, dev):
+def phase_train_kernels(cascade, render, batch, scene, ledger, dev,
+                        dtype=None):
     """Phase 5: the train kernels against their plain versions at the
-    train shapes, forward and backward from fixed random cotangents."""
+    train shapes, forward and backward from fixed random cotangents.
+    dtype=torch.bfloat16 (phase 14): their bf16 instances on the same
+    inputs and cotangents rounded to bf16 (rows "<kernel>_bf16", phase
+    "bf16_train"; the prob head's cotangent float32, as the train step
+    hands it over, rounded by K8 before its dx and dw)."""
     import torch
     from rcmvsnet_tpu_torch.nn.costreg import TRUNK, conv_bn
     from rcmvsnet_tpu_torch.ops import conv3d as K2
@@ -968,43 +1035,48 @@ def phase_train_kernels(cascade, render, batch, scene, ledger, dev):
     from rcmvsnet_tpu_torch.ops.sampling import resize_bilinear
     from rcmvsnet_tpu_torch.tools.repeat_warp_bwd import train_stages
 
-    ledger.phase = "train"
+    bf16 = dtype == torch.bfloat16
+    ledger.phase = "bf16_train" if bf16 else "train"
+    sfx = "_bf16" if bf16 else ""
+    cast = (lambda t: t.to(torch.bfloat16)) if bf16 else (lambda t: t)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    rand = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    rand = lambda *shape: cast(torch.randn(*shape, generator=gen,
+                                           device=dev))
     imgs = batch["imgs"][0]                                   # [V,H,W,3]
     Hs, Ws = imgs.shape[1:3]
     unets = []
     for s, (key, f, projs, lo, step, nd) in enumerate(
             train_stages(cascade, batch, scene, rand)):
+        f = cast(f)
         Vn, h, w, C = f.shape
         tag = f"{key} V{Vn} {h}x{w} C{C} D{nd}"
         ledger.compare(
-            "warp_variance", tag,
+            "warp_variance" + sfx, tag,
             lambda: K1.warp_variance(f, projs, lo, step, nd),
             lambda: K1.warp_variance_plain(f, projs, lo, step, nd),
-            nbytes(f, projs, lo, step) + 4 * C * nd * h * w,
+            nbytes(f, projs, lo, step) + f.element_size() * C * nd * h * w,
             warp_flops(Vn, h, w, C, nd))
         g = rand(C, nd, h, w)
         ledger.compare(
-            "warp_variance_bwd", tag,
+            "warp_variance_bwd" + sfx, tag,
             lambda: K1.warp_variance_bwd(f, projs, lo, step, g),
             lambda: K1.warp_variance_bwd_plain(f, projs, lo, step, g),
             2 * nbytes(f) + nbytes(projs, lo, step, g),
             warp_flops(Vn, h, w, C, nd, bwd=True), repeat=True,
             extra=tap_runs(projs, lo, step, nd, C))
         if s == 0:
-            im = resize_bilinear(imgs, h, w).contiguous()
+            im = cast(resize_bilinear(imgs, h, w).contiguous())
             ledger.compare(
-                "warp_volume", tag,
+                "warp_volume" + sfx, tag,
                 lambda: K7.warp_volume(f, im, projs, lo, step, nd),
                 lambda: K7.warp_volume_plain(f, im, projs, lo, step, nd),
                 nbytes(f, im, projs, lo, step)
-                + 4 * (2 * C + 3 * (Vn - 1)) * nd * h * w,
+                + f.element_size() * (2 * C + 3 * (Vn - 1)) * nd * h * w,
                 warp_flops(Vn, h, w, C, nd, images=3))
             # var's cotangent, then the render volume's (images, no-ref)
             cots = (g, rand(3 * (Vn - 1) + C, nd, h, w))
             ledger.compare(
-                "warp_volume_bwd", tag,
+                "warp_volume_bwd" + sfx, tag,
                 lambda: K7.warp_volume_bwd(f, im, projs, lo, step, *cots),
                 lambda: K7.warp_volume_bwd_plain(f, im, projs, lo, step,
                                                  *cots),
@@ -1027,35 +1099,41 @@ def phase_train_kernels(cascade, render, batch, scene, ledger, dev):
             cin, d, h, w = cur
             co = wgt.shape[1] if mode == "t2" else wgt.shape[0]
             cur = (co, *K2.out_shape(mode, d, h, w))
+            prob = bf16 and name == "prob"
+            out = torch.float32 if prob else None
             x = rand(1, cin, d, h, w)
-            g = rand(1, *cur)
+            g = cast(torch.randn(1, *cur, generator=gen, device=dev))
+            wgt = cast(wgt)
             adj_w = K8._adjoint_weight(wgt, mode)
             adj = K8.ADJOINT[mode]
             zo, zi = torch.zeros(co, device=dev), torch.zeros(cin, device=dev)
             tag = f"{net_name} {name} {mode} {tuple(x.shape)}"
-            y = K2.conv3d_plain(x, wgt, None, mode, relu=False)
+            y = K2.conv3d_plain(x, wgt, None, mode, relu=False,
+                                out_dtype=out)
             ledger.compare(
-                "conv3d", f"train fwd {tag}",
-                lambda: K2.conv3d(x, wgt, zo, mode, relu=False),
-                lambda: K2.conv3d_plain(x, wgt, None, mode, relu=False),
+                "conv3d" + sfx, f"train fwd {tag}",
+                lambda: K2.conv3d(x, wgt, zo, mode, relu=False,
+                                  out_dtype=out),
+                lambda: K2.conv3d_plain(x, wgt, None, mode, relu=False,
+                                        out_dtype=out),
                 *conv3d_work(x, wgt, y, mode),
                 fn_lib=lambda: library_conv3d(x, wgt, None, mode))
             ledger.compare(
-                "conv3d", f"train dx {tag}",
+                "conv3d" + sfx, f"train dx {tag}",
                 lambda: K2.conv3d(g, adj_w, zi, adj, relu=False),
                 lambda: K2.conv3d_plain(g, adj_w, None, adj, relu=False),
                 *conv3d_work(g, adj_w, x, adj),
                 fn_lib=lambda: library_conv3d(g, adj_w, None, adj))
             _, flops = conv3d_work(x, wgt, y, mode)
             ledger.compare(
-                "conv3d_dw", tag,
+                "conv3d_dw" + sfx, tag,
                 lambda: K8.conv3d_dw(x, g, mode),
                 lambda: K8.conv3d_dw_plain(x, g, mode),
-                nbytes(x, g, wgt), flops,
+                nbytes(x, g) + 4 * wgt.numel(), flops,
                 fn_lib=lambda: library_conv3d_dw(x, g, wgt, mode))
             del x, g, y
     sync(dev)
-    ledger.check("train kernels")
+    ledger.check("bf16 train kernels" if bf16 else "train kernels")
 
 
 def library_conv3d_dw(x, g, w, mode):
@@ -1068,14 +1146,34 @@ def library_conv3d_dw(x, g, w, mode):
         1, [False, True, False])[1]
 
 
+LOSS_TERMS = ("loss", "repr_loss", "aug_loss", "img_loss", "ray_depth_loss")
+
+
+def _float32_state(state) -> list:
+    """Names of the floating-point parameters, buffers and Adam moments of
+    a train state that are not float32."""
+    import torch
+    return [n for n, t in _state_tensors(state).items()
+            if t.dtype.is_floating_point and t.dtype != torch.float32]
+
+
 def phase_train(batch, cascade_sd, smi, dev, cfg=None, warmup=2, timed=5):
     """Phase 6: the fused train step, kernels then plain versions, from
-    one init and one batch with the draws fixed once."""
+    one init and one batch with the draws fixed once. With the train
+    dtypes bfloat16 in cfg (phase 14 (b)) the bf16 step: its bf16
+    instances must launch and no float32 instance of the train kernels
+    (and the reverse at float32), step-1 losses within
+    BF16_STEP_LOSS_RTOL, and the state float32 after the steps. The
+    result keeps every step's loss terms ("step_losses_kernel")."""
     import torch
     from rcmvsnet_tpu_torch.config import Config
     from rcmvsnet_tpu_torch.train.state import create_train_state
     from rcmvsnet_tpu_torch.train.step import draw_step, make_train_step
     cfg = cfg or Config()
+    bf16 = cfg.backbone.train_dtype == "bfloat16"
+    wanted, barred = ((BF16_TRAIN_KERNELS, TRAIN_KERNELS) if bf16
+                      else (TRAIN_KERNELS, BF16_TRAIN_KERNELS))
+    name = "bf16_train_path" if bf16 else "train_path"
     cuda = dev.type == "cuda"
     B, Vn, Hs, Ws = batch["imgs"].shape[:4]
     draws = draw_step(torch.Generator(device=dev).manual_seed(SEED), cfg, B,
@@ -1096,17 +1194,22 @@ def phase_train(batch, cascade_sd, smi, dev, cfg=None, warmup=2, timed=5):
                  for n, p in state.render.named_parameters()}
         grads.update({n: p.grad.detach().clone()
                       for n, p in state.cascade.named_parameters()})
+        losses = [{n: first[n] for n in LOSS_TERMS}]
+        later = []
         for _ in range(warmup - 1):
-            step(state, batch, draws)
+            later.append(step(state, batch, draws))
         sync(dev)
         t0 = time.perf_counter()
         for _ in range(timed):
             last = step(state, batch, draws)
+            later.append(last)
         sync(dev)
         dt = time.perf_counter() - t0
+        losses += [{n: float(m[n]) for n in LOSS_TERMS} for m in later]
         paths["plain" if plain else "kernel"] = {
             "first": first, "grads": grads, "steps_per_s": timed / dt,
-            "last_loss": float(last["loss"]),
+            "last_loss": float(last["loss"]), "step_losses": losses,
+            "not_float32": _float32_state(state),
             "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                      if cuda else None),
             "launches": {k: fn.launches for k, fn in wrappers.items()}}
@@ -1125,6 +1228,16 @@ def phase_train(batch, cascade_sd, smi, dev, cfg=None, warmup=2, timed=5):
                 for n, g in p["grads"].items()}
     grad_l2 = {n: float((k["grads"][n] - g).norm())
                / max(float(g.norm()), 1e-30) for n, g in p["grads"].items()}
+
+    def net_l2(a, b):
+        """{network: ‖a − b‖₂ / ‖b‖₂ over its gradients}."""
+        out = {}
+        for net in NETWORKS:
+            names = [n for n in b if n.startswith(net)]
+            d = sum(float((a[n] - b[n]).norm()) ** 2 for n in names)
+            r = sum(float(b[n].norm()) ** 2 for n in names)
+            out[net] = (d / max(r, 1e-60)) ** 0.5
+        return out
     result = {
         "device": smi, "input": f"{Ws}x{Hs} B={B} V={Vn}",
         "steps_per_s_kernel": k["steps_per_s"],
@@ -1141,22 +1254,77 @@ def phase_train(batch, cascade_sd, smi, dev, cfg=None, warmup=2, timed=5):
                                     key=lambda t: -t[1])[:5],
         "grad_max_err_of_model_scale": max(grad_err.values()),
         "step7_loss_kernel": k["last_loss"], "step7_loss_plain":
-            p["last_loss"]}
-    print(json.dumps({"train_path": result}), flush=True)
-    missing = [n for n in TRAIN_KERNELS if k["launches"][n] == 0]
+            p["last_loss"], "step_losses_kernel": k["step_losses"]}
+    if bf16:
+        result["grad_l2_per_network"] = net_l2(k["grads"], p["grads"])
+    print(json.dumps({name: result}), flush=True)
+    what = name.replace("_", " ")
+    missing = [n for n in wanted if k["launches"][n] == 0]
     if missing:
-        raise AssertionError(f"train path never launched {missing}")
+        raise AssertionError(f"{what} never launched {missing}")
+    wrong = {n: k["launches"][n] for n in barred if k["launches"][n]}
+    if wrong:
+        raise AssertionError(f"{what} launched the other dtype's "
+                             f"instances {wrong}")
     if any(p["launches"].values()):
-        raise AssertionError(f"plain train path launched kernels: "
+        raise AssertionError(f"plain {what} launched kernels: "
                              f"{p['launches']}")
-    terms = ("loss", "repr_loss", "aug_loss", "img_loss", "ray_depth_loss")
-    bad = {n: rel[n] for n in terms if not rel[n] <= LOSS_RTOL}
+    tol = BF16_STEP_LOSS_RTOL if bf16 else LOSS_RTOL
+    bad = {n: rel[n] for n in LOSS_TERMS if not rel[n] <= tol}
     if bad or not all(map(lambda v: v == v, k["first"].values())):
-        raise AssertionError(f"step-1 losses kernel vs plain: {bad}")
-    if not max(grad_l2.values()) <= GRAD_L2_TOL:
-        raise AssertionError(f"gradients kernel vs plain: "
+        raise AssertionError(f"{what} step-1 losses kernel vs plain: {bad}")
+    if bf16:
+        over = {n: v for n, v in result["grad_l2_per_network"].items()
+                if not v <= BF16_GRAD_NET_TOL[n]}
+        if over:
+            raise AssertionError(f"{what} gradients kernel vs plain, per "
+                                 f"network: {over} (limits "
+                                 f"{BF16_GRAD_NET_TOL})")
+    elif not max(grad_l2.values()) <= GRAD_L2_TOL:
+        raise AssertionError(f"{what} gradients kernel vs plain: "
                              f"{result['grad_worst_l2_rel']}")
+    if k["not_float32"] or p["not_float32"]:
+        raise AssertionError(f"{what}: state tensors not float32 "
+                             f"{k['not_float32'] + p['not_float32']}")
     return result
+
+
+def phase_bf16_train(batch, cascade_sd, f32_path, smi, dev, cfg=None,
+                     **kw):
+    """Phase 14 (b)-(d): the bf16 train step (`phase_train` with cfg's
+    train dtypes set to bfloat16, kernels then plain versions), then its
+    first five steps' loss terms against phase 6's float32 kernel step
+    (f32_path; the same init, batch and draws): each within BF16_VS_F32.
+    Prints steps/s and peak memory of both dtypes."""
+    import dataclasses
+    from rcmvsnet_tpu_torch.config import Config
+    base = cfg or Config()
+    cfg = base.replace(
+        backbone=dataclasses.replace(base.backbone, train_dtype="bfloat16"))
+    res = phase_train(batch, cascade_sd, smi, dev, cfg, **kw)
+    rtol, atol = BF16_VS_F32
+    pairs = list(zip(res["step_losses_kernel"][:5],
+                     f32_path["step_losses_kernel"][:5]))
+    delta = [{n: abs(b[n] - f[n]) for n in LOSS_TERMS} for b, f in pairs]
+    over = [(i + 1, n, b[n], f[n]) for i, (b, f) in enumerate(pairs)
+            for n in LOSS_TERMS if not abs(b[n] - f[n]) <= rtol * abs(f[n])
+            + atol]
+    res["vs_float32_kernel_steps"] = {"bf16": [b for b, _ in pairs],
+                                      "float32": [f for _, f in pairs],
+                                      "abs_delta": delta}
+    out = {"device": smi,
+           "steps_per_s": {"bf16": res["steps_per_s_kernel"],
+                           "float32": f32_path["steps_per_s_kernel"]},
+           "steps_per_s_plain": {"bf16": res["steps_per_s_plain"],
+                                 "float32": f32_path["steps_per_s_plain"]},
+           "peak_bytes": {"bf16": res["max_memory_allocated_kernel"],
+                          "float32": f32_path["max_memory_allocated_kernel"]},
+           "vs_float32_kernel_steps": res["vs_float32_kernel_steps"]}
+    print(json.dumps({"bf16_train": out}), flush=True)
+    if len(pairs) < 5 or over:
+        raise AssertionError(f"bf16 train step vs float32: {over} beyond "
+                             f"{rtol}·|f32| + {atol} (steps {len(pairs)})")
+    return res
 
 
 def _depth_gate(name, dk, dp):
@@ -1836,7 +2004,6 @@ def main() -> int:
                               load_state_dict(ASSET), train_path, eval_out,
                               smi, dev, dp_dir)
     shutil.rmtree(dp_dir)
-    del batch
     torch.cuda.empty_cache()
 
     # 12. the bf16 eval path: its kernels against their plain versions,
@@ -1848,6 +2015,21 @@ def main() -> int:
     bf16_paths = phase_bf16(model, samples, scene, eval_out, tanks_out,
                             (main_path, tanks_path), smi, dev)
     del samples, eval_out, tanks_out
+    torch.cuda.empty_cache()
+
+    # 14. the bf16 train path: its kernels against their bf16 plain
+    # versions, then the bf16 step against its plain versions and against
+    # phase 6's float32 step (run before the report, phase 13)
+    torch.manual_seed(SEED)
+    render = make_models(Config(), TV)[1].to(dev)
+    with torch.no_grad():
+        phase_train_kernels(model, render, batch, tscene, ledger, dev,
+                            torch.bfloat16)
+    del render
+    torch.cuda.empty_cache()
+    bf16_train = phase_bf16_train(batch, load_state_dict(ASSET), train_path,
+                                  smi, dev)
+    del batch
     torch.cuda.empty_cache()
 
     # 13. report
@@ -1883,9 +2065,21 @@ def main() -> int:
         ("conv3d_bf16", "bf16", "cuda", source + "csrc/conv3d.cu",
          "rcmvsnet_tpu/ops/pallas_costreg.py:383 + "
          "rcmvsnet_tpu/ops/pallas_resample.py:59,117"),
+        ("warp_variance_bwd_bf16", "bf16_train", "cuda",
+         source + "csrc/warp_variance.cu",
+         "rcmvsnet_tpu/ops/pallas_warp_train.py:306 (bwd :108, :374)"),
+        ("warp_volume_bf16", "bf16_train", "cuda",
+         source + "csrc/warp_volume.cu",
+         "rcmvsnet_tpu/ops/pallas_warp_volume.py:263 (fwd :101, :340)"),
+        ("warp_volume_bwd_bf16", "bf16_train", "cuda",
+         source + "csrc/warp_volume.cu",
+         "rcmvsnet_tpu/ops/pallas_warp_volume.py:263 (bwd :178, :406)"),
+        ("conv3d_dw_bf16", "bf16_train", "cuda",
+         source + "csrc/conv3d_dw.cu",
+         "rcmvsnet_tpu/ops/pallas_costreg_train.py:81 (dw :163, :258)"),
     ]
     paths = {"eval": main_path, "train": train_path, "tools": tools_path,
-             "bf16": bf16_paths["dtu"]}
+             "bf16": bf16_paths["dtu"], "bf16_train": bf16_train}
     kernels = []
     for name, phase, route, src, replaces in meta:
         s = ledger.summary(name, phase)
@@ -1905,9 +2099,12 @@ def main() -> int:
             row["repeats_bit_for_bit"] = s["repeats_bit_for_bit"]
         if "device_ms" in s:
             row.update(device_ms=s["device_ms"], host_ms=s["host_ms"])
-        if name in TRAIN_KERNELS and phase == "eval":
-            t = ledger.summary(name, "train")
-            row["train"] = {"launches": train_path["launches"][name],
+        if name in TRAIN_KERNELS + BF16_TRAIN_KERNELS and phase in (
+                "eval", "bf16"):
+            train_phase, tpath = (("train", train_path) if phase == "eval"
+                                  else ("bf16_train", bf16_train))
+            t = ledger.summary(name, train_phase)
+            row["train"] = {"launches": tpath["launches"][name],
                             **{k: t[k] for k in (
                                 "max_abs_err", "ms", "plain_ms",
                                 "library_ms", "bound_ms", "bound_by",
@@ -1923,7 +2120,8 @@ def main() -> int:
         "train_path": train_path, "tanks_path": tanks_path,
         "tools_path": tools_path, "train_cli": train_cli,
         "wide_path": wide_path, "parallel": parallel,
-        "bf16_paths": bf16_paths, "kernels": kernels}, indent=1))
+        "bf16_paths": bf16_paths, "bf16_train_path": bf16_train,
+        "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,17 @@ gradients, the largest per-tensor ‖Δ‖₂ / ‖g‖₂ (the quantity chip_sm
 gates), the largest |Δ| over its model's and over its network's largest
 gradient, and the worst tensors. Everything also goes to
 chiprun_out/train_probe.json.
+
+    python3 chip_train_probe.py --bf16
+
+does the same for the bf16 train step (train_dtype bfloat16, chip_smoke.py
+phase 14 (b)), in one process: kernel vs plain (deterministic cuDNN) at
+BF16_SEEDS (each seed draws the scene, the render branch's init and the
+step's draws), then at the first seed with K6's or K7's backward or K8's
+dw scaled by 1.01 and by 1.1. Each line gives, per network, ‖Δ‖₂ / ‖g‖₂
+over its gradients (the quantity phase 14 (b) gates) and the step-1
+losses' relative deltas; everything also goes to
+chiprun_out/train_probe_bf16.json.
 """
 from __future__ import annotations
 
@@ -53,6 +64,7 @@ MAIN_RUNS = (
       for k in ("k6", "k7", "k8dw") for s in (1.01, 1.1)),
 )
 SIDE_RUNS = (("plain", {}), ("plain_det", {"det": True}), ("kernel", {}))
+BF16_SEEDS = (5, 0, 1, 2, 3, 4)          # chip_smoke.SEED first
 
 
 def checksum(t) -> int:
@@ -96,12 +108,14 @@ class Recorder:
 def patched(module, attr, make):
     """Context: module.attr replaced by make(original). A kernel wrapper
     counts its launches on the module's attribute, so the replacement
-    carries the count."""
+    carries the counts."""
     @contextlib.contextmanager
     def ctx():
         orig = getattr(module, attr)
         new = make(orig)
         new.launches = getattr(orig, "launches", 0)
+        if hasattr(orig, "bf16"):          # the bf16 instance's count
+            new.bf16 = orig.bf16
         setattr(module, attr, new)
         try:
             yield
@@ -274,6 +288,97 @@ def compare(kind, what, a, b, out):
     out.append(row)
 
 
+def net_l2(a, b) -> dict:
+    """{network: ‖a − b‖₂ / ‖b‖₂ over its gradients}."""
+    out = {}
+    for net in NETWORKS:
+        names = [n for n in b if n.startswith(net)]
+        d = sum(float((a[n] - b[n]).norm()) ** 2 for n in names)
+        r = sum(float(b[n].norm()) ** 2 for n in names)
+        out[net] = (d / max(r, 1e-60)) ** 0.5
+    return out
+
+
+def bf16_main(smi: str) -> int:
+    """The bf16 step's kernel-vs-plain gradient distances per network,
+    over BF16_SEEDS and under planted faults (see the module doc)."""
+    import dataclasses
+    import torch
+    import chip_smoke
+    from rcmvsnet_tpu_torch.config import Config
+    from rcmvsnet_tpu_torch.core.geometry import set_full_precision
+    from rcmvsnet_tpu_torch.data.synthetic import batch_from_views
+    from rcmvsnet_tpu_torch.ops import conv3d_train as k8
+    from rcmvsnet_tpu_torch.ops import warp_variance as k6
+    from rcmvsnet_tpu_torch.ops import warp_volume as k7
+    from rcmvsnet_tpu_torch.train import step as step_mod
+    from rcmvsnet_tpu_torch.train.state import create_train_state
+    from rcmvsnet_tpu_torch.weights import ASSET, load_state_dict
+
+    set_full_precision()
+    dev = torch.device("cuda")
+    base = Config()
+    cfg = base.replace(backbone=dataclasses.replace(
+        base.backbone, train_dtype="bfloat16"))
+    backbone = load_state_dict(ASSET)
+    scaled = lambda s: lambda o: lambda *a: s * o(*a)
+    plants = {
+        "k6": (k6, "warp_variance_bwd", scaled),
+        "k7": (k7, "warp_volume_bwd",
+               lambda s: lambda o: lambda *a: tuple(s * t for t in o(*a))),
+        "k8dw": (k8, "conv3d_dw", scaled),
+    }
+
+    def run(seed, plain, plant=None):
+        scene = chip_smoke.plane_scene(chip_smoke.TH, chip_smoke.TW,
+                                       chip_smoke.TV, seed)
+        batch = step_mod.batch_to(
+            batch_from_views([scene], chip_smoke.NDEPTH, seed), dev)
+        B, V, H, W = batch["imgs"].shape[:4]
+        draws = step_mod.draw_step(
+            torch.Generator(device=dev).manual_seed(seed), cfg, B, H, W)
+        with contextlib.ExitStack() as stack:
+            if plant:
+                mod, attr, make = plants[plant[0]]
+                stack.enter_context(patched(mod, attr, make(plant[1])))
+            torch.backends.cudnn.deterministic = plain
+            state = create_train_state(cfg, V, 1000, dev, seed=seed,
+                                       state_dicts=(backbone, None))
+            metrics = {k: float(v) for k, v in step_mod.make_train_step(
+                cfg, plain=plain)(state, batch, draws).items()}
+            torch.backends.cudnn.deterministic = False
+        grads = {f"render.{n}": p.grad.detach().cpu()
+                 for n, p in state.render.named_parameters()}
+        grads.update({n: p.grad.detach().cpu()
+                      for n, p in state.cascade.named_parameters()})
+        del state
+        torch.cuda.empty_cache()
+        return {"metrics": metrics, "grads": grads}
+
+    out = []
+
+    def compare(what, a, b):
+        row = {"what": what, "net_l2": net_l2(a["grads"], b["grads"]),
+               "loss_rel": losses_delta(a["metrics"], b["metrics"])}
+        print(json.dumps(row), flush=True)
+        out.append(row)
+
+    plain0 = None
+    for seed in BF16_SEEDS:
+        plain = run(seed, True)
+        compare(f"seed {seed}: kernel vs plain", run(seed, False), plain)
+        plain0 = plain0 or plain
+    for k in plants:
+        for s in (1.01, 1.1):
+            compare(f"seed {BF16_SEEDS[0]}, {k} x{s}: kernel vs plain",
+                    run(BF16_SEEDS[0], False, (k, s)), plain0)
+    OUT.mkdir(exist_ok=True)
+    (OUT / "train_probe_bf16.json").write_text(json.dumps(
+        {"device": smi, "comparisons": out}, indent=1))
+    print(smi)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -287,6 +392,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(f"device: {smi} | torch {torch.__version__}", flush=True)
     _build.build_all()
+    if "--bf16" in sys.argv:
+        return bf16_main(smi)
     OUT.mkdir(exist_ok=True)
     for tag in ("a", "b", "c"):
         subprocess.run([sys.executable, __file__, "--child", tag], check=True,

@@ -4,7 +4,12 @@ data-parallel over several.
 Counterpart of `rcmvsnet_tpu/cli/train.py`, with the JAX CLI's flag names
 for the flags it keeps, plus `--device` (default `cuda`; a missing card is
 an error, not a CPU run). `--no_pallas` runs every kernel's plain
-PyTorch version (`plain=True`), as the JAX flag runs the XLA path. Per
+PyTorch version (`plain=True`), as the JAX flag runs the XLA path.
+`--train_dtype bfloat16` sets the train dtype of the backbone and of the
+render U-Net (`BackboneConfig.train_dtype`), as the JAX CLI does on its
+chip: the bf16 instances of K1, K6, K7, K2
+and K8 dw (or, with `--no_pallas`, their bf16 plain versions); the
+checkpoints hold the float32 parameters either way. Per
 epoch: the fused train step (`train/step.py`: clean, aug and render
 passes, one backward, one Adam step) over the shuffled train loader
 (`data/loader.py`, its order fixed by (seed, epoch)); every
@@ -113,6 +118,11 @@ def parse_args(argv=None):
                         "--n_devices, cuda or cpu")
     p.add_argument("--no_pallas", action="store_true",
                    help="run every kernel's plain PyTorch version")
+    p.add_argument("--train_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype of the backbone and the render "
+                        "U-Net in training (params, BN statistics and "
+                        "losses stay float32)")
     p.add_argument("--n_devices", type=int, default=None,
                    help="data-parallel over this many devices of this "
                         "host, one process each (default 1)")
@@ -136,7 +146,8 @@ def config_from_args(a) -> Config:
                                 depth_intervals_ratio=csv(a.depth_inter_r,
                                                           float),
                                 cr_base_chs=csv(a.cr_base_chs, int),
-                                grad_detach=a.grad_method == "detach"),
+                                grad_detach=a.grad_method == "detach",
+                                train_dtype=a.train_dtype),
         render=RenderConfig(n_rays=a.n_rays, n_samples=a.n_samples,
                             net_type=a.net_type),
         loss=LossConfig(dlossw=csv(a.dlossw, float), w_aug=a.w_aug),

@@ -2,18 +2,27 @@
 step's render, loss and run settings.
 
 Counterparts of `rcmvsnet_tpu/config.py` without the TPU knobs (`pallas_*`,
-`train_dtype`, `remat`, `ray_major_lookup`) and the multi-device one
-(`n_devices`): the port picks its kernels by the tensor's device. It
-computes in float32, except the eval path under
-`BackboneConfig.eval_dtype = "bfloat16"` (JAX's field and meaning: the
-conv stacks and the warp in bf16; geometry, softmax and depth regression
-float32).
+`remat`, `ray_major_lookup`) and the multi-device one (`n_devices`): the
+port picks its kernels by the tensor's device. It computes in float32,
+except where a dtype field names bfloat16, with JAX's fields and meanings:
+  * `BackboneConfig.eval_dtype`: the eval path's conv stacks and warp in
+    bf16; geometry, softmax and depth regression float32;
+  * `BackboneConfig.train_dtype`: the train forward's FeatureNet, warps
+    (K1/K6, K7) and CostRegNet U-Nets (K8) in bf16, and so are the render
+    branch's neural-volume resize and U-Net (JAX's `RenderConfig.
+    train_dtype`, which its CLI sets from the same flag); parameters,
+    Adam's moments, BatchNorm statistics, the variance sums, softmax,
+    depth regression, the render MLP, ray sampling, compositing and the
+    losses float32.
+None (or "float32") means float32; "bfloat16" is the only other value.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -27,6 +36,11 @@ class BackboneConfig:
     # instances, the path the JAX eval CLI runs on its chip); None (or
     # 'float32') = float32
     eval_dtype: Optional[str] = None
+    # train compute dtype of the backbone and of the render U-Net
+    # ('bfloat16': FeatureNet, the train warps and the U-Nets on bf16
+    # activations through the bf16 instances of K1, K6, K7, K2 and K8 dw);
+    # None (or 'float32') = float32
+    train_dtype: Optional[str] = None
 
 
 @dataclass(frozen=True)
@@ -37,6 +51,19 @@ class RenderConfig:
     n_samples: int = 128
     num_planes: int = 128
     net_type: str = "v0"  # 'v0' mult feat bias | 'v1' attention | 'v2' additive
+
+
+# a dtype field's value → the torch dtype it names
+DTYPES = {None: torch.float32, "float32": torch.float32,
+          "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name: Optional[str]) -> torch.dtype:
+    """The torch dtype a config dtype field names (None: float32)."""
+    if name not in DTYPES:
+        raise ValueError(f"dtype must be one of {list(DTYPES)}, got "
+                         f"{name!r}")
+    return DTYPES[name]
 
 
 @dataclass(frozen=True)

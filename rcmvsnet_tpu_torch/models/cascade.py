@@ -30,6 +30,12 @@ statistics the batch's, as in JAX), then softmax + depth regression in
 plain PyTorch
 (the JAX train tail is XLA code). With `grad_detach` the previous stage's
 depth is detached before it sets the next window.
+With `config.train_dtype == "bfloat16"` the train forward is the JAX
+cascade's under train_dtype bfloat16 (`models/cascade.py:377-378`): the
+images are cast to bf16, so FeatureNet, the warps (K1 with K6, K7 on the
+bf16 features and the stage's bf16 images) and the U-Nets (K8) run their
+bf16 instances; the prob head writes the float32 cost, and the softmax,
+depth and confidence are float32 (`:285`).
 
 `plain=True` runs every kernel's plain version (on a CPU tensor the
 wrappers do so anyway), with autograd through them on the train path.
@@ -37,12 +43,13 @@ wrappers do so anyway), with autograd through them on the train path.
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..config import BackboneConfig
+from ..config import BackboneConfig, compute_dtype
 from ..core.geometry import compose_projection
 from ..nn.costreg import CostRegNet
 from ..nn.featurenet import FeatureNet
@@ -51,21 +58,20 @@ from ..ops.depth_tail import (depth_regression, depth_tail,
 from ..ops.sampling import resize_bilinear
 from ..ops.warp_variance import (warp_variance, warp_variance_plain,
                                  warp_variance_train)
-from ..ops.warp_volume import warp_volume_plain, warp_volume_train
+from ..ops.warp_volume import warp_volume_train
 
 STAGE_SCALES = (4, 2, 1)
-# `config.eval_dtype` → the eval path's compute dtype (None: float32, as
-# in JAX; "float32" names it too, as `--eval_dtype` does)
-EVAL_DTYPES = {None: torch.float32, "float32": torch.float32,
-               "bfloat16": torch.bfloat16}
 
 
 def eval_dtype(config: BackboneConfig) -> torch.dtype:
-    """The eval path's compute dtype named by `config.eval_dtype`."""
-    if config.eval_dtype not in EVAL_DTYPES:
-        raise ValueError(f"eval_dtype must be one of {list(EVAL_DTYPES)}, "
-                         f"got {config.eval_dtype!r}")
-    return EVAL_DTYPES[config.eval_dtype]
+    """The eval path's compute dtype named by `config.eval_dtype` (None:
+    float32, as in JAX; "float32" names it too, as `--eval_dtype` does)."""
+    return compute_dtype(config.eval_dtype)
+
+
+def train_dtype(config: BackboneConfig) -> torch.dtype:
+    """The train forward's compute dtype named by `config.train_dtype`."""
+    return compute_dtype(config.train_dtype)
 
 
 class CascadeMVSNet(nn.Module):
@@ -153,8 +159,10 @@ class CascadeMVSNet(nn.Module):
         volume_feature_no_ref [B, 3(V−1)+C, D, h, w]: the warped source
         images (view-major) then the no-ref variance, channels first."""
         cfg = self.config
-        warp = warp_variance_plain if plain else warp_variance_train
-        volume = warp_volume_plain if plain else warp_volume_train
+        dtype = train_dtype(cfg)
+        warp = partial(warp_variance_train, plain=plain)
+        volume = partial(warp_volume_train, plain=plain)
+        imgs = imgs.to(dtype)
         B, V, H, W, _ = imgs.shape
         x = imgs.reshape(B * V, H, W, 3).permute(0, 3, 1, 2).contiguous()
         feats = self.feature(x)

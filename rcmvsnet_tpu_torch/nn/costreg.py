@@ -20,7 +20,12 @@ base-channel volume.
   * `forward_train` (both nets): every conv through K8
     (`ops/conv3d_train.conv3d_train`) with train-mode BatchNorm, ReLU and
     the skip adds in autograd between them; `plain=True` runs the plain
-    PyTorch conv under autograd instead.
+    PyTorch conv under autograd instead. A bf16 volume (the bf16 train
+    path, JAX `nn/costreg.py` `_LanesConvBN` at compute dtype bf16): K8's
+    bf16 instances on the float32 weights, BatchNorm statistics float32
+    and its apply float32 rounded once (`nn/layers.batch_stats`,
+    `bn_apply_f32`), the skips added in bf16, and CostRegNet's prob head
+    writing the float32 cost.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ from torch import nn
 
 from ..ops.conv3d import conv3d, conv3d_plain
 from ..ops.conv3d_train import conv3d_train, conv3d_train_plain
-from .layers import ConvBNAct, DeconvBNAct, fold_block
+from .layers import (ConvBNAct, DeconvBNAct, batch_stats, bn_apply_f32,
+                     fold_block)
 
 # (block, mode) of the U-Net trunk, in forward order; the decoder blocks'
 # outputs are added to the encoder outputs of SKIPS
@@ -47,18 +53,26 @@ def conv_bn(block):
     return block.conv, block.bn
 
 
+def block_train(conv: nn.Module, bn: nn.Module, x: torch.Tensor, mode: str,
+                relu: bool, plain: bool = False) -> torch.Tensor:
+    """One train-mode U-Net block: conv (K8, or plain) → BN (batch
+    statistics; running stats updated) → [ReLU] (x float32 or bf16)."""
+    t = (conv3d_train_plain if plain else conv3d_train)(x, conv.weight, mode)
+    if x.dtype == torch.bfloat16:
+        t = bn_apply_f32(bn, t, *batch_stats(bn, t))
+    else:
+        t = bn(t)
+    return torch.relu(t) if relu else t
+
+
 def unet_train(net: nn.Module, x: torch.Tensor, relu: bool,
                plain: bool = False) -> torch.Tensor:
-    """The shared trunk in train mode: conv (K8, or plain) → BN (batch
-    statistics; running stats updated) → [ReLU], skips added after."""
-    conv = conv3d_train_plain if plain else conv3d_train
+    """The shared trunk in train mode (`block_train` per block), skips
+    added after."""
     out = {}
     t = x
     for name, mode in TRUNK:
-        c, bn = conv_bn(getattr(net, name))
-        t = bn(conv(t, c.weight, mode))
-        if relu:
-            t = torch.relu(t)
+        t = block_train(*conv_bn(getattr(net, name)), t, mode, relu, plain)
         if name in SKIPS:
             t = out[SKIPS[name]] + t
         out[name] = t
@@ -119,9 +133,12 @@ class CostRegNet(nn.Module):
 
     def forward_train(self, x: torch.Tensor,
                       plain: bool = False) -> torch.Tensor:
-        """Train mode: x [N, C, D, H, W] → cost [N, 1, D, H, W]."""
+        """Train mode: x [N, C, D, H, W] → cost [N, 1, D, H, W] (float32;
+        x float32 or bf16)."""
         t = unet_train(self, x, relu=True, plain=plain)
         conv = conv3d_train_plain if plain else conv3d_train
+        if x.dtype == torch.bfloat16:
+            return conv(t, self.prob.weight, "s1", out_dtype=torch.float32)
         return conv(t, self.prob.weight, "s1")
 
 

@@ -5,7 +5,14 @@ its folded eval path `rcmvsnet_tpu/nn/featurenet_fast.featurenet_packed`.
 Tensors are NCHW. Outputs: stage1 [N, 4c, H/4, W/4], stage2
 [N, 2c, H/2, W/2], stage3 [N, c, H, W].
 
-  * `forward`: the modules as they stand (Conv → BN → ReLU).
+  * `forward`: the modules as they stand (Conv → BN → ReLU). On bf16
+    images (the bf16 train path, JAX `FeatureNet` under train_dtype
+    bfloat16: flax convs at dtype bf16) every conv runs on bf16 tensors
+    with its float32 weight rounded to bf16 per call (cuDNN on the card:
+    JAX computes these convs in XLA, outside any Pallas kernel), BN takes
+    float32 statistics and applies them in bf16 with each factor rounded
+    (`nn/layers.bn_apply_rounded`), the inner heads' biases are added in
+    bf16 after the conv, and the three outputs are bf16.
   * `forward_folded`: the eval path through K5 (`ops/conv2d`): BN as a
     scale/shift epilogue; inner1 fused with the nearest-×2 upsample-add;
     stage 3's head as one `lateral_conv2d` call, which forms
@@ -28,7 +35,22 @@ from torch import nn
 
 from ..ops.conv2d import (conv2d, conv2d_plain, lateral_conv2d,
                           lateral_conv2d_plain)
-from .layers import ConvBNAct, bn_scale_shift
+from .layers import ConvBNAct, batch_stats, bn_apply_rounded, bn_scale_shift
+
+
+def _conv_bf16(m: nn.Conv2d, t: torch.Tensor) -> torch.Tensor:
+    """m on bf16 t with its weight rounded to bf16; a bias is rounded and
+    added after the conv, in bf16."""
+    bf = lambda w: w.to(torch.bfloat16)
+    y = F.conv2d(t, bf(m.weight), None, m.stride, m.padding)
+    return y if m.bias is None else y + bf(m.bias)[:, None, None]
+
+
+def block_train_bf16(blk: ConvBNAct, x: torch.Tensor) -> torch.Tensor:
+    """One train-mode Conv → BN → ReLU block on bf16 x (see the module
+    doc)."""
+    y = _conv_bf16(blk.conv, x)
+    return torch.relu(bn_apply_rounded(blk.bn, y, *batch_stats(blk.bn, y)))
 
 
 class FeatureNet(nn.Module):
@@ -52,6 +74,8 @@ class FeatureNet(nn.Module):
         self.out_channels = (4 * c, 2 * c, c)
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        if x.dtype == torch.bfloat16:
+            return self._forward_bf16(x)
         conv0 = self.conv0(x)
         conv1 = self.conv1(conv0)
         intra = self.conv2(conv1)
@@ -62,6 +86,27 @@ class FeatureNet(nn.Module):
         intra = F.interpolate(intra, scale_factor=2, mode="nearest") \
             + self.inner2(conv0)
         out["stage3"] = self.out3(intra)
+        return out
+
+    def _forward_bf16(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        """`forward` on bf16 images (see the module doc)."""
+        acts = []
+        for seq in (self.conv0, self.conv1, self.conv2):
+            for blk in seq:
+                x = block_train_bf16(blk, x)
+            acts.append(x)
+        return self.heads_bf16(*acts)
+
+    def heads_bf16(self, conv0: torch.Tensor, conv1: torch.Tensor,
+                   intra: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The FPN heads of the bf16 forward on the three trunk outputs."""
+        out = {"stage1": _conv_bf16(self.out1, intra)}
+        intra = F.interpolate(intra, scale_factor=2, mode="nearest") \
+            + _conv_bf16(self.inner1, conv1)
+        out["stage2"] = _conv_bf16(self.out2, intra)
+        intra = F.interpolate(intra, scale_factor=2, mode="nearest") \
+            + _conv_bf16(self.inner2, conv0)
+        out["stage3"] = _conv_bf16(self.out3, intra)
         return out
 
     def forward_folded(self, x: torch.Tensor, plain: bool = False,

@@ -17,7 +17,24 @@ autograd outside it):
 Both halves dispatch by device, so on the CPU the Function runs the plain
 versions and its backward composition is what the tests check.
 `conv3d_train_plain` is the same function in plain PyTorch
-(`F.conv3d` / `F.conv_transpose3d` under autograd).
+(`F.conv3d` / `F.conv_transpose3d` under autograd). K2's bias is float32
+in every instance: the Function passes a float32 zero bias whatever x's
+dtype.
+
+bfloat16 (the bf16 train path, `conv_lanes_t` at compute dtype bf16): a
+bf16 x runs the bf16 instances. The float32 master weight is rounded to
+bf16 inside the Function (as `conv_lanes` casts its kernel); the forward
+is K2-bf16 (bf16 out, or float32 with `out_dtype=torch.float32`: the
+prob head, JAX `nn/costreg.py:185-188`); the backward rounds its
+cotangent to bf16 (a float32 one, the prob head's, changes: JAX rounds
+the masked cotangent before its dx conv and its dw kernel,
+`pallas_costreg_train.py:197-203`), runs K2-bf16 in the adjoint mode
+(dx bf16, x's dtype) and `conv3d_dw` on the bf16 instance of
+`csrc/conv3d_dw.cu` (one bf16 MMA per multiply-add, float32 sums; dw
+float32, the parameter's dtype, `pallas_costreg_train.py:157`). Its
+plain version is the same Function on the plain versions
+(`conv3d_train_plain` of a bf16 x): the float32 convolutions on the bf16
+operands, rounded where the kernels round.
 
 Replaces `rcmvsnet_tpu/ops/pallas_costreg_train.py` `conv_lanes_t` (its
 custom VJP: dx through the forward kernel, dw through `_conv_dw`).
@@ -25,6 +42,7 @@ custom VJP: dx through the forward kernel, dw through `_conv_dw`).
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -60,9 +78,16 @@ class DwPlan(NamedTuple):
 
 
 def conv3d_train_plain(x: torch.Tensor, weight: torch.Tensor,
-                       mode: str) -> torch.Tensor:
+                       mode: str, out_dtype=None) -> torch.Tensor:
     """x [N, Ci, D, H, W]; weight [Co, Ci, 3, 3, 3] ("s1", "s2") or
-    [Ci, Co, 3, 3, 3] ("t2"). No bias, no ReLU."""
+    [Ci, Co, 3, 3, 3] ("t2"). No bias, no ReLU. A bf16 x: the bf16
+    Function (see the module doc) on the plain versions; out_dtype
+    (bf16 x only) float32 for the prob head."""
+    if x.dtype == torch.bfloat16:
+        return _Conv3dTrain.apply(x, weight, mode, out_dtype, True)
+    # float32: autograd through the plain conv, whose weight gradient is
+    # one library call (the Function's `conv3d_dw_plain` is 27 gathered
+    # products: far slower on the CPU, where the tests run this path)
     return conv3d_plain(x, weight, None, mode, relu=False)
 
 
@@ -74,7 +99,10 @@ def conv3d_dw_plain(x: torch.Tensor, g: torch.Tensor,
                     mode: str) -> torch.Tensor:
     """Weight gradient of `conv3d_train_plain` for the output cotangent g
     [N, Co, Do, Ho, Wo], in the weight's own layout: dW[co, ci, k] =
-    Σ g[co, o] · x[ci, tap(o, k)]."""
+    Σ g[co, o] · x[ci, tap(o, k)], float32 (bf16 x and g: float32 sums
+    of their exact products)."""
+    if x.dtype == torch.bfloat16:
+        return conv3d_dw_plain(x.float(), g.float(), mode)
     N, Ci, D, H, W = x.shape
     Co = g.shape[1]
     cols = []
@@ -112,8 +140,8 @@ def dw_chunks(mode: str, n: int, ci: int, d: int, h: int,
                   ci_chunks, classes)
 
 
-def _lib():
-    fn = _build.load("conv3d_dw").conv3d_dw_f32
+def _lib(entry: str = "conv3d_dw_f32"):
+    fn = getattr(_build.load("conv3d_dw"), entry)
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -122,7 +150,9 @@ def _lib():
 
 
 def conv3d_dw(x: torch.Tensor, g: torch.Tensor, mode: str) -> torch.Tensor:
-    """Same contract as `conv3d_dw_plain`; the kernel on a CUDA tensor."""
+    """Same contract as `conv3d_dw_plain`; the kernel on a CUDA tensor,
+    the instance of x's element type (bf16 x and g: `conv3d_dw_bf16`,
+    counted in `conv3d_dw.bf16.launches`)."""
     if x.device.type == "cpu":
         return conv3d_dw_plain(x, g, mode)
     N, Ci, D, H, W = x.shape
@@ -131,22 +161,27 @@ def conv3d_dw(x: torch.Tensor, g: torch.Tensor, mode: str) -> torch.Tensor:
     if tuple(g.shape) != (N, Co, Do, Ho, Wo):
         raise ValueError(f"conv3d_dw: g {tuple(g.shape)} is not the "
                          f"{mode} output of x {tuple(x.shape)}")
-    _build.require_cuda("conv3d_dw", x, g)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        _build.require_cuda("conv3d_dw", bf16=(x, g))
+    else:
+        _build.require_cuda("conv3d_dw", x, g)
     plan = dw_chunks(mode, N, Ci, D, H, W)
     partial = torch.empty((plan.chunks, Co, Ci, 27), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((Co, Ci, 27), dtype=torch.float32, device=x.device)
-    err = _lib()(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                 dw.data_ptr(), N, Ci, D, H, W, Co, Do, Ho, Wo, MODES[mode],
-                 plan.chunks, plan.per_chunk, plan.brick[1],
-                 _build.stream_ptr(x.device))
+    err = _lib("conv3d_dw_bf16" if bf16 else "conv3d_dw_f32")(
+        x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), N, Ci,
+        D, H, W, Co, Do, Ho, Wo, MODES[mode], plan.chunks, plan.per_chunk,
+        plan.brick[1], _build.stream_ptr(x.device))
     _build.check(err, "conv3d_dw")
-    conv3d_dw.launches += 1
+    (conv3d_dw.bf16 if bf16 else conv3d_dw).launches += 1
     dw = dw.reshape(Co, Ci, 3, 3, 3)
     return dw.transpose(0, 1) if mode == "t2" else dw
 
 
 conv3d_dw.launches = 0
+conv3d_dw.bf16 = SimpleNamespace(launches=0)
 
 
 def _adjoint_weight(weight: torch.Tensor, mode: str) -> torch.Tensor:
@@ -156,32 +191,51 @@ def _adjoint_weight(weight: torch.Tensor, mode: str) -> torch.Tensor:
     return weight
 
 
+def _zero_bias(n: int, x: torch.Tensor) -> torch.Tensor:
+    """K2's zero bias: float32 in every instance."""
+    return torch.zeros(n, dtype=torch.float32, device=x.device)
+
+
 class _Conv3dTrain(torch.autograd.Function):
+    """K8 (see the module doc); `plain` runs the plain versions on any
+    device (the bf16 plain pair)."""
+
     @staticmethod
-    def forward(ctx, x, weight, mode):
-        ctx.mode = mode
+    def forward(ctx, x, weight, mode, out_dtype=None, plain=False):
+        ctx.mode, ctx.plain = mode, plain
         ctx.save_for_backward(x, weight)
         co = weight.shape[1] if mode == "t2" else weight.shape[0]
-        return conv3d(x, weight, x.new_zeros(co), mode, relu=False)
+        if plain:
+            return conv3d_plain(x, weight, None, mode, relu=False,
+                                out_dtype=out_dtype)
+        return conv3d(x, weight.to(x.dtype), _zero_bias(co, x), mode,
+                      relu=False, out_dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
-        mode = ctx.mode
-        g = g.contiguous()
+        mode, plain = ctx.mode, ctx.plain
+        g = g.to(x.dtype).contiguous()
+        w = weight.to(x.dtype)
         dx = dw = None
         if ctx.needs_input_grad[0]:
             adj = ADJOINT[mode]
-            dx = conv3d(g, _adjoint_weight(weight, mode),
-                        x.new_zeros(x.shape[1]), adj, relu=False,
-                        out_dhw=tuple(x.shape[2:]) if adj == "t2" else None)
+            dhw = tuple(x.shape[2:]) if adj == "t2" else None
+            if plain:
+                dx = conv3d_plain(g, _adjoint_weight(w, mode), None, adj,
+                                  relu=False, out_dhw=dhw)
+            else:
+                dx = conv3d(g, _adjoint_weight(w, mode),
+                            _zero_bias(x.shape[1], x), adj, relu=False,
+                            out_dhw=dhw)
         if ctx.needs_input_grad[1]:
-            dw = conv3d_dw(x, g, mode)
-        return dx, dw, None
+            dw = (conv3d_dw_plain if plain else conv3d_dw)(x, g, mode)
+        return dx, dw, None, None, None
 
 
-def conv3d_train(x: torch.Tensor, weight: torch.Tensor,
-                 mode: str) -> torch.Tensor:
+def conv3d_train(x: torch.Tensor, weight: torch.Tensor, mode: str,
+                 out_dtype=None) -> torch.Tensor:
     """Same function as `conv3d_train_plain`, forward and backward through
-    K2 and the dw kernel on a CUDA tensor."""
-    return _Conv3dTrain.apply(x, weight, mode)
+    K2 and the dw kernel on a CUDA tensor (bf16 x: their bf16 instances;
+    out_dtype float32 for the prob head)."""
+    return _Conv3dTrain.apply(x, weight, mode, out_dtype)

@@ -37,9 +37,23 @@
 // Bound: as conv3d.cu, staging, fragment loads and the hi/lo splits at
 // these widths, not HBM; the compute floor counts 3 TF32 products per
 // multiply-add.
+//
+// bf16 instance (the bf16 train path, conv3d_dw_bf16): x and g bf16 (the
+// caller rounds a float32 cotangent, the prob head's, to bf16 first, as
+// _dw_kernel casts its masked cotangent to the compute dtype,
+// pallas_costreg_train.py:197-203), one mma.sync m16n8k16 bf16 product per
+// multiply-add (exact in float32) with float32 accumulation, dW float32.
+// The same brick plan, Ci chunks of 8 channels (the n8 tile), Co groups,
+// class split and flush after every brick as the float32 instance; a k16
+// step is one brick row of 16 positions. A fragments (g) are 32-bit words
+// of two consecutive positions of a staged row; B fragments (x) pack two
+// taps' bf16 values of one channel plane. g stages with 8-byte cp.async
+// row vectors (modes 0 and 1), x as conv3d.cu's bf16 halo (whole rows,
+// s2 rows kept whole: Halo::RAW).
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "tc_conv3d.cuh"
 
@@ -49,32 +63,41 @@ using namespace tc;
 
 constexpr int kCoGroup = 64;       // output channels a block owns: MT <= 4
 
-template <int MODE, int MT>
+// Element strides of the staged tiles: float as before; bf16 in 32-bit
+// words 4 (mod 32) apart, so that the 8 planes (rows) of a fragment load
+// put its 32 lanes' words on distinct banks.
+template <class T>
+constexpr int dw_stride(int n) {
+  return sizeof(T) == 4 ? pad_to(n, 4) : 2 * pad_to((n + 1) / 2, 4);
+}
+
+template <int MODE, int MT, class T = float>
 struct DwCfg {
   static constexpr int BZ = 1, BY = MODE == 1 ? 4 : 8;   // dw_chunks' BRICK
-  static constexpr int S = MT <= 2 ? 3 : 1;             // accumulators/MMA
-  using Hl = Halo<MODE, BZ, BY>;
+  // accumulators per MMA: 3xTF32 into three where registers allow; bf16 one
+  static constexpr int S = sizeof(T) == 2 ? 1 : MT <= 2 ? 3 : 1;
+  using Hl = Halo<MODE, BZ, BY, T>;
   static constexpr int P = BZ * BY * kBX;               // positions / brick
-  static constexpr int KSTEPS = P / 8;
-  static constexpr int PS = pad_to(Hl::PLANE, 4);       // B loads: g*PS + t
-  static constexpr int PG = pad_to(P, 4);               // A loads: g*PG + t
-  static constexpr int X_FLOATS = kCiChunk * PS;
-  static constexpr int STAGE = X_FLOATS + 16 * MT * PG;
-  static constexpr size_t SMEM = 2 * STAGE * sizeof(float);
+  static constexpr int KSTEPS = P / (sizeof(T) == 2 ? 16 : 8);
+  static constexpr int PS = dw_stride<T>(Hl::PLANE);    // B loads: g*PS + t
+  static constexpr int PG = dw_stride<T>(P);            // A loads: g*PG + t
+  static constexpr int X_ELEMS = kCiChunk * PS;         // x, elements
+  static constexpr int STAGE = X_ELEMS + 16 * MT * PG;
+  static constexpr size_t SMEM = 2 * STAGE * sizeof(T);
 };
 
 // Stage g of the brick's positions (mode 2: outputs 2*b + p) for the
 // group's channels co0 + co, co < 16 MT, into s[co][position]; zero past
 // Co and outside the output. vec (modes 0
-// and 1, rows of g 16-byte aligned): 4 vectors per row of 16 positions;
-// else one row per half-warp, one float per lane.
-template <int MODE, int MT>
-__device__ __forceinline__ void load_g(float* s, const float* g, int n,
+// and 1, rows of g aligned for four-element vectors): 4 vectors per row of
+// 16 positions; else one row per half-warp, one element per lane.
+template <int MODE, int MT, class T>
+__device__ __forceinline__ void load_g(T* s, const T* g, int n,
                                        int co0, int Co, int Do, int Ho,
                                        int Wo,
                                        int bz0, int by0, int bx0, int pz,
                                        int py, int px, bool vec) {
-  using C = DwCfg<MODE, MT>;
+  using C = DwCfg<MODE, MT, T>;
   constexpr int rows = 16 * MT * C::BZ * C::BY;
   if (MODE != 2 && vec) {
     for (int e = threadIdx.x; e < 4 * rows; e += kThreads) {
@@ -85,11 +108,11 @@ __device__ __forceinline__ void load_g(float* s, const float* g, int n,
       const int cg = co0 + co;
       const int nx =
           cg < Co && oz < Do && oy < Ho ? min(4, max(0, Wo - ox)) : 0;
-      const float* src =
+      const T* src =
           nx ? g + ((((long long)n * Co + cg) * Do + oz) * Ho + oy) * Wo + ox
              : g;
-      cp_async16(s + co * C::PG + (rz * C::BY + ry) * kBX + 4 * v, src,
-                 4 * nx);
+      cp_async_vec(s + co * C::PG + (rz * C::BY + ry) * kBX + 4 * v, src,
+                   nx);
     }
     return;
   }
@@ -103,10 +126,10 @@ __device__ __forceinline__ void load_g(float* s, const float* g, int n,
     const int ox = MODE == 2 ? 2 * (bx0 + rx) + px : bx0 + rx;
     const int cg = co0 + co;
     const bool ok = cg < Co && oz < Do && oy < Ho && ox < Wo;
-    const float* src =
+    const T* src =
         ok ? g + ((((long long)n * Co + cg) * Do + oz) * Ho + oy) * Wo + ox
            : g;
-    cp_async4(s + co * C::PG + (rz * C::BY + ry) * kBX + rx, src, ok);
+    stage_one(s + co * C::PG + (rz * C::BY + ry) * kBX + rx, src, ok);
   }
 }
 
@@ -145,15 +168,53 @@ __device__ __forceinline__ void load_a(uint32_t (&ah)[MT][4],
   }
 }
 
+// bf16: A fragments (g) of the k16 step at position p0 for every m16
+// tile: word j holds positions 2t, 2t + 1 (j = 0, 1: rows g, g + 8) or
+// 2t + 8, 2t + 9 (j = 2, 3) of one staged row.
 template <int MODE, int MT>
+__device__ __forceinline__ void load_a16(uint32_t (&a)[MT][4],
+                                         const bf16* sg, int p0, int g,
+                                         int t) {
+  using C = DwCfg<MODE, MT, bf16>;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const bf16* ap = sg + (mt * 16 + g) * C::PG + p0 + 2 * t;
+    a[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
+    a[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * C::PG);
+    a[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+    a[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * C::PG + 8);
+  }
+}
+
+// bf16: one k16 step of one tap, acc[mt] += g[mt tile, 16 positions] x
+// x[the tap's inputs of those positions, 8 ci]. row: the halo row's first
+// element for channel plane 0; the input of step position k sits at
+// column col0 + cs * k (s1 and t2: cs 1; s2: cs 2, rows kept whole).
+template <int MODE, int MT>
+__device__ __forceinline__ void step_mma16(
+    float (&acc)[MT][1][4], const uint32_t (&a)[MT][4], const bf16* row,
+    int col0, int g, int t) {
+  using C = DwCfg<MODE, MT, bf16>;
+  constexpr int cs = MODE == 1 ? 2 : 1;
+  const bf16* bp = row + g * C::PS + col0;
+  const int k = 2 * t;
+  const uint32_t b0 = pack_bf16(bp[cs * k], bp[cs * (k + 1)]);
+  const uint32_t b1 = pack_bf16(bp[cs * (k + 8)], bp[cs * (k + 9)]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][0], a[mt], b0, b1);
+}
+
+template <int MODE, int MT, class E>
 __global__ void __launch_bounds__(kThreads)
-conv3d_dw_tc(const float* __restrict__ x, const float* __restrict__ gr,
+conv3d_dw_tc(const E* __restrict__ x, const E* __restrict__ gr,
              float* __restrict__ partial, int Ci, int Di, int Hi, int Wi,
              int Co, int Do, int Ho, int Wo, int nbz, int nby, int nbx,
              long long bricks, long long per_chunk, int vec_x, int vec_g) {
-  using C = DwCfg<MODE, MT>;
+  using C = DwCfg<MODE, MT, E>;
   using Hl = typename C::Hl;
-  extern __shared__ __align__(16) float smem[];
+  constexpr bool kBf16 = std::is_same<E, bf16>::value;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  E* smem = reinterpret_cast<E*>(smem_bytes);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int c0 = blockIdx.y * kCiChunk;
@@ -190,7 +251,7 @@ conv3d_dw_tc(const float* __restrict__ x, const float* __restrict__ gr,
   const long long b_end =
       b_begin + per_chunk < bricks ? b_begin + per_chunk : bricks;
   const int nb = b_end > b_begin ? (int)(b_end - b_begin) : 0;
-  auto stage = [&](int i) -> float* { return smem + (i & 1) * C::STAGE; };
+  auto stage = [&](int i) -> E* { return smem + (i & 1) * C::STAGE; };
   auto load = [&](int i) {
     long long b = b_begin + i;
     const int bx0 = (int)(b % nbx) * kBX;
@@ -199,10 +260,10 @@ conv3d_dw_tc(const float* __restrict__ x, const float* __restrict__ gr,
     b /= nby;
     const int bz0 = (int)(b % nbz) * C::BZ;
     const int n = (int)(b / nbz);
-    float* s = stage(i);
-    load_halo<MODE, C::BZ, C::BY, C::PS>(s, x, n, c0, Ci, Di, Hi, Wi, bz0,
-                                         by0, bx0, vec_x);
-    load_g<MODE, MT>(s + C::X_FLOATS, gr, n, co0, Co, Do, Ho, Wo, bz0, by0,
+    E* s = stage(i);
+    load_halo<MODE, C::BZ, C::BY, C::PS, E, kCiChunk>(
+        s, x, n, c0, Ci, Di, Hi, Wi, bz0, by0, bx0, vec_x);
+    load_g<MODE, MT>(s + C::X_ELEMS, gr, n, co0, Co, Do, Ho, Wo, bz0, by0,
                      bx0, pz, py, px, vec_g);
     cp_async_commit();
   };
@@ -216,9 +277,38 @@ conv3d_dw_tc(const float* __restrict__ x, const float* __restrict__ gr,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* sx = stage(i);
-    const float* sg = sx + C::X_FLOATS;
-    if (MODE != 2) {
+    const E* sx = stage(i);
+    const E* sg = sx + C::X_ELEMS;
+    if constexpr (kBf16) {
+      // a k16 step is one brick row: positions x = 0..15 of row ks
+#pragma unroll 1
+      for (int ks = MODE == 2 ? pg : 0; ks < C::KSTEPS;
+           ks += MODE == 2 ? npg : 1) {
+        const int rzb = ks / C::BY, ryb = ks % C::BY;
+        uint32_t a[MT][4];
+        load_a16<MODE, MT>(a, sg, ks * kBX, g, t);
+        if (MODE == 2) {
+          step_mma16<MODE, MT>(
+              part[0], a,
+              sx + ((rzb + oz2) * Hl::EY + ryb + oy2) * Hl::XS,
+              Hl::xcol(ox2), g, t);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int tap = warp + 8 * j;
+            if (tap < 27) {
+              const int kz = tap / 9, ky = (tap / 3) % 3, kx = tap % 3;
+              // s1: input x = position + kx; s2: 2 * position + kx
+              const int rz = MODE == 0 ? rzb + kz : 2 * rzb + kz;
+              const int ry = MODE == 0 ? ryb + ky : 2 * ryb + ky;
+              step_mma16<MODE, MT>(part[j], a,
+                                   sx + (rz * Hl::EY + ry) * Hl::XS,
+                                   Hl::xcol(kx), g, t);
+            }
+          }
+        }
+      }
+    } else if (MODE != 2) {
 #pragma unroll 1
       for (int ks = 0; ks < C::KSTEPS; ++ks) {
         const int p0 = ks * 8, row = p0 / kBX, xo = p0 % kBX;
@@ -276,7 +366,7 @@ conv3d_dw_tc(const float* __restrict__ x, const float* __restrict__ gr,
   } else {
     // sum the npg k-step groups of each tap in order 0, 1, ...
     constexpr int F = MT * 4 * 32;
-    float* red = smem;                      // the staging buffers are free
+    float* red = reinterpret_cast<float*>(smem);   // staging is free now
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -311,16 +401,16 @@ sum_chunks(const float* __restrict__ partial, float* __restrict__ dw,
   dw[i] = s;
 }
 
-template <int MODE, int MT>
-cudaError_t launch(const float* x, const float* g, float* partial, float* dw,
+template <int MODE, int MT, class T>
+cudaError_t launch(const T* x, const T* g, float* partial, float* dw,
                    int N, int Ci, int Di, int Hi, int Wi, int Co, int Do,
                    int Ho, int Wo, int chunks, long long per_chunk,
                    cudaStream_t s) {
-  using C = DwCfg<MODE, MT>;
+  using C = DwCfg<MODE, MT, T>;
   static_assert(C::SMEM <= 227 * 1024, "shared memory per block");
-  static_assert(MODE != 2 || 8 * MT * 4 * 32 <= 2 * C::STAGE,
+  static_assert(MODE != 2 || 8 * MT * 4 * 32 * sizeof(float) <= C::SMEM,
                 "mode 2 reduction fits the staging buffers");
-  auto kern = conv3d_dw_tc<MODE, MT>;
+  auto kern = conv3d_dw_tc<MODE, MT, T>;
   static bool smem_set = false;
   cudaError_t err = allow_smem(kern, C::SMEM, smem_set);
   if (err != cudaSuccess) return err;
@@ -336,9 +426,11 @@ cudaError_t launch(const float* x, const float* g, float* partial, float* dw,
   const unsigned co_groups = (unsigned)((Co + kCoGroup - 1) / kCoGroup);
   dim3 grid((unsigned)chunks, (unsigned)((Ci + kCiChunk - 1) / kCiChunk),
             (MODE == 2 ? 8u : 1u) * co_groups);
-  // 16-byte row vectors need 16-byte aligned rows
-  const int vec_x = Wi % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int vec_g = Wo % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  // row vectors of four elements need rows aligned to their bytes
+  const int vec_x = Wi % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+  const int vec_g = Wo % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(g) % (4 * sizeof(T)) == 0;
   kern<<<grid, kThreads, C::SMEM, s>>>(x, g, partial, Ci, Di, Hi, Wi, Co, Do,
                                        Ho, Wo, nbz, nby, nbx, bricks,
                                        per_chunk, vec_x, vec_g);
@@ -350,8 +442,8 @@ cudaError_t launch(const float* x, const float* g, float* partial, float* dw,
   return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t by_mt(const float* x, const float* g, float* partial, float* dw,
+template <int MODE, class T>
+cudaError_t by_mt(const T* x, const T* g, float* partial, float* dw,
                   int N, int Ci, int Di, int Hi, int Wi, int Co, int Do,
                   int Ho, int Wo, int chunks, long long per_chunk,
                   cudaStream_t s) {
@@ -369,18 +461,11 @@ cudaError_t by_mt(const float* x, const float* g, float* partial, float* dw,
   }
 }
 
-}  // namespace
-
-// mode: 0 stride 1, 1 stride 2, 2 transposed (conv3d.cu's modes).
-// chunks x per_chunk: the split-K plan of ops/conv3d_train.dw_chunks
-// (runs of per_chunk consecutive bricks, the last one shorter); brick_y,
-// the plan's brick height, must be this build's. partial holds chunks x
-// Co x Ci x 27 floats of scratch.
-extern "C" int conv3d_dw_f32(const float* x, const float* g, float* partial,
-                             float* dw, int N, int Ci, int Di, int Hi, int Wi,
-                             int Co, int Do, int Ho, int Wo, int mode,
-                             int chunks, long long per_chunk, int brick_y,
-                             void* stream) {
+template <class T>
+int dw_entry(const T* x, const T* g, float* partial, float* dw, int N,
+             int Ci, int Di, int Hi, int Wi, int Co, int Do, int Ho, int Wo,
+             int mode, int chunks, long long per_chunk, int brick_y,
+             void* stream) {
   if (chunks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
@@ -398,4 +483,30 @@ extern "C" int conv3d_dw_f32(const float* x, const float* g, float* partial,
                            Wo, chunks, per_chunk, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// mode: 0 stride 1, 1 stride 2, 2 transposed (conv3d.cu's modes).
+// chunks x per_chunk: the split-K plan of ops/conv3d_train.dw_chunks
+// (runs of per_chunk consecutive bricks, the last one shorter); brick_y,
+// the plan's brick height, must be this build's. partial holds chunks x
+// Co x Ci x 27 floats of scratch.
+extern "C" int conv3d_dw_f32(const float* x, const float* g, float* partial,
+                             float* dw, int N, int Ci, int Di, int Hi, int Wi,
+                             int Co, int Do, int Ho, int Wo, int mode,
+                             int chunks, long long per_chunk, int brick_y,
+                             void* stream) {
+  return dw_entry(x, g, partial, dw, N, Ci, Di, Hi, Wi, Co, Do, Ho, Wo, mode,
+                  chunks, per_chunk, brick_y, stream);
+}
+
+// The bf16 instance: x and g bf16, partial and dw float32, the same plan.
+extern "C" int conv3d_dw_bf16(const bf16* x, const bf16* g, float* partial,
+                              float* dw, int N, int Ci, int Di, int Hi,
+                              int Wi, int Co, int Do, int Ho, int Wo,
+                              int mode, int chunks, long long per_chunk,
+                              int brick_y, void* stream) {
+  return dw_entry(x, g, partial, dw, N, Ci, Di, Hi, Wi, Co, Do, Ho, Wo, mode,
+                  chunks, per_chunk, brick_y, stream);
 }

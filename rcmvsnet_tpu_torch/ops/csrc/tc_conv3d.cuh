@@ -416,14 +416,14 @@ __device__ __forceinline__ void load_weights(float* s, const void* wt_) {
 // (plane stride PS, row stride XS, in elements): zero outside the volume
 // and for channels >= C. vec (Halo::VEC rows, rows of the volume aligned
 // for whole vectors): whole rows of four-element vectors; else one
-// element per thread and step, x fastest.
-template <int MODE, int BZ, int BY, int PS, class T>
+// element per thread and step, x fastest. CK: a conv chunk's channels
+// (Elem<T>::CK), or the dw kernel's 8 of either type.
+template <int MODE, int BZ, int BY, int PS, class T, int CK = Elem<T>::CK>
 __device__ __forceinline__ void load_halo(T* s, const T* x, int n, int c0,
                                           int C, int Di, int Hi, int Wi,
                                           int bz0, int by0, int bx0,
                                           bool vec) {
   using Hl = Halo<MODE, BZ, BY, T>;
-  constexpr int CK = Elem<T>::CK;
   const int iz0 = Hl::origin(bz0), iy0 = Hl::origin(by0);
   if (Hl::VEC && vec) {
     const int gx0 = Hl::row_origin(bx0);

@@ -34,6 +34,20 @@
 // flush that reaches a texel, and 2^e < 2 D*H*W*M 2^-62 -- with n flushes
 // on a texel, n * D*H*W*M * 2^-62, ~1e-11 of M at the train shapes.
 // M == 0 gives zeros; a non-finite maximum gives NaN outputs and no adds.
+//
+// bf16 instances (the bf16 train path: K6 and K7's backward on bf16
+// features, images and cotangents). They follow the JAX kernels at
+// compute dtype bf16 (pallas_warp_train.py:180-182,202-206,251-253,
+// 272-275; pallas_warp_volume.py:229-237): x_v is the bf16 forward's
+// sample (bf16 x weights, sample_lane), the cotangent of a sample
+// e = (2/V) g (x_v - mean) stays float32, and tap k receives
+// bf16(e * wy_k) * bf16(wx_k), a product exact in float32 (run_add_bf16),
+// as the TPU kernel rounds each y-weighted cotangent row and its x hat
+// weights to bf16 before the transposed matmul. The reference view's
+// cotangent is summed in float32; every output is rounded to bf16 once
+// (from_quanta, store_out). The maxima read bf16 inputs too (AbsMaxArgs
+// half). The quantum's bound holds with 2x to spare: a rounded
+// contribution exceeds its float32 value by at most 2^-8 of it.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -61,18 +75,18 @@ constexpr long long kAuxBytes = 64;
 static_assert(sizeof(Aux) <= kAuxBytes, "Aux outgrew its slot");
 
 // Channel c of the bilinear sample of map base [H, W, C]: the taps and
-// weights of sample_channels, fused multiply-adds in the same order, so
-// the backward's x_v equals the forward's bit for bit.
-template <int C>
-__device__ __forceinline__ float sample_lane(const float* base,
-                                             const Taps& t, int H, int W,
-                                             int c) {
+// weights of sample_channels (bf16: of sample_quad, quad_weight's x
+// rounding), fused multiply-adds in the same order, so the backward's x_v
+// equals the forward's bit for bit.
+template <int C, class T>
+__device__ __forceinline__ float sample_lane(const T* base, const Taps& t,
+                                             int H, int W, int c) {
   float val = 0.f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const long long p = tap_pixel(t, k, H, W);
     if (p < 0) continue;
-    val = __fmaf_rn(tap_weight(t, k), __ldg(base + p * C + c), val);
+    val = __fmaf_rn(quad_weight(base, t, k), load1(base + p * C + c), val);
   }
   return val;
 }
@@ -128,9 +142,33 @@ __device__ __forceinline__ void run_add(TapRun& r, const Taps& t,
     r.acc[k] = __fmaf_rn(tap_weight(t, k), cot, r.acc[k]);
 }
 
+// The bf16 instances' add into run sums acc[4]: tap k receives
+// bf16(cot * wy_k) * bf16(wx_k) (see the header note).
+__device__ __forceinline__ void run_add_bf16(float* acc, const Taps& t,
+                                             float cot) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float wy = (k >> 1) ? t.wy : 1.f - t.wy;
+    const float wx = (k & 1) ? t.wx : 1.f - t.wx;
+    const float ty = __bfloat162float(__float2bfloat16_rn(__fmul_rn(cot, wy)));
+    acc[k] = __fmaf_rn(__bfloat162float(__float2bfloat16_rn(wx)), ty, acc[k]);
+  }
+}
+
+// A run's add for sources of element type T: run_add (float), run_add_bf16.
+__device__ __forceinline__ void run_add_as(const float*, TapRun& r,
+                                           const Taps& t, float cot) {
+  run_add(r, t, cot);
+}
+__device__ __forceinline__ void run_add_as(const __nv_bfloat16*, TapRun& r,
+                                           const Taps& t, float cot) {
+  run_add_bf16(r.acc, t, cot);
+}
+
 struct AbsMaxArgs {
-  const float* p[4];    // nullptr: slot unused
+  const void* p[4];     // nullptr: slot unused
   long long n[4];
+  bool half[4];         // bf16 elements (else float)
 };
 
 __device__ __forceinline__ unsigned abs_bits(float v) {
@@ -145,20 +183,27 @@ __global__ void __launch_bounds__(256) absmax_kernel(AbsMaxArgs a,
   const long long nth = (long long)gridDim.x * blockDim.x;
   for (int i = 0; i < 4; ++i) {
     if (a.p[i] == nullptr) continue;
-    const float* p = a.p[i];
     const long long n = a.n[i];
-    const long long n4 =
-        reinterpret_cast<uintptr_t>(p) % 16 == 0 ? n / 4 : 0;
-    const float4* p4 = reinterpret_cast<const float4*>(p);
     unsigned m = 0;
+    if (a.half[i]) {
+      // |bf16| as float bits: the magnitude bits moved up 16
+      const unsigned short* h = static_cast<const unsigned short*>(a.p[i]);
+      for (long long j = tid; j < n; j += nth)
+        m = max(m, (unsigned)(__ldg(h + j) & 0x7fffu) << 16);
+    } else {
+      const float* p = static_cast<const float*>(a.p[i]);
+      const long long n4 =
+          reinterpret_cast<uintptr_t>(p) % 16 == 0 ? n / 4 : 0;
+      const float4* p4 = reinterpret_cast<const float4*>(p);
 #pragma unroll 4
-    for (long long j = tid; j < n4; j += nth) {
-      const float4 q = __ldg(p4 + j);
-      m = max(m, max(max(abs_bits(q.x), abs_bits(q.y)),
-                     max(abs_bits(q.z), abs_bits(q.w))));
+      for (long long j = tid; j < n4; j += nth) {
+        const float4 q = __ldg(p4 + j);
+        m = max(m, max(max(abs_bits(q.x), abs_bits(q.y)),
+                       max(abs_bits(q.z), abs_bits(q.w))));
+      }
+      for (long long j = 4 * n4 + tid; j < n; j += nth)
+        m = max(m, abs_bits(__ldg(p + j)));
     }
-    for (long long j = 4 * n4 + tid; j < n; j += nth)
-      m = max(m, abs_bits(__ldg(p + j)));
     m = __reduce_max_sync(0xffffffffu, m);
     if ((threadIdx.x & 31) == 0 && m != 0) atomicMax(maxbits + i, m);
   }
@@ -188,9 +233,11 @@ __global__ void choose_quantum(Aux* aux, double samples, int V,
 }
 
 // out[i] = float(acc[.] * 2^e) over n outputs of nc_out channels from
-// nc_in-channel quanta (nc_in >= nc_out: padded channels are skipped).
+// nc_in-channel quanta (nc_in >= nc_out: padded channels are skipped);
+// a bf16 out rounds that float once more, as JAX casts its float32 sum.
+template <class TO>
 __global__ void __launch_bounds__(256)
-from_quanta(const long long* __restrict__ acc, float* __restrict__ out,
+from_quanta(const long long* __restrict__ acc, TO* __restrict__ out,
             long long n, int nc_in, int nc_out, const Quantum* q) {
   const double s = q->from_q;
   const long long nth = (long long)gridDim.x * blockDim.x;
@@ -198,7 +245,7 @@ from_quanta(const long long* __restrict__ acc, float* __restrict__ out,
        i < n; i += nth) {
     const long long a = nc_in == nc_out ? i
                                         : (i / nc_out) * nc_in + i % nc_out;
-    out[i] = (float)((double)acc[a] * s);
+    store_out(out + i, (float)((double)acc[a] * s));
   }
 }
 
@@ -221,11 +268,12 @@ inline void prepare_scratch(void* scratch, long long bytes,
 }
 
 // Write float(total) * 2^e of n outputs (none when n == 0).
-inline void finish_quanta(const void* acc, float* out, long long n,
+template <class TO>
+inline void finish_quanta(const void* acc, TO* out, long long n,
                           int nc_in, int nc_out, const Quantum* q,
                           cudaStream_t stream) {
   if (n <= 0) return;
-  from_quanta<<<grid_for(n, 256, 132 * 16), 256, 0, stream>>>(
+  from_quanta<TO><<<grid_for(n, 256, 132 * 16), 256, 0, stream>>>(
       static_cast<const long long*>(acc), out, n, nc_in, nc_out, q);
 }
 

@@ -110,6 +110,18 @@ __device__ __forceinline__ float quad_weight(const __nv_bfloat16*,
   return tap_weight_bf16(t, k);
 }
 
+// An output element from its float32 value (bf16: rounded to nearest even).
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// One element as float (bf16 widened exactly).
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
 // Four consecutive channels as float4: one 16-byte load of float, one
 // 8-byte load of bf16 (widened exactly).
 __device__ __forceinline__ float4 load4(const float* p) {

@@ -71,12 +71,6 @@ struct FwdLanes {
   static constexpr int S = (NV + L - 1) / L;      // views a lane projects
 };
 
-// An output element from its float32 value (bf16: rounded to nearest even).
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 // The sweep of one block: src [V, H, W, C] (view 0 the reference; float or
 // bf16, sampled by warp::sample_quad's rule for its type), rel [V, 16]
 // relative projections, lo / step [H, W]; s_rel holds kMaxViews * 16

@@ -74,6 +74,12 @@
 // tap. Runs are flushed as 64-bit fixed-point integer adds
 // (warp_bwd.cuh), so the result is the same bit for bit in every run, as
 // the TPU kernel's is. No float atomics.
+// Its bf16 instance (the bf16 train path, warp_variance_bwd_bf16): src,
+// g and dsrc bf16; x_v the bf16 forward's samples, the cotangents and
+// sums float32, each source-view tap's contribution rounded as
+// warp_bwd.cuh's bf16 note says, the 64-bit fixed-point scatter kept (so
+// it repeats bit for bit), dsrc rounded to bf16 once (JAX casts dfeat to
+// the features' dtype, pallas_warp_train.py:400).
 //
 // Layouts: src and dsrc [V, h, w, C] channels-last (one tap reads C
 // contiguous floats); rel [V, 16] row-major relative projections (row 0
@@ -171,15 +177,16 @@ warp_variance_kernel(const T* __restrict__ src,
 constexpr int kPlaneChunk = 8;     // planes of g staged per __syncthreads
 
 // K6: one group of C lanes per reference pixel (256 / C pixels a block);
-// NV bounds the source views (V - 1) the registers hold.
-template <int C, int NV>
+// NV bounds the source views (V - 1) the registers hold. T: the element
+// type of src, g and dsrc.
+template <int C, int NV, class T>
 __global__ void __launch_bounds__(warp::kBwdThreads)
-warp_variance_bwd_kernel(const float* __restrict__ src,
+warp_variance_bwd_kernel(const T* __restrict__ src,
                          const float* __restrict__ rel,
                          const float* __restrict__ lo,
                          const float* __restrict__ step,
-                         const float* __restrict__ g,
-                         float* __restrict__ dsrc,
+                         const T* __restrict__ g,
+                         T* __restrict__ dsrc,
                          unsigned long long* __restrict__ acc,
                          const warp::Quantum* __restrict__ quantum,
                          int V, int H, int W, int D) {
@@ -197,7 +204,7 @@ warp_variance_bwd_kernel(const float* __restrict__ src,
   const float fx = live ? (float)(pix - (long long)y * W) : 0.f;
   const float fy = (float)y;
   const float lo_p = live ? lo[pix] : 0.f, step_p = live ? step[pix] : 0.f;
-  const float ref = live ? __ldg(src + pix * C + c) : 0.f;
+  const float ref = live ? warp::load1(src + pix * C + c) : 0.f;
   const double to_q = quantum->to_q;
   const int nv = V - 1;
   const float fv = (float)V;
@@ -215,7 +222,7 @@ warp_variance_bwd_kernel(const float* __restrict__ src,
       const long long pp = p0 + jj;
       const int d = d0 + dd;
       s_g[dd][jj][cc] = pp < HW && d < D
-          ? __ldg(g + ((long long)cc * D + d) * HW + pp) : 0.f;
+          ? warp::load1(g + ((long long)cc * D + d) * HW + pp) : 0.f;
     }
     __syncthreads();
     if (!live) continue;
@@ -244,7 +251,7 @@ warp_variance_bwd_kernel(const float* __restrict__ src,
                               run[v].y0, run[v].acc, H, W, c, to_q);
           warp::run_restart(run[v], t[v]);
         }
-        warp::run_add(run[v], t[v], gs * (x[v] - mean));
+        warp::run_add_as(src, run[v], t[v], gs * (x[v] - mean));
       }
     }
   }
@@ -255,7 +262,7 @@ warp_variance_bwd_kernel(const float* __restrict__ src,
     warp::flush_taps<C>(acc + (long long)v * HW * C, run[v].x0, run[v].y0,
                         run[v].acc, H, W, c, to_q);
   }
-  dsrc[pix * C + c] = dref;
+  warp::store_out(dsrc + pix * C + c, dref);
 }
 
 template <int C, int NV, class T>
@@ -279,21 +286,21 @@ cudaError_t launch_views(const T* src, const float* rel, const float* lo,
   return launch<C, 15>(src, rel, lo, step, out, V, H, W, D, s);
 }
 
-template <int C, int NV>
-void launch_bwd(const float* src, const float* rel, const float* lo,
-                const float* step, const float* g, float* dsrc,
+template <int C, int NV, class T>
+void launch_bwd(const T* src, const float* rel, const float* lo,
+                const float* step, const T* g, T* dsrc,
                 unsigned long long* acc, const warp::Quantum* q, int V,
                 int H, int W, int D, cudaStream_t stream) {
   constexpr int P = warp::kBwdThreads / C;
   const long long HW = (long long)H * W;
-  warp_variance_bwd_kernel<C, NV>
+  warp_variance_bwd_kernel<C, NV, T>
       <<<(unsigned)((HW + P - 1) / P), warp::kBwdThreads, 0, stream>>>(
           src, rel, lo, step, g, dsrc, acc, q, V, H, W, D);
 }
 
-template <int C>
-void launch_bwd_views(const float* src, const float* rel, const float* lo,
-                      const float* step, const float* g, float* dsrc,
+template <int C, class T>
+void launch_bwd_views(const T* src, const float* rel, const float* lo,
+                      const float* step, const T* g, T* dsrc,
                       unsigned long long* acc, const warp::Quantum* q, int V,
                       int H, int W, int D, cudaStream_t stream) {
   if (V <= 4)
@@ -344,13 +351,12 @@ extern "C" long long warp_variance_bwd_scratch_bytes(int V, int H, int W,
   return warp::kAuxBytes + 8LL * (V - 1) * H * W * C;
 }
 
-// K6. Every element of dsrc is written; scratch holds
-// warp_variance_bwd_scratch_bytes(V, H, W, C) bytes.
-extern "C" int warp_variance_bwd_f32(const float* src, const float* rel,
-                                     const float* lo, const float* step,
-                                     const float* g, float* dsrc,
-                                     void* scratch, int V, int H, int W,
-                                     int C, int D, void* stream) {
+namespace {
+
+template <class T>
+int backward(const T* src, const float* rel, const float* lo,
+             const float* step, const T* g, T* dsrc, void* scratch, int V,
+             int H, int W, int C, int D, void* stream) {
   if (V < 1 || V > kMaxViews) return (int)cudaErrorInvalidValue;
   if (C != 8 && C != 16 && C != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -358,8 +364,10 @@ extern "C" int warp_variance_bwd_f32(const float* src, const float* rel,
   warp::Aux* aux = static_cast<warp::Aux*>(scratch);
   auto* acc = reinterpret_cast<unsigned long long*>(
       static_cast<char*>(scratch) + warp::kAuxBytes);
+  constexpr bool half = sizeof(T) == 2;
   warp::AbsMaxArgs a{{src, g, nullptr, nullptr},
-                     {V * HW * C, C * D * HW, 0, 0}};
+                     {V * HW * C, C * D * HW, 0, 0},
+                     {half, half, false, false}};
   warp::prepare_scratch(scratch,
                         warp_variance_bwd_scratch_bytes(V, H, W, C), a,
                         D * HW, V, false, s);
@@ -374,4 +382,29 @@ extern "C" int warp_variance_bwd_f32(const float* src, const float* rel,
   warp::finish_quanta(acc, dsrc + HW * C, (V - 1) * HW * C, C, C, aux->q,
                       s);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K6. Every element of dsrc is written; scratch holds
+// warp_variance_bwd_scratch_bytes(V, H, W, C) bytes.
+extern "C" int warp_variance_bwd_f32(const float* src, const float* rel,
+                                     const float* lo, const float* step,
+                                     const float* g, float* dsrc,
+                                     void* scratch, int V, int H, int W,
+                                     int C, int D, void* stream) {
+  return backward(src, rel, lo, step, g, dsrc, scratch, V, H, W, C, D,
+                  stream);
+}
+
+// K6's bf16 instance: src, g and dsrc bf16; the same scratch.
+extern "C" int warp_variance_bwd_bf16(const __nv_bfloat16* src,
+                                      const float* rel, const float* lo,
+                                      const float* step,
+                                      const __nv_bfloat16* g,
+                                      __nv_bfloat16* dsrc, void* scratch,
+                                      int V, int H, int W, int C, int D,
+                                      void* stream) {
+  return backward(src, rel, lo, step, g, dsrc, scratch, V, H, W, C, D,
+                  stream);
 }

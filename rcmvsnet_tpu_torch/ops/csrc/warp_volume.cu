@@ -53,6 +53,16 @@
 // [V-1, h, w, C], int64 image quanta [V-1, h, w, 4] (channel 3 unused:
 // one 32-byte sector a pixel).
 //
+// bf16 instances (the bf16 train path; warp_volume_bf16 and
+// warp_volume_bwd_bf16): features, images, all three outputs and the
+// cotangents bf16, as the JAX kernel at compute and output dtype bf16
+// (pallas_warp_volume.py:300-308 rounds the stacked features and images,
+// :78-91 the x hat weights): the forward samples with bf16 x weights
+// (warp_common.cuh's quad_weight, images included), sums in float32 and
+// rounds each output once; the backward rounds each tap's contribution as
+// warp_bwd.cuh's bf16 note says, keeps the fixed-point scatter, and rounds
+// dfeat and dimg to bf16 once (:429-430).
+//
 // Bound: device-memory bytes forward ((2C + 3(V-1)) floats written per
 // plane and pixel; the gathers hot in L1/L2); backward, as K6's, the work
 // per plane and lane (projections, gathers, run bookkeeping), not its
@@ -71,8 +81,10 @@ namespace {
 using warp::kMaxViews;
 
 // Bilinear sample of the 3 channels of image base [H, W, 3] at taps t:
-// taps 0..3, one fused multiply-add each, zero outside.
-__device__ __forceinline__ void sample_rgb(const float* base,
+// taps 0..3, one fused multiply-add each, zero outside (bf16: the x
+// weights rounded, quad_weight).
+template <class T>
+__device__ __forceinline__ void sample_rgb(const T* base,
                                            const warp::Taps& t, int H, int W,
                                            float* rgb) {
   rgb[0] = rgb[1] = rgb[2] = 0.f;
@@ -80,10 +92,10 @@ __device__ __forceinline__ void sample_rgb(const float* base,
   for (int k = 0; k < 4; ++k) {
     const long long p = warp::tap_pixel(t, k, H, W);
     if (p < 0) continue;
-    const float wgt = warp::tap_weight(t, k);
+    const float wgt = warp::quad_weight(base, t, k);
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      rgb[c] = __fmaf_rn(wgt, __ldg(base + p * 3 + c), rgb[c]);
+      rgb[c] = __fmaf_rn(wgt, warp::load1(base + p * 3 + c), rgb[c]);
   }
 }
 
@@ -96,11 +108,11 @@ __device__ __forceinline__ void sample_rgb(const float* base,
 // the first port's (one thread per plane and pixel), operation for
 // operation: views in order, x^2 summed with one fused multiply-add,
 // IEEE divisions by V, the reference added last.
-template <int C>
+template <int C, class T>
 struct VolumeEpi {
-  const float* imgs;
-  float* var;
-  float* vol;
+  const T* imgs;
+  T* var;
+  T* vol;
   float fv;
   int nv, H, W;
   long long HW, plane;                     // h * w, D * h * w
@@ -148,7 +160,7 @@ struct VolumeEpi {
     }
   }
   // var's rows, then vol's
-  __device__ float* row(int r) const {
+  __device__ T* row(int r) const {
     return r < C ? var + r * plane : vol + (r - C) * plane;
   }
 };
@@ -156,19 +168,19 @@ struct VolumeEpi {
 // K7's forward: the sweep with VolumeEpi; NV bounds the source views
 // (V - 1), the grid is fwd_plan's (K1's), the staging buffer dynamic
 // shared memory of fwd_smem_bytes.
-template <int C, int NV>
+template <int C, int NV, class T>
 __global__ void __launch_bounds__(warp::kFwdThreads)
-warp_volume_kernel(const float* __restrict__ feats,
-                   const float* __restrict__ imgs,
+warp_volume_kernel(const T* __restrict__ feats,
+                   const T* __restrict__ imgs,
                    const float* __restrict__ rel,
                    const float* __restrict__ lo,
                    const float* __restrict__ step,
-                   float* __restrict__ var, float* __restrict__ vol,
+                   T* __restrict__ var, T* __restrict__ vol,
                    int V, int H, int W, int D, int DC) {
   extern __shared__ float s_out[];
   __shared__ float s_rel[kMaxViews * 16];
   const long long HW = (long long)H * W;
-  VolumeEpi<C> epi{imgs, var, vol, (float)V, V - 1, H, W, HW, D * HW};
+  VolumeEpi<C, T> epi{imgs, var, vol, (float)V, V - 1, H, W, HW, D * HW};
   warp::fwd_sweep<C, NV>(epi, s_rel, rel, feats, lo, step, s_out,
                          2 * C + 3 * (V - 1), V, H, W, D, DC);
 }
@@ -179,29 +191,29 @@ int fwd_smem_bytes(int V) {
       * (int)sizeof(float);
 }
 
-template <int C, int NV>
-cudaError_t launch_fwd(const float* feats, const float* imgs,
+template <int C, int NV, class T>
+cudaError_t launch_fwd(const T* feats, const T* imgs,
                        const float* rel, const float* lo, const float* step,
-                       float* var, float* vol, int V, int H, int W, int D,
+                       T* var, T* vol, int V, int H, int W, int D,
                        cudaStream_t s) {
   const warp::Plan p = warp::fwd_plan(H, W, C, D);
   const int smem = fwd_smem_bytes<C, NV>(V);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        warp_volume_kernel<C, NV>,
+        warp_volume_kernel<C, NV, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  warp_volume_kernel<C, NV>
+  warp_volume_kernel<C, NV, T>
       <<<dim3((unsigned)p.nx, (unsigned)p.nz), warp::kFwdThreads, smem,
          s>>>(feats, imgs, rel, lo, step, var, vol, V, H, W, D, p.dc);
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_fwd_views(const float* feats, const float* imgs,
+template <int C, class T>
+cudaError_t launch_fwd_views(const T* feats, const T* imgs,
                              const float* rel, const float* lo,
-                             const float* step, float* var, float* vol,
+                             const float* step, T* var, T* vol,
                              int V, int H, int W, int D, cudaStream_t s) {
   if (V <= 4)
     return launch_fwd<C, 3>(feats, imgs, rel, lo, step, var, vol, V, H, W,
@@ -217,16 +229,16 @@ constexpr int kPlaneChunk = 4;     // planes of cotangents staged at once
 
 // K7's backward: one group of C lanes per reference pixel (256 / C pixels
 // a block); NV bounds the source views (V - 1) the registers hold.
-template <int C, int NV>
+template <int C, int NV, class T>
 __global__ void __launch_bounds__(warp::kBwdThreads)
-warp_volume_bwd_kernel(const float* __restrict__ feats,
+warp_volume_bwd_kernel(const T* __restrict__ feats,
                        const float* __restrict__ rel,
                        const float* __restrict__ lo,
                        const float* __restrict__ step,
-                       const float* __restrict__ g_var,
-                       const float* __restrict__ g_nr,
-                       const float* __restrict__ g_img,
-                       float* __restrict__ dfeat,
+                       const T* __restrict__ g_var,
+                       const T* __restrict__ g_nr,
+                       const T* __restrict__ g_img,
+                       T* __restrict__ dfeat,
                        unsigned long long* __restrict__ acc_f,
                        unsigned long long* __restrict__ acc_i,
                        const warp::Quantum* __restrict__ quantum,
@@ -247,7 +259,7 @@ warp_volume_bwd_kernel(const float* __restrict__ feats,
   const float fx = live ? (float)(pix - (long long)y * W) : 0.f;
   const float fy = (float)y;
   const float lo_p = live ? lo[pix] : 0.f, step_p = live ? step[pix] : 0.f;
-  const float ref = live ? __ldg(feats + pix * C + c) : 0.f;
+  const float ref = live ? warp::load1(feats + pix * C + c) : 0.f;
   const double to_qf = quantum[0].to_q, to_qi = quantum[1].to_q;
   const int nv = V - 1, ni = 3 * nv;
   const float fv = (float)V;
@@ -271,15 +283,15 @@ warp_volume_bwd_kernel(const float* __restrict__ feats,
       const int d = d0 + dd;
       const bool in = pp < HW && d < D;
       const long long at = ((long long)cc * D + d) * HW + pp;
-      s_gv[dd][jj][cc] = in ? __ldg(g_var + at) : 0.f;
-      s_gn[dd][jj][cc] = in ? __ldg(g_nr + at) : 0.f;
+      s_gv[dd][jj][cc] = in ? warp::load1(g_var + at) : 0.f;
+      s_gn[dd][jj][cc] = in ? warp::load1(g_nr + at) : 0.f;
     }
     for (int i = threadIdx.x; i < kPlaneChunk * ni * P; i += blockDim.x) {
       const int jj = i % P, ci = (i / P) % ni, dd = i / (P * ni);
       const long long pp = p0 + jj;
       const int d = d0 + dd;
       s_gi[dd][jj][ci] = pp < HW && d < D
-          ? __ldg(g_img + ((long long)ci * D + d) * HW + pp) : 0.f;
+          ? warp::load1(g_img + ((long long)ci * D + d) * HW + pp) : 0.f;
     }
     __syncthreads();
     if (!live) continue;
@@ -313,14 +325,18 @@ warp_volume_bwd_kernel(const float* __restrict__ feats,
 #pragma unroll
           for (int k = 0; k < 4; ++k) acc_img[v][k] = 0.f;
         }
-        warp::run_add(run[v], t[v],
-                      gv * (x[v] - m) + gn * (x[v] - m_nr));
+        warp::run_add_as(feats, run[v], t[v],
+                         gv * (x[v] - m) + gn * (x[v] - m_nr));
         if (c < 3) {
           const float gi = s_gi[dd][j][3 * v + c];
+          if constexpr (sizeof(T) == 2) {
+            warp::run_add_bf16(acc_img[v], t[v], gi);
+          } else {
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
-            acc_img[v][k] = __fmaf_rn(warp::tap_weight(t[v], k), gi,
-                                      acc_img[v][k]);
+            for (int k = 0; k < 4; ++k)
+              acc_img[v][k] = __fmaf_rn(warp::tap_weight(t[v], k), gi,
+                                        acc_img[v][k]);
+          }
         }
       }
     }
@@ -335,27 +351,27 @@ warp_volume_bwd_kernel(const float* __restrict__ feats,
       warp::flush_taps<4>(acc_i + (long long)v * HW * 4, run[v].x0,
                           run[v].y0, acc_img[v], H, W, c, to_qi);
   }
-  dfeat[pix * C + c] = dref;
+  warp::store_out(dfeat + pix * C + c, dref);
 }
 
-template <int C, int NV>
-void launch_bwd(const float* feats, const float* rel, const float* lo,
-                const float* step, const float* g_var, const float* g_nr,
-                const float* g_img, float* dfeat, unsigned long long* acc_f,
+template <int C, int NV, class T>
+void launch_bwd(const T* feats, const float* rel, const float* lo,
+                const float* step, const T* g_var, const T* g_nr,
+                const T* g_img, T* dfeat, unsigned long long* acc_f,
                 unsigned long long* acc_i, const warp::Quantum* q, int V,
                 int H, int W, int D, cudaStream_t s) {
   constexpr int P = warp::kBwdThreads / C;
   const long long HW = (long long)H * W;
-  warp_volume_bwd_kernel<C, NV>
+  warp_volume_bwd_kernel<C, NV, T>
       <<<(unsigned)((HW + P - 1) / P), warp::kBwdThreads, 0, s>>>(
           feats, rel, lo, step, g_var, g_nr, g_img, dfeat, acc_f, acc_i, q,
           V, H, W, D);
 }
 
-template <int C>
-void launch_bwd_views(const float* feats, const float* rel, const float* lo,
-                      const float* step, const float* g_var,
-                      const float* g_nr, const float* g_img, float* dfeat,
+template <int C, class T>
+void launch_bwd_views(const T* feats, const float* rel, const float* lo,
+                      const float* step, const T* g_var,
+                      const T* g_nr, const T* g_img, T* dfeat,
                       unsigned long long* acc_f, unsigned long long* acc_i,
                       const warp::Quantum* q, int V, int H, int W, int D,
                       cudaStream_t s) {
@@ -370,15 +386,10 @@ void launch_bwd_views(const float* feats, const float* rel, const float* lo,
                       acc_f, acc_i, q, V, H, W, D, s);
 }
 
-}  // namespace
-
-// K7's forward: var [C, D, h, w] and vol [3 (V-1) + C, D, h, w] (the
-// warped source images, view-major, then the no-ref variance).
-extern "C" int warp_volume_f32(const float* feats, const float* imgs,
-                               const float* rel, const float* lo,
-                               const float* step, float* var, float* vol,
-                               int V, int H, int W, int C, int D,
-                               void* stream) {
+template <class T>
+int forward(const T* feats, const T* imgs, const float* rel, const float* lo,
+            const float* step, T* var, T* vol, int V, int H, int W, int C,
+            int D, void* stream) {
   if (V < 2 || V > kMaxViews || D < 1 || (long long)H * W < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -393,20 +404,43 @@ extern "C" int warp_volume_f32(const float* feats, const float* imgs,
   }
 }
 
+}  // namespace
+
+// K7's forward: var [C, D, h, w] and vol [3 (V-1) + C, D, h, w] (the
+// warped source images, view-major, then the no-ref variance).
+extern "C" int warp_volume_f32(const float* feats, const float* imgs,
+                               const float* rel, const float* lo,
+                               const float* step, float* var, float* vol,
+                               int V, int H, int W, int C, int D,
+                               void* stream) {
+  return forward(feats, imgs, rel, lo, step, var, vol, V, H, W, C, D,
+                 stream);
+}
+
+// K7's bf16 instance: feats, imgs, var and vol bf16.
+extern "C" int warp_volume_bf16(const __nv_bfloat16* feats,
+                                const __nv_bfloat16* imgs, const float* rel,
+                                const float* lo, const float* step,
+                                __nv_bfloat16* var, __nv_bfloat16* vol,
+                                int V, int H, int W, int C, int D,
+                                void* stream) {
+  return forward(feats, imgs, rel, lo, step, var, vol, V, H, W, C, D,
+                 stream);
+}
+
 // Bytes of the scratch warp_volume_bwd_f32 takes (any contents).
 extern "C" long long warp_volume_bwd_scratch_bytes(int V, int H, int W,
                                                    int C) {
   return warp::kAuxBytes + 8LL * (V - 1) * H * W * (C + 4);
 }
 
-// K7's backward. Every element of dfeat and dimg is written; scratch holds
-// warp_volume_bwd_scratch_bytes(V, H, W, C) bytes.
-extern "C" int warp_volume_bwd_f32(const float* feats, const float* rel,
-                                   const float* lo, const float* step,
-                                   const float* g_var, const float* g_nr,
-                                   const float* g_img, float* dfeat,
-                                   float* dimg, void* scratch, int V, int H,
-                                   int W, int C, int D, void* stream) {
+namespace {
+
+template <class T>
+int backward(const T* feats, const float* rel, const float* lo,
+             const float* step, const T* g_var, const T* g_nr,
+             const T* g_img, T* dfeat, T* dimg, void* scratch, int V, int H,
+             int W, int C, int D, void* stream) {
   if (V < 2 || V > kMaxViews) return (int)cudaErrorInvalidValue;
   if (C != 8 && C != 16 && C != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -416,8 +450,10 @@ extern "C" int warp_volume_bwd_f32(const float* feats, const float* rel,
       static_cast<char*>(scratch) + warp::kAuxBytes);
   unsigned long long* acc_i = acc_f + (V - 1) * HW * C;
   const long long plane = (long long)D * HW;
+  constexpr bool half = sizeof(T) == 2;
   warp::AbsMaxArgs a{{feats, g_var, g_nr, g_img},
-                     {V * HW * C, C * plane, C * plane, 3 * (V - 1) * plane}};
+                     {V * HW * C, C * plane, C * plane, 3 * (V - 1) * plane},
+                     {half, half, half, half}};
   warp::prepare_scratch(scratch, warp_volume_bwd_scratch_bytes(V, H, W, C),
                         a, plane, V, true, s);
   switch (C) {
@@ -431,10 +467,40 @@ extern "C" int warp_volume_bwd_f32(const float* feats, const float* rel,
                                   dfeat, acc_f, acc_i, aux->q, V, H, W, D, s);
       break;
   }
-  cudaMemsetAsync(dimg, 0, sizeof(float) * HW * 3, s);
+  cudaMemsetAsync(dimg, 0, sizeof(T) * HW * 3, s);
   warp::finish_quanta(acc_f, dfeat + HW * C, (V - 1) * HW * C, C, C, aux->q,
                       s);
   warp::finish_quanta(acc_i, dimg + HW * 3, (V - 1) * HW * 3, 4, 3,
                       aux->q + 1, s);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// K7's backward. Every element of dfeat and dimg is written; scratch holds
+// warp_volume_bwd_scratch_bytes(V, H, W, C) bytes.
+extern "C" int warp_volume_bwd_f32(const float* feats, const float* rel,
+                                   const float* lo, const float* step,
+                                   const float* g_var, const float* g_nr,
+                                   const float* g_img, float* dfeat,
+                                   float* dimg, void* scratch, int V, int H,
+                                   int W, int C, int D, void* stream) {
+  return backward(feats, rel, lo, step, g_var, g_nr, g_img, dfeat, dimg,
+                  scratch, V, H, W, C, D, stream);
+}
+
+// K7's backward, bf16 instance: feats, the cotangents, dfeat and dimg
+// bf16; the same scratch.
+extern "C" int warp_volume_bwd_bf16(const __nv_bfloat16* feats,
+                                    const float* rel, const float* lo,
+                                    const float* step,
+                                    const __nv_bfloat16* g_var,
+                                    const __nv_bfloat16* g_nr,
+                                    const __nv_bfloat16* g_img,
+                                    __nv_bfloat16* dfeat,
+                                    __nv_bfloat16* dimg, void* scratch,
+                                    int V, int H, int W, int C, int D,
+                                    void* stream) {
+  return backward(feats, rel, lo, step, g_var, g_nr, g_img, dfeat, dimg,
+                  scratch, V, H, W, C, D, stream);
 }

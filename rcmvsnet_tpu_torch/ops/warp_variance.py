@@ -25,6 +25,16 @@ kernel at its default compute and output dtype bf16. Its plain version
 samples at K1's own coordinates (`ops/warp_view.pixel_coords`) with the
 same weights and sums in K1's order.
 
+bf16 feats under autograd (the bf16 train path): `warp_variance_train`
+runs the bf16 forward and K6's bf16 instance (`warp_variance_bwd`,
+counted in `warp_variance_bwd.bf16.launches`): bf16 feats and cotangent,
+each source tap's contribution bf16(e·wy)·bf16(wx) of the float32
+cotangent e of its sample (JAX `pallas_warp_train.py:180-182,251-253`),
+the same fixed-point scatter, dfeats rounded to bf16 once.
+`warp_variance_bwd_plain` of bf16 feats spells that out in PyTorch
+(float64 sums); `warp_variance_train(..., plain=True)` runs the plain
+pair under autograd.
+
 Replaces the TPU kernels `rcmvsnet_tpu/ops/pallas_warp2.py`
 `plane_sweep_variance_lanes` (planes mode) and the backward of
 `rcmvsnet_tpu/ops/pallas_warp_train.py` `plane_sweep_variance_fused_train`.
@@ -116,11 +126,71 @@ def _warp_variance_plain_bf16(feats, projs, lo, step, ndepth):
     return var.permute(3, 0, 1, 2).contiguous().to(torch.bfloat16)
 
 
+def source_taps(projs: torch.Tensor, lo: torch.Tensor, step: torch.Tensor,
+                ndepth: int):
+    """K1's sample coordinates of each source view: (px, py), each
+    [V-1, D, h, w] (`ops/warp_view.pixel_coords`)."""
+    from .warp_view import pixel_coords
+    h, w = lo.shape
+    idx = torch.arange(ndepth, dtype=lo.dtype, device=lo.device)
+    dv = lo[None] + idx[:, None, None] * step[None]               # [D, h, w]
+    rel = relative_projections(projs).reshape(-1, 4, 4)[1:]
+    return pixel_coords(rel, dv[None], h, w)
+
+
+def scatter_taps_bf16(px: torch.Tensor, py: torch.Tensor,
+                      e: torch.Tensor) -> torch.Tensor:
+    """The bf16 instances' transposed sample (warp_bwd.cuh): e [D, h, w,
+    C'] float32 cotangents of the samples at (px, py) [D, h, w] → [h, w,
+    C'] float64 sums, tap k receiving bf16(e·wy_k)·bf16(wx_k) where it
+    lies in the image."""
+    D, h, w = px.shape
+    C = e.shape[-1]
+    x0f, y0f = torch.floor(px), torch.floor(py)
+    wx, wy = px - x0f, py - y0f
+    x0, y0 = x0f.long(), y0f.long()
+    rnd = lambda t: t.to(torch.bfloat16).to(torch.float64)
+    out = torch.zeros(h * w, C, dtype=torch.float64, device=e.device)
+    for k in range(4):
+        xi, yi = x0 + (k & 1), y0 + (k >> 1)
+        inside = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        wxk = rnd(wx if k & 1 else 1.0 - wx)
+        wyk = wy if k >> 1 else 1.0 - wy
+        term = rnd(e * wyk[..., None]) * wxk[..., None]
+        out.index_add_(0, (yi * w + xi)[inside], term[inside])
+    return out.reshape(h, w, C)
+
+
+def _warp_variance_bwd_plain_bf16(feats, projs, lo, step, g):
+    """`warp_variance_bwd_plain` for bf16 feats: K6's bf16 instance in
+    PyTorch (x_v and the mean as the bf16 forward's, e = (2/V)·g·(x_v −
+    mean) float32, `scatter_taps_bf16`, the reference view's cotangent
+    summed over the planes), rounded to bf16 once."""
+    V, h, w, C = feats.shape
+    D = g.shape[1]
+    px, py = source_taps(projs, lo, step, D)
+    f = feats.float()
+    xs = [_bilinear_bf16_weights(f[v], px[v - 1], py[v - 1])
+          for v in range(1, V)]
+    total = f[0][None].expand(D, h, w, C)
+    for x in xs:
+        total = total + x
+    mean = total / V
+    gs = (2.0 / V) * g.float().permute(1, 2, 3, 0)            # [D, h, w, C]
+    out = [(gs * (f[0][None] - mean)).double().sum(0)]
+    out += [scatter_taps_bf16(px[v - 1], py[v - 1], gs * (xs[v - 1] - mean))
+            for v in range(1, V)]
+    return torch.stack(out).float().to(torch.bfloat16)
+
+
 def warp_variance_bwd_plain(feats: torch.Tensor, projs: torch.Tensor,
                             lo: torch.Tensor, step: torch.Tensor,
                             g: torch.Tensor) -> torch.Tensor:
     """Cotangent of feats [V, h, w, C] for the variance cotangent g
-    [C, D, h, w]: autograd through `warp_variance_plain`."""
+    [C, D, h, w]: autograd through `warp_variance_plain` (bf16 feats: the
+    bf16 backward, see the module's note)."""
+    if feats.dtype == torch.bfloat16:
+        return _warp_variance_bwd_plain_bf16(feats, projs, lo, step, g)
     with torch.enable_grad():
         f = feats.detach().requires_grad_(True)
         var = warp_variance_plain(f, projs, lo, step, g.shape[1])
@@ -189,7 +259,8 @@ warp_variance.bf16 = SimpleNamespace(launches=0)
 def warp_variance_bwd(feats: torch.Tensor, projs: torch.Tensor,
                       lo: torch.Tensor, step: torch.Tensor,
                       g: torch.Tensor) -> torch.Tensor:
-    """Same contract as `warp_variance_bwd_plain`; K6 on a CUDA tensor."""
+    """Same contract as `warp_variance_bwd_plain`; K6 on a CUDA tensor,
+    the instance of feats' element type (g of the same type)."""
     if feats.device.type == "cpu":
         return warp_variance_bwd_plain(feats, projs, lo, step, g)
     _check("warp_variance_bwd", feats, lo, step)
@@ -199,36 +270,47 @@ def warp_variance_bwd(feats: torch.Tensor, projs: torch.Tensor,
         raise ValueError(f"warp_variance_bwd: g {tuple(g.shape)} is not "
                          f"[{C}, D, {h}, {w}]")
     rel = relative_projections(projs)
-    _build.require_cuda("warp_variance_bwd", feats, rel, lo, step, g)
+    bf16 = feats.dtype == torch.bfloat16
+    if bf16:
+        _build.require_cuda("warp_variance_bwd", rel, lo, step,
+                            bf16=(feats, g))
+    else:
+        _build.require_cuda("warp_variance_bwd", feats, rel, lo, step, g)
     dsrc = torch.empty_like(feats)
     scratch = bwd_scratch("warp_variance", feats)
-    err = _lib("warp_variance_bwd_f32", 7)(
+    err = _lib("warp_variance_bwd_bf16" if bf16 else "warp_variance_bwd_f32",
+               7)(
         feats.data_ptr(), rel.data_ptr(), lo.data_ptr(), step.data_ptr(),
         g.data_ptr(), dsrc.data_ptr(), scratch.data_ptr(), V, h, w, C, D,
         _build.stream_ptr(feats.device))
     _build.check(err, "warp_variance_bwd")
-    warp_variance_bwd.launches += 1
+    (warp_variance_bwd.bf16 if bf16 else warp_variance_bwd).launches += 1
     return dsrc
 
 
 warp_variance_bwd.launches = 0
+warp_variance_bwd.bf16 = SimpleNamespace(launches=0)
 
 
 class _WarpVariance(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, feats, projs, lo, step, ndepth):
+    def forward(ctx, feats, projs, lo, step, ndepth, plain=False):
+        ctx.plain = plain
         ctx.save_for_backward(feats, projs, lo, step)
-        return warp_variance(feats, projs, lo, step, ndepth)
+        fwd = warp_variance_plain if plain else warp_variance
+        return fwd(feats, projs, lo, step, ndepth)
 
     @staticmethod
     def backward(ctx, g):
         feats, projs, lo, step = ctx.saved_tensors
-        dfeats = warp_variance_bwd(feats, projs, lo, step, g.contiguous())
-        return dfeats, None, None, None, None
+        bwd = warp_variance_bwd_plain if ctx.plain else warp_variance_bwd
+        dfeats = bwd(feats, projs, lo, step, g.contiguous())
+        return dfeats, None, None, None, None, None
 
 
 def warp_variance_train(feats: torch.Tensor, projs: torch.Tensor,
                         lo: torch.Tensor, step: torch.Tensor,
-                        ndepth: int) -> torch.Tensor:
-    """`warp_variance` with K6 as its backward (differentiable in feats)."""
-    return _WarpVariance.apply(feats, projs, lo, step, ndepth)
+                        ndepth: int, plain: bool = False) -> torch.Tensor:
+    """`warp_variance` with K6 as its backward (differentiable in feats);
+    `plain` runs both plain versions."""
+    return _WarpVariance.apply(feats, projs, lo, step, ndepth, plain)

@@ -29,6 +29,11 @@ bit, wherever its other operations are per sample (`chip_smoke.py` phase
 so n is the local count times the number of ranks. Eval mode uses the running
 statistics as `nn.BatchNorm*d` does.
 
+bf16 input (the bf16 train path): the sums and statistics are float32,
+from x's float32 values; `forward` applies them in float32 and rounds the
+result to bf16 once. `batch_stats` gives the statistics alone, for the
+callers that apply them as JAX does at that layer (`nn/layers.py`).
+
 Not `nn.SyncBatchNorm`: that is a library layer, and it refuses CPU
 tensors, where the tests run it. `convert(module, group)` swaps every
 `nn.BatchNorm2d` / `nn.BatchNorm3d` of a model for this layer, with the
@@ -41,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..nn.layers import bn_apply_f32
 from .mesh import all_sum, group_size
 
 
@@ -71,10 +77,15 @@ class CrossRankBatchNorm(nn.modules.batchnorm._BatchNorm):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps)
+        return bn_apply_f32(self, x, *self.batch_stats(x))
+
+    def batch_stats(self, x: torch.Tensor):
+        """Train-mode (mean, biased var), float32, over every rank of the
+        group; the running statistics updated."""
         N, C = x.shape[:2]
         shape = (1, C) + (1,) * (x.dim() - 2)
         c = self.running_mean.detach().clone()
-        xc = (x - c.reshape(shape)).reshape(N, C, -1)
+        xc = (x.float() - c.reshape(shape)).reshape(N, C, -1)
         stats = all_sum(_tree([torch.cat([r.sum(1), (r * r).sum(1)])
                                for r in xc]), self.group)
         n = float(xc.shape[2] * N * group_size(self.group))
@@ -86,9 +97,7 @@ class CrossRankBatchNorm(nn.modules.batchnorm._BatchNorm):
             self.running_mean.mul_(1 - m).add_(m * mean)
             self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
             self.num_batches_tracked.add_(1)
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.reshape(shape)) * inv.reshape(shape) \
-            + self.bias.reshape(shape)
+        return mean, var
 
 
 def convert(module: nn.Module, group, one_rank: bool = False) -> nn.Module:

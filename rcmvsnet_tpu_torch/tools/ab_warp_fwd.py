@@ -21,7 +21,11 @@ its build's turns (each the median of 7 CUDA-event timings,
 `tools/timing`), printed with the largest. Before it is timed, each
 result is held to its plain version (1e-4 of the largest value) and to
 the first build's result with `torch.equal` (every bit); the tool fails
-after its report if any build's output differs.
+after its report if any build's output differs. The bf16 instances run
+too ("bf16 ..." rows: K1-bf16 at the train stages, K7-bf16 at stage 1,
+through the wrappers, on the inputs rounded to bf16; held to their bf16
+plain versions to one bf16 ulp of each element + 1e-4 of the largest
+value), on the builds whose libraries export them ("n/a" elsewhere).
 
 Usage:
   python -m rcmvsnet_tpu_torch.tools.ab_warp_fwd [--rounds N] [SRC_DIR ...]
@@ -40,6 +44,7 @@ from ..cli.eval_dtu import resolve_device
 from ..ops import _build
 from ..ops import warp_variance as K1
 from ..ops import warp_volume as K7
+from .repeat_warp_bwd import within_plain
 from .timing import device_label, make_timer
 
 LIBS = ("warp_variance", "warp_volume")
@@ -126,8 +131,9 @@ def turns(n: int, rounds: int) -> list[int]:
 
 def spread_line(label, row) -> str:
     """label, then each build's least and largest ms over its turns."""
-    return f"{label:36s} " + "  ".join(
-        f"{min(t):7.3f}-{max(t):<7.3f}" for t in row)
+    return f"{label:41s} " + "  ".join(
+        f"{min(t):7.3f}-{max(t):<7.3f}" if t else f"{'n/a':15s}"
+        for t in row)
 
 
 def run(device, srcs, rounds=2) -> dict:
@@ -138,39 +144,54 @@ def run(device, srcs, rounds=2) -> dict:
     k7_ptrs = [entry_pointers(Path(s), "warp_volume_f32") for s in srcs]
     gen = torch.Generator(device=device).manual_seed(SEED)
     k1_calls, (k7_label, k7_args) = k1_inputs(device, gen)
-    calls = [(label, lambda i, a=args: (K1.warp_variance(*a),),
+    calls = [(label, None, lambda i, a=args: (K1.warp_variance(*a),),
               lambda a=args: (K1.warp_variance_plain(*a),))
              for label, args in k1_calls]
-    calls.append((k7_label,
+    calls.append((k7_label, None,
                   lambda i: k7_call(builds[i]["warp_volume"], k7_ptrs[i],
                                     *k7_args),
                   lambda: K7.warp_volume_plain(*k7_args)))
+    # the bf16 instances, through the wrappers
+    for label, args in k1_calls:
+        if label.startswith("train"):
+            a = (args[0].bfloat16(), *args[1:])
+            calls.append((f"bf16 K1 {label}", ("warp_variance",
+                                               "warp_variance_bf16"),
+                          lambda i, a=a: (K1.warp_variance(*a),),
+                          lambda a=a: (K1.warp_variance_plain(*a),)))
+    a7 = (k7_args[0].bfloat16(), k7_args[1].bfloat16(), *k7_args[2:])
+    calls.append((f"bf16 {k7_label}", ("warp_volume", "warp_volume_bf16"),
+                  lambda i: K7.warp_volume(*a7),
+                  lambda: K7.warp_volume_plain(*a7)))
     timer = make_timer(device)
-    turn_ms = {label: [[] for _ in builds] for label, _, _ in calls}
-    equal = {label: [True] * len(builds) for label, _, _ in calls}
+    turn_ms = {c[0]: [[] for _ in builds] for c in calls}
+    equal = {c[0]: [True] * len(builds) for c in calls}
     plain, first = {}, {}
     with torch.no_grad():
         for i in turns(len(builds), rounds):
             _build._libs.update(builds[i])   # the wrapper now launches build i
-            for label, fk, fp in calls:
+            for label, entry, fk, fp in calls:
+                if entry and not hasattr(builds[i][entry[0]], entry[1]):
+                    continue                 # this build has no such instance
                 got = fk(i)
                 if label not in plain:
                     plain[label] = fp()
-                for a, p in zip(got, plain[label]):
-                    err = float((a - p).abs().max() / p.abs().max())
-                    if not err <= 1e-4:
-                        raise AssertionError(f"{srcs[i]} {label}: error "
-                                             f"{err:.2e}")
+                if not all(within_plain(a, p)
+                           for a, p in zip(got, plain[label])):
+                    raise AssertionError(f"{srcs[i]} {label}: beyond the "
+                                         f"plain version's tolerance")
                 ref = first.setdefault(label, got)
                 equal[label][i] &= all(bool(torch.equal(a, b))
                                        for a, b in zip(got, ref))
                 del got
                 turn_ms[label][i].append(timer(lambda: fk(i)))
-    ms = {label: [min(t) for t in row] for label, row in turn_ms.items()}
+    ms = {label: [min(t) if t else None for t in row]
+          for label, row in turn_ms.items()}
     for label, row in turn_ms.items():
         print(spread_line(label, row) + "  equal: " + " ".join(
             "yes" if e else "NO" for e in equal[label]))
-    totals = [sum(row[i] for label, row in ms.items() if label != k7_label)
+    totals = [sum(row[i] for label, row in ms.items()
+                  if label != k7_label and not label.startswith("bf16 "))
               for i in range(len(srcs))]
     print(f"{'K1 total ms (least)':36s} "
           + "  ".join(f"{t:15.3f}" for t in totals))

@@ -7,7 +7,9 @@ with 4 views (`data/plane_scene.py`), the golden backbone's FeatureNet
 (`assets/backbone_synth.npz`), stage 1's full sweep and stages 2–3's
 windows around a noisy depth, as `chip_smoke.py` phase 5 builds them, and
 seeded random cotangents. K6 runs at all three stages, K7's backward at
-stage 1. One JSON line per call, then one with all of them.
+stage 1, each in float32 and then in its bf16 instance (the same inputs
+rounded to bf16; labels "bf16 ..."). One JSON line per call, then one
+with all of them.
 
 Usage:
   python -m rcmvsnet_tpu_torch.tools.repeat_warp_bwd [--device cuda]
@@ -73,11 +75,28 @@ def differ(first, second) -> dict:
             "max_abs": max(float(a.abs().max()) for a in first)}
 
 
-def train_inputs(device, gen, shape=(H, W, VIEWS)):
+def within_plain(got, want) -> bool:
+    """A kernel's output against its plain version's: bf16 within one bf16
+    ulp of each element + 1e-4 of the largest value, float32 within 1e-4
+    of the largest value."""
+    g, w = got.float(), want.float()
+    m = float(w.abs().max())
+    if got.dtype == torch.bfloat16:
+        return bool(((g - w).abs() <= w.abs() * 2.0 ** -7 + 1e-4 * m).all())
+    return float((g - w).abs().max()) <= 1e-4 * m
+
+
+# the C entry (library, symbol) each bf16 backward instance needs
+BF16_ENTRY = {"warp_variance_bwd": ("warp_variance", "warp_variance_bwd_bf16"),
+              "warp_volume_bwd": ("warp_volume", "warp_volume_bwd_bf16")}
+
+
+def train_inputs(device, gen, shape=(H, W, VIEWS), bf16=True):
     """[(label, kernel call, plain call)] of K6 at the three train stages
     and K7's backward at stage 1, on the train step's inputs (the plane
     scene, the golden FeatureNet, `train_stages`) and cotangents drawn from
-    `gen`; each call returns a tuple of tensors."""
+    `gen`; each call returns a tuple of tensors. With bf16, the same calls
+    again on the inputs rounded to bf16 (labels "bf16 <kernel> ...")."""
     from ..data.plane_scene import plane_scene
     from ..data.synthetic import batch_from_views
     from ..models.cascade import CascadeMVSNet
@@ -93,25 +112,33 @@ def train_inputs(device, gen, shape=(H, W, VIEWS)):
     cascade.load_state_dict(load_state_dict(ASSET), strict=True)
     cascade = cascade.to(device).eval()
     rand = lambda *s: torch.randn(*s, generator=gen, device=device)
-    calls = []
+    calls, args = [], []
     with torch.no_grad():
         for key, f, projs, lo, step, nd in train_stages(cascade, batch,
                                                         scene, rand):
             V, h, w, C = f.shape
             tag = f"{key} V{V} {h}x{w} C{C} D{nd}"
-            g = rand(C, nd, h, w)
-            calls.append((
-                f"warp_variance_bwd {tag}",
-                lambda a=(f, projs, lo, step, g): (K6.warp_variance_bwd(*a),),
-                lambda a=(f, projs, lo, step, g): (
-                    K6.warp_variance_bwd_plain(*a),)))
+            args.append(("warp_variance_bwd", tag,
+                         (f, projs, lo, step, rand(C, nd, h, w))))
             if key == "stage1":
                 im = resize_bilinear(batch["imgs"][0], h, w).contiguous()
-                a = (f, im, projs, lo, step, rand(C, nd, h, w),
-                     rand(3 * (V - 1) + C, nd, h, w))
-                calls.append((f"warp_volume_bwd {tag}",
-                              lambda a=a: K7.warp_volume_bwd(*a),
-                              lambda a=a: K7.warp_volume_bwd_plain(*a)))
+                args.append(("warp_volume_bwd", tag,
+                             (f, im, projs, lo, step, rand(C, nd, h, w),
+                              rand(3 * (V - 1) + C, nd, h, w))))
+    fns = {"warp_variance_bwd": (lambda *a: (K6.warp_variance_bwd(*a),),
+                                 lambda *a: (K6.warp_variance_bwd_plain(*a),)),
+           "warp_volume_bwd": (K7.warp_volume_bwd, K7.warp_volume_bwd_plain)}
+    # the bf16 instances' operands: features, images, cotangents
+    to_bf16 = {"warp_variance_bwd": (0, 4), "warp_volume_bwd": (0, 1, 5, 6)}
+    for prefix in ("", "bf16 ") if bf16 else ("",):
+        for name, tag, a in args:
+            if prefix:
+                a = tuple(t.bfloat16() if i in to_bf16[name] else t
+                          for i, t in enumerate(a))
+            fk, fp = fns[name]
+            calls.append((f"{prefix}{name} {tag}",
+                          lambda a=a, fk=fk: fk(*a),
+                          lambda a=a, fp=fp: fp(*a)))
     return calls
 
 

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..config import Config
+from ..config import Config, compute_dtype
 from ..models.cascade import CascadeMVSNet
 from ..models.render_net import RenderingConsistencyNet
 from ..parallel import sync_bn
@@ -37,12 +37,16 @@ class TrainState:
 
 
 def make_models(config: Config, num_views: int):
-    """(CascadeMVSNet, RenderingConsistencyNet) for V = num_views."""
+    """(CascadeMVSNet, RenderingConsistencyNet) for V = num_views, both
+    at the backbone's train dtype (JAX `train/state.py:41,58`, its CLI
+    setting the render branch's from the same flag); their parameters
+    are float32."""
     cascade = CascadeMVSNet(config.backbone)
     vol_ch = 3 * (num_views - 1) + cascade.feature.out_channels[0]
-    render = RenderingConsistencyNet(vol_ch,
-                                     num_planes=config.render.num_planes,
-                                     net_type=config.render.net_type)
+    render = RenderingConsistencyNet(
+        vol_ch, num_planes=config.render.num_planes,
+        net_type=config.render.net_type,
+        train_dtype=compute_dtype(config.backbone.train_dtype))
     return cascade, render
 
 

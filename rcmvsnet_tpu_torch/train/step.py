@@ -6,7 +6,10 @@
 
 with ONE backward and one Adam step, as the reference's three sub-steps
 share one zero_grad / backward / step. Counterpart of
-`rcmvsnet_tpu/train/step.py:37-197`. The render losses reach the backbone
+`rcmvsnet_tpu/train/step.py:37-197`. Under a bf16 backbone
+(`BackboneConfig.train_dtype`) the render pass takes the volume upcast
+to float32; parameters, Adam's moments and BatchNorm buffers stay
+float32 at any dtype. The render losses reach the backbone
 through the NON-detached stage-1 volume; the pseudo-depth targets are
 detached. BatchNorm running statistics update in forward order: clean
 pass → aug pass → render pass.
@@ -152,9 +155,11 @@ def make_train_step(config: Config, plain: bool = False,
         loss_aug, aug_scalars = aug_loss_multi_stage(
             outputs_aug, pseudo_depth, filter_mask, dlossw, group)
 
-        # rendering consistency
-        result = render(volume_feature, pseudo_depth, imgs, batch["w2cs"],
-                        batch["c2ws"], batch["intrinsics"],
+        # rendering consistency, float32 under a bf16 backbone too (JAX
+        # `train/step.py:83-92` upcasts the volume; the neural volume runs
+        # at the render branch's own dtype)
+        result = render(volume_feature.float(), pseudo_depth, imgs,
+                        batch["w2cs"], batch["c2ws"], batch["intrinsics"],
                         batch["near_fars"], draws.rays, plain=plain)
         img_loss = img2mse(result.rgb, result.target_rgb)
         ray_mask = result.rays_depth > 0

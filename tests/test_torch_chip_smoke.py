@@ -3,8 +3,8 @@
   * without a CUDA device it exits non-zero and prints no "ok" line;
   * in a directory holding only chip_smoke.py it fails even when a device
     is reported (nothing of the port to import);
-  * its kernel phases (eval, train and bf16) run end to end at a tiny
-    size on CPU tensors (where every wrapper returns its plain version, so kernel
+  * its kernel phases (eval, train, bf16 and bf16 train) run end to end
+    at a tiny size on CPU tensors (where every wrapper returns its plain version, so kernel
     and plain agree exactly; K4's rows carry the split of its time, with
     no device time on the CPU), and its main-path phases (eval and train)
     refuse a run in which no kernel was launched;
@@ -158,6 +158,44 @@ def test_train_phases_run_on_cpu_and_demand_launches():
     with pytest.raises(AssertionError, match="train path never launched"):
         chip_smoke.phase_train(batch, load_state_dict(ASSET), "cpu",
                                torch.device("cpu"), cfg, warmup=1, timed=1)
+
+
+def test_bf16_train_phases_run_on_cpu_and_demand_launches():
+    """Phase 14 at a tiny size: (a) every train kernel's bf16 instance
+    against its bf16 plain version (on the CPU both are the plain
+    version: no error), rows "<kernel>_bf16" of phase "bf16_train" with
+    bf16 outputs (the prob head's forward and dw float32); (b) the bf16
+    step refuses a run that launched none of its instances."""
+    from rcmvsnet_tpu_torch.config import Config, RenderConfig
+    from rcmvsnet_tpu_torch.data.synthetic import batch_from_views
+    from rcmvsnet_tpu_torch.train.state import make_models
+    from rcmvsnet_tpu_torch.train.step import batch_to
+    scene = chip_smoke.plane_scene(64, 64, 3, chip_smoke.SEED)
+    batch = batch_to(batch_from_views([scene], 64, chip_smoke.SEED), "cpu")
+    cfg = Config(render=RenderConfig(n_rays=16, n_samples=8, num_planes=16))
+    render = make_models(cfg, 3)[1]
+    ledger = chip_smoke.Ledger(timer=lambda fn: 0.0)
+    with torch.no_grad():
+        chip_smoke.phase_train_kernels(_golden_model(), render, batch, scene,
+                                       ledger, torch.device("cpu"),
+                                       torch.bfloat16)
+    calls = {k: ledger.summary(k, "bf16_train")["calls"]
+             for k in chip_smoke.BF16_TRAIN_KERNELS}
+    assert calls == {"warp_variance_bf16": 3, "warp_variance_bwd_bf16": 3,
+                     "warp_volume_bf16": 1, "warp_volume_bwd_bf16": 1,
+                     "conv3d_bf16": 2 * 43, "conv3d_dw_bf16": 43}
+    assert all(r["max_abs_err"] == 0.0 and r["bound_ms"] > 0
+               for r in ledger.rows)
+    f32 = [r["label"] for r in ledger.rows if r["dtype"] == "torch.float32"]
+    assert len(f32) == 43 + 3 and all(
+        "prob" in lab or "fwd" not in lab for lab in f32)
+    assert ledger.summary("warp_volume_bwd_bf16",
+                          "bf16_train")["repeats_bit_for_bit"]
+    with pytest.raises(AssertionError,
+                       match="bf16 train path never launched"):
+        chip_smoke.phase_bf16_train(batch, load_state_dict(ASSET), {},
+                                    "cpu", torch.device("cpu"), cfg,
+                                    warmup=1, timed=1)
 
 
 def _golden_model():

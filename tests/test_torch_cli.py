@@ -77,3 +77,33 @@ def test_cli_bf16_eval_within_the_fused_path_budget(tmp_path):
         above += int((rel > 0.01).sum())
         n += rel.size
     assert differ and above <= 1e-3 * n, (differ, above, n)
+
+
+def test_train_cli_bf16_step_on_cpu_and_refuses_bad_dtype(tmp_path,
+                                                          monkeypatch):
+    """`--train_dtype bfloat16` on the CPU: the backbone's train dtype and
+    the render U-Net's (which follows it) are bf16, one step of the loop runs through the bf16 plain versions with
+    finite losses, and a dtype other than float32 / bfloat16 is refused."""
+    import json
+
+    import sys
+    from rcmvsnet_tpu_torch.cli import train as train_cli
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    args = ["--trainpath", "synthetic", "--max_steps", "1", "--epochs", "1",
+            "--device", "cpu", "--num_view", "2", "--numdepth", "16",
+            "--n_rays", "64", "--n_samples", "16", "--summary_freq", "1",
+            "--logdir", str(tmp_path)]
+    config = train_cli.config_from_args(train_cli.parse_args(
+        args + ["--train_dtype", "bfloat16"]))
+    from rcmvsnet_tpu_torch.train.state import make_models
+    assert config.backbone.train_dtype == "bfloat16"
+    assert make_models(config, 3)[1].train_dtype == torch.bfloat16
+    assert train_cli.config_from_args(train_cli.parse_args(
+        args)).backbone.train_dtype == "float32"
+    train_cli.main(args + ["--train_dtype", "bfloat16"])
+    recs = [json.loads(line) for line in
+            (tmp_path / "scalars.jsonl").read_text().splitlines()]
+    train = [r for r in recs if r["mode"] == "train"]
+    assert len(train) == 1 and np.isfinite(train[0]["loss"])
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(args + ["--train_dtype", "float16"])

@@ -31,7 +31,12 @@ within 1e-5 of its largest value. The bf16 instances of K1, K2 and K5
 of each element plus 1e-4 of the largest value, at the same kinds of
 shapes (every K2 mode, the float32 prob head, K5's two routes, the
 upsample-add and the lateral head), and the bf16 cascade on the card
-launching only the bf16 instances of the three, and K4. The backward
+launching only the bf16 instances of the three, and K4. The bf16 train
+instances (the bf16 train path) likewise: K6-bf16 under autograd and
+repeated bit for bit, K7-bf16 forward and backward (repeated bit for
+bit), K8's bf16 pair in every mode (odd sizes, 41 input channels, two
+Co groups of dw, the prob head's float32 output), the bf16 dw repeated
+bit for bit, and one bf16 train step launching only the bf16 instances. The backward
 kernels sum in another order than autograd (K8 dw in per-block
 partials, K6 and K7 in 64-bit fixed point, rounded once per flushed run
 of planes), so they are held to 1e-4 of the largest value, and to
@@ -701,3 +706,168 @@ def test_bf16_cascade_runs_the_bf16_instances(dev):
     assert counts[1] == [0] * len(wrappers), counts
     assert np.isfinite(dk).all()
     assert float((np.abs(dk - dp) / np.abs(dp)).max()) <= 0.01
+
+
+# ---- the bf16 train instances (the bf16 train path): K6, K7 forward and
+# backward, K8 (K2's train modes and the dw kernel) against their bf16
+# plain versions; dw (float32 out) to 1e-4 of its largest value.
+
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (4, 24, 40, 8, 8), (4, 24, 40, 16, 32), (4, 24, 40, 32, 48),
+    (4, 13, 21, 8, 5), (3, 7, 9, 32, 3)])
+def test_warp_variance_bwd_bf16_matches_plain(dev, V, h, w, C, D):
+    """K6's bf16 instance under autograd (the bf16 forward, then the
+    backward) against the bf16 plain pair, and repeated bit for bit."""
+    g = _gen(dev, 11 * C + D)
+    feats, cot = _bf16(torch.randn(V, h, w, C, device=dev, generator=g),
+                       torch.randn(C, D, h, w, device=dev, generator=g))
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = 3 + torch.rand(h, w, device=dev, generator=g)
+    projs = _projs(V, h, w, dev)
+    x = feats.clone().requires_grad_(True)
+    n0 = (K1.warp_variance_bwd.launches, K1.warp_variance_bwd.bf16.launches)
+    K1.warp_variance_train(x, projs, lo, step, D).backward(cot)
+    again = K1.warp_variance_bwd(feats, projs, lo, step, cot)
+    want = K1.warp_variance_bwd_plain(feats, projs, lo, step, cot)
+    torch.cuda.synchronize()
+    assert (K1.warp_variance_bwd.launches,
+            K1.warp_variance_bwd.bf16.launches) == (n0[0], n0[1] + 2)
+    assert x.grad.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(x.grad, again)
+    _close_bf16(x.grad, want)
+
+
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (4, 32, 40, 32, 48), (2, 9, 7, 8, 5), (5, 13, 21, 16, 7)])
+def test_warp_volume_bf16_matches_plain(dev, V, h, w, C, D):
+    """K7's bf16 instances, forward (var and the render volume) and
+    backward (features and images), against their bf16 plain versions;
+    the backward repeated bit for bit."""
+    g = _gen(dev, 13 * C + V)
+    feats, imgs = _bf16(torch.randn(V, h, w, C, device=dev, generator=g),
+                        torch.rand(V, h, w, 3, device=dev, generator=g))
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = 3 + torch.rand(h, w, device=dev, generator=g)
+    projs = _projs(V, h, w, dev)
+    args = (feats, imgs, projs, lo, step)
+    n0 = (K7.warp_volume.launches, K7.warp_volume.bf16.launches,
+          K7.warp_volume_bwd.launches, K7.warp_volume_bwd.bf16.launches)
+    got = K7.warp_volume(*args, D)
+    want = K7.warp_volume_plain(*args, D)
+    cots = _bf16(*(torch.randn(c, D, h, w, device=dev, generator=g)
+                   for c in (C, 3 * (V - 1) + C)))
+    first = K7.warp_volume_bwd(*args, *cots)
+    second = K7.warp_volume_bwd(*args, *cots)
+    want_b = K7.warp_volume_bwd_plain(*args, *cots)
+    torch.cuda.synchronize()
+    assert (K7.warp_volume.launches, K7.warp_volume.bf16.launches,
+            K7.warp_volume_bwd.launches,
+            K7.warp_volume_bwd.bf16.launches) == (n0[0], n0[1] + 1, n0[2],
+                                                  n0[3] + 2)
+    for a, p in zip(got, want):
+        assert a.dtype == p.dtype == torch.bfloat16
+        _close_bf16(a, p)
+    for a, b, p in zip(first, second, want_b):
+        assert a.dtype == p.dtype == torch.bfloat16
+        assert torch.equal(a, b)
+        _close_bf16(a, p)
+
+
+@pytest.mark.parametrize("mode,ci,co,shape", [
+    ("s1", 8, 16, (8, 12, 20)), ("s2", 16, 32, (8, 12, 20)),
+    ("t2", 64, 32, (4, 6, 10)), ("prob", 8, 1, (8, 12, 20)),
+    ("s1", 41, 8, (16, 16, 20)), ("s1", 64, 64, (4, 6, 10)),
+    ("s2", 64, 64, (4, 6, 10)), ("t2", 64, 64, (2, 3, 5)),
+    ("s1", 16, 8, (5, 9, 7)), ("s2", 16, 8, (7, 13, 11)),
+    ("t2", 16, 8, (3, 5, 6)), ("s1", 64, 128, (4, 6, 10)),
+    ("s2", 64, 128, (4, 6, 10))])
+def test_conv3d_train_bf16_matches_plain(dev, mode, ci, co, shape):
+    """K8's bf16 instances (K2-bf16 forward and adjoint, the bf16 dw
+    kernel) under autograd against the bf16 plain pair: odd sizes (the
+    stride-2 adjoint trimmed to them), 41 input channels, two Co groups
+    of dw, and the prob head's float32 output and cotangent."""
+    g = _gen(dev, 3 * ci + co)
+    prob = mode == "prob"
+    mode = "s1" if prob else mode
+    x, = _bf16(torch.randn(1, ci, *shape, device=dev, generator=g))
+    wshape = (ci, co, 3, 3, 3) if mode == "t2" else (co, ci, 3, 3, 3)
+    wgt = 0.1 * torch.randn(*wshape, device=dev, generator=g)
+    out = torch.float32 if prob else None
+    xk, wk = x.clone().requires_grad_(True), wgt.clone().requires_grad_(True)
+    xp, wp = x.clone().requires_grad_(True), wgt.clone().requires_grad_(True)
+    n0 = (K2.conv3d.launches, K2.conv3d.bf16.launches,
+          K8.conv3d_dw.launches, K8.conv3d_dw.bf16.launches)
+    yk = K8.conv3d_train(xk, wk, mode, out_dtype=out)
+    yp = K8.conv3d_train_plain(xp, wp, mode, out_dtype=out)
+    cot = torch.randn(yk.shape, device=dev, generator=g).to(yk.dtype)
+    yk.backward(cot)
+    yp.backward(cot)
+    torch.cuda.synchronize()
+    assert (K2.conv3d.launches, K2.conv3d.bf16.launches,
+            K8.conv3d_dw.launches, K8.conv3d_dw.bf16.launches) == (
+        n0[0], n0[1] + 2, n0[2], n0[3] + 1)
+    assert yk.dtype == yp.dtype == (torch.float32 if prob
+                                    else torch.bfloat16)
+    assert xk.grad.dtype == torch.bfloat16
+    assert wk.grad.dtype == torch.float32
+    _close_bf16(yk.detach(), yp.detach())
+    _close_bf16(xk.grad, xp.grad)
+    torch.testing.assert_close(wk.grad, wp.grad, rtol=0,
+                               atol=1e-4 * float(wp.grad.abs().max()))
+
+
+@pytest.mark.parametrize("mode,ci,co,shape", [
+    ("s1", 41, 8, (16, 16, 20)), ("s2", 32, 64, (8, 12, 20)),
+    ("t2", 16, 8, (4, 6, 10)), ("s1", 64, 128, (4, 6, 10))])
+def test_conv3d_dw_bf16_repeats_bit_for_bit(dev, mode, ci, co, shape):
+    """The bf16 dw kernel: no atomics, two calls agree in every bit; a
+    float32 cotangent beside a bf16 x is refused."""
+    g = _gen(dev, 5 * ci + co)
+    x, cot = _bf16(torch.randn(1, ci, *shape, device=dev, generator=g),
+                   torch.randn(1, co, *K2.out_shape(mode, *shape),
+                               device=dev, generator=g))
+    first = K8.conv3d_dw(x, cot, mode)
+    second = K8.conv3d_dw(x, cot, mode)
+    torch.cuda.synchronize()
+    assert first.dtype == torch.float32 and torch.equal(first, second)
+    with pytest.raises(TypeError):
+        K8.conv3d_dw(x, cot.float(), mode)
+
+
+def test_bf16_train_step_runs_the_bf16_instances(dev):
+    """train_dtype bfloat16 on the card: one train step launches the bf16
+    instances of K1, K6, K7 (both), K2 and K8 dw, and no float32 instance
+    of them; parameters and Adam's moments stay float32."""
+    from rcmvsnet_tpu_torch.config import (BackboneConfig, Config,
+                                           RenderConfig)
+    from rcmvsnet_tpu_torch.data.synthetic import batch_from_views
+    from rcmvsnet_tpu_torch.data.plane_scene import plane_scene
+    from rcmvsnet_tpu_torch.train.state import create_train_state
+    from rcmvsnet_tpu_torch.train.step import (batch_to, draw_step,
+                                               make_train_step)
+    cfg = Config(backbone=BackboneConfig(ndepths=(16, 8, 8),
+                                         train_dtype="bfloat16"),
+                 render=RenderConfig(n_rays=64, n_samples=16, num_planes=32))
+    batch = batch_to(batch_from_views([plane_scene(64, 96, 3, 0)], 64, 0),
+                     dev)
+    state = create_train_state(cfg, 3, 10, dev)
+    draws = draw_step(torch.Generator(device=dev).manual_seed(0), cfg, 1,
+                      64, 96)
+    counts = {"warp_variance": K1.warp_variance,
+              "warp_variance_bwd": K1.warp_variance_bwd,
+              "warp_volume": K7.warp_volume,
+              "warp_volume_bwd": K7.warp_volume_bwd,
+              "conv3d": K2.conv3d, "conv3d_dw": K8.conv3d_dw}
+    n0 = {k: (f.launches, f.bf16.launches) for k, f in counts.items()}
+    metrics = make_train_step(cfg)(state, batch, draws)
+    torch.cuda.synchronize()
+    for k, f in counts.items():
+        assert f.launches == n0[k][0], k
+        assert f.bf16.launches > n0[k][1], k
+    assert all(torch.isfinite(v) for k, v in metrics.items()
+               if k != "images")
+    for p in list(state.cascade.parameters()) + list(
+            state.render.parameters()):
+        assert p.dtype == torch.float32
+    for st in state.optimizer.state.values():
+        assert st["exp_avg"].dtype == torch.float32

@@ -14,6 +14,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import torch
+
 REPO = Path(__file__).resolve().parent.parent
 
 _BAN = """
@@ -112,7 +114,8 @@ torch.set_num_threads(2)
 from rcmvsnet_tpu_torch.cli import train
 args = ["--trainpath", "synthetic", "--max_steps", "2", "--num_view", "2",
         "--numdepth", "16", "--n_rays", "64", "--n_samples", "16",
-        "--device", "cpu", "--logdir", sys.argv[1], "--summary_freq", "1"]
+        "--device", "cpu", "--logdir", sys.argv[1], "--summary_freq", "1",
+        *sys.argv[2:]]
 train.main(args + ["--epochs", "1"])
 train.main(args + ["--epochs", "2", "--resume"])
 """
@@ -162,6 +165,23 @@ def test_tanks_cli_and_rm_color_run_without_jax(tmp_path):
     assert len(list((tmp_path / "out" / "Family" / "depth_est").glob(
         "*.pfm"))) == 3
     assert (tmp_path / "out" / "no_color" / "Family.ply").stat().st_size > 0
+
+
+def test_bf16_train_cli_runs_without_jax(tmp_path):
+    """`--train_dtype bfloat16` under the same ban: two epochs, the second
+    --resume'd from the first's float32 checkpoints, through the bf16
+    plain versions of K1, K6, K7 and K8; finite records."""
+    r = _run(_TRAIN_CLI, str(tmp_path), "--train_dtype", "bfloat16")
+    assert r.returncode == 0, r.stderr
+    assert "resumed at epoch 1" in r.stdout
+    recs = [json.loads(line) for line in
+            (tmp_path / "scalars.jsonl").read_text().splitlines()]
+    assert [rec["mode"] for rec in recs].count("train") == 4
+    assert all(v == v and abs(v) != float("inf") for rec in recs
+               for v in rec.values() if isinstance(v, float))
+    sd = torch.load(tmp_path / "model_000001_cas.ckpt", weights_only=False)
+    assert all(v.dtype == torch.float32 for v in sd["model"].values()
+               if v.is_floating_point())
 
 
 def test_train_cli_runs_without_jax(tmp_path):

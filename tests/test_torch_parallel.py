@@ -77,6 +77,10 @@ SH = SW = 64            # the train step's, at the golden backbone's planes
 V = 3
 CFG = Config(backbone=BackboneConfig(ndepths=(48, 32, 8)),
              render=RenderConfig(n_rays=32, n_samples=8, num_planes=16))
+# the bf16 train path
+CFG_BF16 = Config(backbone=BackboneConfig(ndepths=(48, 32, 8),
+                                          train_dtype="bfloat16"),
+                  render=RenderConfig(n_rays=32, n_samples=8, num_planes=16))
 
 
 def _spawn(fn, *args):
@@ -373,20 +377,20 @@ def _step_inputs():
     return batch, draws
 
 
-def _step(batch, draws, group, device="cpu", one_rank=False):
+def _step(batch, draws, group, device="cpu", one_rank=False, cfg=CFG):
     """One plain-path train step from the golden backbone (one_rank: its
     BatchNorms the cross-rank layer's in this one process); returns
     (metrics, grads, params, buffers) as CPU tensors by name."""
     from rcmvsnet_tpu_torch.parallel.sync_bn import convert
     from rcmvsnet_tpu_torch.train.state import create_train_state
     from rcmvsnet_tpu_torch.train.step import batch_to, make_train_step
-    state = create_train_state(CFG, V, 100, device, seed=2,
+    state = create_train_state(cfg, V, 100, device, seed=2,
                                state_dicts=(_golden_state_dicts(), None),
                                group=group)
     if one_rank:
         convert(state.cascade, None, one_rank=True)
         convert(state.render, None, one_rank=True)
-    metrics = make_train_step(CFG, plain=True, group=group)(
+    metrics = make_train_step(cfg, plain=True, group=group)(
         state, batch_to(batch, device), draws)
     named = {f"render.{k}": p for k, p in state.render.named_parameters()}
     named.update(dict(state.cascade.named_parameters()))
@@ -398,8 +402,9 @@ def _step(batch, draws, group, device="cpu", one_rank=False):
             {k: b.detach().cpu() for k, b in bufs.items()})
 
 
-def _rank_step(rank, world, device, batch, draws, out):
-    res = _step(_rows(batch, rank), draws, mesh.batch_group(), device)
+def _rank_step(rank, world, device, batch, draws, out, cfg=CFG):
+    res = _step(_rows(batch, rank), draws, mesh.batch_group(), device,
+                cfg=cfg)
     torch.save(res, Path(out) / f"step{rank}.pt")
 
 
@@ -439,6 +444,47 @@ def test_two_rank_step_equals_single_process_b2(tmp_path):
     for k, v in ranks[0][3].items():
         assert torch.equal(v, ranks[1][3][k]), k
     assert ranks[0][0] == ranks[1][0]
+
+
+def test_two_rank_bf16_step_matches_single_process_b2(tmp_path):
+    """The bf16 train step (both train dtypes bfloat16, the bf16 plain
+    versions) on two Gloo ranks against the one-process B=2 bf16 step with
+    the cross-rank BatchNorm at one rank: the cross-rank layer takes bf16
+    activations with float32 statistics. Both round to bf16 at the same
+    places; the ranks' convolutions over one sample against the one
+    process's over two sum in another order, so a rounding flips now and
+    then: losses within 1e-3 relative, each gradient within 2e-2 of its
+    model's largest, each running statistic within 1e-2 of its tensor's
+    largest (+1e-5: a batch statistic of bf16 activations has a bf16
+    ulp's precision, 2^-8 of its scale, and the render U-Net's deepest
+    level averages 8 values a sample; measured 5.5e-3), and both ranks'
+    parameters and buffers equal in every bit after Adam."""
+    batch, draws = _step_inputs()
+    _spawn(_rank_step, batch, draws, str(tmp_path), CFG_BF16)
+    ranks = [torch.load(tmp_path / f"step{r}.pt") for r in range(WORLD)]
+    m1, g1, p1, b1 = _step(batch, draws, None, one_rank=True, cfg=CFG_BF16)
+    for r in ranks:
+        m, g, p, b = r
+        for k in ("loss", "repr_loss", "aug_loss", "img_loss",
+                  "ray_depth_loss"):
+            np.testing.assert_allclose(m[k], m1[k], rtol=1e-3, err_msg=k)
+        for model in ("render.", ""):
+            names = [n for n in g1 if n.startswith("render.") ==
+                     (model == "render.")]
+            scale = max(float(g1[n].abs().max()) for n in names)
+            for n in names:
+                assert g[n].dtype == torch.float32, n
+                err = float((g[n] - g1[n]).abs().max())
+                assert err <= 2e-2 * scale, (n, err, scale)
+        for k, v in b1.items():
+            if k.endswith(("running_mean", "running_var")):
+                assert b[k].dtype == torch.float32, k
+                err = float((b[k] - v).abs().max())
+                assert err <= 1e-2 * float(v.abs().max()) + 1e-5, (k, err)
+    for k, v in ranks[0][2].items():
+        assert torch.equal(v, ranks[1][2][k]), k
+    for k, v in ranks[0][3].items():
+        assert torch.equal(v, ranks[1][3][k]), k
 
 
 # ----------------------------------------------------------------- CLI ----

@@ -79,11 +79,11 @@ def test_profile_conv3d_cpu(capsys, monkeypatch):
 def test_repeat_warp_bwd_cpu(capsys):
     rows = repeat_warp_bwd.run(torch.device("cpu"), shape=(64, 80, 3))
     out = capsys.readouterr().out.splitlines()
-    assert [r["call"] for r in rows] == [
-        "warp_variance_bwd stage1 V3 16x20 C32 D48",
-        "warp_volume_bwd stage1 V3 16x20 C32 D48",
-        "warp_variance_bwd stage2 V3 32x40 C16 D32",
-        "warp_variance_bwd stage3 V3 64x80 C8 D8"]
+    f32 = ["warp_variance_bwd stage1 V3 16x20 C32 D48",
+           "warp_volume_bwd stage1 V3 16x20 C32 D48",
+           "warp_variance_bwd stage2 V3 32x40 C16 D32",
+           "warp_variance_bwd stage3 V3 64x80 C8 D8"]
+    assert [r["call"] for r in rows] == f32 + [f"bf16 {c}" for c in f32]
     assert all(r["differing"] == 0 and r["max_abs"] > 0 for r in rows)
     assert rows[1]["elements"] == 3 * 16 * 20 * (32 + 3)
     assert [json.loads(line) for line in out] == rows
