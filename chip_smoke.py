@@ -54,7 +54,9 @@ the final "ok" line):
               bit for bit (their rows give the elements that differ, the
               merge factor and the integer adds of the fixed-point scatter);
   6. train    the fused train step (clean + aug + render passes, one
-              backward, one Adam step) at 512x640, V=4, 192 planes, 1024
+              backward, one Adam step; the default config, so remat at both
+              levels: phase 15 prints the steps/s and peak without remat
+              beside this phase's) at 512x640, V=4, 192 planes, 1024
               rays x 128 samples, 128 planes, from one init (the golden
               backbone, a seeded render branch) and one batch of the plane
               scene, with the random draws fixed once: 2 warm-up and 5
@@ -105,7 +107,8 @@ the final "ok" line):
               launched);
  11. parallel data parallelism (`parallel/`): (a) a one-rank NCCL group,
               one step through the data-parallel step on phase 6's
-              inputs: phase 6's kernel step-1 metrics in every bit, and
+              inputs, under remat (as phase 6) and without: phase 6's
+              kernel step-1 metrics in every bit, each, and
               its gradients unchanged by an all-reduce over the group;
               (b) two ranks on this one card over Gloo (NCCL puts no two
               ranks on one card), B=1 each, against the single-process
@@ -163,6 +166,23 @@ the final "ok" line):
               float32 kernel step (same init and draws), each logged loss
               within BF16_VS_F32 (the JAX package's own budget); (d) steps/s
               and peak memory of both dtypes;
+ 15. remat    (run before the report) rematerialization (`RunConfig.
+              remat` / `remat_modules`, `nn/remat.py`) at phase 6's cell
+              and draws, through the kernels, in float32 and in bf16,
+              under cudnn.deterministic: the step without remat, with
+              pass-level remat only and with both levels, 2 compared steps
+              each (then 2 timed), and two more runs without remat for the
+              step's own spread: (a, b) step-1 metrics, BatchNorm buffers
+              after step 1 and num_batches_tracked after both steps equal
+              in every bit; step-1 gradients equal in every bit in each
+              network whose gradients repeat without remat, the others
+              (behind grid_sampler_3d's atomic adds) within
+              REMAT_NOISE_FACTOR × their spread; step 2's running
+              statistics within REMAT_STEP2_BN_L2, its losses and
+              gradients printed beside the spread; (c) launches
+              per step: K1, K2 and K7's forward above their count without
+              remat, K6, K7's backward and K8 dw at it; (d) steps/s and
+              peak memory per setting, beside phase 6's;
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM and 67 TFLOP/s
 of float32 outside the tensor cores (TF32 is off in PyTorch on this path);
 the convs (K2, K5, K8 dw, K9), which run 3xTF32 on the tensor cores (K5
@@ -1327,6 +1347,240 @@ def phase_bf16_train(batch, cascade_sd, f32_path, smi, dev, cfg=None,
     return res
 
 
+# the remat phase's settings, (name, RunConfig.remat, remat_modules), and
+# the extra runs without remat that measure the step's own run-to-run
+# spread
+REMAT_SETTINGS = (("none", False, True), ("pass", True, False),
+                  ("both", True, True))
+REMAT_NOISE_RUNS = ("none2", "none3")
+# the forward kernels a recompute runs again (their launches per step must
+# exceed the step's without remat), and the backward ones (unchanged)
+RECOMPUTED_KERNELS = ("warp_variance", "conv3d", "warp_volume")
+BACKWARD_KERNELS = ("warp_variance_bwd", "warp_volume_bwd", "conv3d_dw")
+# Remat against no remat on the card. The step without remat does not
+# repeat bit for bit there even under cudnn.deterministic:
+# `grid_sampler_3d_backward` (the render branch's volume lookup) adds with
+# float atomics, so the render U-Net's gradient and, through K7's
+# backward, FeatureNet's vary from run to run (NVIDIA H100 80GB HBM3,
+# 700 W: 54 float32 gradient tensors, max 1.1e-5; at bf16 FeatureNet's
+# 25). A network whose step-1 gradients repeat bit for bit in two more
+# runs without remat must match in every bit; a network that varies is
+# held to REMAT_NOISE_FACTOR × the larger of those runs' distances
+# (relative L2 over the network). Step 2 starts from parameters that
+# carry that spread, and the render losses amplify it as chaos does: a
+# ray's depth flips or not (two runs without remat, same card: step-2
+# loss 1.7e-4 or 9e-7 apart, relative; at bf16 the networks' step-2
+# gradients 0.01–0.13 apart, relative L2, beyond phase 14's limits). So
+# step 2's losses and gradients are printed beside that spread, not
+# gated; its num_batches_tracked must match in every bit and its running
+# statistics lie within REMAT_STEP2_BN_L2 relative L2 per network (runs
+# without remat read ≤ 2.3e-4): a second update in a recompute moves a
+# statistic by momentum × (batch − running), ≈ 10 % of it.
+REMAT_NOISE_FACTOR = 4.0
+REMAT_STEP2_BN_L2 = 1e-3
+
+
+def _remat_setting(batch, cascade_sd, draws, cfg, dev, timed):
+    """One run of phase 15: two compared steps (each one's metrics,
+    launches, parameter gradients and BatchNorm buffers after it, named
+    as `_grads` names the gradients), then `timed` timed steps; the peak
+    memory over all of them."""
+    import torch
+    from rcmvsnet_tpu_torch.train.state import create_train_state
+    from rcmvsnet_tpu_torch.train.step import make_train_step
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    state = create_train_state(cfg, batch["imgs"].shape[1], 1000, dev,
+                               seed=SEED, state_dicts=(cascade_sd, None))
+    step = make_train_step(cfg)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    for _ in range(2):
+        wrappers = zero_launches()
+        metrics = step(state, batch, draws)
+        buffers = {f"render.{k}": v.detach().cpu().clone()
+                   for k, v in state.render.named_buffers()}
+        buffers.update({k: v.detach().cpu().clone()
+                        for k, v in state.cascade.named_buffers()})
+        steps.append({
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "launches": {k: fn.launches for k, fn in wrappers.items()},
+            "grads": _grads(state), "buffers": buffers})
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step(state, batch, draws)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    out = {"steps": steps, "steps_per_s": timed / dt if timed else None,
+           "peak_bytes": (torch.cuda.max_memory_allocated(dev) if cuda
+                          else None)}
+    del state
+    return out
+
+
+def _per_network(a: dict, b: dict) -> dict:
+    """{network: [‖a − b‖₂ / ‖b‖₂ over its tensors, the number of its
+    tensors that differ in any bit]} of two {name: tensor} dicts."""
+    out = {}
+    for net in NETWORKS:
+        names = [n for n in b if n.startswith(net)]
+        d = sum(float((a[n].double() - b[n].double()).norm()) ** 2
+                for n in names)
+        r = sum(float(b[n].double().norm()) ** 2 for n in names)
+        out[net] = [(d / max(r, 1e-60)) ** 0.5,
+                    sum(not a[n].equal(b[n]) for n in names)]
+    return out
+
+
+def _remat_compare(got, want) -> dict:
+    """One run against another (see REMAT_NOISE_FACTOR): what differs at
+    step 1, and how far step 2 lies."""
+    g1, w1 = got["steps"][0], want["steps"][0]
+    g2, w2 = got["steps"][1], want["steps"][1]
+    stats = lambda s: {k: v for k, v in s["buffers"].items()
+                       if v.dtype.is_floating_point}
+    return {
+        "step1_metrics_differing": {k: (g1["metrics"][k], v) for k, v in
+                                    w1["metrics"].items()
+                                    if g1["metrics"][k] != v},
+        "step1_buffers_differing": [k for k, v in w1["buffers"].items()
+                                    if not g1["buffers"][k].equal(v)],
+        "num_batches_tracked_differing": [
+            (i + 1, k) for i, (g, w) in enumerate(((g1, w1), (g2, w2)))
+            for k, v in w["buffers"].items()
+            if not v.dtype.is_floating_point and not g["buffers"][k].equal(v)],
+        "step1_grads": _per_network(g1["grads"], w1["grads"]),
+        "step2_loss_rel": {n: abs(g2["metrics"][n] - w2["metrics"][n])
+                           / max(abs(w2["metrics"][n]), 1e-12)
+                           for n in LOSS_TERMS},
+        "step2_grads": _per_network(g2["grads"], w2["grads"]),
+        "step2_grad_tensor_l2_max": max(
+            float((g2["grads"][n] - v).norm()) / max(float(v.norm()), 1e-30)
+            for n, v in w2["grads"].items()),
+        "step2_running_stats": _per_network(stats(g2), stats(w2))}
+
+
+def phase_remat(batch, cascade_sd, smi, dev, cfg=None, phase6=None,
+                dtypes=("float32", "bfloat16"), timed=2):
+    """Phase 15: rematerialization (`RunConfig.remat`, `nn/remat.py`) at
+    phase 6's cell and draws, through the kernels, in each of `dtypes`
+    (the train dtypes of the backbone and the render U-Net), under
+    cudnn.deterministic: the step without remat, with pass-level remat
+    only (`remat_modules=False`) and with both levels (the default), two
+    steps each from one init, and two more runs without remat for the
+    step's own spread (REMAT_NOISE_RUNS).
+    (a), (b) Against the step without remat: every step-1 metric, every
+        BatchNorm buffer after step 1 and num_batches_tracked after both
+        steps equal in every bit (the forwards alone make them); step-1
+        gradients equal in every bit in each network whose gradients
+        repeat bit for bit without remat, the others within
+        REMAT_NOISE_FACTOR × their spread; step 2's running statistics
+        within REMAT_STEP2_BN_L2, its losses (finite) and gradients
+        printed beside the spread of the runs without remat
+        (REMAT_NOISE_FACTOR's comment says why).
+    (c) Launches per step of each train kernel in each setting: every
+        kernel a recompute reruns (K1, K2, K7's forward) above its count
+        without remat, the backward kernels (K6, K7's backward, K8 dw) at
+        it; the counts and their ratios are printed.
+    (d) Steps/s over `timed` steps and peak max_memory_allocated per
+        setting, beside phase 6's (which runs the default, both levels,
+        over 5 timed steps)."""
+    import dataclasses
+    import torch
+    from rcmvsnet_tpu_torch.config import Config
+    from rcmvsnet_tpu_torch.train.step import draw_step
+    base = cfg or Config()
+    B, _, Hs, Ws = batch["imgs"].shape[:4]
+    draws = draw_step(torch.Generator(device=dev).manual_seed(SEED), base,
+                      B, Hs, Ws)
+    result, failures = {"device": smi}, []
+    for dtype in dtypes:
+        bf16 = dtype == "bfloat16"
+        suffix = "_bf16" if bf16 else ""
+        dcfg = base.replace(backbone=dataclasses.replace(
+            base.backbone, train_dtype=dtype))
+        cfgs = {name: dcfg.replace(run=dataclasses.replace(
+            dcfg.run, remat=rm, remat_modules=mods))
+            for name, rm, mods in REMAT_SETTINGS}
+        runs = {}
+        torch.backends.cudnn.deterministic = True
+        try:
+            for name in cfgs:
+                runs[name] = _remat_setting(batch, cascade_sd, draws,
+                                            cfgs[name], dev, timed)
+            for name in REMAT_NOISE_RUNS:
+                runs[name] = _remat_setting(batch, cascade_sd, draws,
+                                            cfgs["none"], dev, 0)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        cmp = {name: _remat_compare(runs[name], runs["none"])
+               for name in ("pass", "both") + REMAT_NOISE_RUNS}
+        spread = {net: max(cmp[n]["step1_grads"][net][0]
+                           for n in REMAT_NOISE_RUNS) for net in NETWORKS}
+        repeats = {net: not any(cmp[n]["step1_grads"][net][1]
+                                for n in REMAT_NOISE_RUNS)
+                   for net in NETWORKS}
+        none = runs["none"]["steps"][0]["launches"]
+        kernels = tuple(k + suffix for k in RECOMPUTED_KERNELS
+                        + BACKWARD_KERNELS)
+        res = {"settings": {}, "compared_to_none": cmp,
+               "step1_grad_spread_without_remat": spread,
+               "step1_grads_repeat_without_remat": repeats}
+        for name in cfgs:
+            run = runs[name]
+            launches = run["steps"][0]["launches"]
+            res["settings"][name] = {
+                "launches_per_step": {k: launches[k] for k in kernels},
+                "launch_ratio_vs_none": {
+                    k: launches[k] / none[k] if none[k] else None
+                    for k in kernels},
+                "steps_per_s": run["steps_per_s"],
+                "peak_bytes": run["peak_bytes"],
+                "step_losses": [{n: s["metrics"][n] for n in LOSS_TERMS}
+                                for s in run["steps"]]}
+        if phase6 is not None and not bf16:
+            res["phase6_both_levels"] = {
+                "steps_per_s": phase6["steps_per_s_kernel"],
+                "peak_bytes": phase6["max_memory_allocated_kernel"]}
+        result[dtype] = res
+        for name in ("pass", "both"):
+            c = cmp[name]
+            bad = {k: c[k] for k in ("step1_metrics_differing",
+                                     "step1_buffers_differing",
+                                     "num_batches_tracked_differing")
+                   if c[k]}
+            bad.update({f"step1 grads {net}": v
+                        for net, v in c["step1_grads"].items()
+                        if v[1] and not (not repeats[net] and v[0]
+                                         <= REMAT_NOISE_FACTOR
+                                         * spread[net])})
+            second = runs[name]["steps"][1]["metrics"]
+            bad.update({f"step2 loss {n}": second[n] for n in LOSS_TERMS
+                        if not abs(second[n]) < float("inf")})
+            bad.update({f"step2 running statistics {net}": v[0]
+                        for net, v in c["step2_running_stats"].items()
+                        if not v[0] <= REMAT_STEP2_BN_L2})
+            if bad:
+                failures.append(f"{dtype} {name} vs none: {bad} (spread "
+                                f"without remat {spread})")
+            got = runs[name]["steps"][0]["launches"]
+            low = [k + suffix for k in RECOMPUTED_KERNELS
+                   if not got[k + suffix] > none[k + suffix]]
+            moved = [k + suffix for k in BACKWARD_KERNELS
+                     if got[k + suffix] != none[k + suffix]]
+            if low or moved:
+                failures.append(f"{dtype} {name}: recomputed kernels not "
+                                f"above their count without remat {low}, "
+                                f"backward kernels off it {moved}")
+    print(json.dumps({"remat": result}), flush=True)
+    if failures:
+        raise AssertionError("remat: " + "; ".join(failures))
+    return result
+
+
 def _depth_gate(name, dk, dp):
     """Phase 4's gate on one kernel-path depth map against the plain
     path's: finite, max relative delta ≤ DEPTH_REL_MAX, no pixel above
@@ -1691,9 +1945,10 @@ def phase_parallel(batch1, draws1, batch2, draws2, cascade_sd, phase6,
     (a) A group of one rank (NCCL on the card): one train step on phase
         6's batch and draws (batch1, draws1) through the data-parallel
         step (group `batch_group()`, None at world 1, so nothing is
-        swapped) must give phase 6's kernel step-1 metrics in every bit,
-        and an all-reduce of its gradients over the one-rank
-        group must return them unchanged.
+        swapped), under cfg's remat (both levels by default, as phase 6)
+        and again without remat, must each give phase 6's kernel step-1
+        metrics in every bit, and an all-reduce of its gradients over the
+        one-rank group must return them unchanged.
     (b) Two ranks on this one card over Gloo (NCCL puts no two ranks on
         one card), B=1 each, against the single-process kernel step at B=2
         on the same global batch and draws (cudnn.deterministic in both),
@@ -1719,6 +1974,7 @@ def phase_parallel(batch1, draws1, batch2, draws2, cascade_sd, phase6,
         views; the gathered depth and confidence must equal phase 4's
         kernel output in every bit, or else pass phase 4's gate (the
         result names which held)."""
+    import dataclasses
     import tempfile
     import numpy as np
     import torch
@@ -1731,29 +1987,37 @@ def phase_parallel(batch1, draws1, batch2, draws2, cascade_sd, phase6,
     cuda = dev.type == "cuda"
     result = {"device": smi}
 
-    # (a) one rank
+    # (a) one rank, under cfg's remat and without remat
     store = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     mesh.init_process(0, 1, f"file://{store}/store", dev)
+    firsts, unchanged = {}, True
     try:
-        state = create_train_state(cfg, batch1["imgs"].shape[1], 1000, dev,
-                                   seed=SEED, state_dicts=(cascade_sd, None),
-                                   group=mesh.batch_group())
-        step = make_train_step(cfg, group=mesh.batch_group())
-        first = {k: float(v) for k, v in step(state, batch1, draws1).items()}
-        grads = [p.grad for p in state.optimizer.param_groups[0]["params"]
-                 if p.grad is not None]
-        before = [g.clone() for g in grads]
-        mesh.allreduce_gradients(state.optimizer.param_groups[0]["params"],
-                                 dist.group.WORLD)
-        unchanged = all(torch.equal(a, b) for a, b in zip(before, grads))
+        for remat in (cfg.run.remat, False):
+            rcfg = cfg.replace(run=dataclasses.replace(cfg.run, remat=remat))
+            state = create_train_state(rcfg, batch1["imgs"].shape[1], 1000,
+                                       dev, seed=SEED,
+                                       state_dicts=(cascade_sd, None),
+                                       group=mesh.batch_group())
+            step = make_train_step(rcfg, group=mesh.batch_group())
+            firsts[f"remat={remat}"] = {
+                k: float(v) for k, v in step(state, batch1, draws1).items()}
+            grads = [p.grad for p in state.optimizer.param_groups[0]["params"]
+                     if p.grad is not None]
+            before = [g.clone() for g in grads]
+            mesh.allreduce_gradients(
+                state.optimizer.param_groups[0]["params"], dist.group.WORLD)
+            unchanged &= all(torch.equal(a, b)
+                             for a, b in zip(before, grads))
+            del state, grads, before
         backend = dist.get_backend()
-        del state, grads, before
     finally:
         dist.destroy_process_group()
     want = phase6["step1_metrics_kernel"]
-    differ = {k: (first[k], want[k]) for k in want
-              if k != "lr" and first[k] != want[k]}
+    differ = {(r, k): (first[k], want[k]) for r, first in firsts.items()
+              for k in want if k != "lr" and first[k] != want[k]}
+    first = firsts[f"remat={cfg.run.remat}"]
     result["one_rank"] = {"backend": backend, "step1_metrics": first,
+                          "runs": list(firsts),
                           "equal_to_phase6": not differ,
                           "allreduce_unchanged": unchanged}
     print(json.dumps({"parallel_one_rank": result["one_rank"]}), flush=True)
@@ -2029,6 +2293,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16_train = phase_bf16_train(batch, load_state_dict(ASSET), train_path,
                                   smi, dev)
+    torch.cuda.empty_cache()
+
+    # 15. rematerialization: none, pass level, both levels (phase 6's
+    # default), in float32 and bf16 (run before the report, phase 13)
+    remat = phase_remat(batch, load_state_dict(ASSET), smi, dev,
+                        phase6=train_path)
     del batch
     torch.cuda.empty_cache()
 
@@ -2121,7 +2391,7 @@ def main() -> int:
         "tools_path": tools_path, "train_cli": train_cli,
         "wide_path": wide_path, "parallel": parallel,
         "bf16_paths": bf16_paths, "bf16_train_path": bf16_train,
-        "kernels": kernels}, indent=1))
+        "remat": remat, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

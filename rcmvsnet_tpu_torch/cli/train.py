@@ -9,7 +9,12 @@ PyTorch version (`plain=True`), as the JAX flag runs the XLA path.
 render U-Net (`BackboneConfig.train_dtype`), as the JAX CLI does on its
 chip: the bf16 instances of K1, K6, K7, K2
 and K8 dw (or, with `--no_pallas`, their bf16 plain versions); the
-checkpoints hold the float32 parameters either way. Per
+checkpoints hold the float32 parameters either way. As in the JAX CLI
+the step rematerializes its three passes and, inside them, FeatureNet, the
+CostRegNets and the render U-Net (`RunConfig.remat`, `nn/remat.py`):
+the lowest peak memory, at the price of recomputing each forward in the
+backward. `--no_remat` keeps every activation instead, which is faster
+where the batch fits the card's memory. Per
 epoch: the fused train step (`train/step.py`: clean, aug and render
 passes, one backward, one Adam step) over the shuffled train loader
 (`data/loader.py`, its order fixed by (seed, epoch)); every
@@ -123,6 +128,11 @@ def parse_args(argv=None):
                    help="compute dtype of the backbone and the render "
                         "U-Net in training (params, BN statistics and "
                         "losses stay float32)")
+    p.add_argument("--no_remat", action="store_true",
+                   help="disable sub-pass/U-Net rematerialization (faster "
+                        "when the batch fits the card's memory without "
+                        "it; the default remat keeps the lowest peak "
+                        "memory)")
     p.add_argument("--n_devices", type=int, default=None,
                    help="data-parallel over this many devices of this "
                         "host, one process each (default 1)")
@@ -160,7 +170,7 @@ def config_from_args(a) -> Config:
                       lr_gamma=1.0 / float(gamma or 2.0), weight_decay=a.wd,
                       save_freq=a.save_freq, eval_freq=a.eval_freq,
                       seed=a.random_seed, logdir=a.logdir,
-                      summary_freq=a.summary_freq))
+                      summary_freq=a.summary_freq, remat=not a.no_remat))
 
 
 def build_datasets(config: Config, world: int = 1):

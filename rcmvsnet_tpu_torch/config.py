@@ -2,8 +2,9 @@
 step's render, loss and run settings.
 
 Counterparts of `rcmvsnet_tpu/config.py` without the TPU knobs (`pallas_*`,
-`remat`, `ray_major_lookup`) and the multi-device one (`n_devices`): the
-port picks its kernels by the tensor's device. It computes in float32,
+`ray_major_lookup`) and the multi-device one (`n_devices`): the port picks
+its kernels by the tensor's device. `RunConfig.remat` and `remat_modules`
+keep JAX's meanings and defaults (`nn/remat.py`). It computes in float32,
 except where a dtype field names bfloat16, with JAX's fields and meanings:
   * `BackboneConfig.eval_dtype`: the eval path's conv stacks and warp in
     bf16; geometry, softmax and depth regression float32;
@@ -95,6 +96,16 @@ class RunConfig:
     lr_gamma: float = 0.5
     weight_decay: float = 0.0
     batch_size: int = 1
+    # rematerialize the train step's three passes (clean, aug, render) in
+    # the backward (`train/step.py`): each pass keeps its inputs and
+    # outputs across the gradient, not its activations; the recompute
+    # changes no number the step returns and no BatchNorm buffer
+    remat: bool = True
+    # also rematerialize FeatureNet, each CostRegNet and the render U-Net
+    # inside each pass: on top of the pass-level recompute each of them
+    # runs its forward three times a step (twice with this off), for the
+    # lowest peak memory. Ignored when remat is False.
+    remat_modules: bool = True
     seed: int = 1
     logdir: str = "./rc-mvsnet"
     save_freq: int = 1

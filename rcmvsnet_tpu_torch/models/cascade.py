@@ -36,6 +36,12 @@ images are cast to bf16, so FeatureNet, the warps (K1 with K6, K7 on the
 bf16 features and the stage's bf16 images) and the U-Nets (K8) run their
 bf16 instances; the prob head writes the float32 cost, and the softmax,
 depth and confidence are float32 (`:285`).
+With `remat` (`train/state.make_models` sets it from `RunConfig.remat`
+and `remat_modules`) the train forward runs FeatureNet and each stage's
+CostRegNet through `nn/remat.remat`, as the JAX cascade wraps them in
+`nn.remat` under train (`models/cascade.py:254-255,267-268,384-385`):
+their activations are recomputed in the backward, their BatchNorm
+statistics updated once. The eval `forward` is never wrapped.
 
 `plain=True` runs every kernel's plain version (on a CPU tensor the
 wrappers do so anyway), with autograd through them on the train path.
@@ -53,6 +59,7 @@ from ..config import BackboneConfig, compute_dtype
 from ..core.geometry import compose_projection
 from ..nn.costreg import CostRegNet
 from ..nn.featurenet import FeatureNet
+from ..nn.remat import remat
 from ..ops.depth_tail import (depth_regression, depth_tail,
                               depth_tail_plain, photometric_confidence)
 from ..ops.sampling import resize_bilinear
@@ -75,9 +82,11 @@ def train_dtype(config: BackboneConfig) -> torch.dtype:
 
 
 class CascadeMVSNet(nn.Module):
-    def __init__(self, config: BackboneConfig = BackboneConfig()):
+    def __init__(self, config: BackboneConfig = BackboneConfig(),
+                 remat: bool = False):
         super().__init__()
         self.config = config
+        self.remat = remat
         self.feature = FeatureNet(config.base_channels)
         self.cost_regularization = nn.ModuleList([
             CostRegNet(self.feature.out_channels[i], config.cr_base_chs[i])
@@ -165,7 +174,7 @@ class CascadeMVSNet(nn.Module):
         imgs = imgs.to(dtype)
         B, V, H, W, _ = imgs.shape
         x = imgs.reshape(B * V, H, W, 3).permute(0, 3, 1, 2).contiguous()
-        feats = self.feature(x)
+        feats = remat(self.feature, [self.feature], x, enabled=self.remat)
 
         outputs = {}
         depth = None
@@ -197,8 +206,9 @@ class CascadeMVSNet(nn.Module):
             # one U-Net call over the batch: train-mode BN takes its
             # statistics over every sample, as JAX's batched U-Net does
             x = variances[0][None] if B == 1 else torch.stack(variances)
-            costs = self.cost_regularization[s].forward_train(
-                x, plain=plain)[:, 0]                         # [B, D, h, w]
+            net = self.cost_regularization[s]
+            costs = remat(partial(net.forward_train, plain=plain), [net], x,
+                          enabled=self.remat)[:, 0]          # [B, D, h, w]
             depths, confs = [], []
             idx = torch.arange(nd, dtype=lo.dtype, device=lo.device)
             for b in range(B):

@@ -14,7 +14,8 @@ all rays × samples; the batch axis is a loop (B = 1 on the train path).
 
 `train_dtype` (`BackboneConfig.train_dtype`): the neural volume's resize
 and U-Net run in that dtype (`nn/neural_volume.py`); everything else here
-is float32.
+is float32. `remat`: the neural volume's U-Net is rematerialized in the
+backward (`nn/neural_volume.py`; JAX `models/render_net.py:70,94`).
 
 Parameter names are the reference's `*_nerf.ckpt` names:
 `MVSNet.cost_reg_2.*` (the neural-volume U-Net) and `network_fn.nerf.*`
@@ -61,10 +62,12 @@ class RenderResult(NamedTuple):
 class RenderingConsistencyNet(nn.Module):
     def __init__(self, volume_in_channels: int, num_planes: int = 128,
                  net_type: str = "v0",
-                 train_dtype: torch.dtype = torch.float32):
+                 train_dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.num_planes = num_planes
         self.train_dtype = train_dtype
+        self.remat = remat
         self.MVSNet = nn.ModuleDict({"cost_reg_2": RenderCostReg(
             volume_in_channels, VOLUME_CHANNELS)})
         kw = dict(in_ch_pts=3 + 6 * MULTIRES,
@@ -87,8 +90,8 @@ class RenderingConsistencyNet(nn.Module):
         `RayDraws` per sample. `plain` runs the U-Net's convs in plain
         PyTorch instead of K8."""
         volume = neural_volume(self.MVSNet["cost_reg_2"], volume_feature,
-                               self.num_planes, plain,
-                               self.train_dtype)        # [B, 8, P, h, w]
+                               self.num_planes, plain, self.train_dtype,
+                               self.remat)              # [B, 8, P, h, w]
         B, V, H, W, _ = imgs.shape
         imgs_un = unpreprocess(imgs)
         nc = N_COLOR_VIEWS

@@ -40,13 +40,15 @@ def make_models(config: Config, num_views: int):
     """(CascadeMVSNet, RenderingConsistencyNet) for V = num_views, both
     at the backbone's train dtype (JAX `train/state.py:41,58`, its CLI
     setting the render branch's from the same flag); their parameters
-    are float32."""
-    cascade = CascadeMVSNet(config.backbone)
+    are float32. Both rematerialize their modules under train when
+    `run.remat and run.remat_modules` (JAX `train/state.py:44,55`)."""
+    remat = config.run.remat and config.run.remat_modules
+    cascade = CascadeMVSNet(config.backbone, remat=remat)
     vol_ch = 3 * (num_views - 1) + cascade.feature.out_channels[0]
     render = RenderingConsistencyNet(
         vol_ch, num_planes=config.render.num_planes,
         net_type=config.render.net_type,
-        train_dtype=compute_dtype(config.backbone.train_dtype))
+        train_dtype=compute_dtype(config.backbone.train_dtype), remat=remat)
     return cascade, render
 
 

@@ -18,6 +18,16 @@ The step's random draws (the aug rectangle's origin, each sample's ray
 pixels and depth noise) are an input, `StepDraws`; `draw_step` makes them
 from a `torch.Generator`.
 
+Rematerialization (`RunConfig.remat`, JAX `train/step.py:58-92`): each
+pass's forward (`clean_pass`, `aug_pass`, `render_pass`) runs through
+`nn/remat.remat`, so the backward recomputes its activations instead of
+keeping them; its loss stays outside, as in JAX. With `remat_modules`
+the models also rematerialize FeatureNet, the CostRegNets and the render
+U-Net inside each pass (`train/state.make_models`). The draws are inputs,
+so a recompute sees the same rays and mask; BatchNorm buffers still
+update once per forward, in the order above, and no number the step
+returns changes.
+
 `make_val_step` is the supervised validation step (JAX
 `train/step.py:200-226`): the eval forward (`CascadeMVSNet.forward`, BN
 folded from the running statistics) and `cas_mvsnet_loss` with the
@@ -52,6 +62,7 @@ every metric is the global batch's, the same on every rank. With no group
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
@@ -64,6 +75,7 @@ from ..losses.rays import (abs_error, acc_threshold, img2mse, mse2psnr,
 from ..losses.supervised import (abs_depth_error_metric, cas_mvsnet_loss,
                                  thres_metric)
 from ..losses.unsup import unsup_loss_multi_stage
+from ..nn.remat import remat as rematerialize
 from ..parallel.mesh import (allreduce_gradients, average_scalars,
                              group_rank)
 from ..render.rays import draw_rays
@@ -101,6 +113,53 @@ def batch_to(batch: dict, device) -> dict:
     return {k: conv(v) for k, v in batch.items()}
 
 
+def clean_pass(cascade, batch: dict, dlossw, plain: bool = False,
+               remat: bool = False, group=None):
+    """The clean pass and its photometric self-supervision: (outputs,
+    volume_feature, loss, scalars)."""
+    projs = batch["proj_matrices"]
+    outputs, volume_feature = rematerialize(
+        partial(cascade.forward_train, return_volume=True, plain=plain),
+        [cascade], batch["imgs"], projs, batch["depth_values"],
+        enabled=remat)
+    loss, scalars = unsup_loss_multi_stage(outputs, batch["center_imgs"],
+                                           projs, dlossw, group)
+    return outputs, volume_feature, loss, scalars
+
+
+def aug_pass(cascade, batch: dict, mask_origin, pseudo_depth, dlossw,
+             plain: bool = False, remat: bool = False, group=None):
+    """The masked-aug pass against the detached pseudo-depth: (outputs,
+    loss, scalars)."""
+    imgs_aug = batch["imgs_aug"]
+    H, W = imgs_aug.shape[2:4]
+    ref_masked, filter_mask = random_image_mask(
+        imgs_aug[:, 0], (H // 3, W // 3), mask_origin)
+    imgs_aug = torch.cat([ref_masked[:, None], imgs_aug[:, 1:]], dim=1)
+    outputs = rematerialize(partial(cascade.forward_train, plain=plain),
+                            [cascade], imgs_aug, batch["proj_matrices"],
+                            batch["depth_values"], enabled=remat)
+    loss, scalars = aug_loss_multi_stage(outputs, pseudo_depth, filter_mask,
+                                         dlossw, group)
+    return outputs, loss, scalars
+
+
+def render_pass(render, batch: dict, volume_feature, pseudo_depth, rays,
+                plain: bool = False, remat: bool = False, group=None):
+    """Rendering consistency, float32 under a bf16 backbone too (JAX
+    `train/step.py:83-92` upcasts the volume; the neural volume runs at
+    the render branch's own dtype): (result, img_loss, depth_loss,
+    ray_mask)."""
+    result = rematerialize(
+        partial(render, plain=plain), [render], volume_feature.float(),
+        pseudo_depth, batch["imgs"], batch["w2cs"], batch["c2ws"],
+        batch["intrinsics"], batch["near_fars"], rays, enabled=remat)
+    img_loss = img2mse(result.rgb, result.target_rgb)
+    ray_mask = result.rays_depth > 0
+    depth_loss = sl1_loss(result.depth, result.rays_depth, ray_mask, group)
+    return result, img_loss, depth_loss, ray_mask
+
+
 def _depth_metrics(est, gt, mask) -> dict:
     return {
         "abs_depth_error": abs_depth_error_metric(est, gt, mask),
@@ -128,43 +187,23 @@ def make_train_step(config: Config, plain: bool = False,
     `parallel/sync_bn` BatchNorms over the same group."""
     dlossw = tuple(config.loss.dlossw)
     rank = group_rank(group)
+    kw = dict(plain=plain, remat=config.run.remat, group=group)
 
     def train_step(state: TrainState, batch: dict,
                    draws: StepDraws) -> dict:
-        cascade, render = state.cascade, state.render
         imgs = batch["imgs"]
-        B, V, H, W, _ = imgs.shape
-        projs, dvals = batch["proj_matrices"], batch["depth_values"]
         if group is not None:
-            draws = rank_draws(draws, rank, B)
+            draws = rank_draws(draws, rank, imgs.shape[0])
 
-        # clean pass + photometric self-supervision
-        outputs, volume_feature = cascade.forward_train(
-            imgs, projs, dvals, return_volume=True, plain=plain)
-        loss_base, unsup_scalars = unsup_loss_multi_stage(
-            outputs, batch["center_imgs"], projs, dlossw, group)
+        outputs, volume_feature, loss_base, unsup_scalars = clean_pass(
+            state.cascade, batch, dlossw, **kw)
         pseudo_depth = outputs["depth"].detach()
-
-        # aug pass vs the pseudo-depth
-        imgs_aug = batch["imgs_aug"]
-        ref_masked, filter_mask = random_image_mask(
-            imgs_aug[:, 0], (H // 3, W // 3), draws.mask_origin)
-        imgs_aug = torch.cat([ref_masked[:, None], imgs_aug[:, 1:]], dim=1)
-        outputs_aug = cascade.forward_train(imgs_aug, projs, dvals,
-                                            plain=plain)
-        loss_aug, aug_scalars = aug_loss_multi_stage(
-            outputs_aug, pseudo_depth, filter_mask, dlossw, group)
-
-        # rendering consistency, float32 under a bf16 backbone too (JAX
-        # `train/step.py:83-92` upcasts the volume; the neural volume runs
-        # at the render branch's own dtype)
-        result = render(volume_feature.float(), pseudo_depth, imgs,
-                        batch["w2cs"], batch["c2ws"], batch["intrinsics"],
-                        batch["near_fars"], draws.rays, plain=plain)
-        img_loss = img2mse(result.rgb, result.target_rgb)
-        ray_mask = result.rays_depth > 0
-        depth_loss = sl1_loss(result.depth, result.rays_depth, ray_mask,
-                              group)
+        outputs_aug, loss_aug, aug_scalars = aug_pass(
+            state.cascade, batch, draws.mask_origin, pseudo_depth, dlossw,
+            **kw)
+        result, img_loss, depth_loss, ray_mask = render_pass(
+            state.render, batch, volume_feature, pseudo_depth, draws.rays,
+            **kw)
 
         w_aug = batch["w_aug"]
         total = loss_base + w_aug * loss_aug + img_loss + depth_loss

@@ -266,3 +266,43 @@ def test_train_cli_phase_runs_on_cpu_and_demands_launches(tmp_path,
     names = {p.name for p in (tmp_path / "b").iterdir()}
     assert {f"model_00000{e}_{k}.ckpt" for e in range(3)
             for k in ("cas", "nerf")} <= names
+
+
+def test_remat_phase_runs_on_cpu_and_demands_recompute(capsys):
+    """Phase 15 at a tiny size in float32: the steps with pass-level remat
+    and with both levels equal the step without remat in every bit, and
+    so do the two more runs without remat (the CPU step repeats); the
+    phase then refuses the run, whose recomputed kernels read no more
+    launches than without remat (none, here)."""
+    import json
+
+    from rcmvsnet_tpu_torch.config import Config, RenderConfig
+    from rcmvsnet_tpu_torch.data.synthetic import batch_from_views
+    from rcmvsnet_tpu_torch.train.step import batch_to
+    scene = chip_smoke.plane_scene(32, 32, 3, chip_smoke.SEED)
+    batch = batch_to(batch_from_views([scene], 32, chip_smoke.SEED), "cpu")
+    cfg = Config(render=RenderConfig(n_rays=16, n_samples=8, num_planes=16))
+    with pytest.raises(AssertionError, match="float32 both: recomputed "
+                                             "kernels not above"):
+        chip_smoke.phase_remat(batch, load_state_dict(ASSET), "cpu",
+                               torch.device("cpu"), cfg,
+                               dtypes=("float32",), timed=1)
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith('{"remat"')]
+    res = json.loads(line[0])["remat"]["float32"]
+    assert list(res["settings"]) == ["none", "pass", "both"]
+    assert list(res["compared_to_none"]) == ["pass", "both", "none2",
+                                             "none3"]
+    for c in res["compared_to_none"].values():
+        assert not (c["step1_metrics_differing"]
+                    or c["step1_buffers_differing"]
+                    or c["num_batches_tracked_differing"])
+        for part in ("step1_grads", "step2_grads", "step2_running_stats"):
+            assert all(v == [0.0, 0] for v in c[part].values()), part
+        assert set(c["step2_loss_rel"].values()) == {0.0}
+    assert all(res["step1_grads_repeat_without_remat"].values())
+    for name, setting in res["settings"].items():
+        assert setting["steps_per_s"] > 0 and setting["peak_bytes"] is None
+        assert len(setting["step_losses"]) == 2
+        assert set(setting["launches_per_step"]) == set(
+            chip_smoke.RECOMPUTED_KERNELS + chip_smoke.BACKWARD_KERNELS)

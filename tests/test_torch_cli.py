@@ -107,3 +107,28 @@ def test_train_cli_bf16_step_on_cpu_and_refuses_bad_dtype(tmp_path,
     assert len(train) == 1 and np.isfinite(train[0]["loss"])
     with pytest.raises(SystemExit):
         train_cli.parse_args(args + ["--train_dtype", "float16"])
+
+
+def test_train_cli_no_remat_sets_run_config(tmp_path, monkeypatch):
+    """`--no_remat`: the train CLI's RunConfig.remat follows the flag (JAX
+    `cli/train.py:91-95,126`): absent, both levels of remat, as the JAX
+    defaults; given, none. The models' flag follows (`make_models`), and
+    the data-parallel workers build their config from the same args."""
+    from rcmvsnet_tpu_torch.cli import train as train_cli
+    from rcmvsnet_tpu_torch.train.state import make_models
+    args = ["--trainpath", "synthetic", "--device", "cpu", "--num_view", "2",
+            "--logdir", str(tmp_path)]
+    seen = []
+    monkeypatch.setattr(train_cli, "fit",
+                        lambda config, *a, **kw: seen.append(config))
+    for extra, want in (([], True), (["--no_remat"], False)):
+        run = train_cli.config_from_args(
+            train_cli.parse_args(args + extra)).run
+        assert (run.remat, run.remat_modules) == (want, True)
+        cascade, render = make_models(train_cli.config_from_args(
+            train_cli.parse_args(args + extra)), 3)
+        assert cascade.remat is render.remat is want
+        train_cli.main(args + extra)
+        train_cli._train_rank(0, 1, torch.device("cpu"),
+                              train_cli.parse_args(args + extra))
+        assert [c.run.remat for c in seen[-2:]] == [want, want]

@@ -8,7 +8,9 @@ eval_tanks with rm_color, train) run end to end under the same ban, on the port'
 data and fusion modules; the train CLI trains, validates, saves a
 checkpoint and resumes from it. The dataset registry resolves every alias
 to a class of the port. The data-parallel modules (`parallel/mesh.py`,
-`parallel/sync_bn.py`) are among the modules imported."""
+`parallel/sync_bn.py`) are among the modules imported, and so are the
+rematerialization helper (`nn/remat.py`) and the train-step profiler
+(`tools/profile_train.py`), which the card's path runs too."""
 import json
 import subprocess
 import sys
@@ -40,7 +42,8 @@ for must in ("cli.eval_dtu", "cli.train", "core.io", "data.dtu_test",
              "tools.ab_warp_fwd", "tools.ab_conv2d", "tools.ab_depth_tail",
              "tools.ab_warp_view", "data.loader", "data.dtu_train",
              "data.dtu_val", "data.registry", "train.checkpoint",
-             "parallel.mesh", "parallel.sync_bn"):
+             "parallel.mesh", "parallel.sync_bn", "nn.remat",
+             "tools.profile_train"):
     assert "rcmvsnet_tpu_torch." + must in names, names
 from rcmvsnet_tpu_torch.data.registry import _ALIASES, find_dataset_def
 for alias, (module, cls) in _ALIASES.items():
@@ -70,7 +73,8 @@ for name in ("core.geometry", "data.synthetic", "data.transforms",
              "tools.ab_depth_tail", "tools.ab_warp_view", "cli.train",
              "train.checkpoint",
              "data.loader", "data.dtu_train", "data.dtu_val", "nn.mlp",
-             "losses.supervised", "parallel.mesh", "parallel.sync_bn"):
+             "losses.supervised", "parallel.mesh", "parallel.sync_bn",
+             "nn.remat", "tools.profile_train"):
     importlib.import_module("rcmvsnet_tpu_torch." + name)
 print("ok")
 """

@@ -40,7 +40,9 @@ backbone's ndepths 48/32/8):
     1.3e-5 of its largest under 1e-7 relative parameter noise, so 1e-5 of
     its own largest would sit on float32's floor); the BN running
     statistics within 1e-5; both ranks' parameters and buffers after Adam
-    equal in every bit. At ndepths 8/8/8 the golden backbone is out of
+    equal in every bit. The ranks run remat at both levels (the default)
+    and, in the same spawn, without: each rank's two steps are equal in
+    every bit. At ndepths 8/8/8 the golden backbone is out of
     the regime it was trained in and its gradients are noise (8 % of the
     largest between the two runs);
   * `cli.train --n_devices 2 --device cpu --trainpath synthetic`: the
@@ -63,7 +65,8 @@ import numpy as np
 import pytest
 import torch
 
-from rcmvsnet_tpu_torch.config import Config, RenderConfig, BackboneConfig
+from rcmvsnet_tpu_torch.config import (BackboneConfig, Config, RenderConfig,
+                                       RunConfig)
 from rcmvsnet_tpu_torch.data.synthetic import make_synthetic_batch
 from rcmvsnet_tpu_torch.parallel import mesh
 from rcmvsnet_tpu_torch.parallel.sync_bn import CrossRankBatchNorm
@@ -77,6 +80,8 @@ SH = SW = 64            # the train step's, at the golden backbone's planes
 V = 3
 CFG = Config(backbone=BackboneConfig(ndepths=(48, 32, 8)),
              render=RenderConfig(n_rays=32, n_samples=8, num_planes=16))
+# the step without remat (CFG remats both levels, RunConfig's default)
+CFG_NO_REMAT = CFG.replace(run=RunConfig(remat=False))
 # the bf16 train path
 CFG_BF16 = Config(backbone=BackboneConfig(ndepths=(48, 32, 8),
                                           train_dtype="bfloat16"),
@@ -402,16 +407,34 @@ def _step(batch, draws, group, device="cpu", one_rank=False, cfg=CFG):
             {k: b.detach().cpu() for k, b in bufs.items()})
 
 
-def _rank_step(rank, world, device, batch, draws, out, cfg=CFG):
+def _rank_step(rank, world, device, batch, draws, out, cfg=CFG, also=None):
+    """Rank `rank`'s step under cfg, saved to step{rank}.pt; with `also`,
+    then the same step from the same init under that config, saved to
+    step{rank}_also.pt."""
     res = _step(_rows(batch, rank), draws, mesh.batch_group(), device,
                 cfg=cfg)
     torch.save(res, Path(out) / f"step{rank}.pt")
+    if also is not None:
+        res = _step(_rows(batch, rank), draws, mesh.batch_group(), device,
+                    cfg=also)
+        torch.save(res, Path(out) / f"step{rank}_also.pt")
 
 
-def test_two_rank_step_equals_single_process_b2(tmp_path):
+@pytest.fixture(scope="module")
+def two_rank_steps(tmp_path_factory):
+    """One spawn of 2 ranks: each rank's step under CFG (remat at both
+    levels, RunConfig's default) and under CFG_NO_REMAT."""
+    out = tmp_path_factory.mktemp("two_rank_steps")
     batch, draws = _step_inputs()
-    _spawn(_rank_step, batch, draws, str(tmp_path))
-    ranks = [torch.load(tmp_path / f"step{r}.pt") for r in range(WORLD)]
+    _spawn(_rank_step, batch, draws, str(out), CFG, CFG_NO_REMAT)
+    return {name: [torch.load(out / f"step{r}{suffix}.pt")
+                   for r in range(WORLD)]
+            for name, suffix in (("remat", ""), ("no_remat", "_also"))}
+
+
+def test_two_rank_step_equals_single_process_b2(two_rank_steps):
+    batch, draws = _step_inputs()
+    ranks = two_rank_steps["remat"]
     m1, g1, p1, b1 = _step(batch, draws, None, one_rank=True)
     m_pt = _step(batch, draws, None)[0]
     for k in ("loss", "repr_loss", "aug_loss", "img_loss", "ray_depth_loss"):
@@ -444,6 +467,21 @@ def test_two_rank_step_equals_single_process_b2(tmp_path):
     for k, v in ranks[0][3].items():
         assert torch.equal(v, ranks[1][3][k]), k
     assert ranks[0][0] == ranks[1][0]
+
+
+def test_two_rank_remat_step_equals_no_remat(two_rank_steps):
+    """Two Gloo ranks, the cross-rank BatchNorm all-reducing again in each
+    recompute: each rank's step with remat at both levels gives its step
+    without remat in every bit (metrics, gradients, parameters after Adam,
+    BN buffers with num_batches_tracked)."""
+    for r, (got, want) in enumerate(zip(two_rank_steps["remat"],
+                                        two_rank_steps["no_remat"])):
+        assert got[0] == want[0], r
+        for part in (1, 2, 3):
+            assert set(got[part]) == set(want[part])
+            differ = [k for k, v in want[part].items()
+                      if not torch.equal(got[part][k], v)]
+            assert not differ, (r, part, differ[:5])
 
 
 def test_two_rank_bf16_step_matches_single_process_b2(tmp_path):

@@ -12,7 +12,11 @@ measured"; the forward-warp A/B tool lists K1's six calls and K7's, and
 reads each build's K7 interface from its source. The K10 A/B tool runs
 its turns on the CPU through the plain version at a tiny DTU shape, with
 each stage's and the total's times beside the bound, F.grid_sample's and
-a fill of the output."""
+a fill of the output. The train-step profiler times its seven calls
+(each pass's forward and gradient, and the step) at a tiny cell, remat
+at both levels unless --no_remat, traces a step (no device time on the
+CPU), and its trace aggregate splits a hand-made trace as the card's
+would be split."""
 import json
 from functools import partial
 
@@ -22,7 +26,8 @@ import torch
 from rcmvsnet_tpu_torch.tools import (ab_conv2d, ab_conv3d, ab_depth_tail,
                                       ab_warp_bwd, ab_warp_fwd,
                                       ab_warp_view, profile_breakdown,
-                                      profile_conv3d, repeat_warp_bwd)
+                                      profile_conv3d, profile_train,
+                                      repeat_warp_bwd)
 from rcmvsnet_tpu_torch.tools.timing import make_timer
 
 torch.set_num_threads(2)
@@ -185,8 +190,102 @@ def test_ab_warp_view_cpu(capsys):
 @pytest.mark.parametrize("tool", [profile_breakdown, profile_conv3d,
                                   ab_conv3d, ab_warp_bwd, repeat_warp_bwd,
                                   ab_warp_fwd, ab_conv2d, ab_depth_tail,
-                                  ab_warp_view])
+                                  ab_warp_view, profile_train])
 def test_tools_refuse_missing_cuda(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         tool.main([])
+
+
+def _tiny_train_cell(monkeypatch):
+    from rcmvsnet_tpu_torch.config import RenderConfig
+    for name, value in (("H", 32), ("W", 32), ("VIEWS", 3), ("NDEPTH", 32)):
+        monkeypatch.setattr(profile_train, name, value)
+    monkeypatch.setattr(profile_train, "RENDER", RenderConfig(
+        n_rays=16, n_samples=8, num_planes=16))
+    monkeypatch.setattr(profile_train, "make_timer",
+                        partial(make_timer, reps=1, warmup=0))
+
+
+def test_profile_train_cpu(capsys, monkeypatch, tmp_path):
+    _tiny_train_cell(monkeypatch)
+    res = profile_train.main(["--device", "cpu", "--trace", str(tmp_path),
+                              "--trace_steps", "1"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == ("device: cpu (host clock; no device metric) | 32x32 "
+                      "B=1 V=3 32 planes 48/32/8, 16 rays x 8 samples, 16 "
+                      "planes | float32 | remat both levels")
+    assert list(res["ms"]) == list(profile_train.KEYS)
+    assert all(v > 0 for v in res["ms"].values())
+    for key in profile_train.KEYS:
+        assert any(line.startswith(f"{key} ") for line in out), key
+    assert res["step_peak_bytes"] is None
+    assert (tmp_path / "profile" / "trace.json").is_file()
+    trace = res["trace"]
+    assert trace["train_step_spans"] == 1 and trace["idle_share"] is None
+    assert "device time not measured" in "\n".join(out)
+    assert json.loads(out[-1])["ms"] == res["ms"]
+
+    seen = []
+    monkeypatch.setattr(profile_train, "run",
+                        lambda cfg, *a: seen.append(cfg) or {})
+    profile_train.main(["--device", "cpu", "--no_remat", "--train_dtype",
+                        "bfloat16"])
+    assert not seen[0].run.remat
+    assert seen[0].backbone.train_dtype == "bfloat16"
+    assert capsys.readouterr().out.splitlines()[0].endswith(
+        "| bfloat16 | remat none")
+
+
+def test_profile_train_aggregates_a_trace():
+    """Two steps of a hand-made trace: the port kernels by their CUDA
+    names (a bf16 instance apart), the rest by class, copies by category,
+    overlapping kernels counted once in the busy time, the window from
+    the first span to the last device event."""
+    X = lambda name, ts, dur, cat="kernel": {"ph": "X", "cat": cat,
+                                             "name": name, "ts": ts,
+                                             "dur": dur}
+    events = [
+        {"ph": "M", "name": "process_name", "pid": 0, "args": {}},
+        X("train_step", 0, 1000, "user_annotation"),
+        X("train_step", 1000, 1000, "user_annotation"),
+        X("aten::conv3d", 10, 50, "cpu_op"),
+        X("void warp_variance_kernel<float, 32>(float const*, int)", 100,
+          200),
+        X("void conv3d_tc<__nv_bfloat16, 1>(__nv_bfloat16 const*)", 250,
+          100),
+        X("void warp_variance_bwd_kernel<float>(float const*)", 400, 50),
+        X("void cudnn::bn_bw_1C11_kernel_new<float, float, float2, 512, "
+          "true, 1>(float const*)", 500, 100),
+        X("void foo_kernel<int>(int)", 1100, 50),
+        X("sm90_xmma_fprop_implicit_gemm_f32f32", 1200, 300),
+        X("Memcpy HtoD (Pageable -> Device)", 1600, 100, "gpu_memcpy"),
+        X("void at::native::vectorized_elementwise_kernel<4, "
+          "at::native::CUDAFunctor_add<float> >(int, float)", 1800, 150),
+        X("void at::native::(anonymous namespace)::multi_tensor_apply_"
+          "kernel<FusedAdamMathFunctor<float> >(int)", 1950, 100),
+    ]
+    agg = profile_train.aggregate(events, steps=2, top=3)
+    assert agg["device_events"] == 9 and agg["train_step_spans"] == 2
+    assert agg["window_ms_per_step"] == pytest.approx(2.05 / 2)
+    busy = (250 + 50 + 100 + 50 + 300 + 100 + 250) / 1e3 / 2
+    assert agg["busy_ms_per_step"] == pytest.approx(busy)
+    assert agg["idle_share"] == pytest.approx(1 - 1100 / 2050)
+    assert agg["by_class"] == pytest.approx({
+        "K1 warp_variance": 0.1, "K2 conv3d bf16": 0.05,
+        "K6 warp_variance_bwd": 0.025, "cuDNN convs, cuBLAS GEMMs": 0.15,
+        "copies / fills": 0.05, "elementwise": 0.075,
+        "Adam / foreach (multi_tensor_apply)": 0.05,
+        "BatchNorm (cuDNN, ATen)": 0.05, "other": 0.025})
+    assert agg["port_ms_per_step"] == pytest.approx(0.175)
+    assert agg["other_ms_per_step"] == pytest.approx(0.4)
+    assert agg["unclassified"] == [{"name": "foo_kernel<int>",
+                                    "ms_per_step": pytest.approx(0.025)}]
+    assert [r["name"] for r in agg["by_name"]] == [
+        "sm90_xmma_fprop_implicit_gemm_f32f32",
+        "warp_variance_kernel<float, 32>",
+        "at::native::vectorized_elementwise_kernel<4, "
+        "at::native::CUDAFunctor_add<float> >"]
+    assert agg["by_name"][0]["share_of_step"] == pytest.approx(300 / 2050)
+    empty = profile_train.aggregate(events[:4], steps=2)
+    assert empty["idle_share"] is None and empty["by_class"] == {}

@@ -8,7 +8,11 @@ the render branch the JAX init; both are carried over through the weight
 bridge, and the JAX step's own random draws (the mask rectangle from k_mask,
 the ray pixels and depth noise from k_rays) are handed to the port. The JAX
 optimizer is wrapped so that its state also keeps the gradient it was given
-(test-side only). A trained backbone, because at a random init the depth is
+(test-side only). The port's step runs twice, with remat at both levels
+(`RunConfig`'s default) and with none, each held to the one JAX step under
+the tolerances below (JAX's remat changes no number, so its step is
+compiled once), and the two to each other in every bit. A trained
+backbone, because at a random init the depth is
 flat, every |∇d| of the smoothness loss sits at the kink of |·| and its
 gradient's sign is rounding noise (the port's own gradients then move 3 %
 under 1e-7 parameter noise).
@@ -37,6 +41,7 @@ Tolerances, and why:
     more than 1e-5 (measured 779 of 1,360,180, 673 of them with the
     gradient's sign flipped).
 Also: the port's train CLI on the CPU, and its refusals."""
+import dataclasses
 import json
 from pathlib import Path
 
@@ -71,6 +76,9 @@ N_RAYS, N_SAMPLES, PLANES = 16, 8, 16
 GOLDEN = Path(__file__).resolve().parent / "golden" / "backbone_synth.msgpack"
 TERMS = ("loss", "repr_loss", "aug_loss", "img_loss", "ray_depth_loss")
 COMPONENTS = ("reconstr_loss", "ssim_loss", "smooth_loss", "depth_loss")
+# the port's step at both levels of remat (RunConfig's default) and with
+# none, each held to the one JAX step (JAX's remat changes no number)
+SETTINGS = {"remat": True, "no_remat": False}
 NETWORKS = ("feature.", "cost_regularization.0.", "cost_regularization.1.",
             "cost_regularization.2.", "render.MVSNet.", "render.network_fn.")
 
@@ -149,15 +157,21 @@ def steps():
                                state.batch_stats["cascade"])
     sd_r = render_state_dict_from_jax(state.params["render"],
                                       state.batch_stats["render"])
-    pstate = create_train_state(cfg, V, 100, torch.device("cpu"),
-                                state_dicts=(sd_c, sd_r))
-    pmetrics = make_train_step(cfg)(pstate, batch_to(batch, "cpu"),
-                                    _jax_draws(rng, 1))
-    pmetrics = {k: float(v) for k, v in pmetrics.items()}
-    port = {f"render.{k}": v for k, v in pstate.render.named_parameters()}
-    port.update(dict(pstate.cascade.named_parameters()))
-    buffers = {f"render.{k}": v for k, v in pstate.render.named_buffers()}
-    buffers.update(dict(pstate.cascade.named_buffers()))
+    port = {}
+    for setting, remat in SETTINGS.items():
+        run_cfg = cfg.replace(run=dataclasses.replace(cfg.run, remat=remat))
+        pstate = create_train_state(run_cfg, V, 100, torch.device("cpu"),
+                                    state_dicts=(sd_c, sd_r))
+        pmetrics = make_train_step(run_cfg)(pstate, batch_to(batch, "cpu"),
+                                            _jax_draws(rng, 1))
+        params = {f"render.{k}": v
+                  for k, v in pstate.render.named_parameters()}
+        params.update(dict(pstate.cascade.named_parameters()))
+        buffers = {f"render.{k}": v for k, v in pstate.render.named_buffers()}
+        buffers.update(dict(pstate.cascade.named_buffers()))
+        port[setting] = {"metrics": {k: float(v) for k, v in
+                                     pmetrics.items()},
+                         "params": params, "buffers": buffers}
     jax_grads = _port_tree(new_state.opt_state[1], new_state.batch_stats)
 
     # the port's optimizer alone, fed JAX's gradients
@@ -171,10 +185,8 @@ def steps():
         group["lr"] = again.schedule(0)
     again.optimizer.step()
     return {
-        "jax_metrics": jmetrics, "port_metrics": pmetrics,
-        "jax_grads": jax_grads,
+        "jax_metrics": jmetrics, "port": port, "jax_grads": jax_grads,
         "jax_after": _port_tree(new_state.params, new_state.batch_stats),
-        "port_params": port, "port_buffers": buffers,
         "adam_on_jax_grads": named, "lr": again.schedule(0),
     }
 
@@ -188,36 +200,56 @@ def _scale(grads, name, groups=NETWORKS):
 
 
 def test_losses_match_jax(steps):
-    jm, pm = steps["jax_metrics"], steps["port_metrics"]
-    assert set(jm) <= set(pm), sorted(set(jm) - set(pm))
-    for k in TERMS:
-        assert np.isfinite(pm[k]) and pm[k] != 0.0, k
-    for k in jm:
-        rtol = 1e-3 if k.startswith(COMPONENTS) else 1e-4
-        np.testing.assert_allclose(pm[k], jm[k], rtol=rtol, atol=1e-6,
-                                   err_msg=k)
+    jm = steps["jax_metrics"]
+    for setting, port in steps["port"].items():
+        pm = port["metrics"]
+        assert set(jm) <= set(pm), sorted(set(jm) - set(pm))
+        for k in TERMS:
+            assert np.isfinite(pm[k]) and pm[k] != 0.0, k
+        for k in jm:
+            rtol = 1e-3 if k.startswith(COMPONENTS) else 1e-4
+            np.testing.assert_allclose(pm[k], jm[k], rtol=rtol, atol=1e-6,
+                                       err_msg=f"{setting} {k}")
 
 
 def test_parameter_gradients_match_jax(steps):
     want = steps["jax_grads"]
-    params = steps["port_params"]
-    assert set(params) <= set(want)
-    for name, p in params.items():
-        assert p.grad is not None, f"{name}: no gradient"
-        err = float(np.abs(p.grad.numpy() - want[name].numpy()).max())
-        scale = _scale(want, name, ("render.", ""))
-        assert err <= 1e-3 * scale, (name, err, scale)
+    for setting, port in steps["port"].items():
+        params = port["params"]
+        assert set(params) <= set(want)
+        for name, p in params.items():
+            assert p.grad is not None, f"{setting} {name}: no gradient"
+            err = float(np.abs(p.grad.numpy() - want[name].numpy()).max())
+            scale = _scale(want, name, ("render.", ""))
+            assert err <= 1e-3 * scale, (setting, name, err, scale)
 
 
 def test_bn_running_stats_match_jax(steps):
     want = steps["jax_after"]
-    n = 0
-    for name, buf in steps["port_buffers"].items():
-        if name.endswith(("running_mean", "running_var")):
-            np.testing.assert_allclose(buf.numpy(), want[name].numpy(),
-                                       rtol=1e-5, atol=1e-5, err_msg=name)
-            n += 1
-    assert n == 2 * (8 + 3 * 10 + 10)      # FeatureNet, 3 U-Nets, render
+    for setting, port in steps["port"].items():
+        n = 0
+        for name, buf in port["buffers"].items():
+            if name.endswith(("running_mean", "running_var")):
+                np.testing.assert_allclose(buf.numpy(), want[name].numpy(),
+                                           rtol=1e-5, atol=1e-5,
+                                           err_msg=f"{setting} {name}")
+                n += 1
+        assert n == 2 * (8 + 3 * 10 + 10)  # FeatureNet, 3 U-Nets, render
+
+
+def test_remat_step_equals_no_remat_step(steps):
+    """The remat step (both levels, the default) gives the no-remat step's
+    metrics, gradients, BN buffers (num_batches_tracked included) and
+    parameters after Adam in every bit: each BatchNorm updated once."""
+    a, b = steps["port"]["remat"], steps["port"]["no_remat"]
+    assert a["metrics"] == b["metrics"]
+    for name, p in a["params"].items():
+        q = b["params"][name]
+        assert torch.equal(p.grad, q.grad) and torch.equal(p, q), name
+    for name, buf in a["buffers"].items():
+        assert torch.equal(buf, b["buffers"][name]), name
+    assert {int(v) for k, v in a["buffers"].items()
+            if k.endswith("num_batches_tracked")} == {2, 1}
 
 
 def test_adam_matches_optax(steps):
@@ -232,15 +264,18 @@ def test_adam_matches_optax(steps):
 def test_params_after_adam_match_jax(steps):
     want, grads = steps["jax_after"], steps["jax_grads"]
     lr = steps["lr"]
-    n_all = n_off = 0
-    for name, p in steps["port_params"].items():
-        diff = np.abs(p.detach().numpy() - want[name].numpy())
-        clear = np.abs(grads[name].numpy()) >= 1e-3 * _scale(grads, name)
-        assert float(diff[clear].max(initial=0.0)) <= 1e-5, name
-        assert float(diff.max()) <= 2 * lr * (1 + 1e-3), name
-        n_all += diff.size
-        n_off += int((diff > 1e-5).sum())
-    assert n_off <= 1e-3 * n_all, (n_off, n_all)
+    for setting, port in steps["port"].items():
+        n_all = n_off = 0
+        for name, p in port["params"].items():
+            diff = np.abs(p.detach().numpy() - want[name].numpy())
+            clear = np.abs(grads[name].numpy()) >= 1e-3 * _scale(grads,
+                                                                  name)
+            assert float(diff[clear].max(initial=0.0)) <= 1e-5, (setting,
+                                                                 name)
+            assert float(diff.max()) <= 2 * lr * (1 + 1e-3), (setting, name)
+            n_all += diff.size
+            n_off += int((diff > 1e-5).sum())
+        assert n_off <= 1e-3 * n_all, (setting, n_off, n_all)
 
 
 def test_train_cli_one_step_on_cpu(tmp_path):
