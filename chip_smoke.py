@@ -8,13 +8,14 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 Phases (none catches its own failure; any failure exits non-zero without
 the final "ok" line):
   1. device   require CUDA, print the card's name and power limit, TF32 off;
-  2. build    compile the seven CUDA sources (sm_90a, one nvcc each, in
+  2. build    compile the nine CUDA sources (sm_90a, one nvcc each, in
               parallel) and print the build seconds; count the tensor-core
               MMAs that `cuobjdump -sass` finds in each tensor-core kernel
-              of K2/K9, K8 dw and K5: TF32 ones (HMMA ... TF32) in each
-              float32 instance and bf16 ones (HMMA ... BF16) in each bf16
-              instance of K2, K5 and K8 dw, which must be > 0, with no
-              TF32 one in a bf16 instance;
+              (a "_tc" in its name) of K2/K9, K8 dw and K5 and of
+              K2-bf16, K8dw-bf16 and K5-bf16 (mma.sync's HMMA and wgmma's
+              HGMMA alike): TF32 ones in each float32 kernel and bf16
+              ones in each bf16 kernel, which must be > 0, with no bf16
+              one in a float32 kernel and no TF32 one in a bf16 kernel;
   3. kernels  hold each eval kernel against its plain PyTorch version on
               the card, at the DTU eval shapes (864x1152, V=5, stages
               216x288x32/48, 432x576x16/32, 864x1152x8/8): K1 at all 3
@@ -343,43 +344,55 @@ def op_rate(kernel: str) -> float:
     return BF16_FLOPS_PER_S if kernel in BF16_TC_KERNELS else F32_FLOPS_PER_S
 
 
-def sass_mma_counts() -> dict:
-    """{library: {"kernels": {kernel: {"tf32": n, "bf16": n}}, "example":
-    one TF32 HMMA, "example_bf16": one bf16 HMMA}} of the conv libraries
-    (K2/K9 and their bf16 instance, K8 dw, K5 and its bf16 instance), from
-    `cuobjdump -sass` of the built files (the CUDA toolkit's)."""
+# the libraries of the tensor-core convs: K2/K9, K8 dw, K5 (float32 and
+# K5's bf16 instance), K2-bf16, K8dw-bf16
+MMA_LIBS = ("conv3d", "conv3d_dw", "conv2d", "conv3d_bf16", "conv3d_dw_bf16")
+
+
+def count_mma(sass: str) -> dict:
+    """{"kernels": {kernel: {"tf32": n, "bf16": n}}, "example": one TF32
+    MMA, "example_bf16": one bf16 MMA} of `cuobjdump -sass` text: the
+    tensor-core instructions of each function, mma.sync (HMMA) and
+    wgmma (HGMMA) alike, by operand type."""
     import re
+    counts, name, example = {}, None, {}
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"tf32": 0, "bf16": 0}
+            continue
+        kind = ("tf32" if re.search(r"H(G)?MMA\.\S*TF32", line) else
+                "bf16" if re.search(r"H(G)?MMA\.\S*BF16", line) else None)
+        if name and kind:
+            counts[name][kind] += 1
+            example.setdefault(kind, " ".join(line.split()))
+    return {"kernels": counts, "example": example.get("tf32"),
+            "example_bf16": example.get("bf16")}
+
+
+def sass_mma_counts() -> dict:
+    """{library: count_mma(its SASS)} of the conv libraries (MMA_LIBS),
+    from `cuobjdump -sass` of the built files (the CUDA toolkit's)."""
     from rcmvsnet_tpu_torch.ops import _build
     tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
-    out = {}
-    for lib in ("conv3d", "conv3d_dw", "conv2d"):
-        sass = subprocess.run([tool, "-sass", str(_build._target(lib))],
-                              capture_output=True, text=True,
-                              check=True).stdout
-        counts, name, example = {}, None, {}
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                name = m.group(1)
-                counts[name] = {"tf32": 0, "bf16": 0}
-                continue
-            kind = ("tf32" if re.search(r"HMMA\.\S*TF32", line) else
-                    "bf16" if re.search(r"HMMA\.\S*BF16", line) else None)
-            if name and kind:
-                counts[name][kind] += 1
-                example.setdefault(kind, " ".join(line.split()))
-        out[lib] = {"kernels": counts, "example": example.get("tf32"),
-                    "example_bf16": example.get("bf16")}
-    return out
+    return {lib: count_mma(subprocess.run(
+        [tool, "-sass", str(_build._target(lib))], capture_output=True,
+        text=True, check=True).stdout) for lib in MMA_LIBS}
 
 
 def missing_mma(mma: dict) -> list:
-    """Tensor-core kernels without their MMAs: a float32 instance without
-    TF32 HMMAs, a bf16 one (its name carries __nv_bfloat16) without bf16
-    HMMAs or with TF32 ones."""
-    return [k for lib in mma.values() for k, n in lib["kernels"].items()
-            if "_tc" in k and (n["bf16" if "bfloat16" in k else "tf32"] == 0
-                               or "bfloat16" in k and n["tf32"] > 0)]
+    """Tensor-core kernels (a "_tc" in the name) without their MMAs: a
+    float32 one without TF32 MMAs or with bf16 ones, a bf16 one (its name
+    carries __nv_bfloat16) without bf16 MMAs or with TF32 ones."""
+    out = []
+    for lib in mma.values():
+        for k, n in lib["kernels"].items():
+            own, other = ("bf16", "tf32") if "bfloat16" in k else ("tf32",
+                                                                   "bf16")
+            if "_tc" in k and (n[own] == 0 or n[other] > 0):
+                out.append(k)
+    return out
 
 
 class Ledger:
@@ -2332,7 +2345,7 @@ def main() -> int:
         ("warp_variance_bf16", "bf16", "cuda",
          source + "csrc/warp_variance.cu",
          "rcmvsnet_tpu/ops/pallas_warp2.py:393"),
-        ("conv3d_bf16", "bf16", "cuda", source + "csrc/conv3d.cu",
+        ("conv3d_bf16", "bf16", "cuda", source + "csrc/conv3d_bf16.cu",
          "rcmvsnet_tpu/ops/pallas_costreg.py:383 + "
          "rcmvsnet_tpu/ops/pallas_resample.py:59,117"),
         ("warp_variance_bwd_bf16", "bf16_train", "cuda",
@@ -2345,7 +2358,7 @@ def main() -> int:
          source + "csrc/warp_volume.cu",
          "rcmvsnet_tpu/ops/pallas_warp_volume.py:263 (bwd :178, :406)"),
         ("conv3d_dw_bf16", "bf16_train", "cuda",
-         source + "csrc/conv3d_dw.cu",
+         source + "csrc/conv3d_dw_bf16.cu",
          "rcmvsnet_tpu/ops/pallas_costreg_train.py:81 (dw :163, :258)"),
     ]
     paths = {"eval": main_path, "train": train_path, "tools": tools_path,

@@ -35,7 +35,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".ext_build"
 SOURCES = ("warp_variance", "conv3d", "conv2d", "warp_volume", "conv3d_dw",
-           "warp_view", "depth_tail")
+           "warp_view", "depth_tail", "conv3d_bf16", "conv3d_dw_bf16")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMS = 132                     # streaming multiprocessors of an H100; the
@@ -135,7 +135,12 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on CUDA `device` as a raw pointer, from the
+    C getter (building a Stream object costs ≈ 10 µs a launch)."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require_cuda(name: str, *tensors, bf16=()) -> None:

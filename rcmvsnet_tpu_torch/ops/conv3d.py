@@ -25,13 +25,15 @@ The kernel is an implicit GEMM on the tensor cores (3xTF32 m16n8k8 MMAs,
 float32 accumulators; see `csrc/tc_conv3d.cuh`); `tile` picks its block
 tile from the shapes.
 
-bfloat16 (the bf16 eval path): a bf16 `x` selects the kernel's bf16
-instance (counted in `conv3d.bf16.launches`, the float32 one in
-`conv3d.launches`; one bf16 m16n8k16 MMA per multiply-add): x, weight
-and skip bf16, bias float32, float32 accumulation, bias, ReLU and skip
-add, the output rounded to bf16 once, or written float32 with
-`out_dtype=torch.float32` (the prob head, as `costreg_lanes` writes it). The plain version is the float32 one on
-the bf16 operands, rounded where the kernel rounds.
+bfloat16 (the bf16 eval and train paths): a bf16 `x` launches K2-bf16,
+`csrc/conv3d_bf16.cu` (counted in `conv3d.bf16.launches`, the float32
+kernel in `conv3d.launches`): the same modes, tiles and epilogue, its own
+design (x staged channels-last, one bf16 m16n8k16 MMA per multiply-add;
+the source's header): x, weight and skip bf16, bias float32, float32
+accumulation, bias, ReLU and skip add, the output rounded to bf16 once,
+or written float32 with `out_dtype=torch.float32` (the prob head, as
+`costreg_lanes` writes it). The plain version is the float32 one on the
+bf16 operands, rounded where the kernel rounds.
 
 Replaces `rcmvsnet_tpu/ops/pallas_costreg.py` `conv_lanes` and
 `rcmvsnet_tpu/ops/pallas_resample.py` `subsample_lanes` / `stuff_lanes`
@@ -123,8 +125,8 @@ def conv3d_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y
 
 
-def _lib(entry: str = "conv3d_f32", n_int: int = 13):
-    fn = getattr(_build.load("conv3d"), entry)
+def _lib(entry: str = "conv3d_f32", n_int: int = 13, lib: str = "conv3d"):
+    fn = getattr(_build.load(lib), entry)
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int + [
             ctypes.c_void_p]
@@ -174,9 +176,8 @@ def _launch(name: str, x: torch.Tensor, weight: torch.Tensor,
                          f"{(N, Co, Do, Ho, Wo)}")
     mt, ntb = tile(mode, N, Co, (D, H, W) if mode == "t2" else (Do, Ho, Wo))
     out = torch.empty((N, Co, Do, Ho, Wo), dtype=out_dtype, device=x.device)
-    # the kernel's weight layout, one [27, 8, 8·ntb] block of 4-byte words
-    # per (group of 8·ntb output channels, chunk of 8 input channels, or
-    # of 16 as bf16 pairs)
+    # the kernel's weight layout, 27·8·8·ntb 4-byte words per (group of
+    # 8·ntb output channels, chunk of 8 input channels, or of 16 bf16)
     chunk = 16 if bf16 else 8
     wt = torch.empty(-(-Co // (8 * ntb)) * -(-Ci // chunk) * 27 * 64 * ntb,
                      dtype=torch.int32, device=x.device)
@@ -185,8 +186,8 @@ def _launch(name: str, x: torch.Tensor, weight: torch.Tensor,
             out.data_ptr(), wt.data_ptr(), N, Ci, D, H, W, Co, Do, Ho, Wo,
             MODES[mode], int(relu)]
     if bf16:
-        err = _lib("conv3d_bf16", 14)(*args, int(out_f32), mt, ntb,
-                                      _build.stream_ptr(x.device))
+        err = _lib("conv3d_bf16", 14, "conv3d_bf16")(
+            *args, int(out_f32), mt, ntb, _build.stream_ptr(x.device))
     else:
         err = _lib()(*args, mt, ntb, _build.stream_ptr(x.device))
     _build.check(err, name)

@@ -29,9 +29,11 @@ prob head, JAX `nn/costreg.py:185-188`); the backward rounds its
 cotangent to bf16 (a float32 one, the prob head's, changes: JAX rounds
 the masked cotangent before its dx conv and its dw kernel,
 `pallas_costreg_train.py:197-203`), runs K2-bf16 in the adjoint mode
-(dx bf16, x's dtype) and `conv3d_dw` on the bf16 instance of
-`csrc/conv3d_dw.cu` (one bf16 MMA per multiply-add, float32 sums; dw
-float32, the parameter's dtype, `pallas_costreg_train.py:157`). Its
+(dx bf16, x's dtype) and `conv3d_dw` on K8dw-bf16,
+`csrc/conv3d_dw_bf16.cu` (its own design: the GEMM dWᵀ[(ci, tap), co],
+x im2col'd while staging, over the plan of `dw_plan_bf16`; one bf16 MMA
+per multiply-add, float32 sums; dw float32, the parameter's dtype,
+`pallas_costreg_train.py:157`). Its
 plain version is the same Function on the plain versions
 (`conv3d_train_plain` of a bf16 x): the float32 convolutions on the bf16
 operands, rounded where the kernels round.
@@ -42,6 +44,7 @@ custom VJP: dx through the forward kernel, dw through `_conv_dw`).
 from __future__ import annotations
 
 import ctypes
+import functools
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -53,10 +56,14 @@ from .conv3d import MODES, conv3d, conv3d_plain, out_shape
 
 # the adjoint of each mode, as a K2 mode
 ADJOINT = {"s1": "s1", "s2": "t2", "t2": "s2"}
-# the dw kernel's brick of base positions (z, y, x) per mode
+# the dw kernel's brick of base positions (z, y, x) per mode; the bf16
+# kernel's (4 z rows in s1, 2 in s2: a smaller share of halo rows)
 BRICK = {"s1": (1, 8, 16), "s2": (1, 4, 16), "t2": (1, 8, 16)}
+BRICK_BF16 = {"s1": (4, 8, 16), "s2": (2, 4, 16), "t2": (1, 8, 16)}
 TARGET_BLOCKS = _build.SMS * 4  # about four dw blocks per SM
 CO_GROUP = 64                 # output channels of one dw block (4 m16 tiles)
+DW_TILES = 14                 # bf16 dw: m16 tiles of an octet of Ci (8 ci
+                              # at 2 of the 27 taps each)
 
 
 class DwPlan(NamedTuple):
@@ -75,6 +82,25 @@ class DwPlan(NamedTuple):
     per_chunk: int
     ci_chunks: int
     classes: int
+
+
+class DwPlanBf16(NamedTuple):
+    """The bf16 dw kernel's split-K plan: the base grid cut into bricks of
+    `brick` (BRICK_BF16; `grid`, `bricks` and their order as in `DwPlan`),
+    run as `chunks` runs of `per_chunk` consecutive bricks, one block per
+    (run, block of `tiles` m16 tiles of one octet of Ci, block of
+    `n_tiles` n8 tiles of Co): `m_blocks` x `co_blocks` blocks a run. A
+    block runs every parity class of its bricks ("t2"), so classes add no
+    blocks."""
+    brick: tuple
+    grid: tuple
+    bricks: int
+    chunks: int
+    per_chunk: int
+    m_blocks: int
+    co_blocks: int
+    tiles: int
+    n_tiles: int
 
 
 def conv3d_train_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -140,8 +166,30 @@ def dw_chunks(mode: str, n: int, ci: int, d: int, h: int,
                   ci_chunks, classes)
 
 
-def _lib(entry: str = "conv3d_dw_f32"):
-    fn = getattr(_build.load("conv3d_dw"), entry)
+@functools.lru_cache(maxsize=256)
+def dw_plan_bf16(mode: str, n: int, ci: int, co: int, d: int, h: int,
+                 w: int) -> DwPlanBf16:
+    """The bf16 dw kernel's plan for x [n, ci, d, h, w] and `co` output
+    channels in `mode`: the rule `csrc/conv3d_dw_bf16.cu` (`by_co`) sizes
+    its blocks by (Co ≤ 8: one n8 tile and a whole octet's 14 m16 tiles a
+    block; wider: two n8 tiles and 7 m16 tiles), then enough runs for
+    about TARGET_BLOCKS blocks in all, each at least one brick."""
+    base = (d, h, w) if mode == "t2" else out_shape(mode, d, h, w)
+    brick = BRICK_BF16[mode]
+    grid = tuple(-(-b // e) for b, e in zip(base, brick))
+    bricks = n * grid[0] * grid[1] * grid[2]
+    n_tiles = 1 if co <= 8 else 2
+    tiles = DW_TILES if co <= 8 else DW_TILES // 2
+    m_blocks = -(-ci // 8) * (DW_TILES // tiles)
+    co_blocks = -(-co // (8 * n_tiles))
+    want = -(-TARGET_BLOCKS // (m_blocks * co_blocks))
+    per_chunk = -(-bricks // max(1, min(want, bricks)))
+    return DwPlanBf16(brick, grid, bricks, -(-bricks // per_chunk),
+                      per_chunk, m_blocks, co_blocks, tiles, n_tiles)
+
+
+def _lib(entry: str = "conv3d_dw_f32", lib: str = "conv3d_dw"):
+    fn = getattr(_build.load(lib), entry)
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -151,8 +199,8 @@ def _lib(entry: str = "conv3d_dw_f32"):
 
 def conv3d_dw(x: torch.Tensor, g: torch.Tensor, mode: str) -> torch.Tensor:
     """Same contract as `conv3d_dw_plain`; the kernel on a CUDA tensor,
-    the instance of x's element type (bf16 x and g: `conv3d_dw_bf16`,
-    counted in `conv3d_dw.bf16.launches`)."""
+    the one of x's element type (bf16 x and g: K8dw-bf16,
+    `csrc/conv3d_dw_bf16.cu`, counted in `conv3d_dw.bf16.launches`)."""
     if x.device.type == "cpu":
         return conv3d_dw_plain(x, g, mode)
     N, Ci, D, H, W = x.shape
@@ -166,11 +214,12 @@ def conv3d_dw(x: torch.Tensor, g: torch.Tensor, mode: str) -> torch.Tensor:
         _build.require_cuda("conv3d_dw", bf16=(x, g))
     else:
         _build.require_cuda("conv3d_dw", x, g)
-    plan = dw_chunks(mode, N, Ci, D, H, W)
+    plan = (dw_plan_bf16(mode, N, Ci, Co, D, H, W) if bf16
+            else dw_chunks(mode, N, Ci, D, H, W))
     partial = torch.empty((plan.chunks, Co, Ci, 27), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((Co, Ci, 27), dtype=torch.float32, device=x.device)
-    err = _lib("conv3d_dw_bf16" if bf16 else "conv3d_dw_f32")(
+    err = (_lib("conv3d_dw_bf16", "conv3d_dw_bf16") if bf16 else _lib())(
         x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(), N, Ci,
         D, H, W, Co, Do, Ho, Wo, MODES[mode], plan.chunks, plan.per_chunk,
         plan.brick[1], _build.stream_ptr(x.device))

@@ -1,11 +1,7 @@
 // 3x3x3 convolution of the cost-volume U-Net on Hopper's tensor cores: an
-// implicit GEMM, M = output positions, N = Co, K = 27 * Ci. Two instances
-// of one template: float32 (3xTF32 products) and bfloat16 (the bf16 eval
-// path: bf16 x, w and skip, one bf16 m16n8k16 product per multiply-add,
-// float32 accumulation, bias, ReLU and skip add, the output rounded to
-// bf16 once; the prob head writes float32), as pallas_costreg.conv_lanes
-// computes at compute_dtype bf16 (:356-379, the skip upcast and added
-// before the output cast, :379).
+// implicit GEMM, M = output positions, N = Co, K = 27 * Ci, float32 with
+// 3xTF32 products. The bf16 instance (K2-bf16) has its own design in
+// conv3d_bf16.cu.
 //
 // Replaces the TPU kernels rcmvsnet_tpu/ops/pallas_costreg.py conv_lanes
 // (_conv_lanes_kernel, _conv_lanes_k9_kernel, composed by costreg_lanes;
@@ -36,17 +32,14 @@
 // NTB n8 tiles of output channels (Co padded with zeros to a multiple of
 // 8; blocks along gridDim.y cover the rest); in mode 2 it computes all 8
 // parity classes of its brick. Per 8-channel chunk of Ci it stages the
-// halo brick (16-byte row vectors in modes 0 and 2; bf16: 8-byte ones
-// in every mode) and the chunk's
+// halo brick (16-byte row vectors in modes 0 and 2) and the chunk's
 // weights [tap][ci][co] (laid out once per call by prep_weights) in shared
-// memory with cp.async (bf16: 16 channels a chunk, the same bytes),
-// double-buffered so the next chunk loads while the tensor cores work on
-// this one. The 27 taps read shifted windows of that
+// memory with cp.async, double-buffered so the next chunk loads while the
+// tensor cores work on this one. The 27 taps read shifted windows of that
 // one brick: an input value leaves device memory once per block, not once
 // per tap. In mode 0 each halo row is split once per (ky, kx) and feeds
 // every (tile, kz) that reads it. Products are 3xTF32 m16n8k8 MMAs into
-// three accumulators (bf16: one m16n8k16 MMA into one), flushed every 9
-// taps (tc_conv3d.cuh).
+// three accumulators, flushed every 9 taps (tc_conv3d.cuh).
 //
 // Bound: at these widths (Ci, Co 1..64) the MMAs are small (k = 8 per
 // chunk and tap), so staging, fragment loads and the hi/lo splits on the
@@ -96,7 +89,7 @@ __device__ __forceinline__ void tap_mma(float (&acc)[MT][NTB][S][4],
                       C::NPS);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    const typename E::A a = E::template load_a<Hl::PSTR>(
+    const typename E::A a = E::load_a(
         sx + ((rz0 + mt * dz) * Hl::EY + ry) * Hl::XS + xc, C::PS, g, t);
 #pragma unroll
     for (int nt = 0; nt < NTB; ++nt) E::mma(acc[mt][nt], a, b[nt]);
@@ -166,7 +159,7 @@ __device__ __forceinline__ void class_taps(float (&acc)[MT][NTB][4],
 }
 
 // T: the element type of x, w and the staged operands; TO: of skip and
-// out (float for the bf16 instance's prob head).
+// out (float).
 template <int MODE, int MT, int NTB, class T, class TO>
 __global__ void __launch_bounds__(kThreads)
 conv3d_tc(const T* __restrict__ x, const void* __restrict__ wt,
@@ -383,25 +376,4 @@ extern "C" int conv3d_f32(const float* x, const float* w, const float* bias,
                           void* stream) {
   return (int)by_mode(mode, mt, ntb, x, w, bias, skip, out, wt, N, Ci, Di,
                       Hi, Wi, Co, Do, Ho, Wo, relu, (cudaStream_t)stream);
-}
-
-// The bf16 instance: x, w bf16; bias float32; skip and out bf16, or with
-// out_f32 (mode 0 only: the prob head) out float32 and no skip. wt:
-// ceil(Co / 8ntb) * ceil(Ci / 16) * 27 * 8 * 8ntb words.
-extern "C" int conv3d_bf16(const bf16* x, const bf16* w, const float* bias,
-                           const void* skip, void* out, void* wt, int N,
-                           int Ci, int Di, int Hi, int Wi, int Co, int Do,
-                           int Ho, int Wo, int mode, int relu, int out_f32,
-                           int mt, int ntb, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (out_f32) {
-    if (mode != 0 || skip != nullptr) return (int)cudaErrorInvalidValue;
-    return (int)by_tile<0>(mt, ntb, x, w, bias,
-                           static_cast<const float*>(nullptr),
-                           static_cast<float*>(out), wt, N, Ci, Di, Hi, Wi,
-                           Co, Do, Ho, Wo, relu, s);
-  }
-  return (int)by_mode(mode, mt, ntb, x, w, bias,
-                      static_cast<const bf16*>(skip), static_cast<bf16*>(out),
-                      wt, N, Ci, Di, Hi, Wi, Co, Do, Ho, Wo, relu, s);
 }

@@ -38,22 +38,10 @@
 // these widths, not HBM; the compute floor counts 3 TF32 products per
 // multiply-add.
 //
-// bf16 instance (the bf16 train path, conv3d_dw_bf16): x and g bf16 (the
-// caller rounds a float32 cotangent, the prob head's, to bf16 first, as
-// _dw_kernel casts its masked cotangent to the compute dtype,
-// pallas_costreg_train.py:197-203), one mma.sync m16n8k16 bf16 product per
-// multiply-add (exact in float32) with float32 accumulation, dW float32.
-// The same brick plan, Ci chunks of 8 channels (the n8 tile), Co groups,
-// class split and flush after every brick as the float32 instance; a k16
-// step is one brick row of 16 positions. A fragments (g) are 32-bit words
-// of two consecutive positions of a staged row; B fragments (x) pack two
-// taps' bf16 values of one channel plane. g stages with 8-byte cp.async
-// row vectors (modes 0 and 1), x as conv3d.cu's bf16 halo (whole rows,
-// s2 rows kept whole: Halo::RAW).
+// The bf16 instance (K8dw-bf16) has its own design in conv3d_dw_bf16.cu.
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "tc_conv3d.cuh"
 
@@ -63,24 +51,16 @@ using namespace tc;
 
 constexpr int kCoGroup = 64;       // output channels a block owns: MT <= 4
 
-// Element strides of the staged tiles: float as before; bf16 in 32-bit
-// words 4 (mod 32) apart, so that the 8 planes (rows) of a fragment load
-// put its 32 lanes' words on distinct banks.
-template <class T>
-constexpr int dw_stride(int n) {
-  return sizeof(T) == 4 ? pad_to(n, 4) : 2 * pad_to((n + 1) / 2, 4);
-}
-
 template <int MODE, int MT, class T = float>
 struct DwCfg {
   static constexpr int BZ = 1, BY = MODE == 1 ? 4 : 8;   // dw_chunks' BRICK
-  // accumulators per MMA: 3xTF32 into three where registers allow; bf16 one
-  static constexpr int S = sizeof(T) == 2 ? 1 : MT <= 2 ? 3 : 1;
+  // accumulators per MMA: 3xTF32 into three where registers allow
+  static constexpr int S = MT <= 2 ? 3 : 1;
   using Hl = Halo<MODE, BZ, BY, T>;
   static constexpr int P = BZ * BY * kBX;               // positions / brick
-  static constexpr int KSTEPS = P / (sizeof(T) == 2 ? 16 : 8);
-  static constexpr int PS = dw_stride<T>(Hl::PLANE);    // B loads: g*PS + t
-  static constexpr int PG = dw_stride<T>(P);            // A loads: g*PG + t
+  static constexpr int KSTEPS = P / 8;
+  static constexpr int PS = pad_to(Hl::PLANE, 4);       // B loads: g*PS + t
+  static constexpr int PG = pad_to(P, 4);               // A loads: g*PG + t
   static constexpr int X_ELEMS = kCiChunk * PS;         // x, elements
   static constexpr int STAGE = X_ELEMS + 16 * MT * PG;
   static constexpr size_t SMEM = 2 * STAGE * sizeof(T);
@@ -168,42 +148,6 @@ __device__ __forceinline__ void load_a(uint32_t (&ah)[MT][4],
   }
 }
 
-// bf16: A fragments (g) of the k16 step at position p0 for every m16
-// tile: word j holds positions 2t, 2t + 1 (j = 0, 1: rows g, g + 8) or
-// 2t + 8, 2t + 9 (j = 2, 3) of one staged row.
-template <int MODE, int MT>
-__device__ __forceinline__ void load_a16(uint32_t (&a)[MT][4],
-                                         const bf16* sg, int p0, int g,
-                                         int t) {
-  using C = DwCfg<MODE, MT, bf16>;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const bf16* ap = sg + (mt * 16 + g) * C::PG + p0 + 2 * t;
-    a[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
-    a[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * C::PG);
-    a[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-    a[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * C::PG + 8);
-  }
-}
-
-// bf16: one k16 step of one tap, acc[mt] += g[mt tile, 16 positions] x
-// x[the tap's inputs of those positions, 8 ci]. row: the halo row's first
-// element for channel plane 0; the input of step position k sits at
-// column col0 + cs * k (s1 and t2: cs 1; s2: cs 2, rows kept whole).
-template <int MODE, int MT>
-__device__ __forceinline__ void step_mma16(
-    float (&acc)[MT][1][4], const uint32_t (&a)[MT][4], const bf16* row,
-    int col0, int g, int t) {
-  using C = DwCfg<MODE, MT, bf16>;
-  constexpr int cs = MODE == 1 ? 2 : 1;
-  const bf16* bp = row + g * C::PS + col0;
-  const int k = 2 * t;
-  const uint32_t b0 = pack_bf16(bp[cs * k], bp[cs * (k + 1)]);
-  const uint32_t b1 = pack_bf16(bp[cs * (k + 8)], bp[cs * (k + 9)]);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][0], a[mt], b0, b1);
-}
-
 template <int MODE, int MT, class E>
 __global__ void __launch_bounds__(kThreads)
 conv3d_dw_tc(const E* __restrict__ x, const E* __restrict__ gr,
@@ -212,7 +156,6 @@ conv3d_dw_tc(const E* __restrict__ x, const E* __restrict__ gr,
              long long bricks, long long per_chunk, int vec_x, int vec_g) {
   using C = DwCfg<MODE, MT, E>;
   using Hl = typename C::Hl;
-  constexpr bool kBf16 = std::is_same<E, bf16>::value;
   extern __shared__ __align__(16) unsigned char smem_bytes[];
   E* smem = reinterpret_cast<E*>(smem_bytes);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -261,7 +204,7 @@ conv3d_dw_tc(const E* __restrict__ x, const E* __restrict__ gr,
     const int bz0 = (int)(b % nbz) * C::BZ;
     const int n = (int)(b / nbz);
     E* s = stage(i);
-    load_halo<MODE, C::BZ, C::BY, C::PS, E, kCiChunk>(
+    load_halo<MODE, C::BZ, C::BY, C::PS>(
         s, x, n, c0, Ci, Di, Hi, Wi, bz0, by0, bx0, vec_x);
     load_g<MODE, MT>(s + C::X_ELEMS, gr, n, co0, Co, Do, Ho, Wo, bz0, by0,
                      bx0, pz, py, px, vec_g);
@@ -279,36 +222,7 @@ conv3d_dw_tc(const E* __restrict__ x, const E* __restrict__ gr,
     __syncthreads();
     const E* sx = stage(i);
     const E* sg = sx + C::X_ELEMS;
-    if constexpr (kBf16) {
-      // a k16 step is one brick row: positions x = 0..15 of row ks
-#pragma unroll 1
-      for (int ks = MODE == 2 ? pg : 0; ks < C::KSTEPS;
-           ks += MODE == 2 ? npg : 1) {
-        const int rzb = ks / C::BY, ryb = ks % C::BY;
-        uint32_t a[MT][4];
-        load_a16<MODE, MT>(a, sg, ks * kBX, g, t);
-        if (MODE == 2) {
-          step_mma16<MODE, MT>(
-              part[0], a,
-              sx + ((rzb + oz2) * Hl::EY + ryb + oy2) * Hl::XS,
-              Hl::xcol(ox2), g, t);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int tap = warp + 8 * j;
-            if (tap < 27) {
-              const int kz = tap / 9, ky = (tap / 3) % 3, kx = tap % 3;
-              // s1: input x = position + kx; s2: 2 * position + kx
-              const int rz = MODE == 0 ? rzb + kz : 2 * rzb + kz;
-              const int ry = MODE == 0 ? ryb + ky : 2 * ryb + ky;
-              step_mma16<MODE, MT>(part[j], a,
-                                   sx + (rz * Hl::EY + ry) * Hl::XS,
-                                   Hl::xcol(kx), g, t);
-            }
-          }
-        }
-      }
-    } else if (MODE != 2) {
+    if (MODE != 2) {
 #pragma unroll 1
       for (int ks = 0; ks < C::KSTEPS; ++ks) {
         const int p0 = ks * 8, row = p0 / kBX, xo = p0 % kBX;
@@ -497,16 +411,6 @@ extern "C" int conv3d_dw_f32(const float* x, const float* g, float* partial,
                              int Co, int Do, int Ho, int Wo, int mode,
                              int chunks, long long per_chunk, int brick_y,
                              void* stream) {
-  return dw_entry(x, g, partial, dw, N, Ci, Di, Hi, Wi, Co, Do, Ho, Wo, mode,
-                  chunks, per_chunk, brick_y, stream);
-}
-
-// The bf16 instance: x and g bf16, partial and dw float32, the same plan.
-extern "C" int conv3d_dw_bf16(const bf16* x, const bf16* g, float* partial,
-                              float* dw, int N, int Ci, int Di, int Hi,
-                              int Wi, int Co, int Do, int Ho, int Wo,
-                              int mode, int chunks, long long per_chunk,
-                              int brick_y, void* stream) {
   return dw_entry(x, g, partial, dw, N, Ci, Di, Hi, Wi, Co, Do, Ho, Wo, mode,
                   chunks, per_chunk, brick_y, stream);
 }

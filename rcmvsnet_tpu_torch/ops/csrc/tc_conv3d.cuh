@@ -1,6 +1,8 @@
 // Shared pieces of the tensor-core convolutions, for Hopper (sm_90a): the
-// 3x3x3 ones (conv3d.cu, K2/K9, and conv3d_dw.cu, K8's weight gradient)
-// and FeatureNet's 2D convs (conv2d.cu, K5).
+// float32 3x3x3 ones (conv3d.cu, K2/K9, and conv3d_dw.cu, K8's weight
+// gradient) and FeatureNet's 2D convs (conv2d.cu, K5, float32 and bf16).
+// The bf16 3x3x3 convs have designs of their own (conv3d_bf16.cu,
+// conv3d_dw_bf16.cu, tc_bf16.cuh).
 //
 // Products, per element type of the staged operands (Elem below):
 //   float: mma.sync.aligned.m16n8k8 with TF32 operands and float32
@@ -11,7 +13,7 @@
 //   integer add and mask, the same bits on full-rate ALU ops), acc +=
 //   a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (a_lo*b_lo, ~2^-22 of the product,
 //   is dropped).
-//   bf16 (the bfloat16 eval path): mma.sync.aligned.m16n8k16 with bf16
+//   bf16 (K5-bf16, the bfloat16 eval path): mma.sync.aligned.m16n8k16 with bf16
 //   operands and float32 accumulators, one product per multiply-add (a
 //   bf16 x bf16 product is exact in float32), 16 input channels a chunk:
 //   a fragment's 32-bit word holds channels 2j and 2j + 1, so the A word
@@ -46,10 +48,7 @@
 //   rows are staged as whole 16-byte vectors (s1: inputs bx0 - 4 ..
 //   bx0 + 19, t2: bx0 .. bx0 + 19) with 16-byte cp.async when the rows of
 //   the volume are 16-byte aligned (W % 4 == 0), one float at a time
-//   otherwise. bf16 stages the same four-element vectors with 8-byte
-//   cp.async, its s2 rows too (kept whole: Halo::RAW), and one element at
-//   a time as plain loads and stores where rows are not aligned
-//   (cp.async copies 4 bytes at least).
+//   otherwise.
 #pragma once
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -80,28 +79,18 @@ struct Halo {
   static constexpr int EY = MODE == 0 ? BY + 2 : MODE == 1 ? 2 * BY + 1 : BY + 1;
   static constexpr int EX = MODE == 0 ? kBX + 2 : MODE == 1 ? 2 * kBX + 1 : kBX + 1;
   static constexpr int XH = kBX + 1;                       // even half (s2)
-  // bf16 keeps the s2 rows whole (RAW, inputs 2 bx0 - 4 .. 2 bx0 + 35):
-  // the lanes of a bf16 A word then read consecutive 32-bit words two
-  // elements apart (no bank conflict, where two floats apart would put two
-  // lanes on a bank: float splits the row into parity halves), and the row
-  // stages as whole four-element vectors with cp.async
-  static constexpr bool RAW = MODE == 1 && sizeof(T) == 2;
-  static constexpr bool VEC = MODE != 1 || RAW;            // vector rows
-  static constexpr int PSTR = RAW ? 2 : 1;  // columns between positions
-  // smem row: s2 two parity halves (float) or whole (bf16); s1 inputs
-  // bx0 - 4 .. bx0 + 19 and t2 bx0 .. bx0 + 19, whole vectors
-  static constexpr int XS = RAW ? 2 * kBX + 8
-                            : MODE == 1 ? 2 * XH : MODE == 0 ? kBX + 8
-                                                             : kBX + 4;
-  static_assert((MODE == 1 && !RAW) ||
-                    (MODE == 2 ? EX : EX + 3) <= XS, "row fits");
+  static constexpr bool VEC = MODE != 1;                   // vector rows
+  // smem row: s2 two parity halves; s1 inputs bx0 - 4 .. bx0 + 19 and t2
+  // bx0 .. bx0 + 19, whole vectors
+  static constexpr int XS = MODE == 1 ? 2 * XH : MODE == 0 ? kBX + 8
+                                                           : kBX + 4;
+  static_assert(MODE == 1 || (MODE == 2 ? EX : EX + 3) <= XS, "row fits");
   static constexpr int NV = XS / 4;                        // vectors a row
   static constexpr int PLANE = EZ * EY * XS;
 
   // brick-relative x (input origin(bx0) + rx) -> column in the smem row
   static __device__ __forceinline__ int xcol(int rx) {
-    return MODE == 1 && !RAW ? (rx & 1) * XH + (rx >> 1)
-                             : MODE == 2 ? rx : rx + 3;
+    return MODE == 1 ? (rx & 1) * XH + (rx >> 1) : MODE == 2 ? rx : rx + 3;
   }
   // first input index of the halo brick for base origin b0
   static __device__ __forceinline__ int origin(int b0) {
@@ -416,14 +405,14 @@ __device__ __forceinline__ void load_weights(float* s, const void* wt_) {
 // (plane stride PS, row stride XS, in elements): zero outside the volume
 // and for channels >= C. vec (Halo::VEC rows, rows of the volume aligned
 // for whole vectors): whole rows of four-element vectors; else one
-// element per thread and step, x fastest. CK: a conv chunk's channels
-// (Elem<T>::CK), or the dw kernel's 8 of either type.
-template <int MODE, int BZ, int BY, int PS, class T, int CK = Elem<T>::CK>
+// element per thread and step, x fastest. CK = Elem<T>::CK channels.
+template <int MODE, int BZ, int BY, int PS, class T>
 __device__ __forceinline__ void load_halo(T* s, const T* x, int n, int c0,
                                           int C, int Di, int Hi, int Wi,
                                           int bz0, int by0, int bx0,
                                           bool vec) {
   using Hl = Halo<MODE, BZ, BY, T>;
+  constexpr int CK = Elem<T>::CK;
   const int iz0 = Hl::origin(bz0), iy0 = Hl::origin(by0);
   if (Hl::VEC && vec) {
     const int gx0 = Hl::row_origin(bx0);

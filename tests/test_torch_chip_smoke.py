@@ -52,6 +52,34 @@ def test_fails_alone_in_a_directory(tmp_path):
     assert '"ok"' not in r.stdout
 
 
+SASS = """
+        Function : _ZN12_GLOBAL__N_17conv3d_tcILi0ELi1ELi1EffEEvPKT2_PKvPKfPKT3_PS8_iiiiiiiiiiiiii
+        /*0a40*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        Function : _ZN12_GLOBAL__N_117conv3d_bf16_tcILi0ELi1ELi1ELi16E13__nv_bfloat16EEvPKS1_PKjPKfPKT3_PS8_iiiiiiiiiiiiii
+        /*0b40*/  %s R24, gdesc[UR4], R24 ;
+        Function : _ZN12_GLOBAL__N_117prep_weights_bf16EPK13__nv_bfloat16Pjiiiiix
+        /*0100*/  STG.E [R2.64], R5 ;
+"""
+
+
+@pytest.mark.parametrize("mma,missing", [
+    ("HGMMA.64x8x16.F32.BF16", []), ("HMMA.16816.F32.BF16", []),
+    ("FFMA", ["conv3d_bf16_tc"]), ("HMMA.1688.F32.TF32", ["conv3d_bf16_tc"])])
+def test_sass_check_sees_wgmma_and_mma(mma, missing):
+    """Phase 2's rule on SASS text: a bf16 tensor-core kernel passes with
+    wgmma's HGMMA or mma.sync's HMMA on bf16 operands, fails with
+    neither (or with TF32 ones); the float32 kernel has its TF32 HMMA;
+    a kernel without "_tc" in its name is not held to it."""
+    counts = chip_smoke.count_mma(SASS % mma)
+    assert len(counts["kernels"]) == 3
+    got = chip_smoke.missing_mma({"lib": counts})
+    assert [k for k in missing if not any(k in g for g in got)] == []
+    assert len(got) == len(missing)
+    bad = chip_smoke.count_mma(SASS.replace("TF32", "BF16") % mma)
+    assert any("conv3d_tcILi0" in k for k in chip_smoke.missing_mma(
+        {"lib": bad}))
+
+
 def test_phases_run_on_cpu_and_main_path_demands_launches():
     scene = chip_smoke.plane_scene(64, 96, 3, chip_smoke.SEED)
     samples = chip_smoke.dtu_samples(scene, 96)

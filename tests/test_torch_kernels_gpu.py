@@ -834,6 +834,92 @@ def test_conv3d_dw_bf16_repeats_bit_for_bit(dev, mode, ci, co, shape):
         K8.conv3d_dw(x, cot.float(), mode)
 
 
+# ---- K2-bf16 and K8dw-bf16 (their own designs): every mode at the
+# widths the U-Nets and the render U-Net run (Co 1, 8, 16, 72, 128; Ci 8
+# and 41), odd sizes and the 2·in − 1 outputs of a stride-2 adjoint
+
+@pytest.mark.parametrize("mode,ci,co,shape,kind", [
+    ("s1", 8, 1, (5, 9, 7), "prob"), ("s1", 8, 8, (8, 12, 24), "eval"),
+    ("s1", 41, 8, (6, 11, 19), "eval"), ("s1", 8, 41, (4, 9, 17), "train"),
+    ("s1", 41, 72, (3, 7, 9), "train"), ("s1", 16, 128, (2, 6, 10), "eval"),
+    ("s2", 8, 16, (9, 13, 23), "eval"), ("s2", 41, 8, (7, 9, 11), "train"),
+    ("s2", 8, 72, (5, 7, 9), "train"), ("s2", 64, 128, (4, 6, 10), "eval"),
+    ("t2", 16, 8, (3, 5, 6), "eval"), ("t2", 8, 16, (3, 6, 8), "eval"),
+    ("t2", 41, 72, (2, 3, 5), "train"), ("t2", 128, 8, (2, 3, 5), "train"),
+    ("t2", 16, 8, (4, 5, 7), "odd")])
+def test_conv3d_bf16_widths_match_plain(dev, mode, ci, co, shape, kind):
+    """K2-bf16 at the U-Nets' widths in every mode: "eval" with a bias,
+    ReLU and (t2) the skip, "train" raw, "prob" the float32 output, "odd"
+    a t2 output of 2n − 1 per axis."""
+    g = _gen(dev, 7 * ci + co)
+    x, = _bf16(torch.randn(1, ci, *shape, device=dev, generator=g))
+    wshape = (ci, co, 3, 3, 3) if mode == "t2" else (co, ci, 3, 3, 3)
+    wgt, = _bf16(0.1 * torch.randn(*wshape, device=dev, generator=g))
+    b = (torch.randn(co, device=dev, generator=g) if kind == "eval"
+         else torch.zeros(co, device=dev))
+    kw = dict(relu=kind == "eval")
+    if kind == "eval" and mode == "t2":
+        kw["skip"], = _bf16(torch.randn(1, co, *K2.out_shape(mode, *shape),
+                                        device=dev, generator=g))
+    if kind == "prob":
+        kw["out_dtype"] = torch.float32
+    if kind == "odd":
+        kw["out_dhw"] = tuple(2 * n - 1 for n in shape)
+    n0 = K2.conv3d.bf16.launches
+    got = K2.conv3d(x, wgt, b, mode, **kw)
+    want = K2.conv3d_plain(x, wgt, b, mode, **kw)
+    torch.cuda.synchronize()
+    assert K2.conv3d.bf16.launches == n0 + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("mode,ci,co,shape", [
+    ("s1", 8, 1, (5, 9, 7)), ("s1", 8, 8, (8, 12, 24)),
+    ("s1", 41, 8, (6, 11, 19)), ("s1", 8, 16, (4, 9, 17)),
+    ("s1", 41, 72, (3, 7, 9)), ("s1", 16, 128, (2, 6, 10)),
+    ("s2", 8, 16, (9, 13, 23)), ("s2", 41, 8, (7, 9, 11)),
+    ("s2", 8, 72, (5, 7, 9)), ("s2", 64, 128, (4, 6, 10)),
+    ("t2", 16, 8, (3, 5, 6)), ("t2", 8, 16, (3, 6, 8)),
+    ("t2", 41, 72, (2, 3, 5)), ("t2", 128, 8, (2, 3, 5)),
+    ("t2", 8, 1, (3, 5, 7))])
+def test_conv3d_dw_bf16_widths_match_plain(dev, mode, ci, co, shape):
+    """K8dw-bf16 at the U-Nets' widths in every mode, odd sizes: float32
+    dW within 1e-4 of its largest value."""
+    g = _gen(dev, 11 * ci + co)
+    x, cot = _bf16(torch.randn(1, ci, *shape, device=dev, generator=g),
+                   torch.randn(1, co, *K2.out_shape(mode, *shape),
+                               device=dev, generator=g))
+    n0 = K8.conv3d_dw.bf16.launches
+    got = K8.conv3d_dw(x, cot, mode)
+    want = K8.conv3d_dw_plain(x, cot, mode)
+    torch.cuda.synchronize()
+    assert K8.conv3d_dw.bf16.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _close(got, want)
+
+
+def test_conv3d_dw_bf16_long_chain_within_gate(dev):
+    """One run of every brick (the 30720 positions of an 8 x 64 x 60
+    grid a block) through the C entry: the flush once a brick keeps dW within 1e-4 of its largest
+    value, where one tensor-core accumulator over such a run read 2.25e-4
+    (tc_conv3d.cuh's accumulation note)."""
+    g = _gen(dev, 30720)
+    shape = (8, 64, 60)
+    x, cot = _bf16(torch.randn(1, 8, *shape, device=dev, generator=g),
+                   torch.randn(1, 8, *shape, device=dev, generator=g))
+    plan = K8.dw_plan_bf16("s1", 1, 8, 8, *shape)
+    partial = torch.empty((1, 8, 8, 27), dtype=torch.float32, device=dev)
+    dw = torch.empty((8, 8, 27), dtype=torch.float32, device=dev)
+    err = K8._lib("conv3d_dw_bf16", "conv3d_dw_bf16")(
+        x.data_ptr(), cot.data_ptr(), partial.data_ptr(), dw.data_ptr(), 1,
+        8, *shape, 8, *shape, K8.MODES["s1"], 1, plan.bricks,
+        plan.brick[1], torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    _close(dw.reshape(8, 8, 3, 3, 3), K8.conv3d_dw_plain(x, cot, "s1"))
+
+
 def test_bf16_train_step_runs_the_bf16_instances(dev):
     """train_dtype bfloat16 on the card: one train step launches the bf16
     instances of K1, K6, K7 (both), K2 and K8 dw, and no float32 instance
