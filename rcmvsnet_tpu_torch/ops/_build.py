@@ -135,12 +135,7 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current stream on CUDA `device` as a raw pointer, from the
-    C getter (building a Stream object costs ≈ 10 µs a launch)."""
-    index = device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    return torch._C._cuda_getCurrentRawStream(index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def require_cuda(name: str, *tensors, bf16=()) -> None:

@@ -37,14 +37,9 @@
 // takes more than one chunk: the next chunk is staged while the tensor
 // cores work on this one. The epilogue goes through shared memory, so
 // that bias, ReLU, the skip and the output move as 16-byte vectors of 8
-// consecutive x.
-//
-// Warpgroup MMAs: a K2_WGMMA build (tools/ab_conv3d --wgmma) issues mode
-// 0's 16-channel products as wgmma.mma_async m64nNk16 (A: the four warps'
-// fragments from registers; B: the tap's weights behind a descriptor,
-// laid out for it by prep_weights_bf16). At these widths (N = Co = 8..32)
-// it measured no faster than mma.sync (PERF.md section 6), so the
-// default build keeps mma.sync.
+// consecutive x. A build of mode 0 on warpgroup MMAs (wgmma m64nNk16, A
+// from these registers, the weights behind a descriptor) measured slower
+// at N = Co = 8..32 (PERF.md section 6), so the products are mma.sync.
 //
 // Bound: the bytes of x, the skip and the output bound it at these
 // widths (Ci, Co 1..64: 0.86 ms of bytes against 0.05 ms of bf16
@@ -218,83 +213,6 @@ __device__ __forceinline__ void load_b(typename Frag<CK>::B (&b)[NTB],
     b[nt] = Frag<CK>::load_b(sw, (tap * NTB + nt) * 8 + g, t);
 }
 
-// K2_WGMMA builds (tools/ab_conv3d --wgmma; the default build does not
-// define it): mode 0 with 16-channel chunks issues its products as
-// warpgroup MMAs, wgmma.mma_async m64nNk16 (N = 8 NTB), A from registers
-// (the four warps' m16 tiles, loaded as above), B the tap's weights in
-// shared memory behind a descriptor: K-major without swizzle, [k half][co
-// NW][8 channels] (LBO = 16 NW bytes between the halves, SBO = 128 bytes
-// between groups of 8 co), k = 8 kh + 2p + j holding channel 4p + 2 kh + j
-// -- the channels the A fragments' 8-byte loads give that k.
-#ifndef K2_WGMMA
-#define K2_WGMMA 0
-#endif
-template <int MODE, int CK>
-constexpr bool kWgmma = K2_WGMMA && MODE == 0 && CK == 16;
-
-__device__ __forceinline__ uint64_t wg_desc(const uint32_t* b, int nw) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(b));
-  return (uint64_t)((addr >> 4) & 0x3fff) |
-         ((uint64_t)(nw & 0x3fff) << 16) |       // LBO: 16 nw bytes
-         ((uint64_t)8 << 32);                    // SBO: 128 bytes
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// order later reads of the accumulators after the wait
-__device__ __forceinline__ void wg_fence_reg(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-
-// d += a * b, m64n(8 NTB)k16, A from registers, B from a descriptor
-template <int NTB>
-__device__ __forceinline__ void wg_mma(float (&d)[NTB][4],
-                                       const uint32_t (&a)[4], uint64_t b);
-template <>
-__device__ __forceinline__ void wg_mma<1>(float (&d)[1][4],
-                                          const uint32_t (&a)[4],
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, %8, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
-}
-template <>
-__device__ __forceinline__ void wg_mma<2>(float (&d)[2][4],
-                                          const uint32_t (&a)[4],
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
-}
-template <>
-__device__ __forceinline__ void wg_mma<4>(float (&d)[4][4],
-                                          const uint32_t (&a)[4],
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
-      "{%16,%17,%18,%19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
-}
-
 template <int MT, int NTB>
 __device__ __forceinline__ void flush(float (&acc)[MT][NTB][4],
                                       float (&part)[MT][NTB][4]) {
@@ -405,50 +323,11 @@ conv3d_bf16_tc(const bf16* __restrict__ x, const uint32_t* __restrict__ wt,
   load(0);
   for (int ch = 0; ch < nch; ++ch) {
     tc::cp_async_wait<0>();
-    if constexpr (kWgmma<MODE, CK>)
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     if (ch + 1 < nch) load(ch + 1);
     const uint32_t* sx = stage(ch);
     const uint32_t* sw = sx + C::X_WORDS;
-    if constexpr (kWgmma<MODE, CK>) {
-      // s1 as below, each (ky, kx) one batch of warpgroup MMAs: the MT + 2
-      // rows' A fragments loaded, every (mt, kz) issued, then waited for
-#pragma unroll 1
-      for (int ky = 0; ky < 3; ++ky) {
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          uint64_t db[3];
-#pragma unroll
-          for (int kz = 0; kz < 3; ++kz)
-            db[kz] = wg_desc(sw + (kz * 9 + ky * 3 + kx) * C::NW * 8, C::NW);
-          uint32_t a[MT + 2][4];
-#pragma unroll
-          for (int z = 0; z < MT + 2; ++z) {
-            const typename F::A f =
-                F::load_a(sx, (z * C::EY + warp + ky) * C::EX + g + kx, t);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[z][i] = f.v[i];
-          }
-          wg_fence();
-#pragma unroll
-          for (int z = 0; z < MT + 2; ++z)
-#pragma unroll
-            for (int kz = 0; kz < 3; ++kz) {
-              const int mt = z - kz;
-              if (mt >= 0 && mt < MT) wg_mma<NTB>(part[mt], a[z], db[kz]);
-            }
-          wg_commit_wait();
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < NTB; ++nt)
-#pragma unroll
-              for (int i = 0; i < 4; ++i) wg_fence_reg(part[mt][nt][i]);
-        }
-        flush(acc[0], part);
-      }
-    } else if constexpr (MODE == 0) {
+    if constexpr (MODE == 0) {
       // s1: tile mt, tap (kz, ky, kx) reads halo row z = mt + kz, y =
       // warp + ky, column x + kx; each row feeds every (mt, kz) reading it
 #pragma unroll 1
@@ -597,23 +476,16 @@ conv3d_bf16_tc(const bf16* __restrict__ x, const uint32_t* __restrict__ wt,
 // The weights laid out once per call: wt[group][chunk][tap][co NW][CK / 2
 // words], word k of a (tap, co) holding channels chunk * CK + 2k, + 1
 // (low half first), zero past Co and Ci, from w [Co, Ci, 27].
-// wg (the wgmma path): a tap's words are [k half][co][4 words] instead,
-// word p of (kh, co) holding channels 4p + 2kh, + 1 (see kWgmma).
 __global__ void __launch_bounds__(kThreads)
 prep_weights_bf16(const bf16* __restrict__ w, uint32_t* __restrict__ wt,
-                  int Ci, int Co, int NW, int CK, int nch, int wg,
+                  int Ci, int Co, int NW, int CK, int nch,
                   long long total) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const int pw = CK / 2;
   long long r = i / (NW * pw);
   const int word = (int)(i - r * NW * pw);
-  int col = word / pw, c = 2 * (word % pw);
-  if (wg) {
-    const int kh = word / (NW * 4);
-    col = (word / 4) % NW;
-    c = 4 * (word % 4) + 2 * kh;
-  }
+  const int col = word / pw, c = 2 * (word % pw);
   const int tap = (int)(r % 27);
   r /= 27;
   const int ch = (int)(r % nch), grp = (int)(r / nch);
@@ -642,7 +514,7 @@ cudaError_t launch(const bf16* x, const bf16* w, const float* bias,
   prep_weights_bf16<<<(unsigned)((words + kThreads - 1) / kThreads),
                       kThreads, 0, stream>>>(
       w, static_cast<uint32_t*>(wt), Ci, Co, C::NW, CK, nch,
-      (int)kWgmma<MODE, CK>, words);
+      words);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)bricks, (unsigned)groups);

@@ -6,10 +6,8 @@ Each argument is a directory of CUDA sources with the package's C
 interface (default: the package's own `ops/csrc/`): `conv3d.cu`,
 `conv3d_dw.cu` and `tc_conv3d.cuh`, and, where the build has them, the
 bf16 kernels' own sources (`conv3d_bf16.cu`, `conv3d_dw_bf16.cu`,
-`tc_bf16.cuh`). A bf16 entry (`conv3d_bf16`, `conv3d_dw_bf16`) is taken
-from whichever of the build's libraries exports it, so a build from
-before the bf16 kernels had their own sources compares too. Every build
-runs the same inputs (CASES: the main paths' heaviest shapes, and every
+`tc_bf16.cuh`); a build without them runs the float32 cases only. Every
+build runs the same inputs (CASES: the main paths' heaviest shapes, and every
 bf16 mode at the train step's Co = 8 and Co = 64 shapes and the render
 U-Net's Ci = 41); the builds take turns A, B, ..., B, A, each case's
 time is the smaller of its build's two turns (each the median of 7
@@ -32,19 +30,14 @@ float32 prob head) and "step" the bf16 train step's 86 K2-bf16 calls
 U-Net's) and 43 dw calls; each set's time is the sum of its calls'
 times (for "step": K2 and dw apart).
 
-`--wgmma` adds one more build: the last directory with `K2_WGMMA`
-defined in `conv3d_bf16.cu` (its stride-1 16-channel path on warpgroup
-MMAs, csrc/conv3d_bf16.cu), written under the build directory.
-
 Usage:
   python -m rcmvsnet_tpu_torch.tools.ab_conv3d [--sets map,step]
-      [--wgmma] [SRC_DIR ...]
+      [SRC_DIR ...]
 """
 from __future__ import annotations
 
 import argparse
 import json
-import shutil
 from pathlib import Path
 
 import torch
@@ -102,9 +95,10 @@ CASES = (
     ("dw_bf16", "bf16 cr1 conv5 dw s2 32>64", 32, 64, (8, 64, 80), "s2"),
     ("dw_bf16", "bf16 cr1 conv7 dw t2 64>32", 64, 32, (4, 32, 40), "t2"),
 )
-# the library the package's wrapper loads for a bf16 kind, and its entry
-ENTRY = {"k2_bf16": ("conv3d_bf16", "conv3d_bf16"),
-         "dw_bf16": ("conv3d_dw_bf16", "conv3d_dw_bf16")}
+# the library the package's wrapper loads for a kind and for a set part
+LIB = {"k2": "conv3d", "dw": "conv3d_dw", "k2_bf16": "conv3d_bf16",
+       "dw_bf16": "conv3d_dw_bf16"}
+SET_LIB = {"k2": "conv3d_bf16", "dw": "conv3d_dw_bf16"}
 # (Ci, planes, H, W, prob head) of the U-Nets: a DTU depth map's three
 # eval CostRegNets, the train step's three and its render U-Net
 MAP_UNETS = ((32, 48, 216, 288, True), (16, 32, 432, 576, True),
@@ -212,33 +206,17 @@ def _error(got, want) -> bool:
     return float((g - w).abs().max()) <= 1e-4 * m
 
 
-def load_build(src: str):
-    """({library name the wrappers load: library}, the bf16 dw plan the
-    build takes) of one build: its own libraries, and for each bf16 entry
-    the library that exports it; a build whose bf16 dw shares
-    `conv3d_dw.cu` with the float32 one runs the float32 plan's bricks."""
+def load_build(src: str) -> dict:
+    """{library name the wrappers load: library} of one build."""
     d = Path(src)
-    libs = _build.load_from(d, [n for n in LIBS if (d / f"{n}.cu").exists()])
-    for lib, entry in ENTRY.values():
-        owner = next((v for v in libs.values() if hasattr(v, entry)), None)
-        if owner is not None:
-            libs[lib] = owner
-    plan = PLAN_BF16
-    if not (d / "conv3d_dw_bf16.cu").exists():
-        plan = (lambda mode, n, ci, co, dd, h, w:
-                K8.dw_chunks(mode, n, ci, dd, h, w))
-    return libs, plan
-
-
-PLAN_BF16 = K8.dw_plan_bf16
+    return _build.load_from(d, [n for n in LIBS if (d / f"{n}.cu").exists()])
 
 
 def run(device, srcs, sets=()) -> dict:
     """{label: [ms of each build]} and the totals, printed per case."""
     builds = [load_build(s) for s in srcs]
     gen = torch.Generator(device=device).manual_seed(0)
-    calls = [(c[1], ENTRY.get(c[0]), *case_calls(c, device, gen))
-             for c in CASES]
+    calls = [(c[1], LIB[c[0]], *case_calls(c, device, gen)) for c in CASES]
     set_lists = {k: set_calls(k, device, gen) for k in sets}
     timer = make_timer(device)
     order = list(range(len(builds))) + list(reversed(range(len(builds))))
@@ -248,10 +226,9 @@ def run(device, srcs, sets=()) -> dict:
                                               for c in set_lists[k])}
     first, same = {}, {c[0]: [True] * len(builds) for c in calls}
     for i in order:
-        _build._libs.update(builds[i][0])   # the wrappers launch build i
-        K8.dw_plan_bf16 = builds[i][1]
-        for label, entry, fk, fp in calls:
-            if entry and entry[0] not in builds[i][0]:
+        _build._libs.update(builds[i])      # the wrappers launch build i
+        for label, lib, fk, fp in calls:
+            if lib not in builds[i]:
                 continue                  # this build has no such instance
             got, want = fk(), fp()
             if not _error(got, want):
@@ -265,12 +242,11 @@ def run(device, srcs, sets=()) -> dict:
         for k, lst in set_lists.items():
             for part in ("k2", "dw"):
                 key = f"{k} {part}"
-                if key not in set_ms:
+                if key not in set_ms or SET_LIB[part] not in builds[i]:
                     continue
                 t = sum(timer(fn) for _, p, fn in lst if p == part)
                 prev = set_ms[key][i]
                 set_ms[key][i] = t if prev is None else min(prev, t)
-    K8.dw_plan_bf16 = PLAN_BF16
     fmt = lambda t: "     n/a" if t is None else f"{t:8.3f}"
     for label, row in ms.items():
         print(f"{label:32s} " + "  ".join(
@@ -286,29 +262,14 @@ def run(device, srcs, sets=()) -> dict:
             "equal_to_first": same}
 
 
-def wgmma_build(src: str) -> str:
-    """A copy of build `src` with K2_WGMMA defined, under the build
-    directory (git-ignored)."""
-    d = _build.BUILD_DIR / "wgmma_csrc"
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(src, d)
-    f = d / "conv3d_bf16.cu"
-    f.write_text("#define K2_WGMMA 1\n" + f.read_text())
-    return str(d)
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("srcs", nargs="*", default=[str(_build.CSRC)])
     p.add_argument("--sets", default="",
                    help="comma-separated call sets to time: map, step")
-    p.add_argument("--wgmma", action="store_true",
-                   help="also time the last build with K2_WGMMA defined")
     args = p.parse_args(argv)
     sets = tuple(s for s in args.sets.split(",") if s)
     device = resolve_device("cuda")
-    if args.wgmma:
-        args.srcs = args.srcs + [wgmma_build(args.srcs[-1])]
     label = device_label(device)
     print(f"device: {label} | builds: {' '.join(args.srcs)}")
     res = run(device, args.srcs, sets)
