@@ -20,61 +20,60 @@
 // (its B is that class's outputs 2b + p); the classes' 1, 2, 2, 4, 2, 4,
 // 4, 8 taps also pair into 14 tiles, and a block runs all 8 classes of
 // its bricks, so x is staged once for all of them. Co = 8, every
-// full-resolution level of the U-Nets, is one n8 column block with no
-// padding; wider Co is N = 16 and more blocks.
-//
-// Products: warpgroup MMAs, wgmma.mma_async m64nNk16 (N = 8 or 16), bf16
-// operands, float32 accumulation. The block's two warpgroups take half
-// of a brick's rows (k16 steps) each; an m64 product stacks four m16
-// tiles, one a warp, whose A fragments the warps load from the copies
-// below into registers; B, the brick row of g, is read by the tensor
-// cores from shared memory through a descriptor (K-major, no swizzle:
-// [k half][co][8 positions], 16 N bytes between the halves). In t2 the
-// four tiles of a product must share a class: the 14 tiles form 8
-// products (4 + 2 + 2 + 2 + 1 + 1 + 1 + 1 tiles), zero A in the rest.
-// A step's products are issued and committed while the next step's A
-// is loaded (two register sets, wgmma.wait_group 1).
+// full-resolution level of the U-Nets, is one n8 tile with no padding;
+// wider Co is more n8 tiles. m16n8k16 mma.sync with bf16 operands, one
+// product per multiply-add, float32 accumulation.
 //
 // Staging: per brick of base positions (BZ x BY x 16: s1 4 x 8 x 16, s2
 // 2 x 4 x 16, t2 1 x 8 x 16; the base grid is the output, t2's the input;
 // ops/conv3d_train.BRICK_BF16) the block reads, for its octet, the halo
-// rows of x -- the 16-byte vectors under the brick's taps and 4-byte
-// pairs for the one input a tap reads past each end (s1: inputs bx0 - 2
-// .. bx0 + 17) -- and the brick's g rows of its Co block (s1, s2: straight
-// into B's layout) into a ring of four slots (three where four do not
-// fit) with cp.async, three bricks ahead. A transform pass then writes
-// the kx-shifted copies of every halo row -- copy kx of row (ci, z, y)
-// holds the 16 inputs that brick positions 0..15 read at tap kx (s1: x +
-// kx - 1; s2: 2x + kx - 1, so the stride-2 gather is done here; t2: x +
-// ox, ox = 0, 1), made with byte permutes in registers (a one-element
-// shift cannot be a cp.async or TMA copy), its words stored in the order
-// 0, 4, 1, 5, 2, 6, 3, 7 so that one 8-byte load at word 2t gives a
-// lane's k = 2t, 2t + 1 and 2t + 8, 2t + 9 -- and, t2, splits each row of
-// 32 outputs of g into its classes' B rows. Two barriers a brick: brick i
-// landed, its copies written (and fenced for the tensor cores' reads).
+// rows of x as one TMA box, [8 ci][EZ z][EY y][2 RW inputs] from input
+// XV - 8 (s1 XV = bx0, s2 2 bx0; t2 from bx0: a box starts on a 16-byte
+// boundary of a row), zero past the volume's ends, and the brick's g rows
+// of its Co tiles with 16-byte cp.async, into a ring of four slots (three
+// where four do not fit), NS - 1 bricks ahead; one thread issues the
+// box and slot s's mbarrier counts its bytes. (Rows not 16-byte aligned,
+// W % 8 != 0, are read element by element into the same layout.) A
+// transform pass then writes the kx-shifted copies of every halo row --
+// copy kx of row (ci, z, y) holds the 16 inputs that brick positions
+// 0..15 read at tap kx (s1: x + kx - 1; s2: 2x + kx - 1, so the stride-2
+// gather is done here; t2: x + ox, ox = 0, 1), made with byte permutes
+// in registers (a one-element shift cannot be a copy-engine copy) --
+// and, t2, splits each row of 32 outputs of g into its two x classes.
+// Every A and B word is then one aligned half of an 8-byte load for every
+// tap and both strides (the float32 kernel packs them element by
+// element). Two barriers a brick: brick i landed, its copies written.
 //
 // Work: a block owns one run of consecutive bricks (the split-K chunk,
-// gridDim.x), 14 m16 tiles of one octet (Co <= 8) or 7 of them and N =
-// 16 (gridDim.y, gridDim.z): the plan ops/conv3d_train.dw_plan_bf16 sizes
-// the runs by all three. Each product's chain in the tensor cores is its
-// warpgroup's rows of one brick (s1 16 steps, s2 and t2 4), then added
-// into a float32 total with round-to-nearest: the two-level flush of
-// tc_conv3d.cuh, once a brick. At the end of its run the block sums its
-// two warpgroups' totals in order in shared memory and writes its part of
-// one partial; pass 2 sums the chunks in a fixed order. No atomics: the
-// result is the same bit for bit from run to run.
+// gridDim.x), 14 m16 tiles of one octet (Co <= 8) or 7 of them and two
+// n8 tiles of Co (gridDim.y, gridDim.z): the plan ops/conv3d_train.
+// dw_plan_bf16 sizes the runs by all three. A warp owns BZ x BY / 8 brick
+// rows (k16 steps: s1 four, row y of each z; s2 and t2 one) for every
+// tile of the block; it loads 7 (Co > 8: 4) tiles' A fragments and
+// issues their MMAs before adding the sums, so the MMAs of a warp
+// overlap. Each tile's chain in the tensor cores is its brick rows (one
+// to four MMAs), added into a float32 total with round-to-nearest: the
+// two-level flush of tc_conv3d.cuh, once a brick. An empty tile half (tap
+// 27; t2's classes of odd tap counts) reads a row of zeros. At the end of
+// its run the block sums its 8 warps' totals in order in shared memory
+// and writes its part of one partial; pass 2 sums the chunks in a fixed
+// order. No atomics: the result is the same bit for bit from run to run.
 //
 // Bound: the bytes of x and g (read once) bound it (0.37 ms for the 43
 // shapes of a bf16 train step against 0.05 ms of bf16 products). What it
-// pays beyond them: the staging writes the halo 3 times over (the
-// copies), every A fragment is read from shared memory into registers
-// (512 bytes an m16 tile and step, feeding N = 8 columns), the one block
-// an SM (its ring) waits on two barriers a brick, and x is re-read from
-// L2 for the halo (1.5 z rows and 1.25 y rows a row in s1) and once per
-// Co block. The raw rows' 16-byte vectors could be bulk copies or one
-// TMA box a brick (zero fill past the volume's ends included) behind an
-// mbarrier; the kx shift and the stride-2 gather still need the transform
-// through registers. Co = 1 (the prob head) uses one of 8 columns.
+// pays beyond them is shared memory: each m16n8k16 product reads a fresh
+// 512-byte A fragment (at Co = 8 it feeds one n8 tile), 2 8-byte loads a
+// lane, and the staging writes the halo 3 times over (the copies); x is
+// re-read from L2 for the halo (1.5 z rows and 1.25 y rows a row in s1,
+// and the box's inputs past the taps' reach) and once per Co block; one
+// block an SM (its ring) waits on two barriers a brick. A build on
+// warpgroup MMAs (wgmma m64nNk16: A, four warps' m16 tiles, from
+// registers; B, a brick row of g, through a descriptor) measured slower
+// at these widths (PERF.md section 6): at N = Co = 8 its A fragments
+// cost the same shared-memory loads and each step's products wait on
+// them. Co = 1 (the prob head) uses one of 8 MMA columns.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -86,17 +85,16 @@ namespace {
 using namespace tcb;
 
 constexpr int kTiles = 14;       // m16 tiles of one octet of Ci
-constexpr int kGroups = kWarps / 4;    // warpgroups a block
 
 // The brick of base positions, BZ x BY x 16 (ops/conv3d_train.BRICK_BF16):
-// R = BZ x BY rows of 16 positions (k16 steps), KG of them a warpgroup.
+// R = BZ x BY rows of 16 positions (k16 steps), KW = R / 8 of them a warp.
 template <int MODE>
 struct DwB {
   static constexpr int BZ = MODE == 0 ? 4 : MODE == 1 ? 2 : 1;
   static constexpr int BY = MODE == 1 ? 4 : 8;
   static constexpr int R = BZ * BY;
-  static constexpr int KG = R / kGroups;
-  static_assert(KG % BY == 0 || BY % KG == 0, "whole rows a warpgroup");
+  static constexpr int KW = R / kWarps;
+  static_assert(KW * kWarps == R, "whole rows a warp");
   // halo rows in z and y
   static constexpr int EZ = MODE == 0 ? BZ + 2 : MODE == 1 ? 2 * BZ + 1
                                                            : BZ + 1;
@@ -110,104 +108,56 @@ struct DwB {
   static constexpr bool LO = MODE != 2, HI = MODE != 1;
   // the row as one span of words from input XV - 2 LO
   static constexpr int NW = 4 * NV + LO + HI;
+  // a raw row as staged: RW words from input XV - 8 LO (one TMA box row:
+  // a box starts on a 16-byte boundary of the row), an odd number of
+  // 16-byte units; span word k is raw word k + SW
+  static constexpr int SW = LO ? 3 : 0;
+  static constexpr int RW = ((SW + NW + 3) / 4 | 1) * 4;
   static constexpr int NVG = MODE == 2 ? 4 : 2;      // g span
+  static constexpr int NCLS = MODE == 2 ? 8 : 1;
   // 32-byte rows a channel plane of copies: = 1 (mod 4), so the 8-byte
   // loads of four planes (one half-warp) fall on distinct banks
   static constexpr int PR = EZ * EY + ((1 - EZ * EY % 4) + 4) % 4;
+  static constexpr int P = R * kBX;                  // positions a brick
+  static constexpr int PG = P + 16;                  // g row: 32 (mod 128) B
   static constexpr int X_WORDS = NCP * 8 * PR * 8;
   static constexpr int X_ITEMS = 8 * EZ * EY;        // raw x rows
-  // words of the copies from brick row 0 to brick row r (the halo rows of
-  // a stride-2 brick row are two apart)
-  static __device__ __forceinline__ int row_words(int r) {
-    return (MODE == 1 ? 2 : 1) * ((r / BY) * EY + r % BY) * 8;
-  }
+  // a k-step of a warp's second row: the next halo z (s1) or row of g
+  static constexpr int A_STEP = (MODE == 1 ? 2 : 1) * EY * 8;   // words
+  static constexpr int B_STEP = kWarps * kBX / 2;               // words
 };
 
 template <int MODE, int MW, int NB>
 struct DwK {
   using Bs = DwB<MODE>;
   static_assert(MW == 7 || MW == 14, "a block's tiles split an octet");
-  static constexpr int NW = 8 * NB;                  // Co a block (N)
-  // m64 products a step: up to 4 m16 tiles each (t2: of one class)
-  static constexpr int J = MODE == 2 ? (MW == 14 ? 8 : 6) : (MW + 3) / 4;
-  // a brick row of g as B: [k half][co NW][8 positions]
-  static constexpr int GROW = 2 * NW * 4;            // words
-  static constexpr int G_ITEMS = NW * Bs::R * (MODE == 2 ? 4 : 1);
-  // a ring slot: the brick's raw x rows (NV vectors, then the LO and HI
-  // words; a row stride of an odd number of 16-byte units, so the
-  // transform's 16-byte loads of 8 consecutive rows fall on distinct
-  // banks) and its raw g rows (s1, s2: B's layout, GROW words a brick
-  // row; t2: whole rows of 32 outputs, 5 vectors apart)
-  static constexpr int RXS = 4 * ((Bs::NV + 1) | 1);            // words
-  static constexpr int RAWX = Bs::X_ITEMS * RXS;
+  static constexpr int G_ITEMS = NB * 8 * Bs::R * (MODE == 2 ? 4 : 1);
+  // a ring slot: the brick's raw x rows ([ci][hz][hy][RW words], the
+  // TMA box; RW / 4 is odd, so the transform's 16-byte loads of 8
+  // consecutive rows fall on distinct banks) and its raw g rows (s1, s2:
+  // already the compute layout [co][row][16] with co stride PG; t2: whole
+  // rows of 32 outputs, 5 vectors apart)
+  static constexpr int RAWX = Bs::X_ITEMS * Bs::RW;
   static constexpr int RGS = 4 * (Bs::NVG | 1);
-  static constexpr int RAWG = MODE == 2 ? G_ITEMS * RGS : Bs::R * GROW;
+  static constexpr int RAWG = MODE == 2 ? G_ITEMS * RGS : NB * 8 * Bs::PG / 2;
   static constexpr int SLOT = RAWX + RAWG;
-  // the copies of the brick being computed (t2: and its g by class,
-  // [class][brick row] GROW words each)
-  static constexpr int G_WORDS = MODE == 2 ? 8 * Bs::R * GROW : 0;
-  static constexpr int WORK = Bs::X_WORDS + G_WORDS;
-  static constexpr int RED = kGroups * J * 4 * NB * 4 * 32;    // floats
+  static_assert(RAWX % 32 == 0 && SLOT % 32 == 0, "TMA boxes 128-B aligned");
+  // the copies of the brick being computed (t2: and its g by class), and
+  // zeros that an empty tile half reads (KW rows of them)
+  static constexpr int G_WORDS = MODE == 2 ? 8 * NB * 8 * Bs::PG / 2 : 0;
+  static constexpr int ZERO = Bs::KW * Bs::A_STEP;
+  static constexpr int WORK = Bs::X_WORDS + G_WORDS + ZERO;
+  static constexpr int RED = kWarps * MW * NB * 4 * 32;        // floats
   static constexpr int ring(int ns) { return ns * SLOT + WORK; }
   static constexpr int NS = 4 * ring(4) <= 200 * 1024 ? 4 : 3;  // ring
-  static constexpr int WORDS = ring(NS) > RED ? ring(NS) : RED;
-  static constexpr size_t SMEM = 4 * (size_t)WORDS;
+  static_assert(RED <= NS * SLOT, "the sums leave the mbarriers alone");
+  // the ring's mbarriers (8 bytes each) after the copies
+  static constexpr int MBAR = ring(NS);
+  static constexpr int WORDS = MBAR + 2 * NS;
+  static constexpr size_t SMEM = 4 * (size_t)WORDS + 128;   // + alignment
+  // MMAs issued before their sums are added: G tiles at a time
+  static constexpr int G = NB == 1 ? 7 : 4;
 };
-
-// wgmma's B descriptor of the [k half][co nw][8] words at b: K-major, no
-// swizzle; LBO 16 nw bytes (between the k halves), SBO 128 bytes
-// (between groups of 8 co)
-__device__ __forceinline__ uint64_t b_desc(const uint32_t* b, int nw) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(b));
-  return (uint64_t)((addr >> 4) & 0x3fff) |
-         ((uint64_t)(nw & 0x3fff) << 16) | ((uint64_t)8 << 32);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// order later reads of an accumulator after the wait
-__device__ __forceinline__ void reg_fence(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-
-// d = a * b (acc = 0) or d += a * b, m64n(8 NB)k16, A from registers
-// (this warp's m16 rows), B from a descriptor
-template <int NB>
-__device__ __forceinline__ void wg_mma(float (&d)[NB][4],
-                                       const uint32_t (&a)[4], uint64_t b,
-                                       int acc);
-template <>
-__device__ __forceinline__ void wg_mma<1>(float (&d)[1][4],
-                                          const uint32_t (&a)[4],
-                                          uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, %8, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-template <>
-__device__ __forceinline__ void wg_mma<2>(float (&d)[2][4],
-                                          const uint32_t (&a)[4],
-                                          uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
 
 // Elements [x0, x0 + 2 N) of a row of bf16 (any x0) as N words, element
 // by element, zero outside [0, W) and everywhere when !ok
@@ -269,110 +219,106 @@ __device__ __forceinline__ int tile_half(int q, int h, int rz, int ry,
   return k;
 }
 
-// Parity class of tile q in t2 (else 0): classes 0..7 take 1, 1, 1, 2, 1,
-// 2, 2, 4 tiles, as tile_half orders them
-template <int MODE>
-__device__ __forceinline__ int tile_class(int q) {
-  if (MODE != 2) return 0;
-  int c = 0, start = 0;
-  for (; c < 7; ++c) {
-    const int n = ((1 << __popc(c)) + 1) >> 1;
-    if (q < start + n) break;
-    start += n;
-  }
-  return c;
+// The ring's mbarriers: one arrival a phase (the thread that issues the
+// brick's TMA box) and the box's bytes
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-
-// Product j of a block whose tiles are q0 .. q0 + MW - 1: its first tile
-// (from q0) and its number of tiles, 0 past the last product. s1, s2:
-// four consecutive tiles; t2: runs of up to four tiles of one class (the
-// product's four warps share its B, the class's rows of g).
-template <int MODE, int MW>
-__device__ __forceinline__ void tile_group(int q0, int j, int& first,
-                                           int& count) {
-  if (MODE != 2) {
-    first = 4 * j;
-    count = MW - first < 4 ? MW - first : 4;
-    return;
-  }
-  int mt = 0;
-  for (int k = 0; mt < MW; ++k) {
-    const int cls = tile_class<MODE>(q0 + mt);
-    int n = 1;
-    while (mt + n < MW && n < 4 && tile_class<MODE>(q0 + mt + n) == cls) ++n;
-    if (k == j) {
-      first = mt;
-      count = n;
-      return;
-    }
-    mt += n;
-  }
-  first = MW;
-  count = 0;
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// x's box [8 ci][EZ][EY][RW words] at (input x0, y0, z0, channel c0, n),
+// zero past the volume's ends, its completion counted by mbarrier bar
+__device__ __forceinline__ void tma_box(uint32_t dst, uint64_t map,
+                                        uint32_t bar, uint32_t bytes, int x0,
+                                        int y0, int z0, int c0, int n) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(x0), "r"(y0),
+      "r"(z0), "r"(c0), "r"(n)
+      : "memory");
 }
 
 template <int MODE, int MW, int NB>
 __global__ void __launch_bounds__(kThreads, 1)
-conv3d_dw_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ gr,
+conv3d_dw_bf16_tc(const __grid_constant__ CUtensorMap xmap,
+                  const bf16* __restrict__ x, const bf16* __restrict__ gr,
                   float* __restrict__ partial, int Ci, int Di, int Hi,
                   int Wi, int Co, int Do, int Ho, int Wo, int nbz, int nby,
                   int nbx, long long bricks, long long per_chunk,
-                  int qblocks, int vec_x, int vec_g) {
+                  int qblocks, int tma_x, int vec_g) {
   using K = DwK<MODE, MW, NB>;
   using Bs = DwB<MODE>;
-  constexpr int J = K::J;
-  extern __shared__ __align__(16) uint32_t smem[];
+  // TMA boxes land at 128-byte aligned shared addresses
+  extern __shared__ __align__(128) uint32_t smem_raw[];
+  uint32_t* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127) / 4;
+  const uint32_t mbar = smem_addr(smem + K::MBAR);     // + 8 s: slot s's
+  // the tensor map where it lies, in the kernel's parameters
+  const uint64_t xmap_at = reinterpret_cast<uint64_t>(&xmap);
   uint32_t* work = smem + K::NS * K::SLOT;   // copies (+ t2: g by class)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wg = warp / 4, wl = warp % 4;
+  // the warp's brick rows: (rz, ry) and, KW = 2, (rz + 1, ry)
+  const int rz = MODE == 1 ? warp / Bs::BY : 0, ry = warp % Bs::BY;
   const int c0 = (blockIdx.y / qblocks) * 8;
   const int q0 = (blockIdx.y % qblocks) * MW;
-  const int co0 = blockIdx.z * K::NW;
-  const int r0 = wg * Bs::KG;                // the warpgroup's brick rows
+  const int co0 = blockIdx.z * NB * 8;
 
-  // product j: this warp's tile's A halves (word offsets in the copies at
-  // brick row r0: lane's channel g, elements 4t..4t+3 of the stored row;
-  // -1 for an empty half or no tile), whether the product exists and its
-  // class (t2: which rows of g are its B)
-  int offA[J][2], clsJ[J];
-  bool live[J];
+  // the warp's tiles q0 + mt: A word offsets of both halves in the
+  // copies (lane's channel g, elements 4t..4t+3; an empty half reads
+  // zeros) and the B offset of the tile's class (t2)
+  int offA[MW][2], offG[MW];
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    int first, count;
-    tile_group<MODE, MW>(q0, j, first, count);
-    live[j] = count > 0;
-    clsJ[j] = count > 0 ? tile_class<MODE>(q0 + first) : 0;
+  for (int mt = 0; mt < MW; ++mt) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       int cp = 0, hz = 0, hy = 0, cls = 0;
-      const int tap =
-          wl < count ? tile_half<MODE>(q0 + first + wl, h, 0, 0, cp, hz, hy,
-                                       cls)
-                     : -1;
-      offA[j][h] = tap < 0 ? -1
-                           : ((cp * 8 + g) * Bs::PR + hz * Bs::EY + hy) * 8 +
-                                 2 * t + Bs::row_words(r0);
+      const int tap = tile_half<MODE>(q0 + mt, h, rz, ry, cp, hz, hy, cls);
+      if (h == 0) offG[mt] = cls * NB * 8 * Bs::PG / 2;
+      offA[mt][h] =
+          tap < 0 ? Bs::X_WORDS + K::G_WORDS + 2 * t
+                  : ((cp * 8 + g) * Bs::PR + hz * Bs::EY + hy) * 8 + 2 * t;
     }
   }
+  const int offB = (g * Bs::PG + (rz * Bs::BY + ry) * kBX + 4 * t) / 2;
+  for (int i = threadIdx.x; i < K::ZERO; i += kThreads)
+    work[Bs::X_WORDS + K::G_WORDS + i] = 0u;
+  if (tma_x && threadIdx.x == 0) {
+    for (int s = 0; s < K::NS; ++s) mbar_init(mbar + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float acc[J][NB][4];
+  float acc[MW][NB][4];
 #pragma unroll
-  for (int j = 0; j < J; ++j)
+  for (int mt = 0; mt < MW; ++mt)
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][nb][i] = 0.f;
+      for (int i = 0; i < 4; ++i) acc[mt][nb][i] = 0.f;
 
   const long long b_begin = (long long)blockIdx.x * per_chunk;
   const long long b_end =
       b_begin + per_chunk < bricks ? b_begin + per_chunk : bricks;
   const int nbk = b_end > b_begin ? (int)(b_end - b_begin) : 0;
 
-  // Read brick i's raw rows into ring slot s, a row a thread: 16-byte
-  // cp.async where the rows allow (zero-filled outside the volume), else
-  // element by element (plain loads and stores, visible after the
-  // barrier that follows).
+  // Read brick i's raw rows into ring slot s: x as one TMA box where its
+  // rows allow (zero-filled outside the volume), g a row a thread with
+  // 16-byte cp.async; else element by element (plain loads and stores,
+  // visible after the barrier that follows).
   auto issue = [&](int i, uint32_t* s) {
     long long b = b_begin + i;
     const int bx0 = (int)(b % nbx) * kBX;
@@ -381,57 +327,39 @@ conv3d_dw_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ gr,
     b /= nby;
     const int bz0 = (int)(b % nbz) * Bs::BZ;
     const int n = (int)(b / nbz);
-    const int xv = MODE == 1 ? 2 * bx0 : bx0;
-    for (int e = threadIdx.x; e < Bs::X_ITEMS; e += kThreads) {
-      const int ci = e / (Bs::EZ * Bs::EY), hz = (e / Bs::EY) % Bs::EZ,
-                hy = e % Bs::EY;
-      const int gz = MODE == 0 ? bz0 - 1 + hz : MODE == 1 ? 2 * bz0 - 1 + hz
-                                                          : bz0 + hz;
-      const int gy = MODE == 0 ? by0 - 1 + hy : MODE == 1 ? 2 * by0 - 1 + hy
-                                                          : by0 + hy;
-      const bool okr = c0 + ci < Ci && gz >= 0 && gz < Di && gy >= 0 &&
-                       gy < Hi;
-      const bf16* row =
-          okr ? x + (((long long)n * Ci + c0 + ci) * Di + gz) * Hi * Wi +
-                    (long long)gy * Wi
-              : x;
-      uint32_t* d = s + e * K::RXS;
-      if (vec_x) {
-        // W % 8 == 0: a vector, or a pair at an even input, lies wholly
-        // inside the row or outside it
+    // the halo's first input row, column and plane
+    const int x0 = (MODE == 1 ? 2 * bx0 : bx0) - 8 * Bs::LO;
+    const int y0 = MODE == 0 ? by0 - 1 : MODE == 1 ? 2 * by0 - 1 : by0;
+    const int z0 = MODE == 0 ? bz0 - 1 : MODE == 1 ? 2 * bz0 - 1 : bz0;
+    if (tma_x) {
+      // one box a brick, issued by one thread; mbarrier i % NS counts it
+      if (threadIdx.x == 0)
+        tma_box(smem_addr(s), xmap_at, mbar + 8 * (i % K::NS), 4 * K::RAWX,
+                x0, y0, z0, c0, n);
+    } else {
+      // rows not 16-byte aligned: element by element into the same
+      // layout (plain stores, visible after the barrier that follows)
+      for (int e = threadIdx.x; e < Bs::X_ITEMS; e += kThreads) {
+        const int ci = e / (Bs::EZ * Bs::EY), hz = (e / Bs::EY) % Bs::EZ,
+                  hy = e % Bs::EY;
+        const int gz = z0 + hz, gy = y0 + hy;
+        const bool okr = c0 + ci < Ci && gz >= 0 && gz < Di && gy >= 0 &&
+                         gy < Hi;
+        const bf16* row =
+            okr ? x + (((long long)n * Ci + c0 + ci) * Di + gz) * Hi * Wi +
+                      (long long)gy * Wi
+                : x;
+        uint32_t w[Bs::RW];
+        load_words(w, row, x0, Wi, okr);
+        uint32_t* d = s + e * Bs::RW;
 #pragma unroll
-        for (int k = 0; k < Bs::NV; ++k) {
-          const int xs = xv + 8 * k;
-          const bool in = okr && xs < Wi;
-          tc::cp_async16(reinterpret_cast<float*>(d + 4 * k),
-                         reinterpret_cast<const float*>(in ? row + xs : x),
-                         in ? 16 : 0);
-        }
-        if (Bs::LO) {
-          const bool in = okr && xv >= 2;
-          tc::cp_async4(reinterpret_cast<float*>(d + 4 * Bs::NV),
-                        reinterpret_cast<const float*>(in ? row + xv - 2 : x),
-                        in);
-        }
-        if (Bs::HI) {
-          const bool in = okr && xv + 16 < Wi;
-          tc::cp_async4(
-              reinterpret_cast<float*>(d + 4 * Bs::NV + 1),
-              reinterpret_cast<const float*>(in ? row + xv + 16 : x), in);
-        }
-      } else {
-        uint32_t w[Bs::NW];
-        load_words(w, row, Bs::LO ? xv - 2 : xv, Wi, okr);
-#pragma unroll
-        for (int k = 0; k < 4 * Bs::NV; ++k) d[k] = w[k + Bs::LO];
-        if (Bs::LO) d[4 * Bs::NV] = w[0];
-        if (Bs::HI) d[4 * Bs::NV + 1] = w[Bs::NW - 1];
+        for (int k = 0; k < Bs::RW; k += 4)
+          sts128(d + k, w[k], w[k + 1], w[k + 2], w[k + 3]);
       }
     }
     for (int e = threadIdx.x; e < K::G_ITEMS; e += kThreads) {
-      // g row e: (co, brick row rz, ry[, pz, py]) and its first output x;
-      // s1, s2: vector k (positions 8k..8k+7) is k half k of B's row
-      int co, oz, oy, gx0, vstep;
+      // g row e: (co, brick row rz, ry[, pz, py]) and its first output x
+      int co, oz, oy, gx0;
       uint32_t* d;
       if (MODE != 2) {
         co = e / Bs::R;
@@ -439,8 +367,7 @@ conv3d_dw_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ gr,
         oz = bz0 + rr / Bs::BY;
         oy = by0 + rr % Bs::BY;
         gx0 = bx0;
-        d = s + K::RAWX + rr * K::GROW + co * 4;
-        vstep = K::NW * 4;
+        d = s + K::RAWX + (co * Bs::PG + rr * kBX) / 2;
       } else {
         co = e / (4 * Bs::R);
         const int rem = e % (4 * Bs::R);
@@ -448,7 +375,6 @@ conv3d_dw_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ gr,
         oy = 2 * (by0 + (rem >> 2)) + (rem & 1);
         gx0 = 2 * bx0;
         d = s + K::RAWX + e * K::RGS;
-        vstep = 4;
       }
       const int cg = co0 + co;
       const bool okr = cg < Co && oz < Do && oy < Ho;
@@ -461,7 +387,7 @@ conv3d_dw_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ gr,
         for (int k = 0; k < Bs::NVG; ++k) {
           const int xs = gx0 + 8 * k;
           const bool in = okr && xs < Wo;
-          tc::cp_async16(reinterpret_cast<float*>(d + vstep * k),
+          tc::cp_async16(reinterpret_cast<float*>(d + 4 * k),
                          reinterpret_cast<const float*>(in ? row + xs : gr),
                          in ? 16 : 0);
         }
@@ -470,32 +396,33 @@ conv3d_dw_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ gr,
         load_span<Bs::NVG>(w, row, gx0, Wo, okr, false);
 #pragma unroll
         for (int k = 0; k < Bs::NVG; ++k)
-          sts128(d + vstep * k, w[4 * k], w[4 * k + 1], w[4 * k + 2],
+          sts128(d + 4 * k, w[4 * k], w[4 * k + 1], w[4 * k + 2],
                  w[4 * k + 3]);
       }
     }
   };
 
-  // The raw x rows of slot s into the kx-shifted copies (words in the
-  // order 0, 4, 1, 5, 2, 6, 3, 7); t2: the raw g rows into the 8
-  // classes' B rows.
+  // The raw x rows of slot s into the kx-shifted copies; t2: the raw g
+  // rows into the 8 classes' rows.
   auto transform = [&](const uint32_t* s) {
     for (int e = threadIdx.x; e < Bs::X_ITEMS; e += kThreads) {
       const int ci = e / (Bs::EZ * Bs::EY), hz = (e / Bs::EY) % Bs::EZ,
                 hy = e % Bs::EY;
-      // the row as one span of words from input XV - 2 LO
-      const uint32_t* r = s + e * K::RXS;
+      // the row as one span of words from input XV - 2 LO: raw word k +
+      // SW of the row's RW words
+      const uint32_t* r = s + e * Bs::RW;
+      uint32_t raw[Bs::RW];
+#pragma unroll
+      for (int k = 0; k < Bs::RW; k += 4) {
+        const uint4 v = *reinterpret_cast<const uint4*>(r + k);
+        raw[k] = v.x;
+        raw[k + 1] = v.y;
+        raw[k + 2] = v.z;
+        raw[k + 3] = v.w;
+      }
       uint32_t w[Bs::NW];
 #pragma unroll
-      for (int k = 0; k < Bs::NV; ++k) {
-        const uint4 v = *reinterpret_cast<const uint4*>(r + 4 * k);
-        w[Bs::LO + 4 * k] = v.x;
-        w[Bs::LO + 4 * k + 1] = v.y;
-        w[Bs::LO + 4 * k + 2] = v.z;
-        w[Bs::LO + 4 * k + 3] = v.w;
-      }
-      if (Bs::LO) w[0] = r[4 * Bs::NV];
-      if (Bs::HI) w[Bs::NW - 1] = r[4 * Bs::NV + 1];
+      for (int k = 0; k < Bs::NW; ++k) w[k] = raw[k + Bs::SW];
 #pragma unroll
       for (int cp = 0; cp < Bs::NCP; ++cp) {
         uint32_t* d = work + ((cp * 8 + ci) * Bs::PR + hz * Bs::EY + hy) * 8;
@@ -512,8 +439,8 @@ conv3d_dw_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ gr,
           else
             v[k] = pair_word(w, 2 * k + cp, 1);
         }
-        sts128(d, v[0], v[4], v[1], v[5]);
-        sts128(d + 4, v[2], v[6], v[3], v[7]);
+        sts128(d, v[0], v[1], v[2], v[3]);
+        sts128(d + 4, v[4], v[5], v[6], v[7]);
       }
     }
     if constexpr (MODE == 2) {
@@ -535,83 +462,74 @@ conv3d_dw_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ gr,
 #pragma unroll
         for (int px = 0; px < 2; ++px) {
           const int cls = pz * 4 + py * 2 + px;
-          uint32_t* d = sg + (cls * Bs::R + ry2) * K::GROW + co * 4;
+          uint32_t* d = sg + ((cls * NB * 8 + co) * Bs::PG + ry2 * kBX) / 2;
           uint32_t v[8];
 #pragma unroll
           for (int k = 0; k < 8; ++k) v[k] = pair_word(w, 4 * k + px, 2);
           sts128(d, v[0], v[1], v[2], v[3]);
-          sts128(d + K::NW * 4, v[4], v[5], v[6], v[7]);
+          sts128(d + 4, v[4], v[5], v[6], v[7]);
         }
       }
     }
   };
 
-  // The warpgroup's KG k16 steps of every product: a step's A fragments
-  // loaded into one of two register sets, its products issued and
-  // committed; wait_group 1 frees the set two steps back. A chain of KG
-  // products in the tensor cores, then one round-to-nearest add into acc:
-  // the flush, once a brick.
+  // The warp's KW k16 steps for every tile: G tiles at a time, their A
+  // fragments loaded and their MMAs issued before the sums are added (a
+  // chain of KW products in the tensor cores, then one round-to-nearest
+  // add into acc: the flush, once a brick)
   auto compute = [&](const uint32_t* sg) {
-    float d[J][NB][4];
+    uint2 bq[Bs::KW][NB];
+    if (MODE != 2) {
 #pragma unroll
-    for (int j = 0; j < J; ++j)
+      for (int k = 0; k < Bs::KW; ++k)
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) d[j][nb][i] = 0.f;
-    // SB steps a batch: SB x J A fragments in one of two register sets
-    constexpr int SB0 = 128 / (8 * J) < 1 ? 1 : 128 / (8 * J);
-    constexpr int SB = SB0 < Bs::KG ? SB0 : Bs::KG;
-    static_assert(Bs::KG % SB == 0, "whole batches");
-    uint32_t a[2][SB][J][4];
-#pragma unroll
-    for (int bt = 0; bt < Bs::KG / SB; ++bt) {
-      if (bt >= 2) wg_wait<1>();
-#pragma unroll
-      for (int sb = 0; sb < SB; ++sb) {
-        const int ro = Bs::row_words(bt * SB + sb);
-#pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const uint2 z = make_uint2(0u, 0u);
-          const uint2 lo =
-              offA[j][0] >= 0 ? lds64(work + offA[j][0] + ro) : z;
-          const uint2 hi =
-              offA[j][1] >= 0 ? lds64(work + offA[j][1] + ro) : z;
-          a[bt & 1][sb][j][0] = lo.x;
-          a[bt & 1][sb][j][1] = hi.x;
-          a[bt & 1][sb][j][2] = lo.y;
-          a[bt & 1][sb][j][3] = hi.y;
-        }
-      }
-      wg_fence();
-#pragma unroll
-      for (int sb = 0; sb < SB; ++sb) {
-        const int r = bt * SB + sb;
-#pragma unroll
-        for (int j = 0; j < J; ++j) {
-          if (!live[j]) continue;
-          const uint32_t* b =
-              sg + ((MODE == 2 ? clsJ[j] * Bs::R : 0) + r0 + r) * K::GROW;
-          wg_mma<NB>(d[j], a[bt & 1][sb][j], b_desc(b, K::NW), r > 0);
-        }
-      }
-      wg_commit();
+        for (int nb = 0; nb < NB; ++nb)
+          bq[k][nb] = lds64(sg + offB + k * Bs::B_STEP + nb * 8 * Bs::PG / 2);
     }
-    wg_wait<0>();
 #pragma unroll
-    for (int j = 0; j < J; ++j)
+    for (int m0 = 0; m0 < MW; m0 += K::G) {
+      float d[K::G][NB][4];
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
+      for (int k = 0; k < Bs::KW; ++k) {
+        uint2 lo[K::G], hi[K::G];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          reg_fence(d[j][nb][i]);
-          acc[j][nb][i] += d[j][nb][i];
+        for (int j = 0; j < K::G; ++j) {
+          if (m0 + j >= MW) continue;
+          lo[j] = lds64(work + offA[m0 + j][0] + k * Bs::A_STEP);
+          hi[j] = lds64(work + offA[m0 + j][1] + k * Bs::A_STEP);
         }
+#pragma unroll
+        for (int j = 0; j < K::G; ++j) {
+          if (m0 + j >= MW) continue;
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb) {
+            const uint2 b =
+                MODE == 2 ? lds64(sg + offG[m0 + j] + offB + nb * 8 * Bs::PG / 2)
+                          : bq[k][nb];
+            if (k == 0)
+              mma_zero(d[j][nb], lo[j].x, hi[j].x, lo[j].y, hi[j].y, b.x,
+                       b.y);
+            else
+              mma_acc(d[j][nb], lo[j].x, hi[j].x, lo[j].y, hi[j].y, b.x,
+                      b.y);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < K::G; ++j) {
+        if (m0 + j >= MW) continue;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m0 + j][nb][i] += d[j][nb][i];
+      }
+    }
   };
 
   // a ring of NS slots: brick i + NS - 1 is read while brick i is
   // transformed and computed; one cp.async group a brick (empty past the
-  // run's end), so wait_group<NS - 2> leaves brick i landed
+  // run's end), so wait_group<NS - 2> leaves brick i's g landed, and
+  // slot i % NS's mbarrier completes phase i / NS when x's box has landed
 #pragma unroll
   for (int j = 0; j < K::NS - 1; ++j) {
     if (j < nbk) issue(j, smem + j * K::SLOT);
@@ -619,57 +537,50 @@ conv3d_dw_bf16_tc(const bf16* __restrict__ x, const bf16* __restrict__ gr,
   }
   for (int i = 0; i < nbk; ++i) {
     tc::cp_async_wait<K::NS - 2>();
+    if (tma_x) mbar_wait(mbar + 8 * (i % K::NS), (i / K::NS) & 1);
     __syncthreads();           // brick i landed; brick i - 1's slot is free
     if (i + K::NS - 1 < nbk)
       issue(i + K::NS - 1, smem + ((i + K::NS - 1) % K::NS) * K::SLOT);
     tc::cp_async_commit();
     const uint32_t* slot = smem + (i % K::NS) * K::SLOT;
     transform(slot);
-    // the copies and B rows, written through the generic proxy, before
-    // the tensor cores read B through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
     compute(MODE == 2 ? work + Bs::X_WORDS : slot + K::RAWX);
   }
   tc::cp_async_wait<0>();
   __syncthreads();
 
-  // each warp holds its warpgroup's sums of its tile of every product:
-  // sum the warpgroups in order in shared memory (the ring is free now)
+  // each warp holds its brick rows' sums of every tile: sum the warps in
+  // order in shared memory (the ring is free now)
   float* red = reinterpret_cast<float*>(smem);
-  auto at = [&](int grp, int j, int w, int nb, int i) {
-    return ((((grp * J + j) * 4 + w) * NB + nb) * 4 + i) * 32 + lane;
-  };
 #pragma unroll
-  for (int j = 0; j < J; ++j)
+  for (int mt = 0; mt < MW; ++mt)
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) red[at(wg, j, wl, nb, i)] = acc[j][nb][i];
+      for (int i = 0; i < 4; ++i)
+        red[(((warp * MW + mt) * NB + nb) * 4 + i) * 32 + lane] =
+            acc[mt][nb][i];
   __syncthreads();
+  // warp w writes tiles w, w + 8 (MW <= 14)
   float* out = partial + (long long)blockIdx.x * Co * Ci * 27;
-  for (int sl = warp; sl < J * 4; sl += kWarps) {
-    const int j = sl / 4, w = sl % 4;
-    int first, count;
-    tile_group<MODE, MW>(q0, j, first, count);
-    if (w >= count) continue;
+  for (int mt = warp; mt < MW; mt += kWarps) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       int cp, hz, hy, cls;
-      const int tap =
-          tile_half<MODE>(q0 + first + w, h, 0, 0, cp, hz, hy, cls);
+      const int tap = tile_half<MODE>(q0 + mt, h, 0, 0, cp, hz, hy, cls);
       const int ci = c0 + g;
       if (tap < 0 || ci >= Ci) continue;
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int i = 2 * h + jj;
-          const int co = co0 + nb * 8 + 2 * t + jj;
+        for (int j = 0; j < 2; ++j) {
+          const int i = 2 * h + j;
+          const int co = co0 + nb * 8 + 2 * t + j;
           float sum = 0.f;
 #pragma unroll
-          for (int grp = 0; grp < kGroups; ++grp)
-            sum += red[at(grp, j, w, nb, i)];
+          for (int w = 0; w < kWarps; ++w)
+            sum += red[(((w * MW + mt) * NB + nb) * 4 + i) * 32 + lane];
           if (co < Co) out[((long long)co * Ci + ci) * 27 + tap] = sum;
         }
     }
@@ -696,6 +607,51 @@ sum_chunks(const float* __restrict__ partial, float* __restrict__ dw,
   dw[i] = total;
 }
 
+// The driver's cuTensorMapEncodeTiled, found once through the runtime
+// (no link to the driver library)
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) != cudaSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// x [N, Ci, Di, Hi, Wi] as a TMA tensor with boxes of [8][EZ][EY][2 RW]
+// elements (zero past its ends)
+template <int MODE>
+cudaError_t x_map(CUtensorMap* map, const bf16* x, int N, int Ci, int Di,
+                  int Hi, int Wi) {
+  using Bs = DwB<MODE>;
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[5] = {(cuuint64_t)Wi, (cuuint64_t)Hi, (cuuint64_t)Di,
+                              (cuuint64_t)Ci, (cuuint64_t)N};
+  const cuuint64_t row = 2 * (cuuint64_t)Wi;
+  const cuuint64_t strides[4] = {row, row * Hi, row * Hi * Di,
+                                 row * Hi * Di * Ci};
+  const cuuint32_t box[5] = {2 * Bs::RW, Bs::EY, Bs::EZ, 8, 1};
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<bf16*>(x), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int MODE, int MW, int NB>
 cudaError_t launch(const bf16* x, const bf16* g, float* partial, float* dw,
                    int N, int Ci, int Di, int Hi, int Wi, int Co, int Do,
@@ -720,11 +676,17 @@ cudaError_t launch(const bf16* x, const bf16* g, float* partial, float* dw,
   const int qblocks = kTiles / MW;
   dim3 grid((unsigned)chunks, (unsigned)(((Ci + 7) / 8) * qblocks),
             (unsigned)((Co + 8 * NB - 1) / (8 * NB)));
-  const int vec_x = Wi % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  // TMA needs 16-byte rows and a 16-byte aligned base
+  const int tma_x = Wi % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int vec_g = Wo % 8 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  kern<<<grid, kThreads, K::SMEM, s>>>(x, g, partial, Ci, Di, Hi, Wi, Co, Do,
-                                       Ho, Wo, nbz, nby, nbx, bricks,
-                                       per_chunk, qblocks, vec_x, vec_g);
+  CUtensorMap map{};
+  if (tma_x) {
+    err = x_map<MODE>(&map, x, N, Ci, Di, Hi, Wi);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<grid, kThreads, K::SMEM, s>>>(map, x, g, partial, Ci, Di, Hi, Wi,
+                                       Co, Do, Ho, Wo, nbz, nby, nbx, bricks,
+                                       per_chunk, qblocks, tma_x, vec_g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long n_out = (long long)Co * Ci * 27;

@@ -24,7 +24,8 @@
 // Staging: rows of x and g are read from device memory as whole 16-byte
 // vectors of 8 elements where the row allows (W % 8 == 0 and the base
 // aligned), else one element at a time, zero outside the volume (K2:
-// straight into registers; dw: into a cp.async ring, then registers); the
+// straight into registers; dw: x as TMA boxes and g by cp.async into a
+// ring, then registers); the
 // re-layout (channel transposes, the x shifts of the taps, the parity
 // split of a stride-2 row) is done in registers with byte permutes, and
 // the result stored to shared memory as 16-byte vectors.
