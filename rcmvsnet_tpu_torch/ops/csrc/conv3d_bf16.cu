@@ -48,7 +48,12 @@
 // staged rows (32 inputs read for 18 used in s1), the A fragments' shared
 // memory traffic (an m16 tile's A feeds NTB products, and up to 3 kz taps
 // in mode 0), one barrier a chunk, and n8 tiles padded past Co (Co = 1:
-// one column of 8).
+// one column of 8). x is not staged by TMA: it goes from device memory
+// through registers (the transpose) into shared memory in one pass, where
+// a box would add a raw buffer of the halo and a second shared-memory
+// pass; and at Ci <= 16, most of the U-Nets' convs, a block has one
+// chunk, so there is no ring to keep full: co-resident blocks overlap
+// each other's loads instead.
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -525,9 +525,10 @@ def _dwb_cfg(mode):
     r = bz * by
     nv = 4 if mode == "s2" else 2
     lo, hi = mode != "t2", mode != "s2"
+    sw, nw = 3 if lo else 0, 4 * nv + lo + hi
     return dict(BZ=bz, BY=by, R=r, KW=r // 8, EZ=ez, EY=ey, PR=pr,
                 NCP=2 if mode == "t2" else 3, NV=nv, LO=lo, HI=hi,
-                NW=4 * nv + lo + hi, PG=r * 16 + 16,
+                NW=nw, SW=sw, RW=((sw + nw + 3) // 4 | 1) * 4, PG=r * 16 + 16,
                 A_STEP=(2 if mode == "s2" else 1) * ey * 8, B_STEP=64)
 
 
@@ -708,6 +709,30 @@ def test_dw_bf16_kernel_emulation_matches_plain(mode, ci, co, shape):
     got = emulate_dw_bf16(x, g, mode)
     assert np.abs(got - want.reshape(co, ci, 27)).max() \
         <= 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("mode", ["s1", "s2", "t2"])
+def test_dw_bf16_tma_box_holds_the_span(mode):
+    """The bf16 dw kernel's TMA box of a halo row: it starts on a 16-byte
+    boundary (8 inputs), its rows are an odd number of 16-byte units (the
+    transform's loads of 8 rows on distinct banks), its sizes are TMA's,
+    and the span the transform reads from it (raw words SW.., zero past
+    the row's ends, as the box is filled) is the span the emulation
+    stages, for every brick of a row."""
+    c = _dwb_cfg(mode)
+    rw, sw, nw, lo = c["RW"], c["SW"], c["NW"], c["LO"]
+    assert (rw // 4) % 2 == 1 and sw + nw <= rw
+    assert max(2 * rw, c["EY"], c["EZ"], 8) <= 256
+    assert 8 * c["EZ"] * c["EY"] * 4 * rw < 1 << 20     # mbarrier tx count
+    for w in (16, 40, 64):
+        row = np.arange(1, w + 1, dtype=np.float64)
+        for bx0 in range(0, w if mode == "t2" else w + 16, 16):
+            xv = 2 * bx0 if mode == "s2" else bx0
+            x0 = xv - 8 * lo
+            assert x0 % 8 == 0
+            box = _span(row, x0, 2 * rw)
+            np.testing.assert_array_equal(
+                box[2 * sw:2 * sw + 2 * nw], _span(row, xv - 2 * lo, 2 * nw))
 
 
 @pytest.mark.parametrize("net", ["eval", "train"])
