@@ -114,7 +114,6 @@ struct DwB {
   static constexpr int SW = LO ? 3 : 0;
   static constexpr int RW = ((SW + NW + 3) / 4 | 1) * 4;
   static constexpr int NVG = MODE == 2 ? 4 : 2;      // g span
-  static constexpr int NCLS = MODE == 2 ? 8 : 1;
   // 32-byte rows a channel plane of copies: = 1 (mod 4), so the 8-byte
   // loads of four planes (one half-warp) fall on distinct banks
   static constexpr int PR = EZ * EY + ((1 - EZ * EY % 4) + 4) % 4;
@@ -265,7 +264,7 @@ conv3d_dw_bf16_tc(const __grid_constant__ CUtensorMap xmap,
   // TMA boxes land at 128-byte aligned shared addresses
   extern __shared__ __align__(128) uint32_t smem_raw[];
   uint32_t* smem = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127) / 4;
-  const uint32_t mbar = smem_addr(smem + K::MBAR);     // + 8 s: slot s's
+  const uint32_t mbar = smem_addr(smem + K::MBAR);  // slot s: mbar + 8 s
   // the tensor map where it lies, in the kernel's parameters
   const uint64_t xmap_at = reinterpret_cast<uint64_t>(&xmap);
   uint32_t* work = smem + K::NS * K::SLOT;   // copies (+ t2: g by class)
@@ -591,7 +590,7 @@ conv3d_dw_bf16_tc(const __grid_constant__ CUtensorMap xmap,
 // strands (strand y: chunks y, y + 32, ...) each summed in order, then the
 // strands in order; a block of 32 x 32 threads owns 32 consecutive outputs.
 __global__ void __launch_bounds__(1024)
-sum_chunks(const float* __restrict__ partial, float* __restrict__ dw,
+sum_chunks_bf16(const float* __restrict__ partial, float* __restrict__ dw,
            int chunks, long long n_out) {
   __shared__ float strand[32][33];
   const long long i = (long long)blockIdx.x * 32 + threadIdx.x;
@@ -690,7 +689,7 @@ cudaError_t launch(const bf16* x, const bf16* g, float* partial, float* dw,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long n_out = (long long)Co * Ci * 27;
-  sum_chunks<<<(unsigned)((n_out + 31) / 32), dim3(32, 32), 0, s>>>(
+  sum_chunks_bf16<<<(unsigned)((n_out + 31) / 32), dim3(32, 32), 0, s>>>(
       partial, dw, chunks, n_out);
   return cudaGetLastError();
 }

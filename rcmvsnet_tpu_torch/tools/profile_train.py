@@ -66,7 +66,7 @@ KEYS = ("clean_fwd", "aug_fwd", "render_fwd", "clean_grad", "aug_grad",
         "render_grad", "step")
 
 # the port's kernels by their CUDA function names (a bf16 instance names
-# bfloat16 in its template arguments); K6 and K7's backward share the
+# bfloat16 in its template arguments, or bf16 in its own name); K6 and K7's backward share the
 # fixed-point scatter's helpers (`csrc/warp_bwd.cuh`)
 PORT_KERNELS = (
     ("K1 warp_variance", r"\bwarp_variance_kernel\b"),
@@ -74,8 +74,8 @@ PORT_KERNELS = (
     ("K7 warp_volume", r"\bwarp_volume_kernel\b"),
     ("K7 warp_volume_bwd", r"\bwarp_volume_bwd_kernel\b"),
     ("K6/K7 bwd helpers", r"\b(absmax_kernel|choose_quantum|from_quanta)\b"),
-    ("K2 conv3d", r"\b(conv3d_tc|prep_weights)\b"),
-    ("K8 dw conv3d_dw", r"\b(conv3d_dw_tc|sum_chunks)\b"),
+    ("K2 conv3d", r"\b(conv3d_(bf16_)?tc|prep_weights(_bf16)?)\b"),
+    ("K8 dw conv3d_dw", r"\b(conv3d_dw_(bf16_)?tc|sum_chunks(_bf16)?)\b"),
     ("K4 depth_tail", r"\bdepth_tail_(kernel|stream)\b"),
     ("K5 conv2d", r"\b(conv2d_kernel|conv2d_tc|lateral_conv2d_tc)\b"),
     ("K10 warp_view", r"\bwarp_view_(lanes|scalar)_kernel\b"),

@@ -237,6 +237,25 @@ def test_profile_train_cpu(capsys, monkeypatch, tmp_path):
         "| bfloat16 | remat none")
 
 
+@pytest.mark.parametrize("name,label", [
+    ("void (anonymous namespace)::conv3d_bf16_tc<0, 4, 1, 16, "
+     "__nv_bfloat16>(__nv_bfloat16 const*)", "K2 conv3d bf16"),
+    ("(anonymous namespace)::prep_weights_bf16(__nv_bfloat16 const*)",
+     "K2 conv3d bf16"),
+    ("void (anonymous namespace)::conv3d_dw_bf16_tc<0, 14, 1>(CUtensorMap_st)",
+     "K8 dw conv3d_dw bf16"),
+    ("(anonymous namespace)::sum_chunks_bf16(float const*, float*, int)",
+     "K8 dw conv3d_dw bf16"),
+    ("(anonymous namespace)::sum_chunks(float const*, float*, int)",
+     "K8 dw conv3d_dw"),
+    ("void (anonymous namespace)::conv3d_tc<float, 0>(float const*)",
+     "K2 conv3d")])
+def test_profile_train_classifies_the_conv_kernels(name, label):
+    """The bf16 3-D conv kernels, which have sources and names of their
+    own, count as port kernels K2 and K8 dw under their bf16 labels."""
+    assert profile_train.classify(name) == label
+
+
 def test_profile_train_aggregates_a_trace():
     """Two steps of a hand-made trace: the port kernels by their CUDA
     names (a bf16 instance apart), the rest by class, copies by category,
