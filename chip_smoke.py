@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 Phases (none catches its own failure; any failure exits non-zero without
 the final "ok" line):
   1. device   require CUDA, print the card's name and power limit, TF32 off;
-  2. build    compile the nine CUDA sources (sm_90a, one nvcc each, in
+  2. build    compile the ten CUDA sources (sm_90a, one nvcc each, in
               parallel) and print the build seconds; count the tensor-core
               MMAs that `cuobjdump -sass` finds in each tensor-core kernel
               (a "_tc" in its name) of K2/K9, K8 dw and K5 and of
@@ -16,6 +16,9 @@ the final "ok" line):
               HGMMA alike): TF32 ones in each float32 kernel and bf16
               ones in each bf16 kernel, which must be > 0, with no bf16
               one in a float32 kernel and no TF32 one in a bf16 kernel;
+              count each bf16 warp kernel's global loads by width: K1-bf16
+              and K6-bf16 (`warp_variance_bf16.cu`) at every C, gathering
+              in 16- and 8-byte loads, none left in `warp_variance.cu`;
   3. kernels  hold each eval kernel against its plain PyTorch version on
               the card, at the DTU eval shapes (864x1152, V=5, stages
               216x288x32/48, 432x576x16/32, 864x1152x8/8): K1 at all 3
@@ -126,10 +129,11 @@ the final "ok" line):
               depth and confidence equal phase 4's in every bit, or else
               pass its gate (the result names which held);
  12. bf16     the bf16 eval path (eval_dtype bfloat16): phase 3 again
-              with the bf16 instances of K5 (every call), K1 (3 stages) and
-              K2 (every mode of the 3 U-Nets, the prob head writing
-              float32), each against its bf16 plain version to one bf16
-              ulp of each element plus 1e-4 of the largest value (rows
+              with the bf16 instances of K5 (every call), K1-bf16 (3
+              stages; `warp_variance_bf16.cu`) and K2 (every mode of the
+              3 U-Nets, the prob head writing float32), each against its
+              bf16 plain version to one bf16 ulp of each element plus
+              1e-4 of the largest value (rows
               "<kernel>_bf16", phase "bf16"; library: cuDNN on bf16
               tensors with the same folded weights); then `infer_views`
               at bf16 over phase 4's DTU views and phase 7's T&T views
@@ -149,7 +153,8 @@ the final "ok" line):
               (train_dtype bfloat16 for the backbone and the render
               U-Net) at phase 6's cell: (a) phase
               5 again with the bf16 instances (rows "<kernel>_bf16", phase
-              "bf16_train": K1 and K6 at the 3 stages, K7 forward and
+              "bf16_train": K1-bf16 and K6-bf16 (`warp_variance_bf16.cu`)
+              at the 3 stages, K7 forward and
               backward at stage 1, K2 in its train modes and K8 dw for
               every conv of the 3 CostRegNets and the render U-Net), each
               against its bf16 plain version to one bf16 ulp of each
@@ -379,6 +384,64 @@ def sass_mma_counts() -> dict:
     return {lib: count_mma(subprocess.run(
         [tool, "-sass", str(_build._target(lib))], capture_output=True,
         text=True, check=True).stdout) for lib in MMA_LIBS}
+
+
+# the library of K1-bf16 and K6-bf16 (phase 2's SASS check), the C widths
+# of its instances, and the float32 library they left
+WARP_BF16_LIB, WARP_LIB, WARP_CHANNELS = ("warp_variance_bf16",
+                                          "warp_variance", (8, 16, 32))
+
+
+def sass_loads(sass: str) -> dict:
+    """{function: {"128": n, "64": n, "32": n, "16": n}} of `cuobjdump
+    -sass` text: each function's global loads by width in bits."""
+    import re
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"128": 0, "64": 0, "32": 0, "16": 0}
+            continue
+        m = re.search(r"\bLDG(\.\S+)", line)
+        if name and m:
+            mods = m.group(1).split(".")
+            width = next((w for w in ("128", "64") if w in mods),
+                         "16" if {"U16", "S16"} & set(mods) else "32")
+            counts[name][width] += 1
+    return counts
+
+
+def warp_bf16_faults(loads: dict) -> list:
+    """Phase 2's rule on {library: sass_loads(its SASS)}: K1-bf16 and
+    K6-bf16 in their own library, an instance of each at every C,
+    K1-bf16 gathering in 16-byte loads and K6-bf16 in 8-byte ones (4
+    channels a lane), and no bf16 instance left in the float32 library.
+    Returns what breaks it."""
+    new = loads[WARP_BF16_LIB]
+    faults = [k for k in loads[WARP_LIB] if "bfloat16" in k]
+    for kernel, width in (("warp_variance_bf16_kernel", "128"),
+                          ("warp_variance_bwd_bf16_kernel", "64")):
+        for c in WARP_CHANNELS:
+            mine = [k for k in new if kernel in k and f"ILi{c}E" in k]
+            if not mine or not all(new[k][width] for k in mine):
+                faults.append(f"{kernel} C={c}: {mine}")
+    return faults
+
+
+def check_warp_bf16_sass() -> dict:
+    """`warp_bf16_faults` of the built libraries' SASS (`cuobjdump`);
+    returns each warp kernel's global loads by width."""
+    from rcmvsnet_tpu_torch.ops import _build
+    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    loads = {lib: sass_loads(subprocess.run(
+        [tool, "-sass", str(_build._target(lib))], capture_output=True,
+        text=True, check=True).stdout) for lib in (WARP_BF16_LIB, WARP_LIB)}
+    faults = warp_bf16_faults(loads)
+    if faults:
+        raise AssertionError(f"bf16 warp kernels' SASS: {faults} of {loads}")
+    return {k: v for lib in loads.values() for k, v in lib.items()
+            if "warp_variance" in k}
 
 
 def missing_mma(mma: dict) -> list:
@@ -2203,6 +2266,8 @@ def main() -> int:
         raise AssertionError(f"tensor-core kernels without their MMAs "
                              f"(TF32, or bf16 in a bf16 instance): {no_mma}"
                              f" of {mma}")
+    warp_loads = check_warp_bf16_sass()
+    print(json.dumps({"sass_warp_loads": warp_loads}), flush=True)
 
     # 3. kernels against their plain versions
     scene = plane_scene(H, W, V, SEED)
@@ -2343,13 +2408,13 @@ def main() -> int:
         ("conv2d_bf16", "bf16", "cuda", source + "csrc/conv2d.cu",
          "rcmvsnet_tpu/ops/pallas_conv2d.py:306"),
         ("warp_variance_bf16", "bf16", "cuda",
-         source + "csrc/warp_variance.cu",
+         source + "csrc/warp_variance_bf16.cu",
          "rcmvsnet_tpu/ops/pallas_warp2.py:393"),
         ("conv3d_bf16", "bf16", "cuda", source + "csrc/conv3d_bf16.cu",
          "rcmvsnet_tpu/ops/pallas_costreg.py:383 + "
          "rcmvsnet_tpu/ops/pallas_resample.py:59,117"),
         ("warp_variance_bwd_bf16", "bf16_train", "cuda",
-         source + "csrc/warp_variance.cu",
+         source + "csrc/warp_variance_bf16.cu",
          "rcmvsnet_tpu/ops/pallas_warp_train.py:306 (bwd :108, :374)"),
         ("warp_volume_bf16", "bf16_train", "cuda",
          source + "csrc/warp_volume.cu",
@@ -2398,7 +2463,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s, "nvcc": logs,
-        "sass_mma": mma,
+        "sass_mma": mma, "sass_warp_loads": warp_loads,
         "calls": ledger.rows, "main_path": main_path,
         "train_path": train_path, "tanks_path": tanks_path,
         "tools_path": tools_path, "train_cli": train_cli,

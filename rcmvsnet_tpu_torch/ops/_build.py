@@ -35,7 +35,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".ext_build"
 SOURCES = ("warp_variance", "conv3d", "conv2d", "warp_volume", "conv3d_dw",
-           "warp_view", "depth_tail", "conv3d_bf16", "conv3d_dw_bf16")
+           "warp_view", "depth_tail", "conv3d_bf16", "conv3d_dw_bf16",
+           "warp_variance_bf16")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMS = 132                     # streaming multiprocessors of an H100; the

@@ -74,6 +74,12 @@ struct Aux {
 constexpr long long kAuxBytes = 64;
 static_assert(sizeof(Aux) <= kAuxBytes, "Aux outgrew its slot");
 
+// Bytes of the scratch of a variance backward (K6 and K6-bf16): Aux, then
+// the int64 fixed-point sums [V-1, H, W, C].
+inline long long variance_bwd_scratch_bytes(int V, int H, int W, int C) {
+  return kAuxBytes + 8LL * (V - 1) * H * W * C;
+}
+
 // Channel c of the bilinear sample of map base [H, W, C]: the taps and
 // weights of sample_channels (bf16: of sample_quad, quad_weight's x
 // rounding), fused multiply-adds in the same order, so the backward's x_v

@@ -10,14 +10,14 @@
 // source neighbourhood it samples stays in L1/L2 from plane to plane.
 //
 // Per plane: lane q projects views q, q + L, ... (rot * [x, y, 1] once per
-// pixel, * dv + t per plane: warp::rot_row / depth_row), and the group
-// passes each view's taps on with __shfl_sync; every lane samples its
-// float4 of each view (warp::sample_quad) and hands it to the epilogue's
-// add(); the epilogue's stage() puts the plane's results of its lane in a
-// shared staging buffer, rows of PS floats ([row][pixel]); after one
-// barrier the block writes each row as a run of P consecutive floats of
-// row(r)[d, :, :]. The two staging buffers alternate between planes, so
-// one barrier a plane suffices.
+// pixel, * dv + t per plane: rot_rows, project_mine), and the group passes
+// each view's taps on with __shfl_sync (taps_of_view); every lane samples
+// its float4 of each view (warp::sample_quad) and hands it to the
+// epilogue's add(); the epilogue's stage() puts the plane's results of
+// its lane in a shared staging buffer, rows of PS floats ([row][pixel]);
+// after one barrier the block writes each row as a run of P consecutive
+// floats of row(r)[d, :, :]. The two staging buffers alternate between
+// planes, so one barrier a plane suffices.
 //
 // A pixel past the image computes the last one (its lanes take part in the
 // shuffles) and writes nothing. tests/test_torch_warp_lanes.py and
@@ -51,9 +51,10 @@ struct Plan {
   int dc, nz;     // planes a block walks, plane chunks
 };
 
-inline Plan fwd_plan(int H, int W, int C, int D) {
+// ch: channels a lane (K1-bf16, warp_variance_bf16.cu, gives a lane 8).
+inline Plan fwd_plan(int H, int W, int C, int D, int ch = 4) {
   Plan p;
-  p.P = kFwdThreads / (C / 4);
+  p.P = kFwdThreads / (C / ch);
   p.nx = ((long long)H * W + p.P - 1) / p.P;
   const long long want = (kTargetBlocks + p.nx - 1) / p.nx;
   const int nz = (int)(want < 1 ? 1 : want > D ? D : want);
@@ -70,6 +71,50 @@ struct FwdLanes {
   static constexpr int PS = P + 8 / L;            // staging row: banks distinct
   static constexpr int S = (NV + L - 1) / L;      // views a lane projects
 };
+
+// The projection hand-off, for groups of L lanes a pixel of which lane q
+// projects the S views q, q + L, ... of the nv source views (a lane past
+// the last view projects view 0's row, unused). K1-bf16 and K6-bf16
+// (warp_variance_bf16.cu) use it too.
+
+// rr: rot * [x, y, 1] of the views lane q projects, once per pixel.
+template <int S, int L>
+__device__ __forceinline__ void rot_rows(float (&rr)[S][3],
+                                         const float* s_rel, int q, int nv,
+                                         float fx, float fy) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float* m = s_rel + (s * L + q < nv ? s * L + q + 1 : 0) * 16;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) rr[s][r] = rot_row(m + 4 * r, fx, fy);
+  }
+}
+
+// The taps of the views lane q projects at depth dv, from their rr.
+template <int S, int L>
+__device__ __forceinline__ void project_mine(Taps (&mine)[S],
+                                             const float (&rr)[S][3],
+                                             const float* s_rel, int q,
+                                             int nv, float dv, int H,
+                                             int W) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float* m = s_rel + (s * L + q < nv ? s * L + q + 1 : 0) * 16;
+    mine[s] = taps_of_rows(depth_row(rr[s][0], m[3], dv),
+                           depth_row(rr[s][1], m[7], dv),
+                           depth_row(rr[s][2], m[11], dv), H, W);
+  }
+}
+
+// View v's taps, from the lane of the group that projected them.
+template <int S, int L>
+__device__ __forceinline__ Taps taps_of_view(const Taps (&mine)[S], int v) {
+  const Taps& o = mine[v / L];
+  return Taps{__shfl_sync(0xffffffffu, o.x0, v % L, L),
+              __shfl_sync(0xffffffffu, o.y0, v % L, L),
+              __shfl_sync(0xffffffffu, o.wx, v % L, L),
+              __shfl_sync(0xffffffffu, o.wy, v % L, L)};
+}
 
 // The sweep of one block: src [V, H, W, C] (view 0 the reference; float or
 // bf16, sampled by warp::sample_quad's rule for its type), rel [V, 16]
@@ -98,39 +143,22 @@ __device__ __forceinline__ void fwd_sweep(Epi& epi, float* s_rel,
   epi.begin(load4(src + pix * C + 4 * q));
   const int nv = V - 1;
 
-  // rot * [x, y, 1] of the views this lane projects, once per pixel
   float rr[S][3];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    const int v = s * L + q;
-    const float* m = s_rel + (v < nv ? v + 1 : 0) * 16;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) rr[s][r] = rot_row(m + 4 * r, fx, fy);
-  }
+  rot_rows<S, L>(rr, s_rel, q, nv, fx, fy);
 
   const int d0 = blockIdx.y * DC, d1 = min(D, d0 + DC);
   for (int d = d0; d < d1; ++d) {
-    const float dv = plane_depth(lo_p, step_p, d);
     Taps mine[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float* m = s_rel + (s * L + q < nv ? s * L + q + 1 : 0) * 16;
-      mine[s] = taps_of_rows(depth_row(rr[s][0], m[3], dv),
-                             depth_row(rr[s][1], m[7], dv),
-                             depth_row(rr[s][2], m[11], dv), H, W);
-    }
+    project_mine<S, L>(mine, rr, s_rel, q, nv,
+                       plane_depth(lo_p, step_p, d), H, W);
     float4 sum, sq;
     epi.start(sum, sq);
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       if (v >= nv) break;                  // the same in the whole warp
-      const Taps& o = mine[v / L];         // projected by lane v % L
-      const Taps t{__shfl_sync(0xffffffffu, o.x0, v % L, L),
-                   __shfl_sync(0xffffffffu, o.y0, v % L, L),
-                   __shfl_sync(0xffffffffu, o.wx, v % L, L),
-                   __shfl_sync(0xffffffffu, o.wy, v % L, L)};
       epi.add(sum, sq,
-              sample_quad<C>(src + (long long)(v + 1) * HW * C, t, H, W, q));
+              sample_quad<C>(src + (long long)(v + 1) * HW * C,
+                             taps_of_view<S, L>(mine, v), H, W, q));
     }
 
     float* so = s_out + ((d - d0) & 1) * rows * PS;

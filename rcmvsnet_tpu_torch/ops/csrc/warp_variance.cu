@@ -1,5 +1,6 @@
 // Fused plane-sweep warp + multi-view variance (float32) and its
-// backward, for Hopper; and the forward's bf16 instance.
+// backward, for Hopper. The bf16 pair (K1-bf16, K6-bf16) has a source of
+// its own, warp_variance_bf16.cu.
 //
 // Forward (K1) replaces the TPU kernel rcmvsnet_tpu/ops/pallas_warp2.py
 // plane_sweep_variance_lanes (planes mode: _warp_var_plane_kernel, coords
@@ -49,14 +50,6 @@
 // the output is the same bit for bit (tools/ab_warp_fwd.py checks builds
 // with torch.equal).
 //
-// bf16 instance (the bf16 eval path, warp_variance_bf16): the same sweep
-// over bf16 feature maps [V, h, w, C] (a lane's 4 channels one 8-byte
-// gather a tap), each bilinear x weight rounded to bf16 before it
-// multiplies the float32 y weight (warp_common.cuh), sums, squares and
-// variance in float32 as above, the variance rounded to bf16 once as it
-// is written: the JAX kernel at compute_dtype = out_dtype = bf16
-// (pallas_warp2.py:228-243, :151).
-//
 // Backward (K6) replaces the backward kernel of
 // rcmvsnet_tpu/ops/pallas_warp_train.py plane_sweep_variance_fused_train
 // (:306; _warp_var_bwd_kernel :108, pallas_call :374). With x_v the warped
@@ -74,12 +67,6 @@
 // tap. Runs are flushed as 64-bit fixed-point integer adds
 // (warp_bwd.cuh), so the result is the same bit for bit in every run, as
 // the TPU kernel's is. No float atomics.
-// Its bf16 instance (the bf16 train path, warp_variance_bwd_bf16): src,
-// g and dsrc bf16; x_v the bf16 forward's samples, the cotangents and
-// sums float32, each source-view tap's contribution rounded as
-// warp_bwd.cuh's bf16 note says, the 64-bit fixed-point scatter kept (so
-// it repeats bit for bit), dsrc rounded to bf16 once (JAX casts dfeat to
-// the features' dtype, pallas_warp_train.py:400).
 //
 // Layouts: src and dsrc [V, h, w, C] channels-last (one tap reads C
 // contiguous floats); rel [V, 16] row-major relative projections (row 0
@@ -113,11 +100,9 @@ using warp::kMaxViews;
 
 // K1's epilogue of the forward sweep (warp_fwd.cuh): sum x and sum x^2 start
 // at the reference view, each source view adds its float4, and the plane
-// stages its C variances, one row per channel of out [C, D, h, w] (TO:
-// float, or bf16 for the bf16 instance).
-template <class TO>
+// stages its C variances, one row per channel of out [C, D, h, w].
 struct VarianceEpi {
-  TO* out;
+  float* out;
   float inv_v;
   long long plane;                         // D * h * w
   float4 ref, ref_sq;
@@ -154,22 +139,22 @@ struct VarianceEpi {
           __fsub_rn(__fmul_rn(q4[k], inv_v), __fmul_rn(mean, mean));
     }
   }
-  __device__ TO* row(int r) const { return out + r * plane; }
+  __device__ float* row(int r) const { return out + r * plane; }
 };
 
 // K1: the forward sweep with VarianceEpi; NV bounds the source views
-// (V - 1), the grid is fwd_plan's. T: the element type of src and out.
-template <int C, int NV, class T>
+// (V - 1), the grid is fwd_plan's.
+template <int C, int NV>
 __global__ void __launch_bounds__(warp::kFwdThreads)
-warp_variance_kernel(const T* __restrict__ src,
+warp_variance_kernel(const float* __restrict__ src,
                      const float* __restrict__ rel,
                      const float* __restrict__ lo,
                      const float* __restrict__ step,
-                     T* __restrict__ out,
+                     float* __restrict__ out,
                      int V, int H, int W, int D, int DC) {
   __shared__ float s_rel[kMaxViews * 16];
   __shared__ float s_out[2 * C * warp::FwdLanes<C, NV>::PS];
-  VarianceEpi<T> epi{out, 1.f / (float)V, (long long)D * H * W};
+  VarianceEpi epi{out, 1.f / (float)V, (long long)D * H * W};
   warp::fwd_sweep<C, NV>(epi, s_rel, rel, src, lo, step, s_out, C, V, H, W,
                          D, DC);
 }
@@ -177,16 +162,15 @@ warp_variance_kernel(const T* __restrict__ src,
 constexpr int kPlaneChunk = 8;     // planes of g staged per __syncthreads
 
 // K6: one group of C lanes per reference pixel (256 / C pixels a block);
-// NV bounds the source views (V - 1) the registers hold. T: the element
-// type of src, g and dsrc.
-template <int C, int NV, class T>
+// NV bounds the source views (V - 1) the registers hold.
+template <int C, int NV>
 __global__ void __launch_bounds__(warp::kBwdThreads)
-warp_variance_bwd_kernel(const T* __restrict__ src,
+warp_variance_bwd_kernel(const float* __restrict__ src,
                          const float* __restrict__ rel,
                          const float* __restrict__ lo,
                          const float* __restrict__ step,
-                         const T* __restrict__ g,
-                         T* __restrict__ dsrc,
+                         const float* __restrict__ g,
+                         float* __restrict__ dsrc,
                          unsigned long long* __restrict__ acc,
                          const warp::Quantum* __restrict__ quantum,
                          int V, int H, int W, int D) {
@@ -265,42 +249,42 @@ warp_variance_bwd_kernel(const T* __restrict__ src,
   warp::store_out(dsrc + pix * C + c, dref);
 }
 
-template <int C, int NV, class T>
-cudaError_t launch(const T* src, const float* rel, const float* lo,
-                   const float* step, T* out, int V, int H, int W, int D,
+template <int C, int NV>
+cudaError_t launch(const float* src, const float* rel, const float* lo,
+                   const float* step, float* out, int V, int H, int W, int D,
                    cudaStream_t stream) {
   const warp::Plan p = warp::fwd_plan(H, W, C, D);
-  warp_variance_kernel<C, NV, T>
+  warp_variance_kernel<C, NV>
       <<<dim3((unsigned)p.nx, (unsigned)p.nz), warp::kFwdThreads, 0,
          stream>>>(
           src, rel, lo, step, out, V, H, W, D, p.dc);
   return cudaGetLastError();
 }
 
-template <int C, class T>
-cudaError_t launch_views(const T* src, const float* rel, const float* lo,
-                         const float* step, T* out, int V, int H, int W,
+template <int C>
+cudaError_t launch_views(const float* src, const float* rel, const float* lo,
+                         const float* step, float* out, int V, int H, int W,
                          int D, cudaStream_t s) {
   if (V <= 4) return launch<C, 3>(src, rel, lo, step, out, V, H, W, D, s);
   if (V <= 8) return launch<C, 7>(src, rel, lo, step, out, V, H, W, D, s);
   return launch<C, 15>(src, rel, lo, step, out, V, H, W, D, s);
 }
 
-template <int C, int NV, class T>
-void launch_bwd(const T* src, const float* rel, const float* lo,
-                const float* step, const T* g, T* dsrc,
+template <int C, int NV>
+void launch_bwd(const float* src, const float* rel, const float* lo,
+                const float* step, const float* g, float* dsrc,
                 unsigned long long* acc, const warp::Quantum* q, int V,
                 int H, int W, int D, cudaStream_t stream) {
   constexpr int P = warp::kBwdThreads / C;
   const long long HW = (long long)H * W;
-  warp_variance_bwd_kernel<C, NV, T>
+  warp_variance_bwd_kernel<C, NV>
       <<<(unsigned)((HW + P - 1) / P), warp::kBwdThreads, 0, stream>>>(
           src, rel, lo, step, g, dsrc, acc, q, V, H, W, D);
 }
 
-template <int C, class T>
-void launch_bwd_views(const T* src, const float* rel, const float* lo,
-                      const float* step, const T* g, T* dsrc,
+template <int C>
+void launch_bwd_views(const float* src, const float* rel, const float* lo,
+                      const float* step, const float* g, float* dsrc,
                       unsigned long long* acc, const warp::Quantum* q, int V,
                       int H, int W, int D, cudaStream_t stream) {
   if (V <= 4)
@@ -312,9 +296,8 @@ void launch_bwd_views(const T* src, const float* rel, const float* lo,
                       stream);
 }
 
-template <class T>
-cudaError_t forward(const T* src, const float* rel, const float* lo,
-                    const float* step, T* out, int V, int H, int W, int C,
+cudaError_t forward(const float* src, const float* rel, const float* lo,
+                    const float* step, float* out, int V, int H, int W, int C,
                     int D, cudaStream_t s) {
   if (V < 1 || V > kMaxViews || D < 1 || (long long)H * W < 1)
     return cudaErrorInvalidValue;
@@ -336,27 +319,17 @@ extern "C" int warp_variance_f32(const float* src, const float* rel,
                       (cudaStream_t)stream);
 }
 
-// K1's bf16 instance: src [V, H, W, C] and out [C, D, H, W] bf16.
-extern "C" int warp_variance_bf16(const __nv_bfloat16* src, const float* rel,
-                                  const float* lo, const float* step,
-                                  __nv_bfloat16* out, int V, int H, int W,
-                                  int C, int D, void* stream) {
-  return (int)forward(src, rel, lo, step, out, V, H, W, C, D,
-                      (cudaStream_t)stream);
-}
-
 // Bytes of the scratch warp_variance_bwd_f32 takes (any contents).
 extern "C" long long warp_variance_bwd_scratch_bytes(int V, int H, int W,
                                                      int C) {
-  return warp::kAuxBytes + 8LL * (V - 1) * H * W * C;
+  return warp::variance_bwd_scratch_bytes(V, H, W, C);
 }
 
 namespace {
 
-template <class T>
-int backward(const T* src, const float* rel, const float* lo,
-             const float* step, const T* g, T* dsrc, void* scratch, int V,
-             int H, int W, int C, int D, void* stream) {
+int backward(const float* src, const float* rel, const float* lo,
+             const float* step, const float* g, float* dsrc, void* scratch,
+             int V, int H, int W, int C, int D, void* stream) {
   if (V < 1 || V > kMaxViews) return (int)cudaErrorInvalidValue;
   if (C != 8 && C != 16 && C != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -364,10 +337,9 @@ int backward(const T* src, const float* rel, const float* lo,
   warp::Aux* aux = static_cast<warp::Aux*>(scratch);
   auto* acc = reinterpret_cast<unsigned long long*>(
       static_cast<char*>(scratch) + warp::kAuxBytes);
-  constexpr bool half = sizeof(T) == 2;
   warp::AbsMaxArgs a{{src, g, nullptr, nullptr},
                      {V * HW * C, C * D * HW, 0, 0},
-                     {half, half, false, false}};
+                     {false, false, false, false}};
   warp::prepare_scratch(scratch,
                         warp_variance_bwd_scratch_bytes(V, H, W, C), a,
                         D * HW, V, false, s);
@@ -393,18 +365,6 @@ extern "C" int warp_variance_bwd_f32(const float* src, const float* rel,
                                      const float* g, float* dsrc,
                                      void* scratch, int V, int H, int W,
                                      int C, int D, void* stream) {
-  return backward(src, rel, lo, step, g, dsrc, scratch, V, H, W, C, D,
-                  stream);
-}
-
-// K6's bf16 instance: src, g and dsrc bf16; the same scratch.
-extern "C" int warp_variance_bwd_bf16(const __nv_bfloat16* src,
-                                      const float* rel, const float* lo,
-                                      const float* step,
-                                      const __nv_bfloat16* g,
-                                      __nv_bfloat16* dsrc, void* scratch,
-                                      int V, int H, int W, int C, int D,
-                                      void* stream) {
   return backward(src, rel, lo, step, g, dsrc, scratch, V, H, W, C, D,
                   stream);
 }

@@ -1,10 +1,10 @@
 """K1: fused plane-sweep warp + multi-view variance, and K6, its backward.
 
 `warp_variance` launches the CUDA kernel `csrc/warp_variance.cu` for a
-CUDA tensor; for a CPU tensor it returns `warp_variance_plain`, the same
-function in plain PyTorch (`ops/warp.plane_sweep_variance` on the
-[D, h, w] hypothesis volume built from (lo, step)). The kernel gives a
-group of C/4 lanes to each reference pixel (one float4 of channels a
+float32 CUDA tensor; for a CPU tensor it returns `warp_variance_plain`,
+the same function in plain PyTorch (`ops/warp.plane_sweep_variance` on
+the [D, h, w] hypothesis volume built from (lo, step)). The kernel gives
+a group of C/4 lanes to each reference pixel (one float4 of channels a
 lane) and a block of 256 lanes walks a chunk of planes for its pixels
 (the kernel's entry sizes the grid: `plan` in the source).
 
@@ -16,21 +16,23 @@ bit. `warp_variance_train` wraps the pair in one `torch.autograd.Function`;
 the projections and depth planes get no gradient (the sampling grid carries
 none).
 
-bfloat16 (the bf16 eval path): bf16 feats select the forward's bf16
-instance (counted in `warp_variance.bf16.launches`, the float32 one in
-`warp_variance.launches`):
-the same sweep over bf16 maps, each bilinear x weight rounded to bf16, the
-y weights, Σx and Σx² float32, the variance rounded to bf16, as the JAX
-kernel at its default compute and output dtype bf16. Its plain version
-samples at K1's own coordinates (`ops/warp_view.pixel_coords`) with the
-same weights and sums in K1's order.
+bfloat16 (the bf16 eval path): bf16 feats select K1-bf16, the forward of
+`csrc/warp_variance_bf16.cu` (8 channels a lane, one 16-byte gather a
+tap; counted in `warp_variance.bf16.launches`, the float32 kernel in
+`warp_variance.launches`): the same function over bf16 maps, each
+bilinear x weight rounded to bf16, the y weights, Σx and Σx² float32,
+the variance rounded to bf16, as the JAX kernel at its default compute
+and output dtype bf16. Its plain version samples at K1's own coordinates
+(`ops/warp_view.pixel_coords`) with the same weights and sums in K1's
+order.
 
 bf16 feats under autograd (the bf16 train path): `warp_variance_train`
-runs the bf16 forward and K6's bf16 instance (`warp_variance_bwd`,
-counted in `warp_variance_bwd.bf16.launches`): bf16 feats and cotangent,
-each source tap's contribution bf16(e·wy)·bf16(wx) of the float32
-cotangent e of its sample (JAX `pallas_warp_train.py:180-182,251-253`),
-the same fixed-point scatter, dfeats rounded to bf16 once.
+runs K1-bf16 and K6-bf16, the backward of `csrc/warp_variance_bf16.cu`
+(4 channels a lane; `warp_variance_bwd`, counted in
+`warp_variance_bwd.bf16.launches`): bf16 feats and cotangent, each
+source tap's contribution bf16(e·wy)·bf16(wx) of the float32 cotangent
+e of its sample (JAX `pallas_warp_train.py:180-182,251-253`), the same
+fixed-point scatter, dfeats rounded to bf16 once.
 `warp_variance_bwd_plain` of bf16 feats spells that out in PyTorch
 (float64 sums); `warp_variance_train(..., plain=True)` runs the plain
 pair under autograd.
@@ -197,8 +199,8 @@ def warp_variance_bwd_plain(feats: torch.Tensor, projs: torch.Tensor,
         return torch.autograd.grad(var, f, g)[0]
 
 
-def _lib(entry="warp_variance_f32", n_ptr=5):
-    fn = getattr(_build.load("warp_variance"), entry)
+def _lib(entry="warp_variance_f32", n_ptr=5, source="warp_variance"):
+    fn = getattr(_build.load(source), entry)
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
@@ -244,7 +246,8 @@ def warp_variance(feats: torch.Tensor, projs: torch.Tensor,
         _build.require_cuda("warp_variance", feats, rel, lo, step)
     out = torch.empty((C, ndepth, h, w), dtype=feats.dtype,
                       device=feats.device)
-    err = _lib("warp_variance_bf16" if bf16 else "warp_variance_f32")(
+    err = (_lib("warp_variance_bf16", source="warp_variance_bf16") if bf16
+           else _lib())(
         feats.data_ptr(), rel.data_ptr(), lo.data_ptr(), step.data_ptr(),
         out.data_ptr(), V, h, w, C, ndepth, _build.stream_ptr(feats.device))
     _build.check(err, "warp_variance")
@@ -277,9 +280,10 @@ def warp_variance_bwd(feats: torch.Tensor, projs: torch.Tensor,
     else:
         _build.require_cuda("warp_variance_bwd", feats, rel, lo, step, g)
     dsrc = torch.empty_like(feats)
-    scratch = bwd_scratch("warp_variance", feats)
+    source = "warp_variance_bf16" if bf16 else "warp_variance"
+    scratch = bwd_scratch(source, feats)
     err = _lib("warp_variance_bwd_bf16" if bf16 else "warp_variance_bwd_f32",
-               7)(
+               7, source)(
         feats.data_ptr(), rel.data_ptr(), lo.data_ptr(), step.data_ptr(),
         g.data_ptr(), dsrc.data_ptr(), scratch.data_ptr(), V, h, w, C, D,
         _build.stream_ptr(feats.device))

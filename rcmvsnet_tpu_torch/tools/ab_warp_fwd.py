@@ -4,9 +4,11 @@ volume) for builds of their CUDA sources, in turns, on one card, with the
 builds' outputs held equal bit for bit.
 
 Each argument is a directory holding `warp_variance.cu`,
-`warp_volume.cu` and the shared headers (`warp_common.cuh`,
-`warp_bwd.cuh` and, where the build has it, `warp_fwd.cuh`); default: the
-package's own `ops/csrc/`. Every build runs the same inputs: K1 at the
+`warp_volume.cu`, the shared headers (`warp_common.cuh`, `warp_bwd.cuh`
+and, where the build has it, `warp_fwd.cuh`) and, where the build has it,
+`warp_variance_bf16.cu` (K1-bf16 and K6-bf16; older builds export them
+from `warp_variance.cu`: `load_builds`); default: the package's own
+`ops/csrc/`. Every build runs the same inputs: K1 at the
 DTU eval shapes (864×1152, V=5, stages 48/32/8 planes;
 `tools/profile_breakdown.stage_inputs`) and at the train shapes
 (512×640, V=4; `tools/repeat_warp_bwd.train_stages`), and K7's forward
@@ -22,10 +24,12 @@ its build's turns (each the median of 7 CUDA-event timings,
 result is held to its plain version (1e-4 of the largest value) and to
 the first build's result with `torch.equal` (every bit); the tool fails
 after its report if any build's output differs. The bf16 instances run
-too ("bf16 ..." rows: K1-bf16 at the train stages, K7-bf16 at stage 1,
-through the wrappers, on the inputs rounded to bf16; held to their bf16
-plain versions to one bf16 ulp of each element + 1e-4 of the largest
-value), on the builds whose libraries export them ("n/a" elsewhere).
+too ("bf16 ..." rows: K1-bf16 at the DTU and the train stages, K7-bf16 at
+stage 1, through the wrappers, on the inputs rounded to bf16; held to
+their bf16 plain versions to one bf16 ulp of each element + 1e-4 of the
+largest value), on the builds whose libraries export them ("n/a"
+elsewhere). The report ends with K1's float32 and bf16 totals over the DTU
+stages (a map) and over the train stages.
 
 Usage:
   python -m rcmvsnet_tpu_torch.tools.ab_warp_fwd [--rounds N] [SRC_DIR ...]
@@ -37,6 +41,7 @@ import ctypes
 import json
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
@@ -47,8 +52,34 @@ from ..ops import warp_volume as K7
 from .repeat_warp_bwd import within_plain
 from .timing import device_label, make_timer
 
-LIBS = ("warp_variance", "warp_volume")
+LIBS = ("warp_variance", "warp_volume", "warp_variance_bf16")
 SEED = 5
+# the bf16 warp entries a build from before `warp_variance_bf16.cu`
+# exports from `warp_variance.cu`, by the names the wrappers ask the new
+# library for
+OLD_BF16 = {"warp_variance_bf16": "warp_variance_bf16",
+            "warp_variance_bwd_bf16": "warp_variance_bwd_bf16",
+            "warp_variance_bf16_bwd_scratch_bytes":
+                "warp_variance_bwd_scratch_bytes"}
+
+
+def load_builds(srcs) -> list[dict]:
+    """Each build's libraries by name (`_build.load_from` of the sources
+    of LIBS its directory holds). A build without `warp_variance_bf16.cu`
+    serves the bf16 entries of its `warp_variance.cu` under that
+    library's name, so the wrappers launch the current build's K1-bf16
+    and K6-bf16 whichever source holds them."""
+    builds = []
+    for s in srcs:
+        names = [n for n in LIBS if (Path(s) / f"{n}.cu").exists()]
+        libs = _build.load_from(Path(s), names)
+        if "warp_variance_bf16" not in libs:
+            old = libs["warp_variance"]
+            libs["warp_variance_bf16"] = SimpleNamespace(**{
+                new: getattr(old, name) for new, name in OLD_BF16.items()
+                if hasattr(old, name)})
+        builds.append(libs)
+    return builds
 
 
 def k1_inputs(device, gen, dtu=(864, 1152, 5), train=(512, 640, 4)):
@@ -140,7 +171,7 @@ def run(device, srcs, rounds=2) -> dict:
     """{label: [least ms of each build]}, every turn's ms, the totals and,
     per label, whether each build's output equals the first build's in
     every bit."""
-    builds = [_build.load_from(Path(s), LIBS) for s in srcs]
+    builds = load_builds(srcs)
     k7_ptrs = [entry_pointers(Path(s), "warp_volume_f32") for s in srcs]
     gen = torch.Generator(device=device).manual_seed(SEED)
     k1_calls, (k7_label, k7_args) = k1_inputs(device, gen)
@@ -153,12 +184,11 @@ def run(device, srcs, rounds=2) -> dict:
                   lambda: K7.warp_volume_plain(*k7_args)))
     # the bf16 instances, through the wrappers
     for label, args in k1_calls:
-        if label.startswith("train"):
-            a = (args[0].bfloat16(), *args[1:])
-            calls.append((f"bf16 K1 {label}", ("warp_variance",
-                                               "warp_variance_bf16"),
-                          lambda i, a=a: (K1.warp_variance(*a),),
-                          lambda a=a: (K1.warp_variance_plain(*a),)))
+        a = (args[0].bfloat16(), *args[1:])
+        calls.append((f"bf16 K1 {label}", ("warp_variance_bf16",
+                                           "warp_variance_bf16"),
+                      lambda i, a=a: (K1.warp_variance(*a),),
+                      lambda a=a: (K1.warp_variance_plain(*a),)))
     a7 = (k7_args[0].bfloat16(), k7_args[1].bfloat16(), *k7_args[2:])
     calls.append((f"bf16 {k7_label}", ("warp_volume", "warp_volume_bf16"),
                   lambda i: K7.warp_volume(*a7),
@@ -190,13 +220,25 @@ def run(device, srcs, rounds=2) -> dict:
     for label, row in turn_ms.items():
         print(spread_line(label, row) + "  equal: " + " ".join(
             "yes" if e else "NO" for e in equal[label]))
-    totals = [sum(row[i] for label, row in ms.items()
-                  if label != k7_label and not label.startswith("bf16 "))
-              for i in range(len(srcs))]
-    print(f"{'K1 total ms (least)':36s} "
-          + "  ".join(f"{t:15.3f}" for t in totals))
+    totals = {kind: total_ms(ms, [label for label in ms
+                                  if label.startswith(prefix)], len(srcs))
+              for kind, prefix in (
+                  ("float32 DTU map", "eval "), ("float32 train", "train "),
+                  ("bf16 DTU map", "bf16 K1 eval "),
+                  ("bf16 train", "bf16 K1 train "))}
+    for kind, row in totals.items():
+        print(f"{'K1 total ms (least), ' + kind:41s} " + "  ".join(
+            f"{'n/a':15s}" if t is None else f"{t:15.3f}" for t in row))
     return {"ms": ms, "turns_ms": turn_ms, "total_ms": totals,
             "bit_equal": equal}
+
+
+def total_ms(ms: dict, labels, n: int) -> list:
+    """Per build, the sum of its least ms over `labels` (None where the
+    build lacks one of them)."""
+    rows = [ms[label] for label in labels]
+    return [None if any(r[i] is None for r in rows)
+            else sum(r[i] for r in rows) for i in range(n)]
 
 
 def main(argv=None):

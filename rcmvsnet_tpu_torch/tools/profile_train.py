@@ -69,8 +69,8 @@ KEYS = ("clean_fwd", "aug_fwd", "render_fwd", "clean_grad", "aug_grad",
 # bfloat16 in its template arguments, or bf16 in its own name); K6 and K7's backward share the
 # fixed-point scatter's helpers (`csrc/warp_bwd.cuh`)
 PORT_KERNELS = (
-    ("K1 warp_variance", r"\bwarp_variance_kernel\b"),
-    ("K6 warp_variance_bwd", r"\bwarp_variance_bwd_kernel\b"),
+    ("K1 warp_variance", r"\bwarp_variance(_bf16)?_kernel\b"),
+    ("K6 warp_variance_bwd", r"\bwarp_variance_bwd(_bf16)?_kernel\b"),
     ("K7 warp_volume", r"\bwarp_volume_kernel\b"),
     ("K7 warp_volume_bwd", r"\bwarp_volume_bwd_kernel\b"),
     ("K6/K7 bwd helpers", r"\b(absmax_kernel|choose_quantum|from_quanta)\b"),

@@ -80,6 +80,48 @@ def test_sass_check_sees_wgmma_and_mma(mma, missing):
         {"lib": bad}))
 
 
+WARP_SASS = """
+        Function : _ZN12_GLOBAL__N_125warp_variance_bf16_kernelILi%dELi3EEEvPK13__nv_bfloat16
+        /*0a40*/  LDG.E.128.CONSTANT R4, desc[UR6][R2.64] ;
+        /*0a50*/  @P0 LDG.E.LTC128B.128.CONSTANT R8, desc[UR6][R6.64] ;
+        Function : _ZN12_GLOBAL__N_129warp_variance_bwd_bf16_kernelILi%dELi3EEEvPK13__nv_bfloat16
+        /*0b40*/  LDG.E.64.CONSTANT R4, desc[UR6][R2.64] ;
+        /*0b50*/  LDG.E.U16 R9, desc[UR6][R10.64] ;
+        /*0b60*/  LDG.E.CONSTANT R11, desc[UR6][R12.64] ;
+"""
+F32_SASS = """
+        Function : _ZN12_GLOBAL__N_120warp_variance_kernelILi32ELi3EEEvPKfS2_S2_S2_Pfiiiiii
+        /*0a40*/  LDG.E.128.CONSTANT R4, desc[UR6][R2.64] ;
+"""
+
+
+def test_sass_check_sees_the_bf16_warp_loads():
+    """Phase 2's rule on the bf16 warp kernels: each global load counted
+    by its width whatever its other modifiers; every C present, K1-bf16
+    with 16-byte gathers, K6-bf16 with 8-byte ones, the float32 library
+    without a bf16 instance, and each breach reported."""
+    new = "".join(WARP_SASS % (c, c) for c in (8, 16, 32))
+    loads = {"warp_variance_bf16": chip_smoke.sass_loads(new),
+             "warp_variance": chip_smoke.sass_loads(F32_SASS)}
+    k1 = [k for k in loads["warp_variance_bf16"] if "5warp" in k]
+    assert len(loads["warp_variance_bf16"]) == 6 and len(k1) == 3
+    assert loads["warp_variance_bf16"][k1[0]] == {"128": 2, "64": 0,
+                                                  "32": 0, "16": 0}
+    k6 = [k for k in loads["warp_variance_bf16"] if "bwd" in k][0]
+    assert loads["warp_variance_bf16"][k6] == {"128": 0, "64": 1, "32": 1,
+                                               "16": 1}
+    assert chip_smoke.warp_bf16_faults(loads) == []
+    narrow = {**loads, "warp_variance_bf16": chip_smoke.sass_loads(
+        new.replace("LDG.E.64.", "LDG.E."))}
+    assert len(chip_smoke.warp_bf16_faults(narrow)) == 3
+    missing = {**loads, "warp_variance_bf16": chip_smoke.sass_loads(
+        "".join(WARP_SASS % (c, c) for c in (8, 32)))}
+    assert len(chip_smoke.warp_bf16_faults(missing)) == 2
+    left = {**loads, "warp_variance": chip_smoke.sass_loads(
+        F32_SASS + WARP_SASS % (8, 8))}
+    assert len(chip_smoke.warp_bf16_faults(left)) == 2
+
+
 def test_phases_run_on_cpu_and_main_path_demands_launches():
     scene = chip_smoke.plane_scene(64, 96, 3, chip_smoke.SEED)
     samples = chip_smoke.dtu_samples(scene, 96)

@@ -36,7 +36,10 @@ instances (the bf16 train path) likewise: K6-bf16 under autograd and
 repeated bit for bit, K7-bf16 forward and backward (repeated bit for
 bit), K8's bf16 pair in every mode (odd sizes, 41 input channels, two
 Co groups of dw, the prob head's float32 output), the bf16 dw repeated
-bit for bit, and one bf16 train step launching only the bf16 instances. The backward
+bit for bit, and one bf16 train step launching only the bf16 instances;
+K1-bf16 and K6-bf16's own designs (`csrc/warp_variance_bf16.cu`) at every
+C and view-count instance, odd sizes and D = 96, K6-bf16 repeated bit for
+bit, and a misaligned source refused. The backward
 kernels sum in another order than autograd (K8 dw in per-block
 partials, K6 and K7 in 64-bit fixed point, rounded once per flushed run
 of planes), so they are held to 1e-4 of the largest value, and to
@@ -957,3 +960,69 @@ def test_bf16_train_step_runs_the_bf16_instances(dev):
         assert p.dtype == torch.float32
     for st in state.optimizer.state.values():
         assert st["exp_avg"].dtype == torch.float32
+
+
+# ---- K1-bf16 and K6-bf16, the designs of `csrc/warp_variance_bf16.cu`:
+# C 8/16/32, every view-count instance (the buckets of at most 3, 7 and 15
+# source views: V 3-4, 5-8 and 10; K6-bf16's own at V 4), h·w that no
+# block's pixels divide (P = 2048/C forward, 1024/C backward), h·w % 8 != 0
+# (element-wise stores and staging of g), D not a multiple of K6's 8-plane
+# chunk, D = 96 (the wide configuration's stage 1).
+
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (3, 9, 7, 8, 5), (5, 13, 21, 16, 13), (8, 11, 29, 32, 7),
+    (4, 24, 40, 32, 96), (7, 16, 24, 16, 9), (5, 24, 40, 8, 8),
+    (10, 8, 12, 8, 4), (4, 20, 36, 16, 11)])
+def test_warp_variance_bf16_design_matches_plain(dev, V, h, w, C, D):
+    g = _gen(dev, 7 * C + V + D)
+    feats, = _bf16(torch.randn(V, h, w, C, device=dev, generator=g))
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = 3 + torch.rand(h, w, device=dev, generator=g)
+    projs = _projs(V, h, w, dev)
+    n0 = (K1.warp_variance.launches, K1.warp_variance.bf16.launches)
+    got = K1.warp_variance(feats, projs, lo, step, D)
+    want = K1.warp_variance_plain(feats, projs, lo, step, D)
+    torch.cuda.synchronize()
+    assert (K1.warp_variance.launches,
+            K1.warp_variance.bf16.launches) == (n0[0], n0[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == (C, D, h, w)
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (3, 9, 7, 8, 5), (5, 13, 21, 16, 13), (8, 11, 29, 32, 7),
+    (4, 24, 40, 32, 96), (4, 20, 36, 16, 11), (4, 13, 21, 8, 9),
+    (10, 8, 12, 8, 4)])
+def test_warp_variance_bwd_bf16_design_matches_plain(dev, V, h, w, C, D):
+    """K6-bf16 against its bf16 plain version, and to itself on repeat in
+    every bit."""
+    g = _gen(dev, 5 * C + V + D)
+    feats, cot = _bf16(torch.randn(V, h, w, C, device=dev, generator=g),
+                       torch.randn(C, D, h, w, device=dev, generator=g))
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = 3 + torch.rand(h, w, device=dev, generator=g)
+    projs = _projs(V, h, w, dev)
+    n0 = (K1.warp_variance_bwd.launches, K1.warp_variance_bwd.bf16.launches)
+    first = K1.warp_variance_bwd(feats, projs, lo, step, cot)
+    second = K1.warp_variance_bwd(feats, projs, lo, step, cot)
+    want = K1.warp_variance_bwd_plain(feats, projs, lo, step, cot)
+    torch.cuda.synchronize()
+    assert (K1.warp_variance_bwd.launches,
+            K1.warp_variance_bwd.bf16.launches) == (n0[0], n0[1] + 2)
+    assert first.dtype == torch.bfloat16 and first.shape == feats.shape
+    assert torch.equal(first, second)
+    _close_bf16(first, want)
+
+
+def test_warp_variance_bf16_refuses_a_misaligned_source(dev):
+    """K1-bf16 gathers 16 bytes a tap: a source that does not start on a
+    16-byte boundary is refused at launch, not read."""
+    V, h, w, C = 3, 8, 12, 8
+    buf = torch.zeros(V * h * w * C + 1, dtype=torch.bfloat16, device=dev)
+    feats = buf[1:].view(V, h, w, C)
+    lo = torch.full((h, w), 560.0, device=dev)
+    step = torch.full((h, w), 4.0, device=dev)
+    n0 = K1.warp_variance.bf16.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K1.warp_variance(feats, _projs(V, h, w, dev), lo, step, 4)
+    assert K1.warp_variance.bf16.launches == n0

@@ -249,10 +249,19 @@ def test_profile_train_cpu(capsys, monkeypatch, tmp_path):
     ("(anonymous namespace)::sum_chunks(float const*, float*, int)",
      "K8 dw conv3d_dw"),
     ("void (anonymous namespace)::conv3d_tc<float, 0>(float const*)",
-     "K2 conv3d")])
+     "K2 conv3d"),
+    ("void (anonymous namespace)::warp_variance_bf16_kernel<32, 3>"
+     "(__nv_bfloat16 const*, float const*)", "K1 warp_variance bf16"),
+    ("void (anonymous namespace)::warp_variance_bwd_bf16_kernel<8, 3, "
+     "true>(__nv_bfloat16 const*)", "K6 warp_variance_bwd bf16"),
+    ("void (anonymous namespace)::warp_variance_kernel<32, 3, float>"
+     "(float const*)", "K1 warp_variance"),
+    ("void (anonymous namespace)::warp_variance_bwd_kernel<16, 7, float>"
+     "(float const*)", "K6 warp_variance_bwd")])
 def test_profile_train_classifies_the_conv_kernels(name, label):
-    """The bf16 3-D conv kernels, which have sources and names of their
-    own, count as port kernels K2 and K8 dw under their bf16 labels."""
+    """The bf16 3-D conv kernels and the bf16 warp kernels, which have
+    sources and names of their own, count as port kernels K2, K8 dw, K1
+    and K6 under their bf16 labels."""
     assert profile_train.classify(name) == label
 
 

@@ -1,0 +1,308 @@
+"""The lane maps of K1-bf16 and K6-bf16 (`ops/csrc/warp_variance_bf16.cu`),
+checked on the CPU.
+
+CUDA cannot run here, so these tests hold the kernels' mapping of lanes,
+pixels, channels and views in plain numpy:
+  * K6-bf16 gives a reference pixel L = C/4 lanes, lane q channels
+    4q..4q+3, and a block P = 256/L pixels; K1-bf16 L = C/8 lanes, lane q
+    channels 8q..8q+7. Every (pixel, channel) of every block plan belongs
+    to exactly one live lane, and K1-bf16's store loop (16-byte vectors of
+    8 pixels, or element by element where h·w % 8 != 0) and K6-bf16's
+    staging of g put every element in exactly one place;
+  * the projection hand-off: lane q projects views q, q + L, ... (S =
+    ceil(NV / L) of them); view v's taps come from lane v % L, slot
+    v // L, of the same pixel's group, so every view is projected once;
+  * K6-bf16's staged g rows (P + 64/C bf16) put the lanes' reads of one
+    instruction on distinct banks (two lanes share a word at most);
+  * K6-bf16 emulated lane by lane (4 channels a lane, the taps handed on,
+    runs of planes per pixel and view, each flush handed over through the
+    group's shared buffer so that lane q adds channels q, q + L, ...):
+    runs merge planes, and the result is within the bf16 gate (one bf16
+    ulp + 1e-4 of the largest value) of `warp_variance_bwd_plain`. That
+    the kernel's bits equal the template instance's it replaces is held
+    on the card (`tools/ab_warp_bwd`, against a build of the parent).
+"""
+import numpy as np
+import pytest
+import torch
+
+from rcmvsnet_tpu_torch.ops import warp_variance as K1
+
+torch.set_num_threads(2)
+f32 = np.float32
+THREADS = 256
+CHANNELS = (8, 16, 32)
+BWD_CH, FWD_CH = 4, 8          # kBwdCh, kFwdCh
+# (h, w) of the train and DTU stages and odd sizes
+SHAPES = ((128, 160), (256, 320), (512, 640), (216, 288), (9, 7),
+          (13, 21), (11, 29))
+
+
+def lanes(C, n):
+    """(L lanes a pixel, P pixels a block) at n channels a lane."""
+    L = C // n
+    return L, THREADS // L
+
+
+@pytest.mark.parametrize("n", [BWD_CH, FWD_CH])
+@pytest.mark.parametrize("C", CHANNELS)
+def test_lanes_cover_every_pixel_channel_once(C, n):
+    L, P = lanes(C, n)
+    tid = np.arange(THREADS)
+    j, q = tid // L, tid % L
+    chans = n * q[:, None] + np.arange(n)[None]            # [256, n]
+    for h, w in SHAPES:
+        HW = h * w
+        nx = -(-HW // P)
+        pix = (np.arange(nx)[:, None] * P + j[None]).ravel()   # per lane
+        live = pix < HW
+        cell = (pix[:, None] * C + np.tile(chans, (nx, 1)))[live].ravel()
+        assert np.array_equal(np.bincount(cell, minlength=HW * C),
+                              np.ones(HW * C))
+
+
+@pytest.mark.parametrize("C", CHANNELS)
+def test_k1_bf16_stores_every_element_once(C):
+    """The store loop of a plane: rows r < C of P pixels, as 16-byte
+    vectors (8 pixels) where h·w % 8 == 0, else element by element; each
+    (row, pixel) of every block written once, none past the image."""
+    L, P = lanes(C, FWD_CH)
+    for h, w in SHAPES:
+        HW = h * w
+        vec = HW % 8 == 0
+        nx = -(-HW // P)
+        hits = np.zeros(C * HW, int)
+        for bx in range(nx):
+            p0 = bx * P
+            if vec:
+                i = np.arange(C * (P // 8))
+                r, jj = i // (P // 8), 8 * (i % (P // 8))
+                keep = p0 + jj < HW
+                r, jj = r[keep], jj[keep]
+                r = np.repeat(r, 8)
+                jj = (jj[:, None] + np.arange(8)).ravel()
+                assert (p0 + jj < HW).all()        # whole vectors inside
+            else:
+                i = np.arange(C * P)
+                r, jj = i // P, i % P
+                keep = p0 + jj < HW
+                r, jj = r[keep], jj[keep]
+            np.add.at(hits, r * HW + p0 + jj, 1)
+        assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("C", CHANNELS)
+def test_k6_bf16_stages_every_g_element_once(C, vec):
+    """A chunk of 8 planes of g staged into s_g[dd][c][jj] (rows of PG =
+    P + 64/C bf16), in 16-byte chunks of 8 pixels (h·w % 8 == 0) or
+    element by element: every (plane, channel, pixel) of the block once,
+    each in a slot of its own; a 16-byte chunk lies wholly inside the
+    image or wholly outside it."""
+    L, P = lanes(C, BWD_CH)
+    PG = P + 64 // C
+    if vec:
+        i = np.arange(8 * C * (P // 8))
+        ch, row = i % (P // 8), i // (P // 8)
+        c, dd = np.repeat(row % C, 8), np.repeat(row // C, 8)
+        jj = (8 * ch[:, None] + np.arange(8)).ravel()
+        HW = 20480                                     # train stage 1
+        for p0 in range(0, HW, P):
+            first = p0 + 8 * ch < HW
+            assert np.array_equal(first, p0 + 8 * ch + 7 < HW)
+    else:
+        i = np.arange(8 * C * P)
+        jj, c, dd = i % P, (i // P) % C, i // (P * C)
+    slot = (dd * C + c) * PG + jj
+    assert len(np.unique(slot)) == len(slot) == 8 * C * P
+    assert slot.max() < 8 * C * PG and (jj < P).all()
+    cell = (dd * C + c) * P + jj
+    assert np.array_equal(np.sort(cell), np.arange(8 * C * P))
+
+
+@pytest.mark.parametrize("C", CHANNELS)
+def test_k6_bf16_g_reads_on_distinct_banks(C):
+    """Lane (j, q) reads s_g[dd][4q + i][j] (bf16) for i < 4: in each read
+    instruction the 32 lanes of a warp touch distinct banks, two lanes of
+    neighbouring pixels sharing one word at most."""
+    L, P = lanes(C, BWD_CH)
+    PG = P + 64 // C
+    for wp in range(THREADS // 32):
+        tid = np.arange(32 * wp, 32 * wp + 32)
+        j, q = tid // L, tid % L
+        for i in range(BWD_CH):
+            word = ((BWD_CH * q + i) * PG + j) // 2
+            words = np.unique(word)
+            assert len(np.unique(words % 32)) == len(words)
+
+
+@pytest.mark.parametrize("n", [BWD_CH, FWD_CH])
+@pytest.mark.parametrize("C", CHANNELS)
+@pytest.mark.parametrize("nv", [2, 3, 4, 6, 7, 14, 15])
+def test_projection_hand_off_covers_every_view_once(C, n, nv):
+    """Lane q projects views s·L + q for s < S (a lane past the last view
+    projects view 0, unused); view v's taps are read from lane v % L at
+    slot v // L of the same group: each view once, by a lane of the
+    group."""
+    L, _ = lanes(C, n)
+    S = -(-nv // L)
+    projected = {}
+    for q in range(L):
+        for s in range(S):
+            v = s * L + q
+            if v < nv:
+                assert (q, s) not in projected.values()
+                projected[v] = (q, s)
+    assert sorted(projected) == list(range(nv))
+    for v in range(nv):
+        assert projected[v] == (v % L, v // L) and v % L < L
+
+
+# ------------------------------------------------------------ K6-bf16 values
+
+def _rnd(a):
+    """float32 values rounded to bf16 (to nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, f32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _fma(a, b, c):
+    """a·b + c rounded once to float32 (the product is exact in float64)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(f32)
+
+
+def _inputs(V, h, w, C, D, seed):
+    rng = np.random.default_rng(seed)
+    feats = _rnd(rng.standard_normal((V, h, w, C)))
+    g = _rnd(rng.standard_normal((C, D, h, w)))
+    f = 1.2 * max(h, w)
+    projs = np.zeros((V, 4, 4), f32)
+    for v in range(V):
+        K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.0]])
+        E = np.eye(4)
+        E[0, 3], E[1, 3] = -4.0 * v, 1.5 * (v % 2)
+        projs[v, :3] = K @ E[:3]
+        projs[v, 3] = E[3]
+    lo = (560 + 10 * rng.random((h, w))).astype(f32)
+    step = (0.4 + 0.2 * rng.random((h, w))).astype(f32)  # runs of planes
+    return feats, projs, lo, step, g
+
+
+def _taps(rel_v, fx, fy, dv, h, w):
+    """warp::rot_row / depth_row / taps_of_rows: (x0, y0, wx, wy)."""
+    rr = [f32(f32(rel_v[r, 0] * fx) + f32(rel_v[r, 1] * fy)) + rel_v[r, 2]
+          for r in range(3)]
+    X, Y, Z = (f32(rr[r] * dv) + rel_v[r, 3] for r in range(3))
+    Z = np.where(np.abs(Z) < f32(1e-6),
+                 np.where(Z < 0, f32(-1e-6), f32(1e-6)), Z).astype(f32)
+    px = np.clip(X / Z, f32(-2), f32(w + 1)).astype(f32)
+    py = np.clip(Y / Z, f32(-2), f32(h + 1)).astype(f32)
+    x0f, y0f = np.floor(px), np.floor(py)
+    return (x0f.astype(int), y0f.astype(int), (px - x0f).astype(f32),
+            (py - y0f).astype(f32))
+
+
+def emulate_k6_bf16(feats, rel, lo, step, g):
+    """K6-bf16 (BWD_CH channels a lane), all pixels at once. Returns the
+    int64 fixed-point sums [V-1, h*w, C], dref [h*w, C] float32, the
+    quantum's inverse and the number of integer adds."""
+    V, h, w, C = feats.shape
+    n = BWD_CH
+    D, HW, nv = g.shape[1], h * w, V - 1
+    L = C // n
+    S = -(-nv // L)
+    src = feats.reshape(V, HW, C)
+    gg = g.reshape(C, D, HW)
+    pix = np.arange(HW)
+    fy, fx = (pix // w).astype(f32), (pix % w).astype(f32)
+    bound = D * HW * (2.0 / V) * float(np.abs(g).max()) * 2.0 * float(
+        np.abs(feats).max())
+    k = np.frexp(bound)[1]
+    to_q, from_q = 2.0 ** (62 - k), 2.0 ** (k - 62)
+    V32 = f32(V)
+    scale = f32(f32(2) / V32)
+    ref = src[0]
+    acc = np.zeros((nv, HW, C), np.int64)
+    adds = 0
+    run_xy = [(np.full(HW, -(1 << 30)), np.full(HW, -(1 << 30)))
+              for _ in range(nv)]
+    run_acc = [np.zeros((4, HW, C), f32) for _ in range(nv)]
+    dref = np.zeros((HW, C), f32)
+
+    def flush(v, where):
+        nonlocal adds
+        x0, y0 = run_xy[v]
+        for kk in range(4):
+            xi, yi = x0 + (kk & 1), y0 + (kk >> 1)
+            ok = where & (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+            # the group's hand-over: lane q' stores channels n·q' + i' to
+            # fl[n·q' + i'], then lane q adds channel i·L + q
+            fl = np.empty((HW, C), f32)
+            for qq in range(L):
+                for i in range(n):
+                    fl[:, n * qq + i] = run_acc[v][kk][:, n * qq + i]
+            for qq in range(L):
+                for i in range(n):
+                    c = i * L + qq
+                    val = np.rint(fl[ok, c].astype(np.float64) * to_q)
+                    np.add.at(acc[v], ((yi * w + xi)[ok], c),
+                              val.astype(np.int64))
+                    adds += int(ok.sum())
+
+    for d in range(D):
+        dv = (lo.reshape(-1) + f32(f32(d) * step.reshape(-1))).astype(f32)
+        # lane q's projections, then the hand-off: view v from lane v % L
+        mine = {(q, s): _taps(rel[s * L + q + 1 if s * L + q < nv else 0],
+                              fx, fy, dv, h, w)
+                for q in range(L) for s in range(S)}
+        taps = [mine[(v % L, v // L)] for v in range(nv)]
+        xs, total = [], ref.copy()
+        for v, (x0, y0, wx, wy) in enumerate(taps):
+            val = np.zeros((HW, C), f32)
+            for kk in range(4):
+                xi, yi = x0 + (kk & 1), y0 + (kk >> 1)
+                ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+                wxk = _rnd(wx if kk & 1 else f32(1) - wx)
+                wyk = wy if kk >> 1 else (f32(1) - wy).astype(f32)
+                wgt = (wxk * wyk).astype(f32)
+                s = src[v + 1][np.where(ok, yi * w + xi, 0)]
+                val = np.where(ok[:, None], _fma(wgt[:, None], s, val), val)
+            xs.append(val)
+            total = (total + val).astype(f32)
+        mean = (total / V32).astype(f32)
+        gs = (scale * gg[:, d].T).astype(f32)
+        dref = _fma(gs, (ref - mean).astype(f32), dref)
+        for v, (x0, y0, wx, wy) in enumerate(taps):
+            new = (run_xy[v][0] != x0) | (run_xy[v][1] != y0)
+            flush(v, new)
+            run_xy[v] = (np.where(new, x0, run_xy[v][0]),
+                         np.where(new, y0, run_xy[v][1]))
+            run_acc[v][:, new] = 0
+            cot = (gs * (xs[v] - mean).astype(f32)).astype(f32)
+            for kk in range(4):
+                wyk = wy if kk >> 1 else (f32(1) - wy).astype(f32)
+                wxk = _rnd(wx if kk & 1 else f32(1) - wx)
+                ty = _rnd((cot * wyk[:, None]).astype(f32))
+                run_acc[v][kk] = _fma(wxk[:, None], ty, run_acc[v][kk])
+    for v in range(nv):
+        flush(v, np.ones(HW, bool))
+    return acc, dref, from_q, adds
+
+
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (4, 7, 9, 8, 9), (3, 5, 6, 16, 5), (5, 4, 5, 32, 4)])
+def test_k6_bf16_emulation_matches_plain_within_the_bf16_gate(V, h, w, C, D):
+    feats, projs, lo, step, g = _inputs(V, h, w, C, D, 7 * C + V)
+    T = torch.from_numpy
+    rel = K1.relative_projections(T(projs)).reshape(V, 4, 4).numpy()
+    acc4, dref4, from_q, adds4 = emulate_k6_bf16(feats, rel, lo, step, g)
+    # runs merged planes: fewer adds than one flush a plane would make
+    assert 0 < adds4 < 4 * (V - 1) * D * h * w * C
+    got = np.concatenate([dref4[None],
+                          (acc4.astype(np.float64) * from_q).astype(f32)])
+    got = _rnd(got).reshape(V, h, w, C)
+    want = K1.warp_variance_bwd_plain(
+        T(feats).to(torch.bfloat16), T(projs), T(lo), T(step),
+        T(g).to(torch.bfloat16)).float().numpy()
+    tol = np.abs(want) * 2.0 ** -7 + 1e-4 * np.abs(want).max()
+    assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
