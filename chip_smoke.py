@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 Phases (none catches its own failure; any failure exits non-zero without
 the final "ok" line):
   1. device   require CUDA, print the card's name and power limit, TF32 off;
-  2. build    compile the ten CUDA sources (sm_90a, one nvcc each, in
+  2. build    compile the twelve CUDA sources (sm_90a, one nvcc each, in
               parallel) and print the build seconds; count the tensor-core
               MMAs that `cuobjdump -sass` finds in each tensor-core kernel
               (a "_tc" in its name) of K2/K9, K8 dw and K5 and of
@@ -16,9 +16,14 @@ the final "ok" line):
               HGMMA alike): TF32 ones in each float32 kernel and bf16
               ones in each bf16 kernel, which must be > 0, with no bf16
               one in a float32 kernel and no TF32 one in a bf16 kernel;
+              K5-bf16's tensor-core kernels (`conv2d_bf16.cu`) with
+              HMMA.16816 or, at 8-channel chunks, HMMA.1688 (both kinds
+              built) and no 16-bit shared load, none left in `conv2d.cu`;
               count each bf16 warp kernel's global loads by width: K1-bf16
               and K6-bf16 (`warp_variance_bf16.cu`) at every C, gathering
               in 16- and 8-byte loads, none left in `warp_variance.cu`;
+              K7bwd-bf16 (`warp_volume_bf16.cu`) at every C in 8-byte
+              loads, no bf16 backward left in `warp_volume.cu`;
   3. kernels  hold each eval kernel against its plain PyTorch version on
               the card, at the DTU eval shapes (864x1152, V=5, stages
               216x288x32/48, 432x576x16/32, 864x1152x8/8): K1 at all 3
@@ -349,9 +354,10 @@ def op_rate(kernel: str) -> float:
     return BF16_FLOPS_PER_S if kernel in BF16_TC_KERNELS else F32_FLOPS_PER_S
 
 
-# the libraries of the tensor-core convs: K2/K9, K8 dw, K5 (float32 and
-# K5's bf16 instance), K2-bf16, K8dw-bf16
-MMA_LIBS = ("conv3d", "conv3d_dw", "conv2d", "conv3d_bf16", "conv3d_dw_bf16")
+# the libraries of the tensor-core convs: K2/K9, K8 dw, K5, K2-bf16,
+# K8dw-bf16, K5-bf16
+MMA_LIBS = ("conv3d", "conv3d_dw", "conv2d", "conv3d_bf16", "conv3d_dw_bf16",
+            "conv2d_bf16")
 
 
 def count_mma(sass: str) -> dict:
@@ -387,14 +393,17 @@ def sass_mma_counts() -> dict:
 
 
 # the library of K1-bf16 and K6-bf16 (phase 2's SASS check), the C widths
-# of its instances, and the float32 library they left
+# of its instances, and the float32 library they left; K7bwd-bf16's
+# library and the one it left
 WARP_BF16_LIB, WARP_LIB, WARP_CHANNELS = ("warp_variance_bf16",
                                           "warp_variance", (8, 16, 32))
+VOLUME_BF16_LIB, VOLUME_LIB = "warp_volume_bf16", "warp_volume"
 
 
-def sass_loads(sass: str) -> dict:
+def sass_loads(sass: str, op: str = "LDG") -> dict:
     """{function: {"128": n, "64": n, "32": n, "16": n}} of `cuobjdump
-    -sass` text: each function's global loads by width in bits."""
+    -sass` text: each function's loads of one kind (LDG global, LDS
+    shared) by width in bits (8-bit loads counted as 16)."""
     import re
     counts, name = {}, None
     for line in sass.splitlines():
@@ -403,11 +412,12 @@ def sass_loads(sass: str) -> dict:
             name = m.group(1)
             counts[name] = {"128": 0, "64": 0, "32": 0, "16": 0}
             continue
-        m = re.search(r"\bLDG(\.\S+)", line)
+        m = re.search(rf"\b{op}((?:\.[\w]+)*)\s", line)
         if name and m:
             mods = m.group(1).split(".")
             width = next((w for w in ("128", "64") if w in mods),
-                         "16" if {"U16", "S16"} & set(mods) else "32")
+                         "16" if {"U16", "S16", "U8", "S8"} & set(mods)
+                         else "32")
             counts[name][width] += 1
     return counts
 
@@ -418,10 +428,14 @@ def warp_bf16_faults(loads: dict) -> list:
     K1-bf16 gathering in 16-byte loads and K6-bf16 in 8-byte ones (4
     channels a lane), and no bf16 instance left in the float32 library.
     Returns what breaks it."""
-    new = loads[WARP_BF16_LIB]
     faults = [k for k in loads[WARP_LIB] if "bfloat16" in k]
-    for kernel, width in (("warp_variance_bf16_kernel", "128"),
-                          ("warp_variance_bwd_bf16_kernel", "64")):
+    faults += [k for k in loads[VOLUME_LIB]
+               if "warp_volume_bwd" in k and "bfloat16" in k]
+    for lib, kernel, width in (
+            (WARP_BF16_LIB, "warp_variance_bf16_kernel", "128"),
+            (WARP_BF16_LIB, "warp_variance_bwd_bf16_kernel", "64"),
+            (VOLUME_BF16_LIB, "warp_volume_bwd_bf16_kernel", "64")):
+        new = loads[lib]
         for c in WARP_CHANNELS:
             mine = [k for k in new if kernel in k and f"ILi{c}E" in k]
             if not mine or not all(new[k][width] for k in mine):
@@ -436,12 +450,57 @@ def check_warp_bf16_sass() -> dict:
     tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
     loads = {lib: sass_loads(subprocess.run(
         [tool, "-sass", str(_build._target(lib))], capture_output=True,
-        text=True, check=True).stdout) for lib in (WARP_BF16_LIB, WARP_LIB)}
+        text=True, check=True).stdout)
+        for lib in (WARP_BF16_LIB, WARP_LIB, VOLUME_BF16_LIB, VOLUME_LIB)}
     faults = warp_bf16_faults(loads)
     if faults:
         raise AssertionError(f"bf16 warp kernels' SASS: {faults} of {loads}")
     return {k: v for lib in loads.values() for k, v in lib.items()
-            if "warp_variance" in k}
+            if "warp_variance" in k or "warp_volume_bwd" in k}
+
+
+def k5_bf16_faults(sass: str, f32_sass: str) -> list:
+    """Phase 2's rule on K5-bf16's library (`conv2d_bf16.cu`): every
+    tensor-core kernel (`conv2d_bf16_tc`, `lateral_conv2d_bf16_tc`) runs
+    bf16 m16n8k16 (HMMA.16816) or m16n8k8 (HMMA.1688) products, both kinds
+    are built (8-channel chunks at Ci <= 8), and none reads shared memory
+    16 bits at a time (its fragments are 8- and 4-byte loads); the float32
+    library `conv2d.cu` holds no bf16 function. Returns what breaks it."""
+    import re
+    mma, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            mma[name] = {"16816": 0, "1688": 0}
+            continue
+        m = re.search(r"\bHMMA\.(16816|1688)\.F32\.BF16\b", line)
+        if name and m:
+            mma[name][m.group(1)] += 1
+    lds = sass_loads(sass, "LDS")
+    tc = [k for k in mma if "conv2d_bf16_tc" in k]
+    faults = [f"{k}: {mma[k]}, LDS {lds[k]}" for k in tc
+              if not (mma[k]["16816"] or mma[k]["1688"]) or lds[k]["16"]]
+    for kind in ("16816", "1688"):
+        if not any(mma[k][kind] for k in tc):
+            faults.append(f"no K5-bf16 kernel with HMMA.{kind}")
+    faults += [k for k in sass_loads(f32_sass) if "bfloat16" in k]
+    return faults
+
+
+def check_k5_bf16_sass() -> dict:
+    """`k5_bf16_faults` of the built libraries' SASS (`cuobjdump`); returns
+    each K5-bf16 tensor-core kernel's shared loads by width."""
+    from rcmvsnet_tpu_torch.ops import _build
+    tool = str(Path(_build._nvcc()).with_name("cuobjdump"))
+    sass = {lib: subprocess.run(
+        [tool, "-sass", str(_build._target(lib))], capture_output=True,
+        text=True, check=True).stdout for lib in ("conv2d_bf16", "conv2d")}
+    faults = k5_bf16_faults(sass["conv2d_bf16"], sass["conv2d"])
+    if faults:
+        raise AssertionError(f"K5-bf16's SASS: {faults}")
+    return {k: v for k, v in sass_loads(sass["conv2d_bf16"], "LDS").items()
+            if "conv2d_bf16_tc" in k}
 
 
 def missing_mma(mma: dict) -> list:
@@ -2268,6 +2327,8 @@ def main() -> int:
                              f" of {mma}")
     warp_loads = check_warp_bf16_sass()
     print(json.dumps({"sass_warp_loads": warp_loads}), flush=True)
+    k5_lds = check_k5_bf16_sass()
+    print(json.dumps({"sass_k5_bf16_shared_loads": k5_lds}), flush=True)
 
     # 3. kernels against their plain versions
     scene = plane_scene(H, W, V, SEED)
@@ -2405,7 +2466,7 @@ def main() -> int:
          "rcmvsnet_tpu/ops/pallas_conv3d.py:167 (pallas_call :139)"),
         ("warp_view", "tools", "cuda", source + "csrc/warp_view.cu",
          "rcmvsnet_tpu/ops/pallas_warp.py:88 (pallas_call :109)"),
-        ("conv2d_bf16", "bf16", "cuda", source + "csrc/conv2d.cu",
+        ("conv2d_bf16", "bf16", "cuda", source + "csrc/conv2d_bf16.cu",
          "rcmvsnet_tpu/ops/pallas_conv2d.py:306"),
         ("warp_variance_bf16", "bf16", "cuda",
          source + "csrc/warp_variance_bf16.cu",
@@ -2420,7 +2481,7 @@ def main() -> int:
          source + "csrc/warp_volume.cu",
          "rcmvsnet_tpu/ops/pallas_warp_volume.py:263 (fwd :101, :340)"),
         ("warp_volume_bwd_bf16", "bf16_train", "cuda",
-         source + "csrc/warp_volume.cu",
+         source + "csrc/warp_volume_bf16.cu",
          "rcmvsnet_tpu/ops/pallas_warp_volume.py:263 (bwd :178, :406)"),
         ("conv3d_dw_bf16", "bf16_train", "cuda",
          source + "csrc/conv3d_dw_bf16.cu",
@@ -2464,6 +2525,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "device": smi, "build_s": build_s, "nvcc": logs,
         "sass_mma": mma, "sass_warp_loads": warp_loads,
+        "sass_k5_bf16_shared_loads": k5_lds,
         "calls": ledger.rows, "main_path": main_path,
         "train_path": train_path, "tanks_path": tanks_path,
         "tools_path": tools_path, "train_cli": train_cli,

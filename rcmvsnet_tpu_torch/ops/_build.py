@@ -36,7 +36,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".ext_build"
 SOURCES = ("warp_variance", "conv3d", "conv2d", "warp_volume", "conv3d_dw",
            "warp_view", "depth_tail", "conv3d_bf16", "conv3d_dw_bf16",
-           "warp_variance_bf16")
+           "warp_variance_bf16", "warp_volume_bf16", "conv2d_bf16")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SMS = 132                     # streaming multiprocessors of an H100; the

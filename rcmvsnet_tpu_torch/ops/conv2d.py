@@ -19,12 +19,15 @@ layout of the warp kernels (K1), so the eval heads feed K1 without a
 permute.
 
 bfloat16 (the bf16 eval path, `BackboneConfig.eval_dtype`): a bf16 `x`
-selects the kernel's bf16 instance (counted in `conv2d.bf16.launches`,
-the float32 one in `conv2d.launches`): x, weight and up bf16, scale and shift float32,
-float32 accumulation and epilogue, the output rounded to bf16 once; with
-`up` the conv's result is rounded first and the sum again, as the JAX
-path adds two bf16 arrays. Its plain version is the float32 one on the
-bf16 operands (`.float()`), rounded where JAX rounds; its 1×1 convs sum
+selects K5-bf16, `csrc/conv2d_bf16.cu` (counted in `conv2d.bf16.launches`,
+the float32 kernel in `conv2d.launches`), a design of its own: the tile
+staged channels-last, 8-byte fragment loads, 8-channel chunks (m16n8k8)
+at Ci ≤ 8, the lateral sum formed in registers, 16-byte stores. x, weight
+and up bf16, scale and shift float32, float32 accumulation and epilogue,
+the output rounded to bf16 once; with `up` the conv's result is rounded
+first and the sum again, as the JAX path adds two bf16 arrays. Its plain
+version is the float32 one on the bf16 operands (`.float()`), rounded
+where JAX rounds; its 1×1 convs sum
 the input channels in order (the kernel's order: products of bf16 values
 are exact in float32, so the two agree in every bit and a rounding to
 bf16 after them cannot fall on different sides).
@@ -54,6 +57,10 @@ LAYOUTS = ("nchw", "warp")
 TILES = {(3, 1): ((1, 1), (2, 1), (4, 1), (1, 2), (2, 2), (1, 4)),
          (5, 2): ((1, 1), (2, 1), (1, 2), (2, 2), (1, 4))}
 LATERAL_TILES = ((1, 1), (2, 1), (4, 1))
+# K5-bf16's tiles: TILES and two with more rows a warp at 2 and 4 channel
+# tiles (measured faster at the DTU eval shapes; PERF.md)
+TILES_BF16 = {(3, 1): TILES[(3, 1)] + ((2, 4), (4, 2)),
+              (5, 2): TILES[(5, 2)] + ((2, 4),)}
 
 
 def route(k: int, stride: int, padding: int, ci: int) -> str:
@@ -94,7 +101,8 @@ def scratch_floats(k: int, ci: int, co: int, ntb: int,
                    chunk: int = 8) -> int:
     """4-byte words of the prepared weights the tensor-core route lays
     out: [groups][chunks of `chunk` ci][k·k][8][8·ntb] (chunk 8 for
-    float32, 16 for the bf16 instance, two channels a word)."""
+    float32, 16 for K5-bf16, two channels a word; its 8-channel chunks at
+    Ci ≤ 8 take half)."""
     nw = 8 * ntb
     return -(-co // nw) * -(-ci // chunk) * k * k * 8 * nw
 
@@ -180,7 +188,10 @@ def lateral_conv2d_plain(up: torch.Tensor, lat: torch.Tensor,
 
 
 def _lib(entry: str, n_ptr: int, n_int: int):
-    fn = getattr(_build.load("conv2d"), entry)
+    """A C entry: `*_f32` of `csrc/conv2d.cu`, `*_bf16` of
+    `csrc/conv2d_bf16.cu`."""
+    source = "conv2d_bf16" if entry.endswith("_bf16") else "conv2d"
+    fn = getattr(_build.load(source), entry)
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
             ctypes.c_void_p]
@@ -239,7 +250,8 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     stream = _build.stream_ptr(x.device)
     kind = _kind(x)
     if route(k, stride, padding, Ci) == "tc":
-        mt, ntb = tile(k, stride, N, Co, Ho, Wo)
+        mt, ntb = tile(k, stride, N, Co, Ho, Wo,
+                       TILES_BF16[(k, stride)] if kind == "bf16" else None)
         wt = torch.empty(scratch_floats(k, Ci, Co, ntb, _chunk(x.dtype)),
                          dtype=torch.int32, device=x.device)
         err = _lib(f"conv2d_tc_{kind}", 7, 13)(

@@ -1,5 +1,5 @@
-// 2D convolution of the FeatureNet FPN, for Hopper: float32, and bfloat16
-// for the bf16 eval path (each kernel a template on the element type T).
+// 2D convolution of the FeatureNet FPN, for Hopper: float32 (K5). The bf16
+// eval path's K5-bf16 has a design of its own (conv2d_bf16.cu).
 //
 // Replaces the TPU kernel rcmvsnet_tpu/ops/pallas_conv2d.py conv2d_cm
 // (_band_kernel), as nn/featurenet_fast.featurenet_packed chains it, and
@@ -17,12 +17,6 @@
 // k in {1, 3, 5}, stride in {1, 2}; N = views are batched in one launch.
 // Layouts: x, up NCHW; w [Co, Ci, K, K]; out NCHW or, with nhwc, [N, H, W,
 // Co] (the warp kernels' source layout, so the heads feed K1 directly).
-// bf16: x, w, up and out bf16, scale and shift float32 (the JAX path folds
-// BN's scale into w before the cast, so the caller passes none); products
-// exact in float32, float32 accumulation and epilogue, the output rounded
-// once, as conv2d_cm writes out_ref.dtype (pallas_conv2d.py:296-298). With
-// up the conv's result is rounded first and the sum again: the JAX path's
-// intra = up + matmul_cm(...) adds two bf16 arrays.
 //
 // What bounds it. At 3..32 channels a direct conv on the CUDA cores is
 // bound by FMA issue (one FMA per multiply-add, 67 TFLOP/s), ~4x above
@@ -32,14 +26,12 @@
 //     tensor cores, M = 16 consecutive output x of a row, N = Co, K =
 //     Ci * k * k in chunks of 8 input channels per tap, 3xTF32 m16n8k8
 //     MMAs with the short-chain flush of tc_conv3d.cuh (one TF32 product
-//     misses the 1e-4 gates); bf16: chunks of 16 channels (zero past Ci),
-//     one m16n8k16 bf16 MMA per step. A block (8 warps, two per SM) owns a tile
+//     misses the 1e-4 gates). A block (8 warps, two per SM) owns a tile
 //     of output rows x columns x NTB n8 tiles of Co (see Tile); per
 //     8-channel chunk it stages the input tile plus its halo in shared
-//     memory with cp.async (row vectors when rows are aligned: 16 bytes at
-//     stride 1; bf16 8 bytes at both strides), zero-filled outside the
-//     image, float stride-2 rows stored as two parity halves so that a
-//     strided read is contiguous,
+//     memory with cp.async (16-byte row vectors at stride 1 when rows are
+//     aligned), zero-filled outside the image, stride-2 rows stored as two
+//     parity halves so that a strided read is contiguous,
 //     and the chunk's weights [tap][ci][co], laid out once per call by
 //     prep_weights; the k * k taps read shifted windows of that one tile,
 //     and two chunks are in flight where there are two. At stride 1 a
@@ -73,32 +65,27 @@
 namespace {
 
 constexpr int kThreads = 128;
-using tc::bf16;
-using tc::from_f32;
-using tc::round_to;
-using tc::to_f32;
 
 // The epilogue of one output value: r = acc * scale + shift, ReLU, and the
-// upsample-add (for bf16 the conv's result rounded before the add).
-template <class T>
+// upsample-add.
 __device__ __forceinline__ float epilogue(float r, const float* scale,
                                           const float* shift, int relu,
-                                          const T* up, long long up_idx,
+                                          const float* up, long long up_idx,
                                           int co) {
   if (scale != nullptr) r *= scale[co];
   if (shift != nullptr) r += shift[co];
   if (relu) r = fmaxf(r, 0.f);
-  if (up != nullptr) r = round_to<T>(r) + to_f32(up[up_idx]);
+  if (up != nullptr) r = r + up[up_idx];
   return r;
 }
 
 // NHWC: out is [N, H, W, Co]; the NCHW instance is the first port's kernel.
-template <int K, int CO_T, bool NHWC, class T>
+template <int K, int CO_T, bool NHWC>
 __global__ void __launch_bounds__(kThreads)
-conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
+conv2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ scale,
               const float* __restrict__ shift,
-              const T* __restrict__ up, T* __restrict__ out,
+              const float* __restrict__ up, float* __restrict__ out,
               int N, int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
               int stride, int pad, int relu) {
   extern __shared__ float s_w[];  // [Ci][K*K][CO_T]
@@ -107,7 +94,7 @@ conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int j = i % CO_T;
     const int k = (i / CO_T) % (K * K);
     const int c = i / (CO_T * K * K);
-    s_w[i] = to_f32(w[((long long)(co0 + j) * Ci + c) * K * K + k]);
+    s_w[i] = w[((long long)(co0 + j) * Ci + c) * K * K + k];
   }
   __syncthreads();
 
@@ -126,7 +113,7 @@ conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   const long long in_sp = (long long)Hi * Wi;
   for (int c = 0; c < Ci; ++c) {
-    const T* xc = x + ((long long)n * Ci + c) * in_sp;
+    const float* xc = x + ((long long)n * Ci + c) * in_sp;
 #pragma unroll
     for (int ky = 0; ky < K; ++ky) {
       const int yi = y0 + ky;
@@ -135,7 +122,7 @@ conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
       for (int kx = 0; kx < K; ++kx) {
         const int xi = x0 + kx;
         if (xi < 0 || xi >= Wi) continue;
-        const float v = to_f32(__ldg(xc + (long long)yi * Wi + xi));
+        const float v = __ldg(xc + (long long)yi * Wi + xi);
         const float* wk = s_w + (c * K * K + ky * K + kx) * CO_T;
 #pragma unroll
         for (int j = 0; j < CO_T; ++j) acc[j] = fmaf(v, wk[j], acc[j]);
@@ -153,45 +140,46 @@ conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
   if constexpr (!NHWC) {
 #pragma unroll
     for (int j = 0; j < CO_T; ++j)
-      out[((long long)n * Co + co0 + j) * out_sp + r] = from_f32<T>(result(j));
+      out[((long long)n * Co + co0 + j) * out_sp + r] = result(j);
   } else {
     // the thread's CO_T channels are contiguous (16-byte aligned where
     // CO_T, which divides Co, is a multiple of 4)
-    T* o = out + (n * out_sp + r) * Co + co0;
-    if constexpr (CO_T % 4 == 0 && sizeof(T) == 4) {
+    float* o = out + (n * out_sp + r) * Co + co0;
+    if constexpr (CO_T % 4 == 0) {
 #pragma unroll
       for (int j = 0; j < CO_T; j += 4)
         *reinterpret_cast<float4*>(o + j) = make_float4(
             result(j), result(j + 1), result(j + 2), result(j + 3));
     } else {
 #pragma unroll
-      for (int j = 0; j < CO_T; ++j) o[j] = from_f32<T>(result(j));
+      for (int j = 0; j < CO_T; ++j) o[j] = result(j);
     }
   }
 }
 
-template <int K, int CO_T, bool NHWC, class T>
-cudaError_t launch(const T* x, const T* w, const float* scale,
-                   const float* shift, const T* up, T* out, int N, int Ci,
-                   int Hi, int Wi, int Co, int Ho, int Wo, int stride,
-                   int pad, int relu, cudaStream_t stream) {
+template <int K, int CO_T, bool NHWC>
+cudaError_t launch(const float* x, const float* w, const float* scale,
+                   const float* shift, const float* up, float* out, int N,
+                   int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
+                   int stride, int pad, int relu, cudaStream_t stream) {
   const size_t smem = sizeof(float) * Ci * K * K * CO_T;
   cudaError_t e = cudaFuncSetAttribute(
-      conv2d_kernel<K, CO_T, NHWC, T>,
+      conv2d_kernel<K, CO_T, NHWC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const long long n = (long long)N * Ho * Wo;
   dim3 grid((unsigned)((n + kThreads - 1) / kThreads), Co / CO_T);
-  conv2d_kernel<K, CO_T, NHWC, T><<<grid, kThreads, smem, stream>>>(
+  conv2d_kernel<K, CO_T, NHWC><<<grid, kThreads, smem, stream>>>(
       x, w, scale, shift, up, out, N, Ci, Hi, Wi, Co, Ho, Wo, stride, pad,
       relu);
   return cudaGetLastError();
 }
 
-template <int K, int CO_T, class T>
-cudaError_t launch_layout(const T* x, const T* w, const float* scale,
-                          const float* shift, const T* up, T* out, int N,
-                          int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
+template <int K, int CO_T>
+cudaError_t launch_layout(const float* x, const float* w, const float* scale,
+                          const float* shift, const float* up, float* out,
+                          int N, int Ci, int Hi, int Wi, int Co, int Ho,
+                          int Wo,
                           int stride, int pad, int relu, int nhwc,
                           cudaStream_t s) {
   if (nhwc)
@@ -201,10 +189,11 @@ cudaError_t launch_layout(const T* x, const T* w, const float* scale,
                                 Co, Ho, Wo, stride, pad, relu, s);
 }
 
-template <int K, class T>
-cudaError_t dispatch_co(const T* x, const T* w, const float* scale,
-                        const float* shift, const T* up, T* out, int N,
-                        int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
+template <int K>
+cudaError_t dispatch_co(const float* x, const float* w, const float* scale,
+                        const float* shift, const float* up, float* out,
+                        int N, int Ci, int Hi, int Wi, int Co, int Ho,
+                        int Wo,
                         int stride, int pad, int relu, int nhwc,
                         cudaStream_t s) {
   if (Co % 16 == 0)
@@ -217,11 +206,10 @@ cudaError_t dispatch_co(const T* x, const T* w, const float* scale,
                              Ho, Wo, stride, pad, relu, nhwc, s);
 }
 
-template <class T>
-cudaError_t direct(const T* x, const T* w, const float* scale,
-                   const float* shift, const T* up, T* out, int N, int Ci,
-                   int Hi, int Wi, int Co, int Ho, int Wo, int K, int stride,
-                   int pad, int relu, int nhwc, cudaStream_t s) {
+cudaError_t direct(const float* x, const float* w, const float* scale,
+                   const float* shift, const float* up, float* out, int N,
+                   int Ci, int Hi, int Wi, int Co, int Ho, int Wo, int K,
+                   int stride, int pad, int relu, int nhwc, cudaStream_t s) {
   switch (K) {
     case 1: return dispatch_co<1>(x, w, scale, shift, up, out, N, Ci, Hi, Wi,
                                   Co, Ho, Wo, stride, pad, relu, nhwc, s);
@@ -246,16 +234,16 @@ using tc::kWarps;
 // S * bx0 - K/2).
 // Rows in shared memory: inputs S * bx0 - 4 .. as whole four-element
 // vectors (column = halo x + 4 - K/2), output positions PSTR columns
-// apart; but float at stride 2 stores the even then the odd halo columns
-// (column = (rx & 1) * XH + rx / 2), since two floats apart two lanes of
-// a fragment load would share a bank (two bf16 apart they do not).
-template <int K, int S, int MT, class T = float>
+// apart; but stride 2 stores the even then the odd halo columns (column =
+// (rx & 1) * XH + rx / 2), since two floats apart two lanes of a fragment
+// load would share a bank.
+template <int K, int S, int MT>
 struct Tile {
   static constexpr int WX = S == 1 ? 4 : 1, WY = kWarps / WX;
   static constexpr int BY = WY * MT, BX = 16 * WX, PAD = K / 2;
   static constexpr int EY = S * (BY - 1) + K, EX = S * (BX - 1) + K;
   static constexpr int XH = (EX + 1) / 2;
-  static constexpr bool SPLIT = S == 2 && sizeof(T) == 4;  // parity halves
+  static constexpr bool SPLIT = S == 2;             // parity halves
   static constexpr int PSTR = SPLIT ? 1 : S;
   static constexpr int XS = SPLIT ? 2 * XH : S * BX + 8;
   static constexpr int NV = XS / 4;                 // vectors a row
@@ -266,29 +254,28 @@ struct Tile {
   }
 };
 
-template <int K, int S, int MT, int NTB, class T>
+template <int K, int S, int MT, int NTB>
 struct Cfg {
-  using T_ = Tile<K, S, MT, T>;
-  using E = tc::Elem<T>;
+  using T_ = Tile<K, S, MT>;
+  using E = tc::Elem<float>;
   static constexpr int NW = 8 * NTB;                // channels per block
   static constexpr int NPS = tc::weight_stride(NW); // B loads: t*NPS + g
-  // a chunk's staged tile, CK planes of PS elements, in 4-byte words
-  static constexpr int X_FLOATS = E::CK * T_::PS * (int)sizeof(T) / 4;
+  // a chunk's staged tile, CK planes of PS floats
+  static constexpr int X_FLOATS = E::CK * T_::PS;
   static constexpr int W_FLOATS = K * K * kCiChunk * NPS;
   static constexpr int STAGE = X_FLOATS + W_FLOATS;
-  static_assert(E::CK * sizeof(T) == 32, "a chunk is 32 bytes a position");
 };
 
 // Channels [c0, c0 + CK) of the halo tile of sample n into s (plane
 // stride PS): zero outside the image and for channels >= C. vec (rows kept
 // whole, rows of x aligned for whole vectors): whole rows of four-element
 // vectors; else one element a thread and step.
-template <int K, int S, int MT, class T>
-__device__ __forceinline__ void load_tile(T* s, const T* x, int n, int c0,
-                                          int C, int H, int W, int by0,
-                                          int bx0, bool vec) {
-  using Tl = Tile<K, S, MT, T>;
-  constexpr int CK = tc::Elem<T>::CK;
+template <int K, int S, int MT>
+__device__ __forceinline__ void load_tile(float* s, const float* x, int n,
+                                          int c0, int C, int H, int W,
+                                          int by0, int bx0, bool vec) {
+  using Tl = Tile<K, S, MT>;
+  constexpr int CK = tc::Elem<float>::CK;
   const int iy0 = S * by0 - Tl::PAD;
   if (!Tl::SPLIT && vec) {
     const int gx0 = S * bx0 - 4;
@@ -301,7 +288,7 @@ __device__ __forceinline__ void load_tile(T* s, const T* x, int n, int c0,
       const int nx = (c0 + c < C && gy >= 0 && gy < H && gx >= 0)
                          ? min(4, max(0, W - gx))
                          : 0;
-      const T* src =
+      const float* src =
           nx ? x + (((long long)n * C + c0 + c) * H + gy) * W + gx : x;
       tc::cp_async_vec(s + c * Tl::PS + ry * Tl::XS + 4 * v, src, nx);
     }
@@ -316,7 +303,7 @@ __device__ __forceinline__ void load_tile(T* s, const T* x, int n, int c0,
     const int gy = iy0 + ry, gx = ix0 + rx;
     const bool ok =
         c0 + c < C && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    const T* src =
+    const float* src =
         ok ? x + (((long long)n * C + c0 + c) * H + gy) * W + gx : x;
     tc::stage_one(s + c * Tl::PS + ry * Tl::XS + Tl::xcol(rx), src, ok);
   }
@@ -324,21 +311,22 @@ __device__ __forceinline__ void load_tile(T* s, const T* x, int n, int c0,
 
 // B fragment of tap `tap` (b0: row t, b1: row t + 4; column g of n-tile
 // nt).
-template <class T, int NPS>
-__device__ __forceinline__ typename tc::Elem<T>::B load_b(const float* sw,
-                                                          int tap, int nt,
-                                                          int g, int t) {
-  return tc::Elem<T>::load_b(sw + (tap * kCiChunk + t) * NPS + nt * 8 + g,
-                             NPS);
+template <int NPS>
+__device__ __forceinline__ tc::Elem<float>::B load_b(const float* sw,
+                                                     int tap, int nt, int g,
+                                                     int t) {
+  return tc::Elem<float>::load_b(sw + (tap * kCiChunk + t) * NPS + nt * 8 + g,
+                                 NPS);
 }
 
 // A fragment at smem row `row`, x column `col` (row g / g + 8 = x, PSTR
 // columns apart; the channels of the lane per tc::Elem).
-template <int XS, int PS, int PSTR, class T>
-__device__ __forceinline__ typename tc::Elem<T>::A load_a(const T* sx,
-                                                          int row, int col,
-                                                          int g, int t) {
-  return tc::Elem<T>::template load_a<PSTR>(sx + row * XS + col, PS, g, t);
+template <int XS, int PS, int PSTR>
+__device__ __forceinline__ tc::Elem<float>::A load_a(const float* sx,
+                                                     int row, int col, int g,
+                                                     int t) {
+  return tc::Elem<float>::template load_a<PSTR>(sx + row * XS + col, PS, g,
+                                                t);
 }
 
 // The K x K taps of one staged chunk: acc[mt][nt] += window(tap) x w[tap].
@@ -348,12 +336,12 @@ __device__ __forceinline__ typename tc::Elem<T>::A load_a(const T* sx,
 // ky = that row (up to K of them). Stride 2: per tap, the MT rows'
 // fragments. Short MMA chains flushed into acc after each tap column
 // (stride 1) or each tap row (stride 2).
-template <int K, int S, int MT, int NTB, class T, int SS>
+template <int K, int S, int MT, int NTB, int SS>
 __device__ __forceinline__ void chunk_mma(float (&acc)[MT][NTB][4],
                                           float (&part)[MT][NTB][SS][4],
-                                          const T* sx, const float* sw,
+                                          const float* sx, const float* sw,
                                           int wy, int wx, int g, int t) {
-  using C = Cfg<K, S, MT, NTB, T>;
+  using C = Cfg<K, S, MT, NTB>;
   using Tl = typename C::T_;
   using E = typename C::E;
   if constexpr (S == 1) {
@@ -364,7 +352,7 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[MT][NTB][4],
       for (int ky = 0; ky < K; ++ky)
 #pragma unroll
         for (int nt = 0; nt < NTB; ++nt)
-          b[ky][nt] = load_b<T, C::NPS>(sw, ky * K + kx, nt, g, t);
+          b[ky][nt] = load_b<C::NPS>(sw, ky * K + kx, nt, g, t);
 #pragma unroll
       for (int z = 0; z < MT + K - 1; ++z) {
         const typename E::A a = load_a<Tl::XS, Tl::PS, 1>(
@@ -389,7 +377,7 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[MT][NTB][4],
         typename E::B b[NTB];
 #pragma unroll
         for (int nt = 0; nt < NTB; ++nt)
-          b[nt] = load_b<T, C::NPS>(sw, ky * K + kx, nt, g, t);
+          b[nt] = load_b<C::NPS>(sw, ky * K + kx, nt, g, t);
         const int col = Tl::xcol(S * 16 * wx + kx);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
@@ -406,12 +394,12 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[MT][NTB][4],
 
 // acc: C fragment (row g / g + 8 = x position, col 2t / 2t + 1 = co) of
 // output rows oy0 + mt, columns ox0 + [0, 16). In [N, H, W, Co] the two
-// channels of a lane are one 8-byte (bf16: 4-byte) store.
-template <int MT, int NTB, class T>
+// channels of a lane are one 8-byte store.
+template <int MT, int NTB>
 __device__ __forceinline__ void store_tile(
     const float (&acc)[MT][NTB][4], const float* __restrict__ scale,
-    const float* __restrict__ shift, const T* __restrict__ up,
-    T* __restrict__ out, int n, int oy0, int ox0, int co0, int Co, int Ho,
+    const float* __restrict__ shift, const float* __restrict__ up,
+    float* __restrict__ out, int n, int oy0, int ox0, int co0, int Co, int Ho,
     int Wo, int relu, int nhwc, int g, int t) {
   const int Hu = Ho / 2, Wu = Wo / 2;
 #pragma unroll
@@ -436,12 +424,8 @@ __device__ __forceinline__ void store_tile(
         }
         const long long pix = ((long long)n * Ho + oy) * Wo + ox;
         if (nhwc && co + 1 < Co && Co % 2 == 0) {
-          if constexpr (sizeof(T) == 4)
-            *reinterpret_cast<float2*>(out + pix * Co + co) =
-                make_float2(r[0], r[1]);
-          else
-            *reinterpret_cast<__nv_bfloat162*>(out + pix * Co + co) =
-                __floats2bfloat162_rn(r[0], r[1]);
+          *reinterpret_cast<float2*>(out + pix * Co + co) =
+              make_float2(r[0], r[1]);
           continue;
         }
 #pragma unroll
@@ -449,7 +433,7 @@ __device__ __forceinline__ void store_tile(
           if (co + e >= Co) continue;
           out[nhwc ? pix * Co + co + e
                    : (((long long)n * Co + co + e) * Ho + oy) * Wo + ox] =
-              from_f32<T>(r[e]);
+              r[e];
         }
       }
   }
@@ -473,14 +457,15 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NTB][4],
 // Two blocks per SM: the compiler keeps each thread within 128 registers.
 constexpr int kMinBlocks = 2;
 
-template <int K, int S, int MT, int NTB, class T>
+template <int K, int S, int MT, int NTB>
 __global__ void __launch_bounds__(tc::kThreads, kMinBlocks)
-conv2d_tc(const T* __restrict__ x, const void* __restrict__ wt,
+conv2d_tc(const float* __restrict__ x, const void* __restrict__ wt,
           const float* __restrict__ scale, const float* __restrict__ shift,
-          const T* __restrict__ up, T* __restrict__ out, int Ci, int Hi,
+          const float* __restrict__ up, float* __restrict__ out, int Ci,
+          int Hi,
           int Wi, int Co, int Ho, int Wo, int relu, int nhwc, int nby,
           int nbx, int vec) {
-  using C = Cfg<K, S, MT, NTB, T>;
+  using C = Cfg<K, S, MT, NTB>;
   using Tl = typename C::T_;
   using E = typename C::E;
   extern __shared__ __align__(16) float smem[];
@@ -502,8 +487,7 @@ conv2d_tc(const T* __restrict__ x, const void* __restrict__ wt,
   };
   auto load = [&](int ch) {
     float* s = stage(ch);
-    load_tile<K, S, MT>(reinterpret_cast<T*>(s), x, n, ch * E::CK, Ci, Hi,
-                        Wi, by0, bx0, vec);
+    load_tile<K, S, MT>(s, x, n, ch * E::CK, Ci, Hi, Wi, by0, bx0, vec);
     tc::load_weights<K * K, C::NW, C::NPS>(
         s + C::X_FLOATS,
         static_cast<const uint32_t*>(wt) +
@@ -521,8 +505,7 @@ conv2d_tc(const T* __restrict__ x, const void* __restrict__ wt,
     }
     __syncthreads();
     const float* st = stage(ch);
-    chunk_mma<K, S, MT, NTB>(acc, part, reinterpret_cast<const T*>(st),
-                             st + C::X_FLOATS, wy, wx, g, t);
+    chunk_mma<K, S, MT, NTB>(acc, part, st, st + C::X_FLOATS, wy, wx, g, t);
     __syncthreads();
   }
   store_tile(acc, scale, shift, up, out, n, by0 + wy * MT, bx0 + 16 * wx,
@@ -533,23 +516,22 @@ conv2d_tc(const T* __restrict__ x, const void* __restrict__ wt,
 // (inner . lat + bi), formed per chunk of sum in shared memory and never
 // written. up [N, Cu, H/2, W/2], lat [N, Cl, H, W] (Cl <= 8), wi [Cu, Cl],
 // bi [Cu]; the sum's rounding is the direct kernel's for the 1x1 conv
-// with its up-add: fma over ci in order, + bi, (bf16: rounded,) + up
-// (bf16: rounded again as the staged operand). Each thread forms whole
-// halo positions: the 8 lateral channels in registers, then the chunk's
-// CK sums.
-template <int MT, int NTB, class T>
+// with its up-add: fma over ci in order, + bi, + up. Each thread forms
+// whole halo positions: the 8 lateral channels in registers, then the
+// chunk's CK sums.
+template <int MT, int NTB>
 __global__ void __launch_bounds__(tc::kThreads, kMinBlocks)
-lateral_conv2d_tc(const T* __restrict__ up, const T* __restrict__ lat,
-                  const T* __restrict__ wi, const float* __restrict__ bi,
-                  const void* __restrict__ wt, T* __restrict__ out, int Cu,
-                  int Cl, int H, int W, int Co, int nhwc, int nby, int nbx,
-                  int vec) {
-  using C = Cfg<3, 1, MT, NTB, T>;
+lateral_conv2d_tc(const float* __restrict__ up, const float* __restrict__ lat,
+                  const float* __restrict__ wi, const float* __restrict__ bi,
+                  const void* __restrict__ wt, float* __restrict__ out,
+                  int Cu, int Cl, int H, int W, int Co, int nhwc, int nby,
+                  int nbx, int vec) {
+  using C = Cfg<3, 1, MT, NTB>;
   using Tl = typename C::T_;
   constexpr int CK = C::E::CK;
   extern __shared__ __align__(16) float smem[];
-  T* s_lat = reinterpret_cast<T*>(smem);             // [CK][PS]
-  T* sx = reinterpret_cast<T*>(smem + C::X_FLOATS);  // [CK][PS]
+  float* s_lat = smem;                               // [CK][PS]
+  float* sx = smem + C::X_FLOATS;                    // [CK][PS]
   float* sw = smem + 2 * C::X_FLOATS;                // [9][8][NPS]
   float* s_wi = sw + C::W_FLOATS;                    // [Cu][8]
   float* s_bi = s_wi + Cu * kCiChunk;                // [Cu]
@@ -570,7 +552,7 @@ lateral_conv2d_tc(const T* __restrict__ up, const T* __restrict__ lat,
   tc::cp_async_commit();
   for (int i = threadIdx.x; i < Cu * kCiChunk; i += tc::kThreads) {
     const int c = i / kCiChunk, ci = i % kCiChunk;
-    s_wi[i] = ci < Cl ? to_f32(wi[c * Cl + ci]) : 0.f;
+    s_wi[i] = ci < Cl ? wi[c * Cl + ci] : 0.f;
   }
   for (int i = threadIdx.x; i < Cu; i += tc::kThreads)
     s_bi[i] = bi != nullptr ? bi[i] : 0.f;
@@ -598,8 +580,8 @@ lateral_conv2d_tc(const T* __restrict__ up, const T* __restrict__ lat,
         float l[kCiChunk];
 #pragma unroll
         for (int ci = 0; ci < kCiChunk; ++ci)
-          l[ci] = to_f32(s_lat[ci * Tl::PS + off]);
-        const T* upp = up + ((long long)n * Cu + c0) * up_plane +
+          l[ci] = s_lat[ci * Tl::PS + off];
+        const float* upp = up + ((long long)n * Cu + c0) * up_plane +
                        (long long)(gy >> 1) * Wu + (gx >> 1);
 #pragma unroll
         for (int c = 0; c < CK; ++c) {
@@ -610,7 +592,7 @@ lateral_conv2d_tc(const T* __restrict__ up, const T* __restrict__ lat,
 #pragma unroll
             for (int ci = 0; ci < kCiChunk; ++ci) a = fmaf(l[ci], wc[ci], a);
             a += s_bi[c0 + c];
-            v[c] = round_to<T>(a) + to_f32(__ldg(upp + c * up_plane));
+            v[c] = a + __ldg(upp + c * up_plane);
           }
         }
       } else {
@@ -618,14 +600,14 @@ lateral_conv2d_tc(const T* __restrict__ up, const T* __restrict__ lat,
         for (int c = 0; c < CK; ++c) v[c] = 0.f;
       }
 #pragma unroll
-      for (int c = 0; c < CK; ++c) sx[c * Tl::PS + off] = from_f32<T>(v[c]);
+      for (int c = 0; c < CK; ++c) sx[c * Tl::PS + off] = v[c];
     }
     tc::cp_async_wait<0>();
     __syncthreads();
-    chunk_mma<3, 1, MT, NTB>(acc, part, static_cast<const T*>(sx), sw, wy,
-                             wx, g, t);
+    chunk_mma<3, 1, MT, NTB>(acc, part, sx, sw, wy, wx, g, t);
   }
-  store_tile(acc, nullptr, nullptr, static_cast<const T*>(nullptr), out, n,
+  store_tile(acc, nullptr, nullptr, static_cast<const float*>(nullptr), out,
+             n,
              by0 + wy * MT, bx0 + 16 * wx, co0, Co, H, W, 0, nhwc, g, t);
 }
 
@@ -636,22 +618,21 @@ cudaError_t allow(Kern* kern, size_t bytes) {
 }
 
 // Every block's row vectors need rows of x aligned to a vector's bytes.
-template <class T>
-int vec_rows(const T* x, int W) {
-  return W % 4 == 0 &&
-         reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
+int vec_rows(const float* x, int W) {
+  return W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
 }
 
-template <int K, int S, int MT, int NTB, class T>
-cudaError_t launch_tc(const T* x, const T* w, const float* scale,
-                      const float* shift, const T* up, T* out, void* wt,
+template <int K, int S, int MT, int NTB>
+cudaError_t launch_tc(const float* x, const float* w, const float* scale,
+                      const float* shift, const float* up, float* out,
+                      void* wt,
                       int N, int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
                       int relu, int nhwc, cudaStream_t s) {
-  using C = Cfg<K, S, MT, NTB, T>;
+  using C = Cfg<K, S, MT, NTB>;
   const int nch = (Ci + C::E::CK - 1) / C::E::CK;
   const size_t smem = sizeof(float) * C::STAGE * (nch > 1 ? 2 : 1);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = allow(conv2d_tc<K, S, MT, NTB, T>, smem);
+  cudaError_t err = allow(conv2d_tc<K, S, MT, NTB>, smem);
   if (err != cudaSuccess) return err;
   err = tc::prep(w, wt, Ci, Co, K * K, C::NW, s);
   if (err != cudaSuccess) return err;
@@ -660,18 +641,19 @@ cudaError_t launch_tc(const T* x, const T* w, const float* scale,
   const long long blocks = (long long)N * nby * nbx;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   dim3 grid((unsigned)blocks, (unsigned)((Co + C::NW - 1) / C::NW));
-  conv2d_tc<K, S, MT, NTB, T><<<grid, tc::kThreads, smem, s>>>(
+  conv2d_tc<K, S, MT, NTB><<<grid, tc::kThreads, smem, s>>>(
       x, wt, scale, shift, up, out, Ci, Hi, Wi, Co, Ho, Wo, relu, nhwc, nby,
       nbx, C::T_::SPLIT ? 0 : vec_rows(x, Wi));
   return cudaGetLastError();
 }
 
 // The tiles ops/conv2d.py's TILES lists for each (K, S): (MT, NTB).
-template <int K, int S, class T>
-cudaError_t by_tile(int mt, int ntb, const T* x, const T* w,
-                    const float* scale, const float* shift, const T* up,
-                    T* out, void* wt, int N, int Ci, int Hi, int Wi, int Co,
-                    int Ho, int Wo, int relu, int nhwc, cudaStream_t s) {
+template <int K, int S>
+cudaError_t by_tile(int mt, int ntb, const float* x, const float* w,
+                    const float* scale, const float* shift, const float* up,
+                    float* out, void* wt, int N, int Ci, int Hi, int Wi,
+                    int Co, int Ho, int Wo, int relu, int nhwc,
+                    cudaStream_t s) {
 #define CONV2D_TILE(M, B)                                                  \
   if (mt == M && ntb == B)                                                 \
     return launch_tc<K, S, M, B>(x, w, scale, shift, up, out, wt, N, Ci,   \
@@ -688,9 +670,9 @@ cudaError_t by_tile(int mt, int ntb, const T* x, const T* w,
   return cudaErrorInvalidValue;
 }
 
-template <class T>
-cudaError_t tensor_cores(const T* x, const T* w, const float* scale,
-                         const float* shift, const T* up, T* out, void* wt,
+cudaError_t tensor_cores(const float* x, const float* w, const float* scale,
+                         const float* shift, const float* up, float* out,
+                         void* wt,
                          int N, int Ci, int Hi, int Wi, int Co, int Ho,
                          int Wo, int K, int stride, int relu, int nhwc,
                          int mt, int ntb, cudaStream_t s) {
@@ -703,16 +685,17 @@ cudaError_t tensor_cores(const T* x, const T* w, const float* scale,
   return cudaErrorInvalidValue;
 }
 
-template <int MT, int NTB, class T>
-cudaError_t launch_lateral(const T* up, const T* lat, const T* wi,
-                           const float* bi, const T* w, T* out, void* wt,
+template <int MT, int NTB>
+cudaError_t launch_lateral(const float* up, const float* lat,
+                           const float* wi, const float* bi, const float* w,
+                           float* out, void* wt,
                            int N, int Cu, int Cl, int H, int W, int Co,
                            int nhwc, cudaStream_t s) {
-  using C = Cfg<3, 1, MT, NTB, T>;
+  using C = Cfg<3, 1, MT, NTB>;
   const size_t smem =
       sizeof(float) * (2 * C::X_FLOATS + C::W_FLOATS + Cu * (kCiChunk + 1));
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = allow(lateral_conv2d_tc<MT, NTB, T>, smem);
+  cudaError_t err = allow(lateral_conv2d_tc<MT, NTB>, smem);
   if (err != cudaSuccess) return err;
   err = tc::prep(w, wt, Cu, Co, 9, C::NW, s);
   if (err != cudaSuccess) return err;
@@ -721,15 +704,15 @@ cudaError_t launch_lateral(const T* up, const T* lat, const T* wi,
   const long long blocks = (long long)N * nby * nbx;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   dim3 grid((unsigned)blocks, (unsigned)((Co + C::NW - 1) / C::NW));
-  lateral_conv2d_tc<MT, NTB, T><<<grid, tc::kThreads, smem, s>>>(
+  lateral_conv2d_tc<MT, NTB><<<grid, tc::kThreads, smem, s>>>(
       up, lat, wi, bi, wt, out, Cu, Cl, H, W, Co, nhwc, nby, nbx,
       vec_rows(lat, W));
   return cudaGetLastError();
 }
 
-template <class T>
-cudaError_t lateral(const T* up, const T* lat, const T* wi, const float* bi,
-                    const T* w, T* out, void* wt, int N, int Cu, int Cl,
+cudaError_t lateral(const float* up, const float* lat, const float* wi,
+                    const float* bi, const float* w, float* out, void* wt,
+                    int N, int Cu, int Cl,
                     int H, int W, int Co, int nhwc, int mt, int ntb,
                     cudaStream_t s) {
   if (Cl < 1 || Cl > kCiChunk || H % 2 || W % 2) return cudaErrorInvalidValue;
@@ -780,38 +763,6 @@ extern "C" int lateral_conv2d_f32(const float* up, const float* lat,
                                   const float* w, float* out, void* wt,
                                   int N, int Cu, int Cl, int H, int W, int Co,
                                   int nhwc, int mt, int ntb, void* stream) {
-  return (int)lateral(up, lat, wi, bi, w, out, wt, N, Cu, Cl, H, W, Co, nhwc,
-                      mt, ntb, (cudaStream_t)stream);
-}
-
-// The bf16 instances of the three entries above: x, w, up, lat, wi and out
-// bf16; scale, shift and bi float32; the tensor-core scratch wt holds
-// ceil(Co / 8ntb) * ceil(Ci / 16) * K * K * 8 * 8ntb words.
-extern "C" int conv2d_bf16(const bf16* x, const bf16* w, const float* scale,
-                           const float* shift, const bf16* up, bf16* out,
-                           int N, int Ci, int Hi, int Wi, int Co, int Ho,
-                           int Wo, int K, int stride, int pad, int relu,
-                           int nhwc, void* stream) {
-  return (int)direct(x, w, scale, shift, up, out, N, Ci, Hi, Wi, Co, Ho, Wo,
-                     K, stride, pad, relu, nhwc, (cudaStream_t)stream);
-}
-
-extern "C" int conv2d_tc_bf16(const bf16* x, const bf16* w,
-                              const float* scale, const float* shift,
-                              const bf16* up, bf16* out, void* wt, int N,
-                              int Ci, int Hi, int Wi, int Co, int Ho, int Wo,
-                              int K, int stride, int relu, int nhwc, int mt,
-                              int ntb, void* stream) {
-  return (int)tensor_cores(x, w, scale, shift, up, out, wt, N, Ci, Hi, Wi,
-                           Co, Ho, Wo, K, stride, relu, nhwc, mt, ntb,
-                           (cudaStream_t)stream);
-}
-
-extern "C" int lateral_conv2d_bf16(const bf16* up, const bf16* lat,
-                                   const bf16* wi, const float* bi,
-                                   const bf16* w, bf16* out, void* wt, int N,
-                                   int Cu, int Cl, int H, int W, int Co,
-                                   int nhwc, int mt, int ntb, void* stream) {
   return (int)lateral(up, lat, wi, bi, w, out, wt, N, Cu, Cl, H, W, Co, nhwc,
                       mt, ntb, (cudaStream_t)stream);
 }

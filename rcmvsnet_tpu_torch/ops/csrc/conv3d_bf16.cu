@@ -157,58 +157,6 @@ __device__ __forceinline__ void stage_x(uint32_t* s, const bf16* x, int n,
   }
 }
 
-// One chunk of one group's prepared weights (27 x NW x PW words) into s
-__device__ __forceinline__ void stage_w(uint32_t* s, const uint32_t* wt,
-                                        int words) {
-  for (int e = threadIdx.x; e < words / 4; e += kThreads)
-    tc::cp_async16(reinterpret_cast<float*>(s + 4 * e),
-                   reinterpret_cast<const float*>(wt + 4 * e), 16);
-}
-
-// The fragments of one chunk width: A of the m16 tile at halo position
-// pos (x = g; x = g + 8 eight positions on), B of a tap's n8 tile, and the
-// product.
-template <int CK>
-struct Frag;
-
-template <>
-struct Frag<16> {
-  struct A { uint32_t v[4]; };
-  using B = uint2;
-  static __device__ __forceinline__ A load_a(const uint32_t* sx, int pos,
-                                             int t) {
-    const uint2 lo = lds64(sx + pos * 8 + 2 * t);
-    const uint2 hi = lds64(sx + (pos + 8) * 8 + 2 * t);
-    return A{{lo.x, hi.x, lo.y, hi.y}};
-  }
-  static __device__ __forceinline__ B load_b(const uint32_t* sw, int row,
-                                             int t) {
-    return lds64(sw + row * 8 + 2 * t);
-  }
-  static __device__ __forceinline__ void mma(float (&d)[4], const A& a,
-                                             const B& b) {
-    mma_acc(d, a.v[0], a.v[1], a.v[2], a.v[3], b.x, b.y);
-  }
-};
-
-template <>
-struct Frag<8> {
-  struct A { uint32_t v[2]; };
-  using B = uint32_t;
-  static __device__ __forceinline__ A load_a(const uint32_t* sx, int pos,
-                                             int t) {
-    return A{{sx[pos * 4 + t], sx[(pos + 8) * 4 + t]}};
-  }
-  static __device__ __forceinline__ B load_b(const uint32_t* sw, int row,
-                                             int t) {
-    return sw[row * 4 + t];
-  }
-  static __device__ __forceinline__ void mma(float (&d)[4], const A& a,
-                                             const B& b) {
-    mma_acc_k8(d, a.v[0], a.v[1], b);
-  }
-};
-
 template <int NTB, int CK>
 __device__ __forceinline__ void load_b(typename Frag<CK>::B (&b)[NTB],
                                        const uint32_t* sw, int tap, int g,
@@ -216,20 +164,6 @@ __device__ __forceinline__ void load_b(typename Frag<CK>::B (&b)[NTB],
 #pragma unroll
   for (int nt = 0; nt < NTB; ++nt)
     b[nt] = Frag<CK>::load_b(sw, (tap * NTB + nt) * 8 + g, t);
-}
-
-template <int MT, int NTB>
-__device__ __forceinline__ void flush(float (&acc)[MT][NTB][4],
-                                      float (&part)[MT][NTB][4]) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NTB; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[mt][nt][i] += part[mt][nt][i];
-        part[mt][nt][i] = 0.f;
-      }
 }
 
 template <int NTB, int CK>

@@ -1,7 +1,6 @@
-// Shared pieces of the bf16 3x3x3 convolutions on Hopper's tensor cores:
-// K2-bf16 (conv3d_bf16.cu) and K8's bf16 weight gradient
-// (conv3d_dw_bf16.cu). The float32 instances (conv3d.cu, conv3d_dw.cu) do
-// not include this file.
+// Shared pieces of the bf16 convolutions on Hopper's tensor cores: K2-bf16
+// (conv3d_bf16.cu), K8's bf16 weight gradient (conv3d_dw_bf16.cu) and
+// K5-bf16 (conv2d_bf16.cu). The float32 kernels do not include this file.
 //
 // Products: mma.sync.aligned.m16n8k16 (K2's 8-channel chunks: m16n8k8),
 // bf16 operands, float32 accumulators; a bf16 x bf16 product is exact in
@@ -17,9 +16,9 @@
 // (j = 0, 1). Then one 8-byte load at element 4t of a row gives the
 // row's a0 (low word) and a2 (high word), and one at element 4t of a B
 // column gives b0 and b1: two loads an A fragment, one a B fragment.
-// K2 stages x channels-last (K = the 16 channels of a chunk, 32 bytes a
-// position), K8 dw stages x and g along positions (K = 16 positions of
-// one brick row).
+// K2 and K5 stage x channels-last (K = the 16 channels of a chunk, 32
+// bytes a position), K8 dw stages x and g along positions (K = 16
+// positions of one brick row).
 //
 // Staging: rows of x and g are read from device memory as whole 16-byte
 // vectors of 8 elements where the row allows (W % 8 == 0 and the base
@@ -131,6 +130,74 @@ __device__ __forceinline__ uint32_t pair_word(const uint32_t (&w)[N], int e,
 __device__ __forceinline__ void sts128(uint32_t* p, uint32_t a, uint32_t b,
                                        uint32_t c, uint32_t d) {
   *reinterpret_cast<uint4*>(p) = make_uint4(a, b, c, d);
+}
+
+// The fragments of one chunk width (CK channels, CK / 2 words a staged
+// position), as lane (g, t) loads them: A of an m16 tile whose row g is
+// staged position pos (row g + 8 eight positions on), B of column `row` of
+// a weight layout of CK / 2 words a column, and the product.
+template <int CK>
+struct Frag;
+
+template <>
+struct Frag<16> {
+  struct A { uint32_t v[4]; };
+  using B = uint2;
+  static __device__ __forceinline__ A load_a(const uint32_t* sx, int pos,
+                                             int t) {
+    const uint2 lo = lds64(sx + pos * 8 + 2 * t);
+    const uint2 hi = lds64(sx + (pos + 8) * 8 + 2 * t);
+    return A{{lo.x, hi.x, lo.y, hi.y}};
+  }
+  static __device__ __forceinline__ B load_b(const uint32_t* sw, int row,
+                                             int t) {
+    return lds64(sw + row * 8 + 2 * t);
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a,
+                                             const B& b) {
+    mma_acc(d, a.v[0], a.v[1], a.v[2], a.v[3], b.x, b.y);
+  }
+};
+
+template <>
+struct Frag<8> {
+  struct A { uint32_t v[2]; };
+  using B = uint32_t;
+  static __device__ __forceinline__ A load_a(const uint32_t* sx, int pos,
+                                             int t) {
+    return A{{sx[pos * 4 + t], sx[(pos + 8) * 4 + t]}};
+  }
+  static __device__ __forceinline__ B load_b(const uint32_t* sw, int row,
+                                             int t) {
+    return sw[row * 4 + t];
+  }
+  static __device__ __forceinline__ void mma(float (&d)[4], const A& a,
+                                             const B& b) {
+    mma_acc_k8(d, a.v[0], a.v[1], b);
+  }
+};
+
+template <int MT, int NTB>
+__device__ __forceinline__ void flush(float (&acc)[MT][NTB][4],
+                                      float (&part)[MT][NTB][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTB; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[mt][nt][i] += part[mt][nt][i];
+        part[mt][nt][i] = 0.f;
+      }
+}
+
+// `words` words of prepared weights (a multiple of 4) into s, by 16-byte
+// cp.async
+__device__ __forceinline__ void stage_w(uint32_t* s, const uint32_t* wt,
+                                        int words) {
+  for (int e = threadIdx.x; e < words / 4; e += kThreads)
+    tc::cp_async16(reinterpret_cast<float*>(s + 4 * e),
+                   reinterpret_cast<const float*>(wt + 4 * e), 16);
 }
 
 }  // namespace tcb

@@ -1,28 +1,19 @@
 // Shared pieces of the tensor-core convolutions, for Hopper (sm_90a): the
 // float32 3x3x3 ones (conv3d.cu, K2/K9, and conv3d_dw.cu, K8's weight
-// gradient) and FeatureNet's 2D convs (conv2d.cu, K5, float32 and bf16).
-// The bf16 3x3x3 convs have designs of their own (conv3d_bf16.cu,
-// conv3d_dw_bf16.cu, tc_bf16.cuh).
+// gradient) and FeatureNet's float32 2D convs (conv2d.cu, K5). The bf16
+// convs have designs of their own (conv3d_bf16.cu, conv3d_dw_bf16.cu,
+// conv2d_bf16.cu, tc_bf16.cuh), which take the element helpers and the
+// bf16 weight words below.
 //
-// Products, per element type of the staged operands (Elem below):
-//   float: mma.sync.aligned.m16n8k8 with TF32 operands and float32
-//   accumulators. The float32 path's gates hold each call to 1e-4 of its
-//   largest value; one TF32 product (10-bit mantissa) misses that by 3x,
-//   so every product is 3xTF32: a = a_hi + a_lo with both halves rounded
-//   to TF32 as cvt.rna.tf32.f32 rounds (nearest, ties away; done as an
-//   integer add and mask, the same bits on full-rate ALU ops), acc +=
-//   a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (a_lo*b_lo, ~2^-22 of the product,
-//   is dropped).
-//   bf16 (K5-bf16, the bfloat16 eval path): mma.sync.aligned.m16n8k16 with bf16
-//   operands and float32 accumulators, one product per multiply-add (a
-//   bf16 x bf16 product is exact in float32), 16 input channels a chunk:
-//   a fragment's 32-bit word holds channels 2j and 2j + 1, so the A word
-//   is packed from two channel planes of the staged tile and the weights
-//   are laid out in channel pairs (prep_weights).
-// A chunk of CK channels is 32 bytes a position in either type (8 floats
-// or 16 bf16), so a stage has the same bytes and planes and rows keep
-// their element strides; the weights are rows of 32-bit words [tap][8
-// rows][NW co] (a row: one float channel, or a bf16 channel pair).
+// Products (Elem<float> below): mma.sync.aligned.m16n8k8 with TF32
+// operands and float32 accumulators. The float32 path's gates hold each
+// call to 1e-4 of its largest value; one TF32 product (10-bit mantissa)
+// misses that by 3x, so every product is 3xTF32: a = a_hi + a_lo with both
+// halves rounded to TF32 as cvt.rna.tf32.f32 rounds (nearest, ties away;
+// done as an integer add and mask, the same bits on full-rate ALU ops),
+// acc += a_lo*b_hi + a_hi*b_lo + a_hi*b_hi (a_lo*b_lo, ~2^-22 of the
+// product, is dropped). A chunk is 8 channels, 32 bytes a position; the
+// weights are rows of 32-bit words [tap][8 rows][NW co].
 // Accumulation: the tensor cores add into their float32 accumulators
 // with truncation, so an error of up to ~2^-23 of the running sum per MMA
 // grows with the length of the chain (measured: 2e-4 of the largest dw
@@ -179,23 +170,13 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[S][4],
   mma_tf32(d[2 % S], ah, bh[0], bh[1]);
 }
 
-// d += a * b: m16n8k16, bf16 operands, float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two bf16 as one 32-bit fragment word, lo in bits 0-15.
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
-// The operands of one element type. A fragments are read from a staged
+// The operands of the float32 convs. A fragments are read from a staged
 // tile of channel planes (plane stride PS elements) at `base`, the tile's
 // (row 0, channel 0) for the warp's m16 tile; B fragments from a weight
 // chunk's row-of-words layout at `wp`, the lane's (row t, column g).
@@ -233,39 +214,6 @@ struct Elem<float> {
   static __device__ __forceinline__ void mma(float (&d)[SS][4], const A& a,
                                              const B& b) {
     mma_3xtf32<SS>(d, a.h, a.l, b.h, b.l);
-  }
-};
-
-template <>
-struct Elem<bf16> {
-  static constexpr int CK = 2 * kCiChunk;
-  static constexpr int S = 1;
-  struct A { uint32_t v[4]; };
-  struct B { uint32_t v[2]; };
-  // row g / g + 8 = position (PSTR columns apart); word j holds channels
-  // 2t, 2t + 1 (j = 0, 1) or 2t + 8, 2t + 9 (j = 2, 3), each pair from
-  // two adjacent planes
-  template <int PSTR = 1>
-  static __device__ __forceinline__ A load_a(const bf16* base, int PS,
-                                             int g, int t) {
-    constexpr int R8 = 8 * PSTR;
-    const bf16* ap = base + 2 * t * PS + g * PSTR;
-    A a;
-    a.v[0] = pack_bf16(ap[0], ap[PS]);
-    a.v[1] = pack_bf16(ap[R8], ap[PS + R8]);
-    a.v[2] = pack_bf16(ap[8 * PS], ap[9 * PS]);
-    a.v[3] = pack_bf16(ap[8 * PS + R8], ap[9 * PS + R8]);
-    return a;
-  }
-  // b0: pair row t (channels 2t, 2t + 1), b1: pair row t + 4
-  static __device__ __forceinline__ B load_b(const float* wp, int NPS) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(wp);
-    return B{{w[0], w[4 * NPS]}};
-  }
-  template <int SS>
-  static __device__ __forceinline__ void mma(float (&d)[SS][4], const A& a,
-                                             const B& b) {
-    mma_bf16(d[0], a.v, b.v[0], b.v[1]);
   }
 };
 
@@ -339,9 +287,9 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // The weights laid out once per call for the blocks' 16-byte copies:
 // wt[group][chunk][tap][row 8][NW] 32-bit words (group = co / NW, chunk =
-// ci / CK; a row is channel chunk * 8 + row of a float w, the pair chunk
-// * 16 + 2 row, + 1 of a bf16 w), zero past Co and Ci, from w [Co, Ci,
-// KK].
+// ci / 8; a row is channel chunk * 8 + row), zero past Co and Ci, from w
+// [Co, Ci, KK]. A bf16 w's word holds channels ci and ci + 1 (the bf16
+// convs' own layouts: conv3d_bf16.cu, conv2d_bf16.cu).
 __device__ __forceinline__ uint32_t weight_word(const float* w, int co,
                                                 int ci, int Ci, int Co,
                                                 int KK, int tap) {

@@ -1,7 +1,8 @@
 // The bf16 plane-sweep warp + variance (K1-bf16) and its backward
 // (K6-bf16), designed for Hopper on their own. The float32 kernels stay on
 // the shared templates of warp_variance.cu (warp_fwd.cuh, warp_bwd.cuh),
-// and so do K7's bf16 instances (warp_volume.cu).
+// and so does K7's bf16 forward (warp_volume.cu). What K6-bf16 shares
+// with K7's bf16 backward (warp_volume_bf16.cu) is in warp_bf16.cuh.
 //
 // K1-bf16 replaces rcmvsnet_tpu/ops/pallas_warp2.py
 // plane_sweep_variance_lanes at compute dtype = out dtype = bf16 (its
@@ -92,114 +93,23 @@
 
 #include <cstdint>
 
+#include "warp_bf16.cuh"
 #include "warp_bwd.cuh"
 #include "warp_common.cuh"
 #include "warp_fwd.cuh"
 
 namespace {
 
+using namespace warpb;
 using warp::kMaxViews;
-using warp::Taps;
 using warp::project_mine;
 using warp::rot_rows;
 using warp::taps_of_view;
-using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;      // a block
 constexpr int kFwdCh = 8;          // K1-bf16: channels a lane
 constexpr int kBwdCh = 4;          // K6-bf16: channels a lane
 constexpr int kPlaneChunk = 8;     // K6-bf16: planes of g staged a barrier
 static_assert(kThreads == warp::kFwdThreads, "K1-bf16's grid: fwd_plan");
-
-// ------------------------------------------------------------ helpers
-
-// N bf16 (N = 4, 8: one 8- or 16-byte load) as N / 2 words, each two
-// elements, the first in the low half.
-template <int N>
-__device__ __forceinline__ void load_words(const bf16* p,
-                                           unsigned (&w)[N / 2]) {
-  if constexpr (N == 4) {
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-    w[0] = u.x;
-    w[1] = u.y;
-  } else {
-    static_assert(N == 8, "4 or 8 channels a lane");
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = u.x;
-    w[1] = u.y;
-    w[2] = u.z;
-    w[3] = u.w;
-  }
-}
-
-// Element i of words w, widened exactly.
-template <int M>
-__device__ __forceinline__ float elem(const unsigned (&w)[M], int i) {
-  return __uint_as_float((i & 1) ? (w[i >> 1] & 0xffff0000u)
-                                 : (w[i >> 1] << 16));
-}
-
-template <int N>
-__device__ __forceinline__ void load_bf16(const bf16* p, float (&v)[N]) {
-  unsigned w[N / 2];
-  load_words<N>(p, w);
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = elem(w, i);
-}
-
-// a, b rounded to bf16 (to nearest even) by one packed conversion; a in
-// the low half
-__device__ __forceinline__ unsigned pack_rn(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-__device__ __forceinline__ float bf16_rn(float a) {
-  return __bfloat162float(__float2bfloat16_rn(a));
-}
-
-// Whether tap k of taps t lies inside the image.
-__device__ __forceinline__ bool tap_in(const Taps& t, int k, int H, int W) {
-  const int xi = t.x0 + (k & 1), yi = t.y0 + (k >> 1);
-  return xi >= 0 && xi < W && yi >= 0 && yi < H;
-}
-
-// The four taps' channels [c0, c0 + N) of map base [H, W, C] bf16 (zero
-// where a tap lies outside the image): the loads of a bilinear sample.
-template <int C, int N>
-__device__ __forceinline__ void load_taps(const bf16* base, const Taps& t,
-                                          int H, int W, int c0,
-                                          unsigned (&w)[4][N / 2]) {
-  const long long p00 = ((long long)t.y0 * W + t.x0) * C + c0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) w[k][i] = 0u;
-    if (tap_in(t, k, H, W))
-      load_words<N>(base + p00 + ((k >> 1) ? (long long)W * C : 0) +
-                        ((k & 1) ? C : 0),
-                    w[k]);
-  }
-}
-
-// The bilinear sample from its loaded taps: sample_quad's rule
-// (warp_common.cuh) on N channels, the taps in order 0..3, one fused
-// multiply-add each with the tap's weight bf16(wx_k) * wy_k; a tap
-// outside the image adds nothing.
-template <int N>
-__device__ __forceinline__ void fma_taps(const Taps& t, int H, int W,
-                                         const unsigned (&w)[4][N / 2],
-                                         float (&val)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) val[i] = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if (!tap_in(t, k, H, W)) continue;
-    const float wgt = warp::tap_weight_bf16(t, k);
-#pragma unroll
-    for (int i = 0; i < N; ++i) val[i] = __fmaf_rn(wgt, elem(w[k], i), val[i]);
-  }
-}
 
 // ------------------------------------------------------------ K1-bf16
 
@@ -325,100 +235,6 @@ void fwd_views(const bf16* src, const float* rel, const float* lo,
 
 // ------------------------------------------------------------ K6-bf16
 
-// One source view's run of consecutive planes that share a top-left tap:
-// the tap and, per tap k and channel i of the lane, a float sum.
-template <int N>
-struct Run {
-  int x0, y0;
-  float acc[4][N];
-};
-
-// Add the run's sums, in quanta, into dst [H, W, C] at its taps inside the
-// image (warp::flush_taps). The group's L lanes (mask) hand their N
-// channels over through fl, its [4][C] floats of shared memory, so that
-// lane q adds channels q, q + L, ...: each integer add instruction of the
-// group covers L consecutive words, as the template's C lanes do, rather
-// than one word in every N.
-template <int C, int N, int L>
-__device__ __forceinline__ void flush(unsigned long long* dst,
-                                      const Run<N>& r, float (*fl)[C],
-                                      unsigned mask, int H, int W, int q,
-                                      double to_q) {
-  if (!(to_q > 0.0)) return;          // all-zero or non-finite inputs
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int i = 0; i < N; ++i) fl[k][N * q + i] = r.acc[k][i];
-  __syncwarp(mask);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int xi = r.x0 + (k & 1), yi = r.y0 + (k >> 1);
-    if (xi < 0 || xi >= W || yi < 0 || yi >= H) continue;
-    unsigned long long* p = dst + ((long long)yi * W + xi) * C + q;
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      atomicAdd(p + i * L, (unsigned long long)llrint(
-                               (double)fl[k][i * L + q] * to_q));
-  }
-  __syncwarp(mask);                   // fl is free for the next flush
-}
-
-// Tap k of the run receives bf16(cot_i * wy_k) * bf16(wx_k), channel i
-// (warp::run_add_bf16 on N channels: bf16(wx_k) once, two channels'
-// products rounded by one packed conversion).
-template <int N>
-__device__ __forceinline__ void run_add(Run<N>& r, const Taps& t,
-                                        const float (&cot)[N]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float wy = (k >> 1) ? t.wy : __fsub_rn(1.f, t.wy);
-    const float wx = bf16_rn((k & 1) ? t.wx : __fsub_rn(1.f, t.wx));
-#pragma unroll
-    for (int i = 0; i < N; i += 2) {
-      const unsigned ty = pack_rn(__fmul_rn(cot[i], wy),
-                                  __fmul_rn(cot[i + 1], wy));
-      r.acc[k][i] = __fmaf_rn(wx, __uint_as_float(ty << 16), r.acc[k][i]);
-      r.acc[k][i + 1] =
-          __fmaf_rn(wx, __uint_as_float(ty & 0xffff0000u), r.acc[k][i + 1]);
-    }
-  }
-}
-
-// s_g[dd][c][jj] = g[c, d0 + dd, p0 + jj] in bf16, zero past D or the
-// image: vec (h*w % 8 == 0, g 16-byte aligned) in 16-byte loads of 8
-// pixels, else element by element.
-template <int C, int P, int PG>
-__device__ __forceinline__ void stage_g(bf16 (*s_g)[C][PG],
-                                        const bf16* __restrict__ g,
-                                        long long p0, long long HW, int d0,
-                                        int D, bool vec) {
-  if (vec) {
-    constexpr int CH = P / 8;             // 16-byte chunks a row
-    for (int i = threadIdx.x; i < kPlaneChunk * C * CH; i += kThreads) {
-      const int ch = i % CH, row = i / CH, c = row % C, dd = row / C;
-      const int d = d0 + dd;
-      const long long pp = p0 + 8 * ch;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (d < D && pp < HW)
-        u = __ldg(reinterpret_cast<const uint4*>(
-            g + ((long long)c * D + d) * HW + pp));
-      unsigned* o = reinterpret_cast<unsigned*>(&s_g[dd][c][8 * ch]);
-      o[0] = u.x;
-      o[1] = u.y;
-      o[2] = u.z;
-      o[3] = u.w;
-    }
-  } else {
-    for (int i = threadIdx.x; i < kPlaneChunk * C * P; i += kThreads) {
-      const int jj = i % P, c = (i / P) % C, dd = i / (P * C);
-      const long long pp = p0 + jj;
-      const int d = d0 + dd;
-      s_g[dd][c][jj] = pp < HW && d < D
-          ? g[((long long)c * D + d) * HW + pp] : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
 // A block: P consecutive reference pixels, L = C / kBwdCh lanes each
 // (lane q channels [q * kBwdCh, (q + 1) * kBwdCh)), walking all D planes
 // in order, g staged kPlaneChunk planes at a time. NV bounds the source
@@ -474,13 +290,7 @@ warp_variance_bwd_bf16_kernel(const bf16* __restrict__ src,
   rot_rows<S, L>(rr, s_rel, q, nv, fx, fy);
   Run<N> run[NV];
 #pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    run[v].x0 = run[v].y0 = -(1 << 30);      // covers no tap
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int i = 0; i < N; ++i) run[v].acc[k][i] = 0.f;
-  }
+  for (int v = 0; v < NV; ++v) run_clear(run[v]);
   float dref[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) dref[i] = 0.f;
@@ -490,21 +300,14 @@ warp_variance_bwd_bf16_kernel(const bf16* __restrict__ src,
   Taps tn[NV];
   unsigned wn[NV][4][N / 2];
   auto fetch = [&](int d) {
-    Taps mine[S];
-    project_mine<S, L>(mine, rr, s_rel, q, nv,
-                       warp::plane_depth(lo_p, step_p, d), H, W);
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      if (!EXACT && v >= nv) break;        // the same in the whole warp
-      tn[v] = taps_of_view<S, L>(mine, v);
-      load_taps<C, N>(src + (long long)(v + 1) * HW * C, tn[v], H, W, c0,
-                      wn[v]);
-    }
+    fetch_views<C, N, L, S, NV, EXACT>(tn, wn, rr, s_rel, src, HW, q, nv,
+                                       warp::plane_depth(lo_p, step_p, d),
+                                       H, W, c0);
   };
   fetch(0);
   for (int d0 = 0; d0 < D; d0 += kPlaneChunk) {
     __syncthreads();                 // the last chunk's reads are done
-    stage_g<C, P, PG>(s_g, g, p0, HW, d0, D, vec);
+    stage_g<C, P, PG, kPlaneChunk>(s_g, g, p0, HW, d0, D, vec);
     __syncthreads();
     const int dn = min(kPlaneChunk, D - d0);
     for (int dd = 0; dd < dn; ++dd) {
@@ -600,10 +403,6 @@ void bwd_views(const bf16* src, const float* rel, const float* lo,
   else
     launch_bwd<C, 15, false>(src, rel, lo, step, g, dsrc, acc, q, V, H, W,
                              D, vec, s);
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace

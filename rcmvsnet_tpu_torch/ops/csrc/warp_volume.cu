@@ -53,15 +53,13 @@
 // [V-1, h, w, C], int64 image quanta [V-1, h, w, 4] (channel 3 unused:
 // one 32-byte sector a pixel).
 //
-// bf16 instances (the bf16 train path; warp_volume_bf16 and
-// warp_volume_bwd_bf16): features, images, all three outputs and the
-// cotangents bf16, as the JAX kernel at compute and output dtype bf16
-// (pallas_warp_volume.py:300-308 rounds the stacked features and images,
-// :78-91 the x hat weights): the forward samples with bf16 x weights
-// (warp_common.cuh's quad_weight, images included), sums in float32 and
-// rounds each output once; the backward rounds each tap's contribution as
-// warp_bwd.cuh's bf16 note says, keeps the fixed-point scatter, and rounds
-// dfeat and dimg to bf16 once (:429-430).
+// The forward's bf16 instance (the bf16 train path; warp_volume_bf16):
+// features, images and both outputs bf16, as the JAX kernel at compute and
+// output dtype bf16 (pallas_warp_volume.py:300-308 rounds the stacked
+// features and images, :78-91 the x hat weights): it samples with bf16 x
+// weights (warp_common.cuh's quad_weight, images included), sums in
+// float32 and rounds each output once. The bf16 backward has a design of
+// its own (warp_volume_bf16.cu).
 //
 // Bound: device-memory bytes forward ((2C + 3(V-1)) floats written per
 // plane and pixel; the gathers hot in L1/L2); backward, as K6's, the work
@@ -229,16 +227,16 @@ constexpr int kPlaneChunk = 4;     // planes of cotangents staged at once
 
 // K7's backward: one group of C lanes per reference pixel (256 / C pixels
 // a block); NV bounds the source views (V - 1) the registers hold.
-template <int C, int NV, class T>
+template <int C, int NV>
 __global__ void __launch_bounds__(warp::kBwdThreads)
-warp_volume_bwd_kernel(const T* __restrict__ feats,
+warp_volume_bwd_kernel(const float* __restrict__ feats,
                        const float* __restrict__ rel,
                        const float* __restrict__ lo,
                        const float* __restrict__ step,
-                       const T* __restrict__ g_var,
-                       const T* __restrict__ g_nr,
-                       const T* __restrict__ g_img,
-                       T* __restrict__ dfeat,
+                       const float* __restrict__ g_var,
+                       const float* __restrict__ g_nr,
+                       const float* __restrict__ g_img,
+                       float* __restrict__ dfeat,
                        unsigned long long* __restrict__ acc_f,
                        unsigned long long* __restrict__ acc_i,
                        const warp::Quantum* __restrict__ quantum,
@@ -329,14 +327,10 @@ warp_volume_bwd_kernel(const T* __restrict__ feats,
                          gv * (x[v] - m) + gn * (x[v] - m_nr));
         if (c < 3) {
           const float gi = s_gi[dd][j][3 * v + c];
-          if constexpr (sizeof(T) == 2) {
-            warp::run_add_bf16(acc_img[v], t[v], gi);
-          } else {
 #pragma unroll
-            for (int k = 0; k < 4; ++k)
-              acc_img[v][k] = __fmaf_rn(warp::tap_weight(t[v], k), gi,
-                                        acc_img[v][k]);
-          }
+          for (int k = 0; k < 4; ++k)
+            acc_img[v][k] = __fmaf_rn(warp::tap_weight(t[v], k), gi,
+                                      acc_img[v][k]);
         }
       }
     }
@@ -354,24 +348,24 @@ warp_volume_bwd_kernel(const T* __restrict__ feats,
   warp::store_out(dfeat + pix * C + c, dref);
 }
 
-template <int C, int NV, class T>
-void launch_bwd(const T* feats, const float* rel, const float* lo,
-                const float* step, const T* g_var, const T* g_nr,
-                const T* g_img, T* dfeat, unsigned long long* acc_f,
+template <int C, int NV>
+void launch_bwd(const float* feats, const float* rel, const float* lo,
+                const float* step, const float* g_var, const float* g_nr,
+                const float* g_img, float* dfeat, unsigned long long* acc_f,
                 unsigned long long* acc_i, const warp::Quantum* q, int V,
                 int H, int W, int D, cudaStream_t s) {
   constexpr int P = warp::kBwdThreads / C;
   const long long HW = (long long)H * W;
-  warp_volume_bwd_kernel<C, NV, T>
+  warp_volume_bwd_kernel<C, NV>
       <<<(unsigned)((HW + P - 1) / P), warp::kBwdThreads, 0, s>>>(
           feats, rel, lo, step, g_var, g_nr, g_img, dfeat, acc_f, acc_i, q,
           V, H, W, D);
 }
 
-template <int C, class T>
-void launch_bwd_views(const T* feats, const float* rel, const float* lo,
-                      const float* step, const T* g_var,
-                      const T* g_nr, const T* g_img, T* dfeat,
+template <int C>
+void launch_bwd_views(const float* feats, const float* rel, const float* lo,
+                      const float* step, const float* g_var,
+                      const float* g_nr, const float* g_img, float* dfeat,
                       unsigned long long* acc_f, unsigned long long* acc_i,
                       const warp::Quantum* q, int V, int H, int W, int D,
                       cudaStream_t s) {
@@ -434,13 +428,14 @@ extern "C" long long warp_volume_bwd_scratch_bytes(int V, int H, int W,
   return warp::kAuxBytes + 8LL * (V - 1) * H * W * (C + 4);
 }
 
-namespace {
-
-template <class T>
-int backward(const T* feats, const float* rel, const float* lo,
-             const float* step, const T* g_var, const T* g_nr,
-             const T* g_img, T* dfeat, T* dimg, void* scratch, int V, int H,
-             int W, int C, int D, void* stream) {
+// K7's backward. Every element of dfeat and dimg is written; scratch holds
+// warp_volume_bwd_scratch_bytes(V, H, W, C) bytes.
+extern "C" int warp_volume_bwd_f32(const float* feats, const float* rel,
+                                   const float* lo, const float* step,
+                                   const float* g_var, const float* g_nr,
+                                   const float* g_img, float* dfeat,
+                                   float* dimg, void* scratch, int V, int H,
+                                   int W, int C, int D, void* stream) {
   if (V < 2 || V > kMaxViews) return (int)cudaErrorInvalidValue;
   if (C != 8 && C != 16 && C != 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -450,10 +445,9 @@ int backward(const T* feats, const float* rel, const float* lo,
       static_cast<char*>(scratch) + warp::kAuxBytes);
   unsigned long long* acc_i = acc_f + (V - 1) * HW * C;
   const long long plane = (long long)D * HW;
-  constexpr bool half = sizeof(T) == 2;
   warp::AbsMaxArgs a{{feats, g_var, g_nr, g_img},
                      {V * HW * C, C * plane, C * plane, 3 * (V - 1) * plane},
-                     {half, half, half, half}};
+                     {false, false, false, false}};
   warp::prepare_scratch(scratch, warp_volume_bwd_scratch_bytes(V, H, W, C),
                         a, plane, V, true, s);
   switch (C) {
@@ -467,40 +461,10 @@ int backward(const T* feats, const float* rel, const float* lo,
                                   dfeat, acc_f, acc_i, aux->q, V, H, W, D, s);
       break;
   }
-  cudaMemsetAsync(dimg, 0, sizeof(T) * HW * 3, s);
+  cudaMemsetAsync(dimg, 0, sizeof(float) * HW * 3, s);
   warp::finish_quanta(acc_f, dfeat + HW * C, (V - 1) * HW * C, C, C, aux->q,
                       s);
   warp::finish_quanta(acc_i, dimg + HW * 3, (V - 1) * HW * 3, 4, 3,
                       aux->q + 1, s);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// K7's backward. Every element of dfeat and dimg is written; scratch holds
-// warp_volume_bwd_scratch_bytes(V, H, W, C) bytes.
-extern "C" int warp_volume_bwd_f32(const float* feats, const float* rel,
-                                   const float* lo, const float* step,
-                                   const float* g_var, const float* g_nr,
-                                   const float* g_img, float* dfeat,
-                                   float* dimg, void* scratch, int V, int H,
-                                   int W, int C, int D, void* stream) {
-  return backward(feats, rel, lo, step, g_var, g_nr, g_img, dfeat, dimg,
-                  scratch, V, H, W, C, D, stream);
-}
-
-// K7's backward, bf16 instance: feats, the cotangents, dfeat and dimg
-// bf16; the same scratch.
-extern "C" int warp_volume_bwd_bf16(const __nv_bfloat16* feats,
-                                    const float* rel, const float* lo,
-                                    const float* step,
-                                    const __nv_bfloat16* g_var,
-                                    const __nv_bfloat16* g_nr,
-                                    const __nv_bfloat16* g_img,
-                                    __nv_bfloat16* dfeat,
-                                    __nv_bfloat16* dimg, void* scratch,
-                                    int V, int H, int W, int C, int D,
-                                    void* stream) {
-  return backward(feats, rel, lo, step, g_var, g_nr, g_img, dfeat, dimg,
-                  scratch, V, H, W, C, D, stream);
 }

@@ -12,18 +12,22 @@ cascade neither concatenates nor stacks it. The kernel shares K1's block
 skeleton (`csrc/warp_fwd.cuh`: a group of C/4 lanes per pixel, the plane
 loop in the block). `warp_volume_bwd` is the backward (the second entry of
 the same source, deterministic like K6's, or autograd through the plain
-version); it takes vol's cotangent whole and hands the kernel its two row
-slices. `warp_volume_train` wraps both in one `torch.autograd.Function`,
+version; its bf16 instance, K7bwd-bf16, is `csrc/warp_volume_bf16.cu`);
+it takes vol's cotangent whole and hands the kernel its two row slices.
+`warp_volume_train` wraps both in one `torch.autograd.Function`,
 differentiable in the features and the images.
 
 bfloat16 (the bf16 train path, the JAX kernel at compute and output
 dtype bf16): bf16 feats and images select the bf16 instances (counted in
 `warp_volume.bf16.launches` and `warp_volume_bwd.bf16.launches`): the
 sweep samples features and images with bf16 x weights (K1-bf16's rule),
-sums in float32 and writes var and vol in bf16; the backward takes bf16
-cotangents, rounds each tap's contribution as K6-bf16 does and writes
-bf16 dfeats and dimgs. Their plain versions spell the same out in
-PyTorch (`warp_volume_plain` / `warp_volume_bwd_plain` of bf16 feats);
+sums in float32 and writes var and vol in bf16; the backward
+(`csrc/warp_volume_bf16.cu`: 4 channels a lane, shared projections, the
+image cotangent in the lane that projects its view; K6-bf16's pieces,
+`csrc/warp_bf16.cuh`) takes bf16 cotangents, rounds each tap's
+contribution as K6-bf16 does and writes bf16 dfeats and dimgs. Their
+plain versions spell the same out in PyTorch (`warp_volume_plain` /
+`warp_volume_bwd_plain` of bf16 feats);
 `warp_volume_train(..., plain=True)` runs the plain pair under autograd.
 
 Replaces the TPU kernel `rcmvsnet_tpu/ops/pallas_warp_volume.py`
@@ -142,8 +146,8 @@ def warp_volume_bwd_plain(feats, imgs, projs, lo, step, g_var, g_vol):
         return torch.autograd.grad(outs, (f, im), (g_var, g_vol))
 
 
-def _lib(entry, n_ptr):
-    fn = getattr(_build.load("warp_volume"), entry)
+def _lib(entry, n_ptr, source="warp_volume"):
+    fn = getattr(_build.load(source), entry)
     if not fn.argtypes:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
@@ -221,9 +225,10 @@ def warp_volume_bwd(feats, imgs, projs, lo, step, g_var, g_vol):
     g_img, g_nr = g_vol[:3 * (V - 1)], g_vol[3 * (V - 1):]   # row slices
     dfeat = torch.empty_like(feats)
     dimg = torch.empty((V, h, w, 3), dtype=feats.dtype, device=feats.device)
-    scratch = bwd_scratch("warp_volume", feats)
+    source = "warp_volume_bf16" if bf16 else "warp_volume"
+    scratch = bwd_scratch(source, feats)
     err = _lib("warp_volume_bwd_bf16" if bf16 else "warp_volume_bwd_f32",
-               10)(
+               10, source)(
         feats.data_ptr(), rel.data_ptr(), lo.data_ptr(), step.data_ptr(),
         g_var.data_ptr(), g_nr.data_ptr(), g_img.data_ptr(),
         dfeat.data_ptr(), dimg.data_ptr(), scratch.data_ptr(), V, h, w, C,

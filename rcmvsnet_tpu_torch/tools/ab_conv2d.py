@@ -11,15 +11,24 @@ scene; inputs from the plain path), each in NCHW as every tree takes it;
 then, where a tree has them, the eval path's own forms: the heads writing
 [N, h, w, C] ("warp"), stage 3's lateral head (inner2+up and out3 in one
 call, `lateral_conv2d`), and the whole `FeatureNet.forward_folded` as the
-eval cascade calls it. Each call runs as the tree's wrapper runs it. The trees take turns A, B, ..., B, A, A, B, ... for
-`--rounds` rounds (default 2); each time is the smallest of its tree's
-turns (each the median of 7 CUDA-event timings, `tools/timing`), printed
-with the largest, and each result is held to its plain version (1e-4 of
-the largest value) and to the first tree's result in every bit
-(`torch.equal`; the tool exits non-zero after its report where one
-differs) before it is timed. One cuDNN call per conv (TF32 off)
-is timed once. Each tree's build prints the registers ptxas gave each
-of its direct kernels (`-Xptxas -v`).
+eval cascade calls it. Then the bf16 eval path's 12 calls ("bf16 ..."
+rows: `forward_folded(dtype=bfloat16, out_layout="warp")` call by call,
+the trunk's weights bf16(bf16(w)·scale), the heads in the warp layout and
+stage 3's lateral head; inputs from the bf16 plain path). Each call runs
+as the tree's wrapper runs it. The trees take turns A, B, ..., B, A, A,
+B, ... for `--rounds` rounds (default 2); each time is the smallest of its
+tree's turns (each the median of 7 CUDA-event timings, `tools/timing`),
+printed with the largest. Before it is timed each result is held to its
+plain version (float32: 1e-4 of the largest value; bf16: one bf16 ulp of
+each element + 1e-4 of the largest value) and compared with the first
+tree's result (`torch.equal`): a float32 result must equal it in every
+bit (the tool exits non-zero after its report where one differs); a bf16
+one is reported ("equal: yes/no") and held to the bf16 gate only, since a
+redesign may sum a chunk's products in another order. One cuDNN call per
+conv (TF32 off; bf16 for the bf16 rows) is timed once. The report ends
+with the totals of the 13 float32 NCHW calls and of the 12 bf16 calls.
+Each tree's build prints the registers ptxas gave each of its direct
+kernels (`-Xptxas -v`).
 
 Usage:
   python -m rcmvsnet_tpu_torch.tools.ab_conv2d [--rounds N] [TREE_ROOT ...]
@@ -42,6 +51,7 @@ import torch.nn.functional as F
 from ..cli.eval_dtu import resolve_device
 from ..ops.conv2d import conv2d_plain, lateral_conv2d_plain
 from .ab_warp_fwd import turns
+from .repeat_warp_bwd import within_plain
 from .timing import device_label, make_timer
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -111,6 +121,51 @@ def featurenet_calls(net, x):
     return calls, lateral
 
 
+def featurenet_calls_bf16(net, x):
+    """The bf16 eval path's 12 K5 calls on input x [N, 3, H, W] (rounded
+    to bf16), as `FeatureNet.forward_folded(dtype=bfloat16,
+    out_layout="warp")` makes them: [(label, args, kwargs)] of `conv2d`,
+    each input from the bf16 plain path, and the lateral head's arguments
+    (label "bf16 out3 lateral warp")."""
+    from ..nn.layers import bn_scale_shift
+    bf = lambda w: w.to(torch.bfloat16)
+    x = x.to(torch.bfloat16)
+    calls, acts = [], []
+    for si, seq in enumerate((net.conv0, net.conv1, net.conv2)):
+        for li, blk in enumerate(seq):
+            sc, sh = bn_scale_shift(blk.bn)
+            wgt = bf(bf(blk.conv.weight) * sc[:, None, None, None])
+            kw = dict(shift=sh, stride=blk.conv.stride[0],
+                      padding=blk.conv.padding[0], relu=True)
+            calls.append((f"bf16 conv{si}.{li}", (x, wgt), kw))
+            x = conv2d_plain(x, wgt, **kw)
+        acts.append(x)
+    conv0, conv1, intra = acts
+    calls.append(("bf16 out1 warp", (intra, bf(net.out1.weight)),
+                  dict(out_layout="warp")))
+    kw = dict(shift=net.inner1.bias, up=intra)
+    calls.append(("bf16 inner1+up", (conv1, bf(net.inner1.weight)), kw))
+    intra = conv2d_plain(conv1, bf(net.inner1.weight), **kw)
+    calls.append(("bf16 out2 warp", (intra, bf(net.out2.weight)),
+                  dict(padding=1, out_layout="warp")))
+    lateral = (intra, conv0, bf(net.inner2.weight), net.inner2.bias,
+               bf(net.out3.weight))
+    return calls, lateral
+
+
+def tree_calls_bf16(tree, calls, lateral):
+    """{label: (kernel call, plain call)} of one tree's bf16 instance: the
+    12 calls of `featurenet_calls_bf16`."""
+    K5 = tree.conv2d
+    out = {label: (lambda a=args, k=kw: K5.conv2d(*a, **k),
+                   lambda a=args, k=kw: conv2d_plain(*a, **k))
+           for label, args, kw in calls}
+    out["bf16 out3 lateral warp"] = (
+        lambda: K5.lateral_conv2d(*lateral, out_layout="warp"),
+        lambda: lateral_conv2d_plain(*lateral, out_layout="warp"))
+    return out
+
+
 def tree_calls(tree, calls, lateral, net):
     """{label: (kernel call, plain call)} of one tree: the 13 calls in
     NCHW, then the forms only some trees have."""
@@ -153,10 +208,20 @@ def _equal(got, ref) -> bool:
     return torch.equal(got, ref)
 
 
+def _within(got, want) -> bool:
+    """A result against its plain version: bf16 the per-element bf16 gate
+    (`repeat_warp_bwd.within_plain`), float32 1e-4 of the largest value."""
+    if isinstance(got, dict):
+        return all(_within(got[k], want[k]) for k in want)
+    if got.dtype == torch.bfloat16:
+        return within_plain(got, want)
+    return _err(got, want) <= 1e-4
+
+
 def run(device, roots, rounds=2) -> dict:
     """{label: [least ms of each tree (None where a tree lacks the
     form)]}, every turn's ms, cuDNN's ms per conv and the totals of the 13
-    NCHW calls."""
+    float32 NCHW calls and of the 12 bf16 calls."""
     from ..core.geometry import set_full_precision
     from ..data.plane_scene import dtu_samples, plane_scene
     from ..models.cascade import CascadeMVSNet
@@ -180,21 +245,24 @@ def run(device, roots, rounds=2) -> dict:
     turn_ms, library = {}, {}
     with torch.no_grad():
         calls, lateral = featurenet_calls(net, x)
-        for label, args, kw in calls:
+        calls16, lateral16 = featurenet_calls_bf16(net, x)
+        for label, args, kw in calls + calls16:
             library[label] = timer(lambda a=args, k=kw: F.conv2d(
                 a[0], a[1], stride=k.get("stride", 1),
                 padding=k.get("padding", 0)))
-        per_tree = [tree_calls(t, calls, lateral, net) for t in trees]
+        per_tree = [{**tree_calls(t, calls, lateral, net),
+                     **tree_calls_bf16(t, calls16, lateral16)}
+                    for t in trees]
         checked, first = set(), {}
         same = {}
         for i in turns(len(trees), rounds):
             for label, (fk, fp) in per_tree[i].items():
                 if (i, label) not in checked:
-                    got = fk()
-                    err = _err(got, fp())
-                    if not err <= 1e-4:
-                        raise AssertionError(f"{roots[i]} {label}: error "
-                                             f"{err:.2e}")
+                    got, want = fk(), fp()
+                    if not _within(got, want):
+                        raise AssertionError(
+                            f"{roots[i]} {label}: beyond its plain "
+                            f"version's gate (error {_err(got, want):.2e})")
                     ref = first.setdefault(label, got)
                     same.setdefault(label, [None] * len(trees))[i] = _equal(
                         got, ref)
@@ -211,13 +279,19 @@ def run(device, roots, rounds=2) -> dict:
               + " ".join({True: "yes", False: "NO", None: "-"}[v]
                          for v in same[label]))
     base = [lab for lab, _, _ in calls]
+    base16 = [lab for lab, _, _ in calls16] + ["bf16 out3 lateral warp"]
     totals = [sum(ms[lab][i] for lab in base) for i in range(len(trees))]
+    totals16 = [sum(ms[lab][i] for lab in base16)
+                for i in range(len(trees))]
     print(f"{'total ms (13 NCHW, least)':28s} "
           + "  ".join(f"{t:15.3f}" for t in totals)
-          + f"  cudnn {sum(library.values()):8.3f}")
+          + f"  cudnn {sum(library[lab] for lab in base):8.3f}")
+    print(f"{'total ms (12 bf16, least)':28s} "
+          + "  ".join(f"{t:15.3f}" for t in totals16)
+          + f"  cudnn {sum(library[lab] for lab, _, _ in calls16):8.3f}")
     return {"ms": ms, "turns_ms": turn_ms, "library_ms": library,
             "registers": registers, "equal_to_first": same,
-            "total_ms": totals}
+            "total_ms": totals, "total_bf16_ms": totals16}
 
 
 def main(argv=None):
@@ -230,7 +304,8 @@ def main(argv=None):
     print(f"device: {label} | trees: {' '.join(args.roots)}")
     res = run(device, args.roots, args.rounds)
     print(json.dumps({"device": label, "trees": args.roots, **res}))
-    if any(v is False for row in res["equal_to_first"].values() for v in row):
+    if any(v is False for label, row in res["equal_to_first"].items()
+           if not label.startswith("bf16 ") for v in row):
         raise SystemExit("ab_conv2d: a tree's output differs from the first "
                          "tree's")
     return res

@@ -4,9 +4,10 @@ sources, in turns, on one card.
 
 Each argument is a directory holding `warp_variance.cu`, `warp_volume.cu`,
 `warp_common.cuh` and `warp_bwd.cuh` with the package's C interface and,
-where the build has it, `warp_variance_bf16.cu` (older builds export
-K6-bf16 from `warp_variance.cu`: `ab_warp_fwd.load_builds`); default: the
-package's own `ops/csrc/`. Every build runs the same inputs,
+where the build has them, `warp_variance_bf16.cu`, `warp_volume_bf16.cu`
+and `warp_bf16.cuh` (older builds export K6-bf16 from `warp_variance.cu`
+and K7bwd-bf16 from `warp_volume.cu`: `ab_warp_fwd.load_builds`);
+default: the package's own `ops/csrc/`. Every build runs the same inputs,
 the train step's warps (`tools/repeat_warp_bwd.train_inputs`: K6 at the
 three stages, K7's backward at stage 1); the builds take turns A, B, ...,
 B, A, A, B, ... for `--rounds` rounds (default 2), each call's time is the

@@ -5,10 +5,11 @@ builds' outputs held equal bit for bit.
 
 Each argument is a directory holding `warp_variance.cu`,
 `warp_volume.cu`, the shared headers (`warp_common.cuh`, `warp_bwd.cuh`
-and, where the build has it, `warp_fwd.cuh`) and, where the build has it,
-`warp_variance_bf16.cu` (K1-bf16 and K6-bf16; older builds export them
-from `warp_variance.cu`: `load_builds`); default: the package's own
-`ops/csrc/`. Every build runs the same inputs: K1 at the
+and, where the build has them, `warp_fwd.cuh` and `warp_bf16.cuh`) and,
+where the build has them, `warp_variance_bf16.cu` (K1-bf16 and K6-bf16)
+and `warp_volume_bf16.cu` (K7bwd-bf16); older builds export those from
+`warp_variance.cu` and `warp_volume.cu` (`load_builds`); default: the
+package's own `ops/csrc/`. Every build runs the same inputs: K1 at the
 DTU eval shapes (864×1152, V=5, stages 48/32/8 planes;
 `tools/profile_breakdown.stage_inputs`) and at the train shapes
 (512×640, V=4; `tools/repeat_warp_bwd.train_stages`), and K7's forward
@@ -52,7 +53,8 @@ from ..ops import warp_volume as K7
 from .repeat_warp_bwd import within_plain
 from .timing import device_label, make_timer
 
-LIBS = ("warp_variance", "warp_volume", "warp_variance_bf16")
+LIBS = ("warp_variance", "warp_volume", "warp_variance_bf16",
+        "warp_volume_bf16")
 SEED = 5
 # the bf16 warp entries a build from before `warp_variance_bf16.cu`
 # exports from `warp_variance.cu`, by the names the wrappers ask the new
@@ -61,23 +63,32 @@ OLD_BF16 = {"warp_variance_bf16": "warp_variance_bf16",
             "warp_variance_bwd_bf16": "warp_variance_bwd_bf16",
             "warp_variance_bf16_bwd_scratch_bytes":
                 "warp_variance_bwd_scratch_bytes"}
+# likewise K7bwd-bf16, which a build from before `warp_volume_bf16.cu`
+# exports from `warp_volume.cu`
+OLD_VOLUME_BF16 = {"warp_volume_bwd_bf16": "warp_volume_bwd_bf16",
+                   "warp_volume_bf16_bwd_scratch_bytes":
+                       "warp_volume_bwd_scratch_bytes"}
 
 
 def load_builds(srcs) -> list[dict]:
     """Each build's libraries by name (`_build.load_from` of the sources
     of LIBS its directory holds). A build without `warp_variance_bf16.cu`
-    serves the bf16 entries of its `warp_variance.cu` under that
-    library's name, so the wrappers launch the current build's K1-bf16
-    and K6-bf16 whichever source holds them."""
+    (or `warp_volume_bf16.cu`) serves the bf16 entries of its
+    `warp_variance.cu` (`warp_volume.cu`) under the new library's name,
+    so the wrappers launch the current build's K1-bf16, K6-bf16 and
+    K7bwd-bf16 whichever source holds them."""
     builds = []
     for s in srcs:
         names = [n for n in LIBS if (Path(s) / f"{n}.cu").exists()]
         libs = _build.load_from(Path(s), names)
-        if "warp_variance_bf16" not in libs:
-            old = libs["warp_variance"]
-            libs["warp_variance_bf16"] = SimpleNamespace(**{
-                new: getattr(old, name) for new, name in OLD_BF16.items()
-                if hasattr(old, name)})
+        for new_lib, old_lib, entries in (
+                ("warp_variance_bf16", "warp_variance", OLD_BF16),
+                ("warp_volume_bf16", "warp_volume", OLD_VOLUME_BF16)):
+            if new_lib not in libs:
+                old = libs[old_lib]
+                libs[new_lib] = SimpleNamespace(**{
+                    new: getattr(old, name) for new, name in entries.items()
+                    if hasattr(old, name)})
         builds.append(libs)
     return builds
 

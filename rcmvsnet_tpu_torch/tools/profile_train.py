@@ -72,12 +72,13 @@ PORT_KERNELS = (
     ("K1 warp_variance", r"\bwarp_variance(_bf16)?_kernel\b"),
     ("K6 warp_variance_bwd", r"\bwarp_variance_bwd(_bf16)?_kernel\b"),
     ("K7 warp_volume", r"\bwarp_volume_kernel\b"),
-    ("K7 warp_volume_bwd", r"\bwarp_volume_bwd_kernel\b"),
+    ("K7 warp_volume_bwd", r"\bwarp_volume_bwd(_bf16)?_kernel\b"),
     ("K6/K7 bwd helpers", r"\b(absmax_kernel|choose_quantum|from_quanta)\b"),
     ("K2 conv3d", r"\b(conv3d_(bf16_)?tc|prep_weights(_bf16)?)\b"),
     ("K8 dw conv3d_dw", r"\b(conv3d_dw_(bf16_)?tc|sum_chunks(_bf16)?)\b"),
     ("K4 depth_tail", r"\bdepth_tail_(kernel|stream)\b"),
-    ("K5 conv2d", r"\b(conv2d_kernel|conv2d_tc|lateral_conv2d_tc)\b"),
+    ("K5 conv2d", r"\b(conv2d_kernel|conv2d_tc|lateral_conv2d_tc|"
+                  r"conv2d_bf16_(direct|tc|prep)|lateral_conv2d_bf16_tc)\b"),
     ("K10 warp_view", r"\bwarp_view_(lanes|scalar)_kernel\b"),
 )
 # everything else, by the first pattern its name matches

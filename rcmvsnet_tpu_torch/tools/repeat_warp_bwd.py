@@ -89,7 +89,8 @@ def within_plain(got, want) -> bool:
 # the C entry (library, symbol) each bf16 backward instance needs
 BF16_ENTRY = {"warp_variance_bwd": ("warp_variance_bf16",
                                      "warp_variance_bwd_bf16"),
-              "warp_volume_bwd": ("warp_volume", "warp_volume_bwd_bf16")}
+              "warp_volume_bwd": ("warp_volume_bf16",
+                                  "warp_volume_bwd_bf16")}
 
 
 def train_inputs(device, gen, shape=(H, W, VIEWS), bf16=True):

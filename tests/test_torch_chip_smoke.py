@@ -93,16 +93,34 @@ F32_SASS = """
         Function : _ZN12_GLOBAL__N_120warp_variance_kernelILi32ELi3EEEvPKfS2_S2_S2_Pfiiiiii
         /*0a40*/  LDG.E.128.CONSTANT R4, desc[UR6][R2.64] ;
 """
+VOLUME_SASS = """
+        Function : _ZN12_GLOBAL__N_127warp_volume_bwd_bf16_kernelILi%dELi3ELb1EEEvPK13__nv_bfloat16
+        /*0b40*/  LDG.E.64.CONSTANT R4, desc[UR6][R2.64] ;
+"""
+VOLUME_F32_SASS = """
+        Function : _ZN12_GLOBAL__N_122warp_volume_bwd_kernelILi32ELi3EEEvPKfS2_
+        /*0a40*/  LDG.E.CONSTANT R4, desc[UR6][R2.64] ;
+        Function : _ZN12_GLOBAL__N_118warp_volume_kernelILi32ELi3E13__nv_bfloat16EEvPKT1_
+        /*0a40*/  LDG.E.64.CONSTANT R4, desc[UR6][R2.64] ;
+"""
+VOLUME_BF16_BWD_LEFT = """
+        Function : _ZN12_GLOBAL__N_122warp_volume_bwd_kernelILi32ELi3E13__nv_bfloat16EEvPKT1_
+        /*0a40*/  LDG.E.U16 R4, desc[UR6][R2.64] ;
+"""
 
 
 def test_sass_check_sees_the_bf16_warp_loads():
     """Phase 2's rule on the bf16 warp kernels: each global load counted
     by its width whatever its other modifiers; every C present, K1-bf16
-    with 16-byte gathers, K6-bf16 with 8-byte ones, the float32 library
-    without a bf16 instance, and each breach reported."""
+    with 16-byte gathers, K6-bf16 and K7bwd-bf16 with 8-byte ones, the
+    float32 libraries without a bf16 backward (K7's bf16 forward stays in
+    `warp_volume.cu`), and each breach reported."""
     new = "".join(WARP_SASS % (c, c) for c in (8, 16, 32))
+    vol = "".join(VOLUME_SASS % c for c in (8, 16, 32))
     loads = {"warp_variance_bf16": chip_smoke.sass_loads(new),
-             "warp_variance": chip_smoke.sass_loads(F32_SASS)}
+             "warp_variance": chip_smoke.sass_loads(F32_SASS),
+             "warp_volume_bf16": chip_smoke.sass_loads(vol),
+             "warp_volume": chip_smoke.sass_loads(VOLUME_F32_SASS)}
     k1 = [k for k in loads["warp_variance_bf16"] if "5warp" in k]
     assert len(loads["warp_variance_bf16"]) == 6 and len(k1) == 3
     assert loads["warp_variance_bf16"][k1[0]] == {"128": 2, "64": 0,
@@ -120,6 +138,53 @@ def test_sass_check_sees_the_bf16_warp_loads():
     left = {**loads, "warp_variance": chip_smoke.sass_loads(
         F32_SASS + WARP_SASS % (8, 8))}
     assert len(chip_smoke.warp_bf16_faults(left)) == 2
+    narrow = {**loads, "warp_volume_bf16": chip_smoke.sass_loads(
+        vol.replace("LDG.E.64.", "LDG.E."))}
+    assert len(chip_smoke.warp_bf16_faults(narrow)) == 3
+    left = {**loads, "warp_volume": chip_smoke.sass_loads(
+        VOLUME_F32_SASS + VOLUME_BF16_BWD_LEFT)}
+    assert len(chip_smoke.warp_bf16_faults(left)) == 1
+
+
+K5_SASS = """
+        Function : _ZN12_GLOBAL__N_114conv2d_bf16_tcILi3ELi1ELi4ELi1ELi8EEEvPK13__nv_bfloat16PKjPKfS7_S4_PS2_iiiiiiiiiiii
+        /*0a40*/  LDS R4, [R2+0x10] ;
+        /*0a50*/  HMMA.1688.F32.BF16 R8, R4, R12, R8 ;
+        Function : _ZN12_GLOBAL__N_114conv2d_bf16_tcILi3ELi1ELi1ELi4ELi16EEEvPK13__nv_bfloat16PKjPKfS7_S4_PS2_iiiiiiiiiiii
+        /*0a40*/  LDS.64 R4, [R2+0x10] ;
+        /*0a50*/  HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+        /*0a60*/  LDS.128 R20, [R3] ;
+        Function : _ZN12_GLOBAL__N_122lateral_conv2d_bf16_tcILi4EEEvPK13__nv_bfloat16S3_S3_PKfPKjPS1_iiiiiiiiiiii
+        /*0a40*/  LDS.64 R4, [R2+0x10] ;
+        /*0a50*/  HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+        Function : _ZN12_GLOBAL__N_118conv2d_bf16_directILi1ELi1ELi8ELb1EEEvPK13__nv_bfloat16
+        /*0a40*/  LDS.U16 R4, [R2] ;
+"""
+K5_F32_SASS = """
+        Function : _ZN12_GLOBAL__N_19conv2d_tcILi3ELi1ELi4ELi1EEEvPKfPKvS2_S2_S2_Pfiiiiiiiiiii
+        /*0a50*/  HMMA.1688.F32.TF32 R8, R4, R12, R8 ;
+"""
+
+
+def test_sass_check_sees_the_k5_bf16_fragment_path():
+    """Phase 2's rule on K5-bf16: each shared load counted by width (a
+    32-bit LDS has no width modifier, ldmatrix is not an LDS); every
+    tensor-core kernel with a bf16 HMMA of either shape, both shapes
+    built, no 16-bit shared load in a tensor-core kernel (the direct
+    kernel is not held to it), no bf16 function left in `conv2d.cu`."""
+    lds = chip_smoke.sass_loads(K5_SASS + "        /*0a70*/  LDSM.16.M88.4 "
+                                "R4, [R2] ;\n", "LDS")
+    tc = [k for k in lds if "conv2d_bf16_tc" in k]
+    assert len(tc) == 3
+    assert lds[tc[0]] == {"128": 0, "64": 0, "32": 1, "16": 0}
+    assert lds[tc[1]] == {"128": 1, "64": 1, "32": 0, "16": 0}
+    assert chip_smoke.k5_bf16_faults(K5_SASS, K5_F32_SASS) == []
+    narrow = K5_SASS.replace("LDS.64 R4", "LDS.U16 R4")
+    assert len(chip_smoke.k5_bf16_faults(narrow, K5_F32_SASS)) == 2
+    no_k8 = K5_SASS.replace("HMMA.1688.F32.BF16", "FFMA")
+    assert len(chip_smoke.k5_bf16_faults(no_k8, K5_F32_SASS)) == 2
+    assert len(chip_smoke.k5_bf16_faults(K5_SASS,
+                                         K5_F32_SASS + K5_SASS)) == 4
 
 
 def test_phases_run_on_cpu_and_main_path_demands_launches():

@@ -39,7 +39,12 @@ Co groups of dw, the prob head's float32 output), the bf16 dw repeated
 bit for bit, and one bf16 train step launching only the bf16 instances;
 K1-bf16 and K6-bf16's own designs (`csrc/warp_variance_bf16.cu`) at every
 C and view-count instance, odd sizes and D = 96, K6-bf16 repeated bit for
-bit, and a misaligned source refused. The backward
+bit, and a misaligned source refused; K5-bf16's own design
+(`csrc/conv2d_bf16.cu`) on every route and layout, Ci 3/8/16/24/32,
+aligned, unaligned and shifted rows, and its lateral head; K7bwd-bf16's
+own design (`csrc/warp_volume_bf16.cu`) at every C and view-count
+instance, odd sizes, D 5-13 and 48, repeated bit for bit, and a
+misaligned source refused. The backward
 kernels sum in another order than autograd (K8 dw in per-block
 partials, K6 and K7 in 64-bit fixed point, rounded once per flushed run
 of planes), so they are held to 1e-4 of the largest value, and to
@@ -1026,3 +1031,153 @@ def test_warp_variance_bf16_refuses_a_misaligned_source(dev):
     with pytest.raises(RuntimeError, match="CUDA error"):
         K1.warp_variance(feats, _projs(V, h, w, dev), lo, step, 4)
     assert K1.warp_variance.bf16.launches == n0
+
+
+# ---- K5-bf16's own design (`csrc/conv2d_bf16.cu`): the tensor-core route
+# at stride 1 and 2 with 8-channel chunks (Ci 8, m16n8k8) and 16-channel
+# ones (Ci 16, 24 with a half-empty chunk, 32 in two chunks), the direct
+# route at Ci 3 and the 1×1 heads, both layouts, widths whose rows are
+# whole 16-byte vectors and widths that are not, a source that does not
+# start on 16 bytes (element-wise staging), the upsample-add on both
+# routes, and the lateral head at Cu 16/24/32, Cl 3/8, up rows of whole
+# vectors and not.
+
+@pytest.mark.parametrize("k,stride,ci,co,h,w,layout,way,up,shifted", [
+    (3, 1, 8, 8, 24, 40, "nchw", "tc", False, False),
+    (3, 1, 8, 8, 19, 38, "warp", "tc", False, False),
+    (3, 1, 16, 16, 24, 40, "nchw", "tc", True, False),
+    (3, 1, 16, 16, 20, 38, "warp", "tc", True, False),
+    (3, 1, 24, 8, 20, 36, "nchw", "tc", False, False),
+    (3, 1, 32, 32, 9, 18, "nchw", "tc", False, True),
+    (3, 1, 32, 16, 24, 40, "warp", "tc", False, False),
+    (5, 2, 8, 16, 24, 40, "nchw", "tc", False, False),
+    (5, 2, 8, 16, 17, 30, "warp", "tc", False, True),
+    (5, 2, 16, 32, 17, 30, "warp", "tc", False, False),
+    (5, 2, 32, 32, 24, 40, "nchw", "tc", False, False),
+    (3, 1, 3, 8, 24, 40, "nchw", "direct", False, False),
+    (3, 1, 3, 8, 19, 38, "warp", "direct", False, True),
+    (1, 1, 32, 32, 12, 20, "warp", "direct", False, False),
+    (1, 1, 32, 16, 19, 38, "warp", "direct", False, False),
+    (1, 1, 16, 32, 12, 24, "nchw", "direct", True, False),
+    (1, 1, 16, 32, 12, 18, "nchw", "direct", True, True)])
+def test_conv2d_bf16_design_matches_plain(dev, k, stride, ci, co, h, w,
+                                          layout, way, up, shifted):
+    assert K5.route(k, stride, k // 2, ci) == way
+    g = _gen(dev, 31 * ci + co + k + h)
+    x, wgt = _bf16(torch.randn(2, ci, h, w, device=dev, generator=g),
+                   0.2 * torch.randn(co, ci, k, k, device=dev, generator=g))
+    if shifted:                    # the same values one element further on
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(x.shape)
+    shift = torch.randn(co, device=dev, generator=g)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    upt = None
+    if up:
+        upt, = _bf16(torch.randn(2, co, ho // 2, wo // 2, device=dev,
+                                 generator=g))
+    kw = dict(stride=stride, padding=k // 2, relu=not up, up=upt,
+              out_layout=layout)
+    n0 = (K5.conv2d.launches, K5.conv2d.bf16.launches)
+    got = K5.conv2d(x, wgt, None, shift, **kw)
+    want = K5.conv2d_plain(x, wgt, None, shift, **kw)
+    torch.cuda.synchronize()
+    assert (K5.conv2d.launches, K5.conv2d.bf16.launches) == (n0[0],
+                                                             n0[1] + 1)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("k,s,mt,ntb", [
+    (k, s, mt, ntb) for (k, s), tiles in K5.TILES_BF16.items()
+    for mt, ntb in tiles])
+@pytest.mark.parametrize("ci", [8, 32])
+def test_conv2d_bf16_every_tile_matches_plain(dev, monkeypatch, k, s, mt,
+                                              ntb, ci):
+    """Every tensor-core tile of K5-bf16 (the wrapper's `tile` pinned to
+    it), 8-channel and 16-channel chunks, 24 output channels (a partial
+    n8 group where NTB = 2 or 4), odd sizes."""
+    monkeypatch.setattr(K5, "tile", lambda *a, **kw: (mt, ntb))
+    g = _gen(dev, 100 * mt + 10 * ntb + ci + k)
+    x, wgt = _bf16(torch.randn(2, ci, 37, 45, device=dev, generator=g),
+                   0.2 * torch.randn(24, ci, k, k, device=dev, generator=g))
+    shift = torch.randn(24, device=dev, generator=g)
+    kw = dict(stride=s, padding=k // 2, relu=True)
+    got = K5.conv2d(x, wgt, None, shift, **kw)
+    want = K5.conv2d_plain(x, wgt, None, shift, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("n,cu,cl,h,w,layout", [
+    (3, 32, 8, 24, 40, "warp"), (2, 16, 8, 18, 38, "nchw"),
+    (1, 24, 3, 40, 72, "warp"), (2, 32, 8, 34, 68, "nchw")])
+def test_lateral_conv2d_bf16_design_matches_plain(dev, n, cu, cl, h, w,
+                                                  layout):
+    g = _gen(dev, h * w + cu + cl)
+    up, lat, wi, wgt = _bf16(
+        torch.randn(n, cu, h // 2, w // 2, device=dev, generator=g),
+        torch.randn(n, cl, h, w, device=dev, generator=g),
+        0.3 * torch.randn(cu, cl, 1, 1, device=dev, generator=g),
+        0.1 * torch.randn(8, cu, 3, 3, device=dev, generator=g))
+    bi = torch.randn(cu, device=dev, generator=g)
+    n0 = K5.conv2d.bf16.launches
+    got = K5.lateral_conv2d(up, lat, wi, bi, wgt, layout)
+    want = K5.lateral_conv2d_plain(up, lat, wi, bi, wgt, layout)
+    torch.cuda.synchronize()
+    assert K5.conv2d.bf16.launches == n0 + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close_bf16(got, want)
+
+
+# ---- K7bwd-bf16's own design (`csrc/warp_volume_bf16.cu`): C 8/16/32,
+# every view-count instance (its own at V 4, the buckets of at most 3, 7
+# and 15 source views), h·w that no block's pixels (1024 / C) divide and
+# h·w % 8 != 0 (element-wise staging of the cotangents), D 5-13 (not a
+# multiple of the 8-plane chunk) and 48 (the train step's stage 1).
+
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (4, 32, 40, 32, 48), (3, 9, 7, 8, 5), (5, 13, 21, 16, 13),
+    (8, 11, 29, 32, 7), (10, 8, 12, 8, 6), (4, 13, 21, 8, 9),
+    (4, 20, 36, 16, 11), (2, 9, 7, 16, 5)])
+def test_warp_volume_bwd_bf16_design_matches_plain(dev, V, h, w, C, D):
+    """K7bwd-bf16 against its bf16 plain version (features and images), and
+    to itself on repeat in every bit."""
+    g = _gen(dev, 11 * C + V + D)
+    feats, imgs = _bf16(torch.randn(V, h, w, C, device=dev, generator=g),
+                        torch.rand(V, h, w, 3, device=dev, generator=g))
+    cots = _bf16(*(torch.randn(c, D, h, w, device=dev, generator=g)
+                   for c in (C, 3 * (V - 1) + C)))
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = 3 + torch.rand(h, w, device=dev, generator=g)
+    args = (feats, imgs, _projs(V, h, w, dev), lo, step, *cots)
+    n0 = (K7.warp_volume_bwd.launches, K7.warp_volume_bwd.bf16.launches)
+    first = K7.warp_volume_bwd(*args)
+    second = K7.warp_volume_bwd(*args)
+    want = K7.warp_volume_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (K7.warp_volume_bwd.launches,
+            K7.warp_volume_bwd.bf16.launches) == (n0[0], n0[1] + 2)
+    for a, b, p in zip(first, second, want):
+        assert a.dtype == torch.bfloat16 and a.shape == p.shape
+        assert torch.equal(a, b)
+        _close_bf16(a, p)
+
+
+def test_warp_volume_bwd_bf16_refuses_a_misaligned_source(dev):
+    """K7bwd-bf16 gathers 8 bytes a tap: features that do not start on an
+    8-byte boundary are refused at launch, not read."""
+    V, h, w, C, D = 3, 8, 12, 8, 4
+    buf = torch.zeros(V * h * w * C + 1, dtype=torch.bfloat16, device=dev)
+    feats = buf[1:].view(V, h, w, C)
+    imgs = torch.zeros(V, h, w, 3, dtype=torch.bfloat16, device=dev)
+    cots = [torch.zeros(c, D, h, w, dtype=torch.bfloat16, device=dev)
+            for c in (C, 3 * (V - 1) + C)]
+    lo = torch.full((h, w), 560.0, device=dev)
+    step = torch.full((h, w), 4.0, device=dev)
+    n0 = K7.warp_volume_bwd.bf16.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K7.warp_volume_bwd(feats, imgs, _projs(V, h, w, dev), lo, step,
+                           *cots)
+    assert K7.warp_volume_bwd.bf16.launches == n0

@@ -6,7 +6,8 @@ absent (as do the kernel A/B tools, which run on the card only). The
 warp-backward repeat tool reports every call's two runs, which the plain
 versions give equal. The K5 A/B tool imports a tree's package under an
 alias and lists FeatureNet's 13 calls and the eval path's forms of them,
-each of which equals its plain version. The K4 A/B tool runs its turns
+each of which equals its plain version, and the bf16 eval path's 12
+calls, whose heads equal the bf16 `forward_folded`. The K4 A/B tool runs its turns
 on the CPU through the plain version, with the device time "not
 measured"; the forward-warp A/B tool lists K1's six calls and K7's, and
 reads each build's K7 interface from its source. The K10 A/B tool runs
@@ -119,6 +120,33 @@ def test_ab_conv2d_lists_the_calls_of_a_tree_cpu():
             assert ab_conv2d._err(fk(), fp()) <= 1e-6, label
         folded = forms["forward_folded"][0]()
         assert folded["stage3"].shape == (2, 16, 24, 8)
+
+
+def test_ab_conv2d_lists_the_bf16_eval_calls_cpu():
+    """The bf16 rows are the bf16 eval path's 12 calls: their heads equal
+    `forward_folded(dtype=bfloat16, out_layout="warp")` in every bit."""
+    from rcmvsnet_tpu_torch.nn.featurenet import FeatureNet
+    tree = ab_conv2d.load_tree(ab_conv2d.ROOT, "_ab_tree_test_bf16")
+    torch.manual_seed(0)
+    net = FeatureNet(8).eval()
+    x = torch.randn(2, 3, 16, 24)
+    with torch.no_grad():
+        calls, lateral = ab_conv2d.featurenet_calls_bf16(net, x)
+        forms = ab_conv2d.tree_calls_bf16(tree, calls, lateral)
+        assert list(forms) == [
+            "bf16 conv0.0", "bf16 conv0.1", "bf16 conv1.0", "bf16 conv1.1",
+            "bf16 conv1.2", "bf16 conv2.0", "bf16 conv2.1", "bf16 conv2.2",
+            "bf16 out1 warp", "bf16 inner1+up", "bf16 out2 warp",
+            "bf16 out3 lateral warp"]
+        got = {label: fk() for label, (fk, _) in forms.items()}
+        assert all(t.dtype == torch.bfloat16 for t in got.values())
+        assert all(ab_conv2d._within(got[k], forms[k][1]()) for k in got)
+        want = net.forward_folded(x, plain=True, out_layout="warp",
+                                  dtype=torch.bfloat16)
+    for stage, label in (("stage1", "bf16 out1 warp"),
+                         ("stage2", "bf16 out2 warp"),
+                         ("stage3", "bf16 out3 lateral warp")):
+        assert torch.equal(got[label], want[stage]), stage
 
 
 def test_ab_depth_tail_cpu(capsys):
@@ -257,11 +285,25 @@ def test_profile_train_cpu(capsys, monkeypatch, tmp_path):
     ("void (anonymous namespace)::warp_variance_kernel<32, 3, float>"
      "(float const*)", "K1 warp_variance"),
     ("void (anonymous namespace)::warp_variance_bwd_kernel<16, 7, float>"
-     "(float const*)", "K6 warp_variance_bwd")])
+     "(float const*)", "K6 warp_variance_bwd"),
+    ("void (anonymous namespace)::warp_volume_bwd_bf16_kernel<32, 3, true>"
+     "(__nv_bfloat16 const*, float const*)", "K7 warp_volume_bwd bf16"),
+    ("void (anonymous namespace)::warp_volume_bwd_kernel<32, 3>"
+     "(float const*, float const*)", "K7 warp_volume_bwd"),
+    ("void (anonymous namespace)::conv2d_bf16_tc<3, 1, 4, 1, 8>"
+     "(__nv_bfloat16 const*, unsigned int const*)", "K5 conv2d bf16"),
+    ("void (anonymous namespace)::lateral_conv2d_bf16_tc<4>"
+     "(__nv_bfloat16 const*)", "K5 conv2d bf16"),
+    ("void (anonymous namespace)::conv2d_bf16_direct<3, 1, 8, false>"
+     "(__nv_bfloat16 const*)", "K5 conv2d bf16"),
+    ("(anonymous namespace)::conv2d_bf16_prep(__nv_bfloat16 const*, "
+     "unsigned int*)", "K5 conv2d bf16"),
+    ("void (anonymous namespace)::conv2d_tc<3, 1, 4, 1>(float const*)",
+     "K5 conv2d")])
 def test_profile_train_classifies_the_conv_kernels(name, label):
-    """The bf16 3-D conv kernels and the bf16 warp kernels, which have
-    sources and names of their own, count as port kernels K2, K8 dw, K1
-    and K6 under their bf16 labels."""
+    """The bf16 3-D and 2-D conv kernels and the bf16 warp kernels, which
+    have sources and names of their own, count as port kernels K2, K8 dw,
+    K5, K1, K6 and K7's backward under their bf16 labels."""
     assert profile_train.classify(name) == label
 
 

@@ -20,13 +20,22 @@ pixels, channels and views in plain numpy:
     runs merge planes, and the result is within the bf16 gate (one bf16
     ulp + 1e-4 of the largest value) of `warp_variance_bwd_plain`. That
     the kernel's bits equal the template instance's it replaces is held
-    on the card (`tools/ab_warp_bwd`, against a build of the parent).
+    on the card (`tools/ab_warp_bwd`, against a build of the parent);
+  * K7bwd-bf16 (`ops/csrc/warp_volume_bf16.cu`) on K6-bf16's lanes: the
+    image lane (view v's 3 image channels kept and flushed by lane v % L,
+    slot v // L, into words 0..2 of the pixel's 4) covers every (pixel,
+    view, image channel) once; the three cotangents staged into rows of PG
+    bf16 (g_img's rows past 3 (V-1) zero) put every element in one place;
+    and the kernel emulated lane by lane (features through the group's
+    hand-over flush, images through the owning lane's) is within the bf16
+    gate of `warp_volume_bwd_plain`.
 """
 import numpy as np
 import pytest
 import torch
 
 from rcmvsnet_tpu_torch.ops import warp_variance as K1
+from rcmvsnet_tpu_torch.ops import warp_volume as K7
 
 torch.set_num_threads(2)
 f32 = np.float32
@@ -306,3 +315,195 @@ def test_k6_bf16_emulation_matches_plain_within_the_bf16_gate(V, h, w, C, D):
         T(g).to(torch.bfloat16)).float().numpy()
     tol = np.abs(want) * 2.0 ** -7 + 1e-4 * np.abs(want).max()
     assert (np.abs(got - want) <= tol).all(), np.abs(got - want).max()
+
+
+# ------------------------------------------------------------ K7bwd-bf16
+
+@pytest.mark.parametrize("C", CHANNELS)
+@pytest.mark.parametrize("nv", [1, 3, 7, 15])
+def test_k7bwd_bf16_image_lane_covers_every_image_channel_once(C, nv):
+    """Lane q of a pixel keeps the image runs of views q, q + L, ... (slot
+    s = v // L) and adds channels 0..2 of each into words 4 p + c of the
+    image quanta [V-1, h, w, 4]: over all pixels of a block, every (pixel,
+    view, channel < 3) once, word 3 never."""
+    L, P = lanes(C, BWD_CH)
+    S = -(-nv // L)
+    hits = np.zeros((nv, P, 4), int)
+    for tid in range(THREADS):
+        j, q = tid // L, tid % L
+        for s_ in range(S):
+            v = s_ * L + q
+            if v < nv:                  # the lane's `v % L == q` branch
+                assert v % L == q and v // L == s_
+                hits[v, j, :3] += 1
+    assert (hits[..., :3] == 1).all() and (hits[..., 3] == 0).all()
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("C,NV,nv", [(32, 3, 3), (16, 7, 4), (8, 15, 9)])
+def test_k7bwd_bf16_stages_every_cotangent_once(C, NV, nv, vec):
+    """g_var and g_nr into [8][C][PG], g_img into [8][3 NV][PG] (rows past
+    3 nv zero-filled): each (plane, row, pixel) of the block in a slot of
+    its own, the three regions disjoint (the kernel's Smem offsets)."""
+    L, P = lanes(C, BWD_CH)
+    PG = P + 64 // C
+    RI = 3 * NV
+    GN = 8 * C * PG * 2
+    GI = GN + 8 * C * PG * 2
+    FL = GI + 8 * RI * PG * 2
+    assert FL % 16 == 0
+    slots = []
+    for base, R, rows in ((0, C, C), (GN, C, C), (GI, RI, 3 * nv)):
+        if vec:
+            i = np.arange(8 * R * (P // 8))
+            ch, row = i % (P // 8), i // (P // 8)
+            c, dd = np.repeat(row % R, 8), np.repeat(row // R, 8)
+            jj = (8 * ch[:, None] + np.arange(8)).ravel()
+        else:
+            i = np.arange(8 * R * P)
+            jj, c, dd = i % P, (i // P) % R, i // (P * R)
+        slot = base + 2 * ((dd * R + c) * PG + jj)
+        assert len(np.unique(slot)) == 8 * R * P
+        assert slot.max() < base + 8 * R * PG * 2
+        # the rows a lane reads (its 4 channels, or its views' 3 image
+        # rows) are staged; rows past `rows` hold zeros (read by no lane)
+        assert set(np.unique(c)) == set(range(R)) and rows <= R
+        slots.append(slot)
+    allslots = np.concatenate(slots)
+    assert len(np.unique(allslots)) == len(allslots) and allslots.max() < FL
+
+
+def _vol_inputs(V, h, w, C, D, seed):
+    feats, projs, lo, step, g_var = _inputs(V, h, w, C, D, seed)
+    rng = np.random.default_rng(seed + 1)
+    imgs = _rnd(rng.random((V, h, w, 3)))
+    g_vol = _rnd(rng.standard_normal((3 * (V - 1) + C, D, h, w)))
+    return feats, imgs, projs, lo, step, g_var, g_vol
+
+
+def emulate_k7bwd_bf16(feats, rel, lo, step, g_var, g_vol):
+    """K7bwd-bf16 (4 channels a lane), all pixels at once: the sources'
+    sum from zero in view order, mean = (sum + ref) / V, mean_nr = sum /
+    V, e = (2/V) g_var (x - mean) + (2/V) g_nr (x - mean_nr), image
+    cotangent g_img of the view, each tap receiving bf16(e wy) bf16(wx);
+    features flushed through the group's hand-over, images by the lane
+    that projects the view. Returns dfeat [V, h, w, C] and dimg [V, h, w,
+    3], each rounded to bf16, and the integer adds."""
+    V, h, w, C = feats.shape
+    D, HW, nv = g_var.shape[1], h * w, V - 1
+    n, L = BWD_CH, C // BWD_CH
+    S = -(-nv // L)
+    src = feats.reshape(V, HW, C)
+    gv_all = g_var.reshape(C, D, HW)
+    gi_all = g_vol[:3 * nv].reshape(3 * nv, D, HW)
+    gn_all = g_vol[3 * nv:].reshape(C, D, HW)
+    pix = np.arange(HW)
+    fy, fx = (pix // w).astype(f32), (pix % w).astype(f32)
+    mx = lambda a: float(np.abs(a).max())
+    qf = np.frexp(D * HW * (2.0 / V) * (mx(g_var) + mx(gn_all)) * 2.0 *
+                  mx(feats))[1]
+    qi = np.frexp(D * HW * mx(gi_all))[1]
+    V32 = f32(V)
+    scale = f32(f32(2) / V32)
+    ref = src[0]
+    acc_f = np.zeros((nv, HW, C), np.int64)
+    acc_i = np.zeros((nv, HW, 4), np.int64)
+    adds = 0
+    run_xy = [(np.full(HW, -(1 << 30)), np.full(HW, -(1 << 30)))
+              for _ in range(nv)]
+    run_f = [np.zeros((4, HW, C), f32) for _ in range(nv)]
+    run_i = [np.zeros((4, HW, 3), f32) for _ in range(nv)]
+    dref = np.zeros((HW, C), f32)
+
+    def flush(v, where):
+        nonlocal adds
+        x0, y0 = run_xy[v]
+        for kk in range(4):
+            xi, yi = x0 + (kk & 1), y0 + (kk >> 1)
+            ok = where & (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+            at = (yi * w + xi)[ok]
+            fl = run_f[v][kk].copy()            # the group's hand-over
+            for qq in range(L):
+                for i in range(n):
+                    c = i * L + qq
+                    np.add.at(acc_f[v], (at, c), np.rint(
+                        fl[ok, c].astype(np.float64) * 2.0 ** (62 - qf))
+                        .astype(np.int64))
+                    adds += int(ok.sum())
+            for c in range(3):                  # lane v % L, words 0..2
+                np.add.at(acc_i[v], (at, c), np.rint(
+                    run_i[v][kk][ok, c].astype(np.float64) *
+                    2.0 ** (62 - qi)).astype(np.int64))
+                adds += int(ok.sum())
+
+    for d in range(D):
+        dv = (lo.reshape(-1) + f32(f32(d) * step.reshape(-1))).astype(f32)
+        mine = {(q, s_): _taps(rel[s_ * L + q + 1 if s_ * L + q < nv else 0],
+                               fx, fy, dv, h, w)
+                for q in range(L) for s_ in range(S)}
+        taps = [mine[(v % L, v // L)] for v in range(nv)]
+        xs, total = [], np.zeros((HW, C), f32)
+        for v, (x0, y0, wx, wy) in enumerate(taps):
+            val = np.zeros((HW, C), f32)
+            for kk in range(4):
+                xi, yi = x0 + (kk & 1), y0 + (kk >> 1)
+                ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+                wxk = _rnd(wx if kk & 1 else f32(1) - wx)
+                wyk = wy if kk >> 1 else (f32(1) - wy).astype(f32)
+                s = src[v + 1][np.where(ok, yi * w + xi, 0)]
+                val = np.where(ok[:, None],
+                               _fma((wxk * wyk).astype(f32)[:, None], s, val),
+                               val)
+            xs.append(val)
+            total = (total + val).astype(f32)
+        m = ((total + ref).astype(f32) / V32).astype(f32)
+        m_nr = (total / V32).astype(f32)
+        gv = (scale * gv_all[:, d].T).astype(f32)
+        gn = (scale * gn_all[:, d].T).astype(f32)
+        dref = _fma(gv, (ref - m).astype(f32), dref)
+        for v, (x0, y0, wx, wy) in enumerate(taps):
+            new = (run_xy[v][0] != x0) | (run_xy[v][1] != y0)
+            flush(v, new)
+            run_xy[v] = (np.where(new, x0, run_xy[v][0]),
+                         np.where(new, y0, run_xy[v][1]))
+            run_f[v][:, new] = 0
+            run_i[v][:, new] = 0
+            cot = _fma(gv, (xs[v] - m).astype(f32),
+                       (gn * (xs[v] - m_nr).astype(f32)).astype(f32))
+            gi = gi_all[3 * v:3 * v + 3, d].T
+            for kk in range(4):
+                wyk = wy if kk >> 1 else (f32(1) - wy).astype(f32)
+                wxk = _rnd(wx if kk & 1 else f32(1) - wx)[:, None]
+                run_f[v][kk] = _fma(wxk, _rnd((cot * wyk[:, None])
+                                              .astype(f32)), run_f[v][kk])
+                run_i[v][kk] = _fma(wxk, _rnd((gi * wyk[:, None])
+                                              .astype(f32)), run_i[v][kk])
+    for v in range(nv):
+        flush(v, np.ones(HW, bool))
+    dfeat = np.concatenate([dref[None], (acc_f.astype(np.float64) *
+                                         2.0 ** (qf - 62)).astype(f32)])
+    dimg = np.concatenate([np.zeros((1, HW, 3), f32),
+                           (acc_i[..., :3].astype(np.float64) *
+                            2.0 ** (qi - 62)).astype(f32)])
+    return (_rnd(dfeat).reshape(V, h, w, C), _rnd(dimg).reshape(V, h, w, 3),
+            adds)
+
+
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (4, 7, 9, 8, 9), (3, 5, 6, 16, 5), (5, 4, 5, 32, 4)])
+def test_k7bwd_bf16_emulation_matches_plain_within_the_bf16_gate(V, h, w, C,
+                                                                   D):
+    feats, imgs, projs, lo, step, g_var, g_vol = _vol_inputs(
+        V, h, w, C, D, 3 * C + V)
+    T = torch.from_numpy
+    rel = K1.relative_projections(T(projs)).reshape(V, 4, 4).numpy()
+    dfeat, dimg, adds = emulate_k7bwd_bf16(feats, rel, lo, step, g_var,
+                                           g_vol)
+    assert 0 < adds < 4 * (V - 1) * D * h * w * (C + 3)    # runs merged
+    bf = lambda a: T(a).to(torch.bfloat16)
+    want = K7.warp_volume_bwd_plain(bf(feats), bf(imgs), T(projs), T(lo),
+                                    T(step), bf(g_var), bf(g_vol))
+    for got, ref in zip((dfeat, dimg), want):
+        ref = ref.float().numpy()
+        tol = np.abs(ref) * 2.0 ** -7 + 1e-4 * np.abs(ref).max()
+        assert (np.abs(got - ref) <= tol).all(), np.abs(got - ref).max()
