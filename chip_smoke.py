@@ -22,8 +22,9 @@ the final "ok" line):
               count each bf16 warp kernel's global loads by width: K1-bf16
               and K6-bf16 (`warp_variance_bf16.cu`) at every C, gathering
               in 16- and 8-byte loads, none left in `warp_variance.cu`;
-              K7bwd-bf16 (`warp_volume_bf16.cu`) at every C in 8-byte
-              loads, no bf16 backward left in `warp_volume.cu`;
+              K7-bf16 and K7bwd-bf16 (`warp_volume_bf16.cu`) at every C,
+              gathering in 16- and 8-byte loads, no bf16 function left in
+              `warp_volume.cu`;
   3. kernels  hold each eval kernel against its plain PyTorch version on
               the card, at the DTU eval shapes (864x1152, V=5, stages
               216x288x32/48, 432x576x16/32, 864x1152x8/8): K1 at all 3
@@ -393,8 +394,8 @@ def sass_mma_counts() -> dict:
 
 
 # the library of K1-bf16 and K6-bf16 (phase 2's SASS check), the C widths
-# of its instances, and the float32 library they left; K7bwd-bf16's
-# library and the one it left
+# of its instances, and the float32 library they left; K7-bf16 and
+# K7bwd-bf16's library and the one they left
 WARP_BF16_LIB, WARP_LIB, WARP_CHANNELS = ("warp_variance_bf16",
                                           "warp_variance", (8, 16, 32))
 VOLUME_BF16_LIB, VOLUME_LIB = "warp_volume_bf16", "warp_volume"
@@ -424,16 +425,17 @@ def sass_loads(sass: str, op: str = "LDG") -> dict:
 
 def warp_bf16_faults(loads: dict) -> list:
     """Phase 2's rule on {library: sass_loads(its SASS)}: K1-bf16 and
-    K6-bf16 in their own library, an instance of each at every C,
-    K1-bf16 gathering in 16-byte loads and K6-bf16 in 8-byte ones (4
-    channels a lane), and no bf16 instance left in the float32 library.
-    Returns what breaks it."""
-    faults = [k for k in loads[WARP_LIB] if "bfloat16" in k]
-    faults += [k for k in loads[VOLUME_LIB]
-               if "warp_volume_bwd" in k and "bfloat16" in k]
+    K6-bf16, K7-bf16 and K7bwd-bf16 in their own libraries, an instance of
+    each at every C, K1-bf16 and K7-bf16 gathering in 16-byte loads (8
+    channels a lane), K6-bf16 and K7bwd-bf16 in 8-byte ones (4 channels a
+    lane), and no bf16 function left in the float32 libraries. Returns
+    what breaks it."""
+    faults = [k for lib in (WARP_LIB, VOLUME_LIB) for k in loads[lib]
+              if "bfloat16" in k]
     for lib, kernel, width in (
             (WARP_BF16_LIB, "warp_variance_bf16_kernel", "128"),
             (WARP_BF16_LIB, "warp_variance_bwd_bf16_kernel", "64"),
+            (VOLUME_BF16_LIB, "warp_volume_bf16_kernel", "128"),
             (VOLUME_BF16_LIB, "warp_volume_bwd_bf16_kernel", "64")):
         new = loads[lib]
         for c in WARP_CHANNELS:
@@ -456,7 +458,7 @@ def check_warp_bf16_sass() -> dict:
     if faults:
         raise AssertionError(f"bf16 warp kernels' SASS: {faults} of {loads}")
     return {k: v for lib in loads.values() for k, v in lib.items()
-            if "warp_variance" in k or "warp_volume_bwd" in k}
+            if "warp_variance" in k or "warp_volume" in k}
 
 
 def k5_bf16_faults(sass: str, f32_sass: str) -> list:
@@ -2478,7 +2480,7 @@ def main() -> int:
          source + "csrc/warp_variance_bf16.cu",
          "rcmvsnet_tpu/ops/pallas_warp_train.py:306 (bwd :108, :374)"),
         ("warp_volume_bf16", "bf16_train", "cuda",
-         source + "csrc/warp_volume.cu",
+         source + "csrc/warp_volume_bf16.cu",
          "rcmvsnet_tpu/ops/pallas_warp_volume.py:263 (fwd :101, :340)"),
         ("warp_volume_bwd_bf16", "bf16_train", "cuda",
          source + "csrc/warp_volume_bf16.cu",

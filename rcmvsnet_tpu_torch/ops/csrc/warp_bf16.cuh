@@ -1,12 +1,15 @@
 // Shared pieces of the bf16 plane-sweep kernels designed for Hopper on
-// their own: K1-bf16 and K6-bf16 (warp_variance_bf16.cu) and K7's bf16
-// backward (warp_volume_bf16.cu). The float32 kernels and K7's bf16
-// forward stay on the templates of warp_fwd.cuh and warp_bwd.cuh.
+// their own: K1-bf16 and K6-bf16 (warp_variance_bf16.cu), K7-bf16 and
+// K7bwd-bf16 (warp_volume_bf16.cu). The float32 kernels stay on the
+// templates of warp_fwd.cuh and warp_bwd.cuh.
 //
 // A group of L lanes owns one reference pixel, lane q N consecutive
 // channels (N = 4 or 8: one 8- or 16-byte gather a tap). The projections
 // are shared (warp_fwd.cuh's hand-off: lane q projects views q, q + L,
-// ... and the group passes each view's taps on with __shfl_sync). The
+// ... and the group passes each view's taps on with __shfl_sync); the
+// forwards project plane d + 1 while plane d's gathers are in flight
+// (next_plane), stage each plane's rows in bf16 and write them as 16-byte
+// vectors (store_rows). The
 // backwards' runs (warp_bwd.cuh's fixed-point scatter) are worked out once
 // for the lane's N channels and flushed through shared memory, so that
 // each integer add instruction of the group covers L consecutive words
@@ -140,6 +143,48 @@ __device__ __forceinline__ void fetch_views(Taps (&tn)[NV],
   }
 }
 
+// Plane d's taps of the views lane q projects, handed from next to mine,
+// and plane d + 1's projected into next (rr: their rot * [x, y, 1],
+// warp_fwd.cuh): the next projection has no dependence on this plane's
+// gathers, so it runs while they are in flight. Past the last plane the
+// projection is made and not used.
+template <int S, int L>
+__device__ __forceinline__ void next_plane(Taps (&mine)[S], Taps (&next)[S],
+                                           const float (&rr)[S][3],
+                                           const float* s_rel, int q, int nv,
+                                           float lo_p, float step_p, int d,
+                                           int H, int W) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) mine[s] = next[s];
+  warp::project_mine<S, L>(next, rr, s_rel, q, nv,
+                           warp::plane_depth(lo_p, step_p, d + 1), H, W);
+}
+
+// A plane's staged rows out: staged row r (P bf16 at so + r * PS, PS % 8
+// == 0) to dst(r) + off, the run of P consecutive pixels from p0 of its
+// output row, nothing at or past pixel HW. vec (h*w % 8 == 0, every
+// output row 16-byte aligned): 16-byte vectors of 8 pixels; else element
+// by element.
+template <int P, class Dst>
+__device__ __forceinline__ void store_rows(const bf16* so, int PS, int rows,
+                                           Dst dst, long long off,
+                                           long long p0, long long HW,
+                                           bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < rows * (P / 8); i += kThreads) {
+      const int r = i / (P / 8), jj = 8 * (i % (P / 8));
+      if (p0 + jj < HW)
+        *reinterpret_cast<uint4*>(dst(r) + off + jj) =
+            *reinterpret_cast<const uint4*>(so + r * PS + jj);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * P; i += kThreads) {
+      const int r = i / P, jj = i - r * P;
+      if (p0 + jj < HW) dst(r)[off + jj] = so[r * PS + jj];
+    }
+  }
+}
+
 // One source view's run of consecutive planes that share a top-left tap:
 // the tap and, per tap k and channel i of the lane, a float sum.
 template <int N>
@@ -189,8 +234,8 @@ __device__ __forceinline__ void flush(unsigned long long* dst,
 }
 
 // Tap k of the run receives bf16(cot_i * wy_k) * bf16(wx_k), channel i
-// (warp::run_add_bf16 on N channels: bf16(wx_k) once, two channels'
-// products rounded by one packed conversion).
+// (warp_bwd.cuh's bf16 rule on N channels: bf16(wx_k) once, two
+// channels' products rounded by one packed conversion).
 template <int N>
 __device__ __forceinline__ void run_add(Run<N>& r, const Taps& t,
                                         const float (&cot)[N]) {

@@ -35,19 +35,20 @@
 // on a texel, n * D*H*W*M * 2^-62, ~1e-11 of M at the train shapes.
 // M == 0 gives zeros; a non-finite maximum gives NaN outputs and no adds.
 //
-// bf16 instances (the bf16 train path: K6 and K7's backward on bf16
-// features, images and cotangents). They follow the JAX kernels at
-// compute dtype bf16 (pallas_warp_train.py:180-182,202-206,251-253,
-// 272-275; pallas_warp_volume.py:229-237): x_v is the bf16 forward's
-// sample (bf16 x weights, sample_lane), the cotangent of a sample
-// e = (2/V) g (x_v - mean) stays float32, and tap k receives
-// bf16(e * wy_k) * bf16(wx_k), a product exact in float32 (run_add_bf16),
-// as the TPU kernel rounds each y-weighted cotangent row and its x hat
-// weights to bf16 before the transposed matmul. The reference view's
-// cotangent is summed in float32; every output is rounded to bf16 once
-// (from_quanta, store_out). The maxima read bf16 inputs too (AbsMaxArgs
-// half). The quantum's bound holds with 2x to spare: a rounded
-// contribution exceeds its float32 value by at most 2^-8 of it.
+// bf16 (the bf16 train path: K6-bf16 and K7bwd-bf16, designs of their
+// own on this scatter, warp_bf16.cuh, on bf16 features, images and
+// cotangents). They follow the JAX kernels at compute dtype bf16
+// (pallas_warp_train.py:180-182,202-206,251-253, 272-275;
+// pallas_warp_volume.py:229-237): x_v is the bf16 forward's sample (bf16
+// x weights), the cotangent of a sample e = (2/V) g (x_v - mean) stays
+// float32, and tap k receives bf16(e * wy_k) * bf16(wx_k), a product
+// exact in float32 (warpb::run_add), as the TPU kernel rounds each
+// y-weighted cotangent row and its x hat weights to bf16 before the
+// transposed matmul. The reference view's cotangent is summed in float32;
+// every output is rounded to bf16 once (from_quanta, store_out). The
+// maxima read bf16 inputs too (AbsMaxArgs half). The quantum's bound
+// holds with 2x to spare: a rounded contribution exceeds its float32
+// value by at most 2^-8 of it.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -81,18 +82,18 @@ inline long long variance_bwd_scratch_bytes(int V, int H, int W, int C) {
 }
 
 // Channel c of the bilinear sample of map base [H, W, C]: the taps and
-// weights of sample_channels (bf16: of sample_quad, quad_weight's x
-// rounding), fused multiply-adds in the same order, so the backward's x_v
-// equals the forward's bit for bit.
-template <int C, class T>
-__device__ __forceinline__ float sample_lane(const T* base, const Taps& t,
-                                             int H, int W, int c) {
+// weights of sample_channels, fused multiply-adds in the same order, so
+// the backward's x_v equals the forward's bit for bit.
+template <int C>
+__device__ __forceinline__ float sample_lane(const float* base,
+                                             const Taps& t, int H, int W,
+                                             int c) {
   float val = 0.f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const long long p = tap_pixel(t, k, H, W);
     if (p < 0) continue;
-    val = __fmaf_rn(quad_weight(base, t, k), load1(base + p * C + c), val);
+    val = __fmaf_rn(tap_weight(t, k), load1(base + p * C + c), val);
   }
   return val;
 }
@@ -146,29 +147,6 @@ __device__ __forceinline__ void run_add(TapRun& r, const Taps& t,
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     r.acc[k] = __fmaf_rn(tap_weight(t, k), cot, r.acc[k]);
-}
-
-// The bf16 instances' add into run sums acc[4]: tap k receives
-// bf16(cot * wy_k) * bf16(wx_k) (see the header note).
-__device__ __forceinline__ void run_add_bf16(float* acc, const Taps& t,
-                                             float cot) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float wy = (k >> 1) ? t.wy : 1.f - t.wy;
-    const float wx = (k & 1) ? t.wx : 1.f - t.wx;
-    const float ty = __bfloat162float(__float2bfloat16_rn(__fmul_rn(cot, wy)));
-    acc[k] = __fmaf_rn(__bfloat162float(__float2bfloat16_rn(wx)), ty, acc[k]);
-  }
-}
-
-// A run's add for sources of element type T: run_add (float), run_add_bf16.
-__device__ __forceinline__ void run_add_as(const float*, TapRun& r,
-                                           const Taps& t, float cot) {
-  run_add(r, t, cot);
-}
-__device__ __forceinline__ void run_add_as(const __nv_bfloat16*, TapRun& r,
-                                           const Taps& t, float cot) {
-  run_add_bf16(r.acc, t, cot);
 }
 
 struct AbsMaxArgs {

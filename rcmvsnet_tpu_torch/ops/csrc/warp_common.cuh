@@ -19,10 +19,11 @@
 // Tap k (0..3) is (x0 + (k & 1), y0 + (k >> 1)) with the bilinear weight
 // tap_weight(k); a tap outside the image reads zero (zeros padding, per
 // tap). The clip only moves samples whose four taps all lie outside.
-// bf16 sources (K1's bf16 instance): the x weight is rounded to bf16
-// before it multiplies the y weight (float32), as the JAX kernel rounds
-// its x hat weights to the compute dtype and keeps the y ones float32
-// (pallas_warp2.py:228-243); the coordinates are float32 either way.
+// bf16 sources (the bf16 kernels, warp_bf16.cuh): the x weight is rounded
+// to bf16 before it multiplies the y weight (float32), as the JAX kernel
+// rounds its x hat weights to the compute dtype and keeps the y ones
+// float32 (pallas_warp2.py:228-243; tap_weight_bf16); the coordinates are
+// float32 either way.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,48 +101,26 @@ __device__ __forceinline__ float tap_weight_bf16(const Taps& t, int k) {
   return __fmul_rn(wx, (k >> 1) ? t.wy : 1.f - t.wy);
 }
 
-// The bilinear weight of tap k for a source of element type T.
-__device__ __forceinline__ float quad_weight(const float*, const Taps& t,
-                                             int k) {
-  return tap_weight(t, k);
-}
-__device__ __forceinline__ float quad_weight(const __nv_bfloat16*,
-                                             const Taps& t, int k) {
-  return tap_weight_bf16(t, k);
-}
-
 // An output element from its float32 value (bf16: rounded to nearest even).
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// One element as float (bf16 widened exactly).
+// One element; four consecutive channels as float4 (one 16-byte load).
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// Four consecutive channels as float4: one 16-byte load of float, one
-// 8-byte load of bf16 (widened exactly).
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
 }
 
 // Bilinear sample of the 4 channels [4q, 4q + 4) of map base [H, W, C]
 // (one float4 per tap), in sample_channels' order (taps 0..3, one fused
 // multiply-add each); the taps' offset, bounds and weights are worked out
-// once for the 4 taps. T: float, or bf16 (quad_weight's x rounding).
-template <int C, class T>
-__device__ __forceinline__ float4 sample_quad(const T* base, const Taps& t,
-                                              int H, int W, int q) {
+// once for the 4 taps.
+template <int C>
+__device__ __forceinline__ float4 sample_quad(const float* base,
+                                              const Taps& t, int H, int W,
+                                              int q) {
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   const bool x0in = t.x0 >= 0 && t.x0 < W, x1in = t.x0 >= -1 && t.x0 < W - 1;
   const bool y0in = t.y0 >= 0 && t.y0 < H, y1in = t.y0 >= -1 && t.y0 < H - 1;
@@ -149,7 +128,7 @@ __device__ __forceinline__ float4 sample_quad(const T* base, const Taps& t,
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     if (!(((k & 1) ? x1in : x0in) && ((k >> 1) ? y1in : y0in))) continue;
-    const float wgt = quad_weight(base, t, k);
+    const float wgt = tap_weight(t, k);
     const float4 s = load4(base + p00 + ((k >> 1) ? (long long)W * C : 0) +
                            ((k & 1) ? C : 0));
     v.x = __fmaf_rn(wgt, s.x, v.x);

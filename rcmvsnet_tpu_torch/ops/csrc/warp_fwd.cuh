@@ -1,6 +1,7 @@
-// The block skeleton of the forward plane sweeps: K1 (warp_variance.cu)
-// and K7's forward (warp_volume.cu) instantiate it, each with its own
-// epilogue (what a lane accumulates per view and what a plane writes).
+// The block skeleton of the float32 forward plane sweeps: K1
+// (warp_variance.cu) and K7's forward (warp_volume.cu) instantiate it, each
+// with its own epilogue (what a lane accumulates per view and what a plane
+// writes).
 //
 // Lanes. A group of L = C / 4 lanes owns one reference pixel, lane q the
 // float4 of channels [4q, 4q + 4), so one gather reads a whole 4C-byte row
@@ -51,7 +52,7 @@ struct Plan {
   int dc, nz;     // planes a block walks, plane chunks
 };
 
-// ch: channels a lane (K1-bf16, warp_variance_bf16.cu, gives a lane 8).
+// ch: channels a lane (K1-bf16 and K7-bf16 give a lane 8).
 inline Plan fwd_plan(int H, int W, int C, int D, int ch = 4) {
   Plan p;
   p.P = kFwdThreads / (C / ch);
@@ -74,8 +75,8 @@ struct FwdLanes {
 
 // The projection hand-off, for groups of L lanes a pixel of which lane q
 // projects the S views q, q + L, ... of the nv source views (a lane past
-// the last view projects view 0's row, unused). K1-bf16 and K6-bf16
-// (warp_variance_bf16.cu) use it too.
+// the last view projects view 0's row, unused). The bf16 kernels
+// (warp_variance_bf16.cu, warp_volume_bf16.cu) use it too.
 
 // rr: rot * [x, y, 1] of the views lane q projects, once per pixel.
 template <int S, int L>
@@ -116,14 +117,13 @@ __device__ __forceinline__ Taps taps_of_view(const Taps (&mine)[S], int v) {
               __shfl_sync(0xffffffffu, o.wy, v % L, L)};
 }
 
-// The sweep of one block: src [V, H, W, C] (view 0 the reference; float or
-// bf16, sampled by warp::sample_quad's rule for its type), rel [V, 16]
-// relative projections, lo / step [H, W]; s_rel holds kMaxViews * 16
-// floats of shared memory, s_out 2 * rows * PS.
-template <int C, int NV, class Epi, class T>
+// The sweep of one block: src [V, H, W, C] float (view 0 the reference),
+// rel [V, 16] relative projections, lo / step [H, W]; s_rel holds
+// kMaxViews * 16 floats of shared memory, s_out 2 * rows * PS.
+template <int C, int NV, class Epi>
 __device__ __forceinline__ void fwd_sweep(Epi& epi, float* s_rel,
                                           const float* __restrict__ rel,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           const float* __restrict__ lo,
                                           const float* __restrict__ step,
                                           float* s_out, int rows, int V,

@@ -235,7 +235,7 @@ warp_variance_bwd_kernel(const float* __restrict__ src,
                               run[v].y0, run[v].acc, H, W, c, to_q);
           warp::run_restart(run[v], t[v]);
         }
-        warp::run_add_as(src, run[v], t[v], gs * (x[v] - mean));
+        warp::run_add(run[v], t[v], gs * (x[v] - mean));
       }
     }
   }

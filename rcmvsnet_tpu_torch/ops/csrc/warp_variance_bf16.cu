@@ -1,8 +1,8 @@
 // The bf16 plane-sweep warp + variance (K1-bf16) and its backward
 // (K6-bf16), designed for Hopper on their own. The float32 kernels stay on
-// the shared templates of warp_variance.cu (warp_fwd.cuh, warp_bwd.cuh),
-// and so does K7's bf16 forward (warp_volume.cu). What K6-bf16 shares
-// with K7's bf16 backward (warp_volume_bf16.cu) is in warp_bf16.cuh.
+// the shared templates of warp_variance.cu (warp_fwd.cuh, warp_bwd.cuh).
+// What K1-bf16 and K6-bf16 share with K7's bf16 pair (warp_volume_bf16.cu)
+// is in warp_bf16.cuh.
 //
 // K1-bf16 replaces rcmvsnet_tpu/ops/pallas_warp2.py
 // plane_sweep_variance_lanes at compute dtype = out dtype = bf16 (its
@@ -157,11 +157,7 @@ warp_variance_bf16_kernel(const bf16* __restrict__ src,
                      warp::plane_depth(lo_p, step_p, d0), H, W);
   for (int d = d0; d < d1; ++d) {
     Taps mine[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) mine[s] = next[s];
-    // plane d + 1's projection: no dependence on this plane's gathers
-    project_mine<S, L>(next, rr, s_rel, q, nv,
-                       warp::plane_depth(lo_p, step_p, d + 1), H, W);
+    next_plane<S, L>(mine, next, rr, s_rel, q, nv, lo_p, step_p, d, H, W);
     float sum[N], sq[N];
 #pragma unroll
     for (int i = 0; i < N; ++i) {
@@ -192,20 +188,9 @@ warp_variance_bf16_kernel(const bf16* __restrict__ src,
     __syncthreads();
     // C runs of P consecutive bf16 of out[c, d, :, :]; the two staging
     // buffers alternate between planes, so one barrier a plane suffices
-    bf16* od = out + (long long)d * HW + p0;
-    if (vec) {
-      for (int i = threadIdx.x; i < C * (P / 8); i += kThreads) {
-        const int r = i / (P / 8), jj = 8 * (i % (P / 8));
-        if (p0 + jj < HW)
-          *reinterpret_cast<uint4*>(od + (long long)r * D * HW + jj) =
-              *reinterpret_cast<const uint4*>(&so[r][jj]);
-      }
-    } else {
-      for (int i = threadIdx.x; i < C * P; i += kThreads) {
-        const int r = i / P, jj = i - r * P;
-        if (p0 + jj < HW) od[(long long)r * D * HW + jj] = so[r][jj];
-      }
-    }
+    store_rows<P>(&so[0][0], PS, C,
+                  [&](int r) { return out + (long long)r * D * HW; },
+                  (long long)d * HW + p0, p0, HW, vec);
   }
 }
 

@@ -1,4 +1,6 @@
-// Stage-1 train volume kernel (float32) and its backward, for Hopper.
+// Stage-1 train volume kernel (float32) and its backward, for Hopper. The
+// bf16 pair (K7-bf16, K7bwd-bf16) has a source of its own,
+// warp_volume_bf16.cu.
 //
 // Replaces the TPU kernel rcmvsnet_tpu/ops/pallas_warp_volume.py
 // plane_sweep_volume_fused_train (:263; forward _warp_vol_fwd_kernel :101,
@@ -53,14 +55,6 @@
 // [V-1, h, w, C], int64 image quanta [V-1, h, w, 4] (channel 3 unused:
 // one 32-byte sector a pixel).
 //
-// The forward's bf16 instance (the bf16 train path; warp_volume_bf16):
-// features, images and both outputs bf16, as the JAX kernel at compute and
-// output dtype bf16 (pallas_warp_volume.py:300-308 rounds the stacked
-// features and images, :78-91 the x hat weights): it samples with bf16 x
-// weights (warp_common.cuh's quad_weight, images included), sums in
-// float32 and rounds each output once. The bf16 backward has a design of
-// its own (warp_volume_bf16.cu).
-//
 // Bound: device-memory bytes forward ((2C + 3(V-1)) floats written per
 // plane and pixel; the gathers hot in L1/L2); backward, as K6's, the work
 // per plane and lane (projections, gathers, run bookkeeping), not its
@@ -79,10 +73,8 @@ namespace {
 using warp::kMaxViews;
 
 // Bilinear sample of the 3 channels of image base [H, W, 3] at taps t:
-// taps 0..3, one fused multiply-add each, zero outside (bf16: the x
-// weights rounded, quad_weight).
-template <class T>
-__device__ __forceinline__ void sample_rgb(const T* base,
+// taps 0..3, one fused multiply-add each, zero outside.
+__device__ __forceinline__ void sample_rgb(const float* base,
                                            const warp::Taps& t, int H, int W,
                                            float* rgb) {
   rgb[0] = rgb[1] = rgb[2] = 0.f;
@@ -90,7 +82,7 @@ __device__ __forceinline__ void sample_rgb(const T* base,
   for (int k = 0; k < 4; ++k) {
     const long long p = warp::tap_pixel(t, k, H, W);
     if (p < 0) continue;
-    const float wgt = warp::quad_weight(base, t, k);
+    const float wgt = warp::tap_weight(t, k);
 #pragma unroll
     for (int c = 0; c < 3; ++c)
       rgb[c] = __fmaf_rn(wgt, warp::load1(base + p * 3 + c), rgb[c]);
@@ -106,11 +98,11 @@ __device__ __forceinline__ void sample_rgb(const T* base,
 // the first port's (one thread per plane and pixel), operation for
 // operation: views in order, x^2 summed with one fused multiply-add,
 // IEEE divisions by V, the reference added last.
-template <int C, class T>
+template <int C>
 struct VolumeEpi {
-  const T* imgs;
-  T* var;
-  T* vol;
+  const float* imgs;
+  float* var;
+  float* vol;
   float fv;
   int nv, H, W;
   long long HW, plane;                     // h * w, D * h * w
@@ -158,7 +150,7 @@ struct VolumeEpi {
     }
   }
   // var's rows, then vol's
-  __device__ T* row(int r) const {
+  __device__ float* row(int r) const {
     return r < C ? var + r * plane : vol + (r - C) * plane;
   }
 };
@@ -166,19 +158,19 @@ struct VolumeEpi {
 // K7's forward: the sweep with VolumeEpi; NV bounds the source views
 // (V - 1), the grid is fwd_plan's (K1's), the staging buffer dynamic
 // shared memory of fwd_smem_bytes.
-template <int C, int NV, class T>
+template <int C, int NV>
 __global__ void __launch_bounds__(warp::kFwdThreads)
-warp_volume_kernel(const T* __restrict__ feats,
-                   const T* __restrict__ imgs,
+warp_volume_kernel(const float* __restrict__ feats,
+                   const float* __restrict__ imgs,
                    const float* __restrict__ rel,
                    const float* __restrict__ lo,
                    const float* __restrict__ step,
-                   T* __restrict__ var, T* __restrict__ vol,
+                   float* __restrict__ var, float* __restrict__ vol,
                    int V, int H, int W, int D, int DC) {
   extern __shared__ float s_out[];
   __shared__ float s_rel[kMaxViews * 16];
   const long long HW = (long long)H * W;
-  VolumeEpi<C, T> epi{imgs, var, vol, (float)V, V - 1, H, W, HW, D * HW};
+  VolumeEpi<C> epi{imgs, var, vol, (float)V, V - 1, H, W, HW, D * HW};
   warp::fwd_sweep<C, NV>(epi, s_rel, rel, feats, lo, step, s_out,
                          2 * C + 3 * (V - 1), V, H, W, D, DC);
 }
@@ -189,29 +181,29 @@ int fwd_smem_bytes(int V) {
       * (int)sizeof(float);
 }
 
-template <int C, int NV, class T>
-cudaError_t launch_fwd(const T* feats, const T* imgs,
+template <int C, int NV>
+cudaError_t launch_fwd(const float* feats, const float* imgs,
                        const float* rel, const float* lo, const float* step,
-                       T* var, T* vol, int V, int H, int W, int D,
+                       float* var, float* vol, int V, int H, int W, int D,
                        cudaStream_t s) {
   const warp::Plan p = warp::fwd_plan(H, W, C, D);
   const int smem = fwd_smem_bytes<C, NV>(V);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        warp_volume_kernel<C, NV, T>,
+        warp_volume_kernel<C, NV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  warp_volume_kernel<C, NV, T>
+  warp_volume_kernel<C, NV>
       <<<dim3((unsigned)p.nx, (unsigned)p.nz), warp::kFwdThreads, smem,
          s>>>(feats, imgs, rel, lo, step, var, vol, V, H, W, D, p.dc);
   return cudaGetLastError();
 }
 
-template <int C, class T>
-cudaError_t launch_fwd_views(const T* feats, const T* imgs,
+template <int C>
+cudaError_t launch_fwd_views(const float* feats, const float* imgs,
                              const float* rel, const float* lo,
-                             const float* step, T* var, T* vol,
+                             const float* step, float* var, float* vol,
                              int V, int H, int W, int D, cudaStream_t s) {
   if (V <= 4)
     return launch_fwd<C, 3>(feats, imgs, rel, lo, step, var, vol, V, H, W,
@@ -323,7 +315,7 @@ warp_volume_bwd_kernel(const float* __restrict__ feats,
 #pragma unroll
           for (int k = 0; k < 4; ++k) acc_img[v][k] = 0.f;
         }
-        warp::run_add_as(feats, run[v], t[v],
+        warp::run_add(run[v], t[v],
                          gv * (x[v] - m) + gn * (x[v] - m_nr));
         if (c < 3) {
           const float gi = s_gi[dd][j][3 * v + c];
@@ -380,10 +372,15 @@ void launch_bwd_views(const float* feats, const float* rel, const float* lo,
                       acc_f, acc_i, q, V, H, W, D, s);
 }
 
-template <class T>
-int forward(const T* feats, const T* imgs, const float* rel, const float* lo,
-            const float* step, T* var, T* vol, int V, int H, int W, int C,
-            int D, void* stream) {
+}  // namespace
+
+// K7's forward: var [C, D, h, w] and vol [3 (V-1) + C, D, h, w] (the
+// warped source images, view-major, then the no-ref variance).
+extern "C" int warp_volume_f32(const float* feats, const float* imgs,
+                               const float* rel, const float* lo,
+                               const float* step, float* var, float* vol,
+                               int V, int H, int W, int C, int D,
+                               void* stream) {
   if (V < 2 || V > kMaxViews || D < 1 || (long long)H * W < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -396,30 +393,6 @@ int forward(const T* feats, const T* imgs, const float* rel, const float* lo,
                                               var, vol, V, H, W, D, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-}  // namespace
-
-// K7's forward: var [C, D, h, w] and vol [3 (V-1) + C, D, h, w] (the
-// warped source images, view-major, then the no-ref variance).
-extern "C" int warp_volume_f32(const float* feats, const float* imgs,
-                               const float* rel, const float* lo,
-                               const float* step, float* var, float* vol,
-                               int V, int H, int W, int C, int D,
-                               void* stream) {
-  return forward(feats, imgs, rel, lo, step, var, vol, V, H, W, C, D,
-                 stream);
-}
-
-// K7's bf16 instance: feats, imgs, var and vol bf16.
-extern "C" int warp_volume_bf16(const __nv_bfloat16* feats,
-                                const __nv_bfloat16* imgs, const float* rel,
-                                const float* lo, const float* step,
-                                __nv_bfloat16* var, __nv_bfloat16* vol,
-                                int V, int H, int W, int C, int D,
-                                void* stream) {
-  return forward(feats, imgs, rel, lo, step, var, vol, V, H, W, C, D,
-                 stream);
 }
 
 // Bytes of the scratch warp_volume_bwd_f32 takes (any contents).

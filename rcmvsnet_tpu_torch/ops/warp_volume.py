@@ -1,33 +1,36 @@
 """K7: the stage-1 train volume — all-view variance, no-ref variance and
 warped source images in one sweep — and its backward.
 
-`warp_volume` launches the CUDA kernel `csrc/warp_volume.cu` for a CUDA
-tensor; for a CPU tensor it returns `warp_volume_plain` (`ops/warp.py`'s
-`homo_warp`, variance and `plane_sweep_variance_no_ref`, the composition
-the JAX cascade runs when the kernel is off). Both return (var, vol):
-the variance [C, D, h, w] the U-Net reads, and the render branch's
-volume_feature [3(V−1) + C, D, h, w] (warped source images, view-major,
-then the no-ref variance), which the kernel writes in place, so the
-cascade neither concatenates nor stacks it. The kernel shares K1's block
-skeleton (`csrc/warp_fwd.cuh`: a group of C/4 lanes per pixel, the plane
-loop in the block). `warp_volume_bwd` is the backward (the second entry of
-the same source, deterministic like K6's, or autograd through the plain
-version; its bf16 instance, K7bwd-bf16, is `csrc/warp_volume_bf16.cu`);
-it takes vol's cotangent whole and hands the kernel its two row slices.
+`warp_volume` launches the CUDA kernel `csrc/warp_volume.cu` (bf16:
+`csrc/warp_volume_bf16.cu`) for a CUDA tensor; for a CPU tensor it
+returns `warp_volume_plain` (`ops/warp.py`'s `homo_warp`, variance and
+`plane_sweep_variance_no_ref`, the composition the JAX cascade runs when
+the kernel is off). Both return (var, vol): the variance [C, D, h, w] the
+U-Net reads, and the render branch's volume_feature [3(V−1) + C, D, h, w]
+(warped source images, view-major, then the no-ref variance), which the
+kernel writes in place, so the cascade neither concatenates nor stacks
+it. The float32 kernel shares K1's block skeleton (`csrc/warp_fwd.cuh`: a
+group of C/4 lanes per pixel, the plane loop in the block).
+`warp_volume_bwd` is the backward (the second entry of the same source,
+deterministic like K6's, or autograd through the plain version); it takes
+vol's cotangent whole and hands the kernel its two row slices.
 `warp_volume_train` wraps both in one `torch.autograd.Function`,
 differentiable in the features and the images.
 
 bfloat16 (the bf16 train path, the JAX kernel at compute and output
-dtype bf16): bf16 feats and images select the bf16 instances (counted in
-`warp_volume.bf16.launches` and `warp_volume_bwd.bf16.launches`): the
-sweep samples features and images with bf16 x weights (K1-bf16's rule),
-sums in float32 and writes var and vol in bf16; the backward
-(`csrc/warp_volume_bf16.cu`: 4 channels a lane, shared projections, the
-image cotangent in the lane that projects its view; K6-bf16's pieces,
-`csrc/warp_bf16.cuh`) takes bf16 cotangents, rounds each tap's
-contribution as K6-bf16 does and writes bf16 dfeats and dimgs. Their
-plain versions spell the same out in PyTorch (`warp_volume_plain` /
-`warp_volume_bwd_plain` of bf16 feats);
+dtype bf16): bf16 feats and images select the bf16 pair of
+`csrc/warp_volume_bf16.cu` (counted in `warp_volume.bf16.launches` and
+`warp_volume_bwd.bf16.launches`; K1-bf16's and K6-bf16's pieces,
+`csrc/warp_bf16.cuh`). The forward, K7-bf16 (8 channels a lane, 16-byte
+gathers, shared projections one plane ahead, bf16 staging and 16-byte
+stores), samples features and images with bf16 x weights (K1-bf16's
+rule), sums in float32 and writes var and vol in bf16; it reads the
+images from a [V, h, w, 4] copy (`images4`: one 8-byte load a tap), which
+the wrapper makes. The backward (4 channels a lane, shared projections,
+the image cotangent in the lane that projects its view) takes bf16
+cotangents, rounds each tap's contribution as K6-bf16 does and writes
+bf16 dfeats and dimgs. Their plain versions spell the same out in PyTorch
+(`warp_volume_plain` / `warp_volume_bwd_plain` of bf16 feats);
 `warp_volume_train(..., plain=True)` runs the plain pair under autograd.
 
 Replaces the TPU kernel `rcmvsnet_tpu/ops/pallas_warp_volume.py`
@@ -167,6 +170,15 @@ def _check(name, feats, imgs, lo, step):
         raise ValueError(f"{name}: lo/step must be {(h, w)}")
 
 
+def images4(imgs: torch.Tensor) -> torch.Tensor:
+    """imgs [V, h, w, 3] as the [V, h, w, 4] copy K7-bf16 samples (one
+    8-byte load a tap); channel 3 is left unset and never read into an
+    output."""
+    out = imgs.new_empty((*imgs.shape[:-1], 4))
+    out[..., :3] = imgs
+    return out
+
+
 def warp_volume(feats: torch.Tensor, imgs: torch.Tensor,
                 projs: torch.Tensor, lo: torch.Tensor, step: torch.Tensor,
                 ndepth: int):
@@ -185,7 +197,10 @@ def warp_volume(feats: torch.Tensor, imgs: torch.Tensor,
     new = lambda c: torch.empty((c, ndepth, h, w), dtype=feats.dtype,
                                 device=feats.device)
     var, vol = new(C), new(3 * (V - 1) + C)
-    err = _lib("warp_volume_bf16" if bf16 else "warp_volume_f32", 7)(
+    if bf16:
+        imgs = images4(imgs)
+    err = _lib("warp_volume_bf16" if bf16 else "warp_volume_f32", 7,
+               "warp_volume_bf16" if bf16 else "warp_volume")(
         feats.data_ptr(), imgs.data_ptr(), rel.data_ptr(), lo.data_ptr(),
         step.data_ptr(), var.data_ptr(), vol.data_ptr(), V, h, w, C, ndepth,
         _build.stream_ptr(feats.device))

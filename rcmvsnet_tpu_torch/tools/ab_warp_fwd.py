@@ -7,30 +7,41 @@ Each argument is a directory holding `warp_variance.cu`,
 `warp_volume.cu`, the shared headers (`warp_common.cuh`, `warp_bwd.cuh`
 and, where the build has them, `warp_fwd.cuh` and `warp_bf16.cuh`) and,
 where the build has them, `warp_variance_bf16.cu` (K1-bf16 and K6-bf16)
-and `warp_volume_bf16.cu` (K7bwd-bf16); older builds export those from
-`warp_variance.cu` and `warp_volume.cu` (`load_builds`); default: the
-package's own `ops/csrc/`. Every build runs the same inputs: K1 at the
+and `warp_volume_bf16.cu` (K7bwd-bf16 and, from its own design on,
+K7-bf16); older builds export those from `warp_variance.cu` and
+`warp_volume.cu` (`load_builds`); default: the package's own
+`ops/csrc/`. Every build runs the same inputs: K1 at the
 DTU eval shapes (864×1152, V=5, stages 48/32/8 planes;
 `tools/profile_breakdown.stage_inputs`) and at the train shapes
 (512×640, V=4; `tools/repeat_warp_bwd.train_stages`), and K7's forward
 at the train stage-1 shape (the same features, the images resized to
-it). K1 runs through the package's wrapper; K7 through its C entry,
-called as the build's source declares it: (var, vol) in the render
-volume's layout, or, for a build from before that layout, (var, var_nr,
-wimg) with var_nr and wimg pointed at vol's two row slices, so both
-write the same tensor. The builds take turns A, B, ..., B, A, A, B, ...
+it). K1 runs through the package's wrapper; K7 and K7-bf16 through
+their C entries, called as the build's source declares them
+(`entry_params`): (var, vol) in the render volume's layout, or, for a
+build from before that layout, (var, var_nr, wimg) with var_nr and wimg
+pointed at vol's two row slices, so both write the same tensor; K7-bf16's
+images as they are, or, where the declaration takes `imgs4`, as the
+[V, h, w, 4] copy the wrapper makes (`warp_volume.images4`, made once,
+outside the timing). A call through a C entry also computes the relative
+projections, so its event time holds their kernels and host work; the K7
+rows add each turn's device ms of the K7 kernel alone (`torch.profiler`,
+"dev" columns), which resolves what the event times cannot. The builds take turns A, B, ..., B, A, A, B, ...
 for `--rounds` rounds (default 2); each call's time is the smallest of
 its build's turns (each the median of 7 CUDA-event timings,
 `tools/timing`), printed with the largest. Before it is timed, each
 result is held to its plain version (1e-4 of the largest value) and to
 the first build's result with `torch.equal` (every bit); the tool fails
 after its report if any build's output differs. The bf16 instances run
-too ("bf16 ..." rows: K1-bf16 at the DTU and the train stages, K7-bf16 at
-stage 1, through the wrappers, on the inputs rounded to bf16; held to
-their bf16 plain versions to one bf16 ulp of each element + 1e-4 of the
-largest value), on the builds whose libraries export them ("n/a"
-elsewhere). The report ends with K1's float32 and bf16 totals over the DTU
-stages (a map) and over the train stages.
+too ("bf16 ..." rows: K1-bf16 at the DTU and the train stages through the
+wrapper, K7-bf16 at stage 1 through its C entry, on the inputs rounded to
+bf16; held to their bf16 plain versions to one bf16 ulp of each element +
+1e-4 of the largest value, and to the first build's output in every bit),
+on the builds whose libraries export them ("n/a" elsewhere). The report
+ends with K1's float32 and bf16 totals over the DTU stages (a map) and
+over the train stages, and, for the last build whose K7-bf16 takes
+`imgs4`, one wrapper call of K7-bf16 split into its event ms, its
+kernels' device ms (`torch.profiler`: the image copy and the kernel) and
+the host ms of the call (`tools/timing`).
 
 Usage:
   python -m rcmvsnet_tpu_torch.tools.ab_warp_fwd [--rounds N] [SRC_DIR ...]
@@ -51,7 +62,7 @@ from ..ops import _build
 from ..ops import warp_variance as K1
 from ..ops import warp_volume as K7
 from .repeat_warp_bwd import within_plain
-from .timing import device_label, make_timer
+from .timing import device_label, device_ms, host_ms, make_timer
 
 LIBS = ("warp_variance", "warp_volume", "warp_variance_bf16",
         "warp_volume_bf16")
@@ -63,20 +74,22 @@ OLD_BF16 = {"warp_variance_bf16": "warp_variance_bf16",
             "warp_variance_bwd_bf16": "warp_variance_bwd_bf16",
             "warp_variance_bf16_bwd_scratch_bytes":
                 "warp_variance_bwd_scratch_bytes"}
-# likewise K7bwd-bf16, which a build from before `warp_volume_bf16.cu`
-# exports from `warp_volume.cu`
-OLD_VOLUME_BF16 = {"warp_volume_bwd_bf16": "warp_volume_bwd_bf16",
+# likewise K7-bf16 and K7bwd-bf16, which a build from before
+# `warp_volume_bf16.cu` (K7-bf16: before its own design) exports from
+# `warp_volume.cu`
+OLD_VOLUME_BF16 = {"warp_volume_bf16": "warp_volume_bf16",
+                   "warp_volume_bwd_bf16": "warp_volume_bwd_bf16",
                    "warp_volume_bf16_bwd_scratch_bytes":
                        "warp_volume_bwd_scratch_bytes"}
 
 
 def load_builds(srcs) -> list[dict]:
     """Each build's libraries by name (`_build.load_from` of the sources
-    of LIBS its directory holds). A build without `warp_variance_bf16.cu`
-    (or `warp_volume_bf16.cu`) serves the bf16 entries of its
-    `warp_variance.cu` (`warp_volume.cu`) under the new library's name,
-    so the wrappers launch the current build's K1-bf16, K6-bf16 and
-    K7bwd-bf16 whichever source holds them."""
+    of LIBS its directory holds). The bf16 entries a build's
+    `warp_variance_bf16.cu` (`warp_volume_bf16.cu`) lacks, or all of them
+    where it has no such source, are served from its `warp_variance.cu`
+    (`warp_volume.cu`) under the new library's name, so K1-bf16, K6-bf16,
+    K7-bf16 and K7bwd-bf16 are found whichever source holds them."""
     builds = []
     for s in srcs:
         names = [n for n in LIBS if (Path(s) / f"{n}.cu").exists()]
@@ -84,11 +97,11 @@ def load_builds(srcs) -> list[dict]:
         for new_lib, old_lib, entries in (
                 ("warp_variance_bf16", "warp_variance", OLD_BF16),
                 ("warp_volume_bf16", "warp_volume", OLD_VOLUME_BF16)):
-            if new_lib not in libs:
-                old = libs[old_lib]
-                libs[new_lib] = SimpleNamespace(**{
-                    new: getattr(old, name) for new, name in entries.items()
-                    if hasattr(old, name)})
+            old = libs[old_lib]
+            lib = libs.setdefault(new_lib, SimpleNamespace())
+            for new, name in entries.items():
+                if not hasattr(lib, new) and hasattr(old, name):
+                    setattr(lib, new, getattr(old, name))
         builds.append(libs)
     return builds
 
@@ -133,27 +146,42 @@ def k1_inputs(device, gen, dtu=(864, 1152, 5), train=(512, 640, 4)):
     return calls, k7
 
 
+def entry_params(src_dir: Path, entry: str) -> list[str]:
+    """The parameters of `entry`'s extern "C" declaration (the build's C
+    interface) in src_dir/warp_volume_bf16.cu or, failing that,
+    src_dir/warp_volume.cu."""
+    for name in ("warp_volume_bf16.cu", "warp_volume.cu"):
+        path = Path(src_dir) / name
+        m = path.exists() and re.search(
+            r'extern "C" int ' + entry + r"\(([^)]*)\)", path.read_text())
+        if m:
+            return [" ".join(a.split()) for a in m.group(1).split(",")]
+    raise ValueError(f"{src_dir}: no warp_volume source declares {entry}")
+
+
 def entry_pointers(src_dir: Path, entry: str) -> int:
-    """The float pointers among the parameters of `entry`'s extern "C"
-    declaration in src_dir/warp_volume.cu (the build's C interface)."""
-    text = (Path(src_dir) / "warp_volume.cu").read_text()
-    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
-    return m.group(1).count("float*")
+    """The data pointers among `entry`'s parameters (the stream
+    aside)."""
+    return sum("*" in a and not a.startswith("void*")
+               for a in entry_params(src_dir, entry))
 
 
 def k7_call(lib, n_ptr: int, feats, imgs, projs, lo, step, nd):
-    """K7's forward through one build's C entry: (var, vol), vol in the
-    render volume's layout whichever interface the build has (7 pointers:
-    var, vol; 8: var, var_nr, wimg)."""
+    """K7's forward through one build's C entry (K7-bf16's for bf16
+    feats; imgs as that entry takes them): (var, vol), vol in the render
+    volume's layout whichever interface the build has (7 pointers: var,
+    vol; 8: var, var_nr, wimg)."""
     V, h, w, C = feats.shape
     rel = K1.relative_projections(projs)
-    var = torch.empty((C, nd, h, w), device=feats.device)
-    vol = torch.empty((3 * (V - 1) + C, nd, h, w), device=feats.device)
+    new = lambda c: torch.empty((c, nd, h, w), dtype=feats.dtype,
+                                device=feats.device)
+    var, vol = new(C), new(3 * (V - 1) + C)
     outs = [var.data_ptr(), vol.data_ptr()]
     if n_ptr == 8:
         outs = [var.data_ptr(), vol[3 * (V - 1):].data_ptr(),
                 vol.data_ptr()]
-    fn = lib.warp_volume_f32
+    bf16 = feats.dtype == torch.bfloat16
+    fn = lib.warp_volume_bf16 if bf16 else lib.warp_volume_f32
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -162,6 +190,12 @@ def k7_call(lib, n_ptr: int, feats, imgs, projs, lo, step, nd):
              _build.stream_ptr(feats.device))
     _build.check(err, "warp_volume (ab_warp_fwd)")
     return var, vol
+
+
+def takes_imgs4(src_dir: Path) -> bool:
+    """Whether the build's K7-bf16 entry takes the [V, h, w, 4] image
+    copy (its own design) rather than the images as they are."""
+    return "imgs4" in " ".join(entry_params(src_dir, "warp_volume_bf16"))
 
 
 def turns(n: int, rounds: int) -> list[int]:
@@ -193,6 +227,11 @@ def run(device, srcs, rounds=2) -> dict:
                   lambda i: k7_call(builds[i]["warp_volume"], k7_ptrs[i],
                                     *k7_args),
                   lambda: K7.warp_volume_plain(*k7_args)))
+    has_bf16 = [hasattr(b["warp_volume_bf16"], "warp_volume_bf16")
+                for b in builds]
+    k7b_ptrs = [entry_pointers(Path(s), "warp_volume_bf16") if ok else 0
+                for s, ok in zip(srcs, has_bf16)]
+    imgs4 = [ok and takes_imgs4(Path(s)) for s, ok in zip(srcs, has_bf16)]
     # the bf16 instances, through the wrappers
     for label, args in k1_calls:
         a = (args[0].bfloat16(), *args[1:])
@@ -201,11 +240,15 @@ def run(device, srcs, rounds=2) -> dict:
                       lambda i, a=a: (K1.warp_variance(*a),),
                       lambda a=a: (K1.warp_variance_plain(*a),)))
     a7 = (k7_args[0].bfloat16(), k7_args[1].bfloat16(), *k7_args[2:])
-    calls.append((f"bf16 {k7_label}", ("warp_volume", "warp_volume_bf16"),
-                  lambda i: K7.warp_volume(*a7),
+    a7_4 = (a7[0], K7.images4(a7[1]), *a7[2:])
+    calls.append((f"bf16 {k7_label}", ("warp_volume_bf16",
+                                       "warp_volume_bf16"),
+                  lambda i: k7_call(builds[i]["warp_volume_bf16"],
+                                    k7b_ptrs[i], *(a7_4 if imgs4[i] else a7)),
                   lambda: K7.warp_volume_plain(*a7)))
     timer = make_timer(device)
     turn_ms = {c[0]: [[] for _ in builds] for c in calls}
+    k7_dev = {c[0]: [[] for _ in builds] for c in calls if "K7" in c[0]}
     equal = {c[0]: [True] * len(builds) for c in calls}
     plain, first = {}, {}
     with torch.no_grad():
@@ -226,11 +269,20 @@ def run(device, srcs, rounds=2) -> dict:
                                        for a, b in zip(got, ref))
                 del got
                 turn_ms[label][i].append(timer(lambda: fk(i)))
+                if label in k7_dev:
+                    k7_dev[label][i].append(device_ms(
+                        lambda: fk(i), device, match="warp_volume")[0])
     ms = {label: [min(t) if t else None for t in row]
           for label, row in turn_ms.items()}
     for label, row in turn_ms.items():
         print(spread_line(label, row) + "  equal: " + " ".join(
             "yes" if e else "NO" for e in equal[label]))
+    k7_dev_ms = {label: [min(t) if t and None not in t else None
+                         for t in row] for label, row in k7_dev.items()}
+    for label, row in k7_dev_ms.items():
+        print(f"{'dev ' + label:41s} " + "  ".join(
+            f"{'not measured':15s}" if t is None else f"{t:15.4f}"
+            for t in row))
     totals = {kind: total_ms(ms, [label for label in ms
                                   if label.startswith(prefix)], len(srcs))
               for kind, prefix in (
@@ -240,8 +292,29 @@ def run(device, srcs, rounds=2) -> dict:
     for kind, row in totals.items():
         print(f"{'K1 total ms (least), ' + kind:41s} " + "  ".join(
             f"{'n/a':15s}" if t is None else f"{t:15.3f}" for t in row))
+    split = None
+    if any(imgs4):
+        i = max(k for k, ok in enumerate(imgs4) if ok)
+        split = wrapper_split(device, builds[i], a7, make_timer(device))
+        print(f"bf16 K7 wrapper, build {i}: event {split['event_ms']:.3f}"
+              f" ms, device {split['device_ms']} ms "
+              f"({', '.join(split['kernels'])}), host "
+              f"{split['host_ms']:.3f} ms")
     return {"ms": ms, "turns_ms": turn_ms, "total_ms": totals,
-            "bit_equal": equal}
+            "bit_equal": equal, "k7_device_ms": k7_dev_ms,
+            "k7_bf16_wrapper": split}
+
+
+def wrapper_split(device, libs, a7, timer) -> dict:
+    """One call of the K7 wrapper on bf16 inputs with build `libs`: its
+    event ms, its kernels' device ms and names (`torch.profiler`; None
+    where it records none) and the host ms of the call."""
+    _build._libs.update(libs)
+    fn = lambda: K7.warp_volume(*a7)
+    with torch.no_grad():
+        dev_ms, names = device_ms(fn, device)
+        return {"event_ms": timer(fn), "device_ms": dev_ms,
+                "kernels": names, "host_ms": host_ms(fn, device)}
 
 
 def total_ms(ms: dict, labels, n: int) -> list:

@@ -71,7 +71,7 @@ KEYS = ("clean_fwd", "aug_fwd", "render_fwd", "clean_grad", "aug_grad",
 PORT_KERNELS = (
     ("K1 warp_variance", r"\bwarp_variance(_bf16)?_kernel\b"),
     ("K6 warp_variance_bwd", r"\bwarp_variance_bwd(_bf16)?_kernel\b"),
-    ("K7 warp_volume", r"\bwarp_volume_kernel\b"),
+    ("K7 warp_volume", r"\bwarp_volume(_bf16)?_kernel\b"),
     ("K7 warp_volume_bwd", r"\bwarp_volume_bwd(_bf16)?_kernel\b"),
     ("K6/K7 bwd helpers", r"\b(absmax_kernel|choose_quantum|from_quanta)\b"),
     ("K2 conv3d", r"\b(conv3d_(bf16_)?tc|prep_weights(_bf16)?)\b"),

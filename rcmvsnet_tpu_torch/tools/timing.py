@@ -56,11 +56,13 @@ def make_timer(device: torch.device, reps: int = 7, warmup: int = 2):
     return timer
 
 
-def device_ms(fn, device: torch.device, reps: int = 20, warmup: int = 2):
+def device_ms(fn, device: torch.device, reps: int = 20, warmup: int = 2,
+              match: str | None = None):
     """(mean device ms of one fn() call, kernel names): the summed
     durations of the CUDA kernels `torch.profiler` records over `reps`
-    calls, divided by reps. (None, []) on the CPU, or where the profiler
-    records no device activity ("not measured")."""
+    calls (those whose name holds `match`, where given), divided by reps.
+    (None, []) on the CPU, or where the profiler records no such device
+    activity ("not measured")."""
     if device.type != "cuda":
         return None, []
     from torch.profiler import ProfilerActivity, profile
@@ -73,7 +75,8 @@ def device_ms(fn, device: torch.device, reps: int = 20, warmup: int = 2):
             fn()
         torch.cuda.synchronize(device)
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (match is None or match in e.name)]
     if not kernels:
         return None, []
     us = sum(e.time_range.elapsed_us() for e in kernels)

@@ -94,29 +94,39 @@ F32_SASS = """
         /*0a40*/  LDG.E.128.CONSTANT R4, desc[UR6][R2.64] ;
 """
 VOLUME_SASS = """
+        Function : _ZN12_GLOBAL__N_123warp_volume_bf16_kernelILi%dELi3ELb1EEEvPK13__nv_bfloat16S3_PKfS5_S5_PS1_S7_iiiiib
+        /*0a40*/  LDG.E.128.CONSTANT R4, desc[UR6][R2.64] ;
+        /*0a50*/  @P1 LDG.E.64.CONSTANT R8, desc[UR6][R6.64] ;
         Function : _ZN12_GLOBAL__N_127warp_volume_bwd_bf16_kernelILi%dELi3ELb1EEEvPK13__nv_bfloat16
         /*0b40*/  LDG.E.64.CONSTANT R4, desc[UR6][R2.64] ;
 """
 VOLUME_F32_SASS = """
         Function : _ZN12_GLOBAL__N_122warp_volume_bwd_kernelILi32ELi3EEEvPKfS2_
         /*0a40*/  LDG.E.CONSTANT R4, desc[UR6][R2.64] ;
-        Function : _ZN12_GLOBAL__N_118warp_volume_kernelILi32ELi3E13__nv_bfloat16EEvPKT1_
-        /*0a40*/  LDG.E.64.CONSTANT R4, desc[UR6][R2.64] ;
+        Function : _ZN12_GLOBAL__N_118warp_volume_kernelILi32ELi3EEEvPKfS2_S2_S2_S2_PfS3_iiiiii
+        /*0a40*/  LDG.E.128.CONSTANT R4, desc[UR6][R2.64] ;
 """
 VOLUME_BF16_BWD_LEFT = """
         Function : _ZN12_GLOBAL__N_122warp_volume_bwd_kernelILi32ELi3E13__nv_bfloat16EEvPKT1_
         /*0a40*/  LDG.E.U16 R4, desc[UR6][R2.64] ;
+"""
+# the bf16 instance of the float32 template's forward, as the source held
+# it before K7-bf16's own design
+VOLUME_BF16_FWD_LEFT = """
+        Function : _ZN12_GLOBAL__N_118warp_volume_kernelILi32ELi3E13__nv_bfloat16EEvPKT1_
+        /*0a40*/  LDG.E.64.CONSTANT R4, desc[UR6][R2.64] ;
 """
 
 
 def test_sass_check_sees_the_bf16_warp_loads():
     """Phase 2's rule on the bf16 warp kernels: each global load counted
     by its width whatever its other modifiers; every C present, K1-bf16
-    with 16-byte gathers, K6-bf16 and K7bwd-bf16 with 8-byte ones, the
-    float32 libraries without a bf16 backward (K7's bf16 forward stays in
-    `warp_volume.cu`), and each breach reported."""
+    and K7-bf16 with 16-byte gathers, K6-bf16 and K7bwd-bf16 with 8-byte
+    ones, the float32 libraries without a bf16 function, and each breach
+    reported: a narrow gather, a missing instance, a bf16 kernel left in
+    a float32 library."""
     new = "".join(WARP_SASS % (c, c) for c in (8, 16, 32))
-    vol = "".join(VOLUME_SASS % c for c in (8, 16, 32))
+    vol = "".join(VOLUME_SASS % (c, c) for c in (8, 16, 32))
     loads = {"warp_variance_bf16": chip_smoke.sass_loads(new),
              "warp_variance": chip_smoke.sass_loads(F32_SASS),
              "warp_volume_bf16": chip_smoke.sass_loads(vol),
@@ -144,6 +154,24 @@ def test_sass_check_sees_the_bf16_warp_loads():
     left = {**loads, "warp_volume": chip_smoke.sass_loads(
         VOLUME_F32_SASS + VOLUME_BF16_BWD_LEFT)}
     assert len(chip_smoke.warp_bf16_faults(left)) == 1
+    k7 = [k for k in loads["warp_volume_bf16"] if "volume_bf16_kernel" in k]
+    assert len(k7) == 3 and loads["warp_volume_bf16"][k7[0]] == {
+        "128": 1, "64": 1, "32": 0, "16": 0}
+    # K7-bf16 gathering 8 bytes a tap, without its C = 16 instance, or its
+    # bf16 forward left in the float32 library
+    narrow = {**loads, "warp_volume_bf16": chip_smoke.sass_loads(
+        vol.replace("LDG.E.128.", "LDG.E.64."))}
+    assert chip_smoke.warp_bf16_faults(narrow) == [
+        f"warp_volume_bf16_kernel C={c}: {[k]}"
+        for c, k in zip((8, 16, 32), k7)]
+    missing = {**loads, "warp_volume_bf16": chip_smoke.sass_loads(
+        VOLUME_SASS % (8, 8) + VOLUME_SASS % (32, 32))}
+    assert len(chip_smoke.warp_bf16_faults(missing)) == 2
+    left = {**loads, "warp_volume": chip_smoke.sass_loads(
+        VOLUME_F32_SASS + VOLUME_BF16_FWD_LEFT)}
+    assert chip_smoke.warp_bf16_faults(left) == [
+        "_ZN12_GLOBAL__N_118warp_volume_kernelILi32ELi3E13__nv_bfloat16EEv"
+        "PKT1_"]
 
 
 K5_SASS = """

@@ -39,12 +39,13 @@ Co groups of dw, the prob head's float32 output), the bf16 dw repeated
 bit for bit, and one bf16 train step launching only the bf16 instances;
 K1-bf16 and K6-bf16's own designs (`csrc/warp_variance_bf16.cu`) at every
 C and view-count instance, odd sizes and D = 96, K6-bf16 repeated bit for
-bit, and a misaligned source refused; K5-bf16's own design
+bit; K5-bf16's own design
 (`csrc/conv2d_bf16.cu`) on every route and layout, Ci 3/8/16/24/32,
 aligned, unaligned and shifted rows, and its lateral head; K7bwd-bf16's
 own design (`csrc/warp_volume_bf16.cu`) at every C and view-count
-instance, odd sizes, D 5-13 and 48, repeated bit for bit, and a
-misaligned source refused. The backward
+instance, odd sizes, D 5-13 and 48, repeated bit for bit; K7-bf16's
+own design (the same source) likewise; and a misaligned source refused by
+K1-bf16, K7-bf16 and K7bwd-bf16. The backward
 kernels sum in another order than autograd (K8 dw in per-block
 partials, K6 and K7 in 64-bit fixed point, rounded once per flushed run
 of planes), so they are held to 1e-4 of the largest value, and to
@@ -1019,20 +1020,6 @@ def test_warp_variance_bwd_bf16_design_matches_plain(dev, V, h, w, C, D):
     _close_bf16(first, want)
 
 
-def test_warp_variance_bf16_refuses_a_misaligned_source(dev):
-    """K1-bf16 gathers 16 bytes a tap: a source that does not start on a
-    16-byte boundary is refused at launch, not read."""
-    V, h, w, C = 3, 8, 12, 8
-    buf = torch.zeros(V * h * w * C + 1, dtype=torch.bfloat16, device=dev)
-    feats = buf[1:].view(V, h, w, C)
-    lo = torch.full((h, w), 560.0, device=dev)
-    step = torch.full((h, w), 4.0, device=dev)
-    n0 = K1.warp_variance.bf16.launches
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        K1.warp_variance(feats, _projs(V, h, w, dev), lo, step, 4)
-    assert K1.warp_variance.bf16.launches == n0
-
-
 # ---- K5-bf16's own design (`csrc/conv2d_bf16.cu`): the tensor-core route
 # at stride 1 and 2 with 8-channel chunks (Ci 8, m16n8k8) and 16-channel
 # ones (Ci 16, 24 with a half-empty chunk, 32 in two chunks), the direct
@@ -1165,9 +1152,44 @@ def test_warp_volume_bwd_bf16_design_matches_plain(dev, V, h, w, C, D):
         _close_bf16(a, p)
 
 
-def test_warp_volume_bwd_bf16_refuses_a_misaligned_source(dev):
-    """K7bwd-bf16 gathers 8 bytes a tap: features that do not start on an
-    8-byte boundary are refused at launch, not read."""
+# ---- K7-bf16's own design (`csrc/warp_volume_bf16.cu`): C 8/16/32, every
+# view-count instance (its own at V 4, the buckets of at most 3, 7 and 15
+# source views, V = MAX_VIEWS at C 8: the largest staging), h·w that no
+# block's pixels (2048 / C) divide and h·w % 8 != 0 (element-wise stores),
+# D 5-13 and 48 (the train step's stage 1).
+
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (4, 32, 40, 32, 48), (4, 13, 21, 8, 9), (4, 20, 36, 16, 11),
+    (3, 9, 7, 8, 5), (2, 9, 7, 16, 5), (5, 13, 21, 16, 13),
+    (8, 11, 29, 32, 7), (10, 8, 12, 8, 6), (16, 8, 12, 8, 4),
+    (16, 9, 7, 32, 5)])
+def test_warp_volume_bf16_design_matches_plain(dev, V, h, w, C, D):
+    """K7-bf16 against its bf16 plain version (var and the render
+    volume), and a second launch equal to the first in every bit."""
+    g = _gen(dev, 17 * C + V + D)
+    feats, imgs = _bf16(torch.randn(V, h, w, C, device=dev, generator=g),
+                        torch.rand(V, h, w, 3, device=dev, generator=g))
+    lo = 560 + 10 * torch.rand(h, w, device=dev, generator=g)
+    step = 3 + torch.rand(h, w, device=dev, generator=g)
+    args = (feats, imgs, _projs(V, h, w, dev), lo, step, D)
+    n0 = (K7.warp_volume.launches, K7.warp_volume.bf16.launches)
+    first = K7.warp_volume(*args)
+    second = K7.warp_volume(*args)
+    want = K7.warp_volume_plain(*args)
+    torch.cuda.synchronize()
+    assert (K7.warp_volume.launches,
+            K7.warp_volume.bf16.launches) == (n0[0], n0[1] + 2)
+    for a, b, p in zip(first, second, want):
+        assert a.dtype == torch.bfloat16 and a.shape == p.shape
+        assert torch.equal(a, b)
+        _close_bf16(a, p)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k7", "k7bwd"])
+def test_bf16_warp_kernels_refuse_a_misaligned_source(dev, kernel):
+    """K1-bf16 and K7-bf16 gather 16 bytes a tap, K7bwd-bf16 8 bytes:
+    features that do not start on such a boundary are refused at launch,
+    not read, and the launch is not counted."""
     V, h, w, C, D = 3, 8, 12, 8, 4
     buf = torch.zeros(V * h * w * C + 1, dtype=torch.bfloat16, device=dev)
     feats = buf[1:].view(V, h, w, C)
@@ -1176,8 +1198,15 @@ def test_warp_volume_bwd_bf16_refuses_a_misaligned_source(dev):
             for c in (C, 3 * (V - 1) + C)]
     lo = torch.full((h, w), 560.0, device=dev)
     step = torch.full((h, w), 4.0, device=dev)
-    n0 = K7.warp_volume_bwd.bf16.launches
+    projs = _projs(V, h, w, dev)
+    fn, count, args = {
+        "k1": (K1.warp_variance, K1.warp_variance.bf16,
+               (feats, projs, lo, step, D)),
+        "k7": (K7.warp_volume, K7.warp_volume.bf16,
+               (feats, imgs, projs, lo, step, D)),
+        "k7bwd": (K7.warp_volume_bwd, K7.warp_volume_bwd.bf16,
+                  (feats, imgs, projs, lo, step, *cots))}[kernel]
+    n0 = count.launches
     with pytest.raises(RuntimeError, match="CUDA error"):
-        K7.warp_volume_bwd(feats, imgs, _projs(V, h, w, dev), lo, step,
-                           *cots)
-    assert K7.warp_volume_bwd.bf16.launches == n0
+        fn(*args)
+    assert count.launches == n0

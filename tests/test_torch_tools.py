@@ -9,8 +9,9 @@ alias and lists FeatureNet's 13 calls and the eval path's forms of them,
 each of which equals its plain version, and the bf16 eval path's 12
 calls, whose heads equal the bf16 `forward_folded`. The K4 A/B tool runs its turns
 on the CPU through the plain version, with the device time "not
-measured"; the forward-warp A/B tool lists K1's six calls and K7's, and
-reads each build's K7 interface from its source. The K10 A/B tool runs
+measured"; the forward-warp A/B tool lists K1's six calls and K7's,
+reads each build's K7 and K7-bf16 interfaces from its sources, and serves
+a build's bf16 entries from whichever source holds them. The K10 A/B tool runs
 its turns on the CPU through the plain version at a tiny DTU shape, with
 each stage's and the total's times beside the bound, F.grid_sample's and
 a fill of the output. The train-step profiler times its seven calls
@@ -190,6 +191,66 @@ def test_ab_warp_fwd_lists_k1_and_k7_calls_cpu(tmp_path):
     assert ab_warp_fwd.entry_pointers(tmp_path, "warp_volume_f32") == 8
 
 
+# a build from before K7-bf16's own design: the bf16 forward declared in
+# warp_volume.cu, warp_volume_bf16.cu holding the backward alone
+OLD_K7_BF16 = (
+    'extern "C" int warp_volume_bf16(const __nv_bfloat16* feats,\n'
+    '    const __nv_bfloat16* imgs, const float* rel, const float* lo,\n'
+    '    const float* step, __nv_bfloat16* var, __nv_bfloat16* vol, int V,\n'
+    '    int H, int W, int C, int D, void* stream) {\n')
+OLD_K7BWD_BF16 = (
+    'extern "C" int warp_volume_bwd_bf16(const bf16* feats, const float* '
+    'rel) {\n')
+
+
+def test_ab_warp_fwd_reads_k7_bf16_from_either_source(tmp_path,
+                                                      monkeypatch):
+    """K7-bf16's C entry is found in warp_volume_bf16.cu (its own design,
+    taking the [V, h, w, 4] image copy) or in warp_volume.cu (a build from
+    before it, taking the images as they are), and `load_builds` serves a
+    build's bf16 entries from warp_volume.cu where its warp_volume_bf16.cu
+    lacks them, or where it has no such source."""
+    from types import SimpleNamespace
+
+    from rcmvsnet_tpu_torch.ops import _build
+    assert ab_warp_fwd.entry_pointers(_build.CSRC, "warp_volume_bf16") == 7
+    assert ab_warp_fwd.takes_imgs4(_build.CSRC)
+    old, older = tmp_path / "old", tmp_path / "older"
+    for d in (old, older):
+        d.mkdir()
+        (d / "warp_variance.cu").write_text("")
+        (d / "warp_volume.cu").write_text(OLD_K7_BF16)
+    (old / "warp_volume_bf16.cu").write_text(OLD_K7BWD_BF16)
+    assert ab_warp_fwd.entry_pointers(old, "warp_volume_bf16") == 7
+    assert not ab_warp_fwd.takes_imgs4(old)
+    with pytest.raises(ValueError, match="declares warp_volume_f32"):
+        ab_warp_fwd.entry_params(old, "warp_volume_f32")
+
+    def load_from(src, names):
+        libs = {"warp_variance": SimpleNamespace(),
+                "warp_volume": SimpleNamespace(
+                    warp_volume_bf16=f"fwd {src.name}",
+                    warp_volume_bwd_bf16=f"old bwd {src.name}",
+                    warp_volume_bwd_scratch_bytes="old scratch")}
+        if "warp_volume_bf16" in names:
+            libs["warp_volume_bf16"] = SimpleNamespace(
+                warp_volume_bwd_bf16="own bwd",
+                warp_volume_bf16_bwd_scratch_bytes="own scratch")
+        assert set(names) == set(libs)
+        return libs
+    monkeypatch.setattr(_build, "load_from", load_from)
+    got = [b["warp_volume_bf16"] for b in ab_warp_fwd.load_builds(
+        [old, older])]
+    assert vars(got[0]) == {"warp_volume_bf16": "fwd old",
+                            "warp_volume_bwd_bf16": "own bwd",
+                            "warp_volume_bf16_bwd_scratch_bytes":
+                                "own scratch"}
+    assert vars(got[1]) == {"warp_volume_bf16": "fwd older",
+                            "warp_volume_bwd_bf16": "old bwd older",
+                            "warp_volume_bf16_bwd_scratch_bytes":
+                                "old scratch"}
+
+
 def test_ab_warp_view_cpu(capsys):
     from rcmvsnet_tpu_torch.ops import _build
     res = ab_warp_view.run(torch.device("cpu"), [_build.CSRC] * 2,
@@ -299,11 +360,15 @@ def test_profile_train_cpu(capsys, monkeypatch, tmp_path):
     ("(anonymous namespace)::conv2d_bf16_prep(__nv_bfloat16 const*, "
      "unsigned int*)", "K5 conv2d bf16"),
     ("void (anonymous namespace)::conv2d_tc<3, 1, 4, 1>(float const*)",
-     "K5 conv2d")])
+     "K5 conv2d"),
+    ("void (anonymous namespace)::warp_volume_bf16_kernel<32, 3, true>"
+     "(__nv_bfloat16 const*, __nv_bfloat16 const*)", "K7 warp_volume bf16"),
+    ("void (anonymous namespace)::warp_volume_kernel<32, 3>(float const*)",
+     "K7 warp_volume")])
 def test_profile_train_classifies_the_conv_kernels(name, label):
     """The bf16 3-D and 2-D conv kernels and the bf16 warp kernels, which
     have sources and names of their own, count as port kernels K2, K8 dw,
-    K5, K1, K6 and K7's backward under their bf16 labels."""
+    K5, K1, K6, K7 and K7's backward under their bf16 labels."""
     assert profile_train.classify(name) == label
 
 

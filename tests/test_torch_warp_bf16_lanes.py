@@ -1,5 +1,6 @@
 """The lane maps of K1-bf16 and K6-bf16 (`ops/csrc/warp_variance_bf16.cu`),
-checked on the CPU.
+K7-bf16 and K7bwd-bf16 (`ops/csrc/warp_volume_bf16.cu`), checked on the
+CPU.
 
 CUDA cannot run here, so these tests hold the kernels' mapping of lanes,
 pixels, channels and views in plain numpy:
@@ -28,7 +29,17 @@ pixels, channels and views in plain numpy:
     bf16 (g_img's rows past 3 (V-1) zero) put every element in one place;
     and the kernel emulated lane by lane (features through the group's
     hand-over flush, images through the owning lane's) is within the bf16
-    gate of `warp_volume_bwd_plain`.
+    gate of `warp_volume_bwd_plain`;
+  * K7-bf16 on K1-bf16's lanes (8 channels a lane): its staging (two
+    buffers of 2C + 3 NV rows of P + 32/L bf16) fits a block's shared
+    memory at every instance up to MAX_VIEWS; channel 8q + i staged at row
+    i L + q puts the lanes of one store instruction on distinct banks
+    (the channel order would not, at L > 1); the lane that projected view
+    v stages its RGB, every (pixel, view, channel) once; the store loop
+    (16-byte vectors, or element by element where h·w % 8 != 0) writes
+    every element of var and vol once; and the kernel emulated lane by
+    lane (the images from a [V, h, w, 4] copy whose fourth channel is NaN)
+    is within the bf16 gate of `warp_volume_plain`.
 """
 import numpy as np
 import pytest
@@ -507,3 +518,242 @@ def test_k7bwd_bf16_emulation_matches_plain_within_the_bf16_gate(V, h, w, C,
         ref = ref.float().numpy()
         tol = np.abs(ref) * 2.0 ** -7 + 1e-4 * np.abs(ref).max()
         assert (np.abs(got - ref) <= tol).all(), np.abs(got - ref).max()
+
+
+# ------------------------------------------------------------ K7-bf16
+
+SMEM_BLOCK = 232448               # shared memory a block can use (bytes)
+NV_BUCKETS = (3, 7, 15)           # the instances' bounds on source views
+
+
+def fwd_smem(C, NV):
+    """K7-bf16's FwdSmem: (L, P, PS, staged rows, bytes of the two
+    buffers)."""
+    L, P = lanes(C, FWD_CH)
+    PS = P + (32 // L if L > 1 else 8)
+    rows = 2 * C + 3 * NV
+    return L, P, PS, rows, 2 * rows * PS * 2
+
+
+def staged_row(L, q, i):
+    """The staged row of channel 8q + i (var's, and the no-ref
+    variance's from row C + 3 nv)."""
+    return i * L + q
+
+
+def channel_of(L, r):
+    return (r % L) * FWD_CH + r // L
+
+
+def k7_rows(C, nv):
+    """Staged row r -> (0: var, 1: vol; the output row)."""
+    L = C // FWD_CH
+    nr0 = C + 3 * nv
+    return [(0, channel_of(L, r)) if r < C else
+            (1, r - C) if r < nr0 else (1, 3 * nv + channel_of(L, r - nr0))
+            for r in range(2 * C + 3 * nv)]
+
+
+@pytest.mark.parametrize("C", CHANNELS)
+def test_k7_bf16_staging_fits_shared_memory(C):
+    """Every instance (at most 3, 7 or 15 source views: every V up to
+    MAX_VIEWS) fits the shared memory of a block, its staged rows start on
+    16 bytes, and the staged rows of each view count are those of var, the
+    images and the no-ref variance, each once."""
+    assert K1.MAX_VIEWS - 1 == NV_BUCKETS[-1]
+    for NV in NV_BUCKETS:
+        L, P, PS, rows, nbytes = fwd_smem(C, NV)
+        assert nbytes <= SMEM_BLOCK and PS % 8 == 0 and PS >= P
+        for nv in range(1, NV + 1):
+            out = k7_rows(C, nv)
+            assert len(out) <= rows
+            assert sorted(r for t, r in out if t == 0) == list(range(C))
+            assert sorted(r for t, r in out if t == 1) == list(
+                range(3 * nv + C))
+    # the largest: C = 8 at 15 source views
+    assert max(fwd_smem(c, 15)[4] for c in CHANNELS) == fwd_smem(8, 15)[4]
+
+
+@pytest.mark.parametrize("C", CHANNELS)
+def test_k7_bf16_staged_rows_fall_on_distinct_banks(C):
+    """Lane (j, q) stages channel 8q + i of var and of the no-ref variance
+    at row i L + q, column j, and the RGB of its views v = s L + q at rows
+    C + 3v + c: in each store instruction the 32 lanes of a warp touch
+    distinct banks (neighbouring pixels share a word at most). Rows 8q + i
+    (the channel order) would put the L lanes of a pixel on one bank."""
+    nv = 3
+    L, P, PS, _, _ = fwd_smem(C, nv)
+    assert sorted(staged_row(L, q, i) for q in range(L)
+                  for i in range(FWD_CH)) == list(range(C))
+    assert all(channel_of(L, staged_row(L, q, i)) == FWD_CH * q + i
+               for q in range(L) for i in range(FWD_CH))
+
+    def distinct(rows, j):
+        words = np.unique((rows * PS + j) // 2)
+        return len(np.unique(words % 32)) == len(words)
+
+    naive = True
+    for wp in range(THREADS // 32):
+        tid = np.arange(32 * wp, 32 * wp + 32)
+        j, q = tid // L, tid % L
+        for i in range(FWD_CH):
+            for base in (0, C + 3 * nv):
+                assert distinct(base + staged_row(L, q, i), j)
+            naive &= distinct(FWD_CH * q + i, j)
+        for s_ in range(-(-nv // L)):
+            v = s_ * L + q
+            for c in range(3):
+                live = v < nv
+                assert distinct((C + 3 * v + c)[live], j[live])
+    assert naive == (L == 1)
+
+
+@pytest.mark.parametrize("C", CHANNELS)
+@pytest.mark.parametrize("nv", [1, 3, 7, 15])
+def test_k7_bf16_image_lanes_cover_every_view_channel_once(C, nv):
+    """Lane q of a pixel samples the images of the views it projected, v =
+    s L + q (slot s < S), and stages channel c < 3 of view v at row C + 3v
+    + c: over a block, every (pixel, view, channel) once, the image rows
+    [C, C + 3 nv) each once a pixel."""
+    L, P = lanes(C, FWD_CH)
+    S = -(-nv // L)
+    hits = np.zeros((nv, P, 3), int)
+    rows = np.zeros((C + 3 * nv, P), int)
+    for tid in range(THREADS):
+        j, q = tid // L, tid % L
+        for s_ in range(S):
+            v = s_ * L + q
+            if v >= nv:
+                break
+            hits[v, j] += 1
+            rows[C + 3 * v + np.arange(3), j] += 1
+    assert (hits == 1).all()
+    assert (rows[C:] == 1).all() and (rows[:C] == 0).all()
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("C,nv", [(32, 3), (16, 4), (8, 15)])
+def test_k7_bf16_stores_every_element_once(C, nv, vec):
+    """A plane's store loop (warpb::store_rows): staged row r of P pixels
+    to its var or vol row, as 16-byte vectors (8 pixels) where vec (h·w %
+    8 == 0), else element by element: every (row, pixel) of var and vol
+    written once, none past the image, a vector wholly inside it."""
+    L, P = lanes(C, FWD_CH)
+    out = k7_rows(C, nv)
+    R = len(out)
+    kind = np.array([t for t, _ in out])
+    row = np.array([r for _, r in out])
+    for h, w in ((128, 160), (216, 288), (9, 7), (13, 21), (11, 29)):
+        HW = h * w
+        if vec and HW % 8:
+            continue                       # the kernel stores these scalar
+        nx = -(-HW // P)
+        p0 = (np.arange(nx) * P)[:, None]
+        if vec:
+            i = np.arange(R * (P // 8))[None]
+            r, jj = i // (P // 8), 8 * (i % (P // 8))
+            keep = p0 + jj < HW
+            r, pix = np.broadcast_to(r, keep.shape)[keep], (p0 + jj)[keep]
+            r = np.repeat(r, 8)
+            pix = (pix[:, None] + np.arange(8)).ravel()
+            assert (pix < HW).all()
+        else:
+            i = np.arange(R * P)[None]
+            r, jj = i // P, i % P
+            keep = p0 + jj < HW
+            r, pix = np.broadcast_to(r, keep.shape)[keep], (p0 + jj)[keep]
+        for t, n in ((0, C), (1, 3 * nv + C)):
+            sel = kind[r] == t
+            hits = np.bincount(row[r[sel]] * HW + pix[sel], minlength=n * HW)
+            assert len(hits) == n * HW and (hits == 1).all()
+
+
+def _sample_bf16(src_v, x0, y0, wx, wy, h, w):
+    """A bilinear sample of map src_v [h*w, n] with bf16 x weights: taps
+    0..3, one fused multiply-add each, a tap outside the image adding
+    nothing (warpb::fma_taps)."""
+    val = np.zeros((len(x0), src_v.shape[1]), f32)
+    for kk in range(4):
+        xi, yi = x0 + (kk & 1), y0 + (kk >> 1)
+        ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        wxk = _rnd(wx if kk & 1 else f32(1) - wx)
+        wyk = wy if kk >> 1 else (f32(1) - wy).astype(f32)
+        s = src_v[np.where(ok, yi * w + xi, 0)]
+        val = np.where(ok[:, None],
+                       _fma((wxk * wyk).astype(f32)[:, None], s, val), val)
+    return val
+
+
+def emulate_k7_bf16(feats, imgs, rel, lo, step, D):
+    """K7-bf16 (8 channels a lane), all pixels at once: the taps handed
+    on, the source views' sums from zero in view order (x^2 by one FMA),
+    each view's RGB sampled by the lane that projected it from the [V, h,
+    w, 4] copy (channel 3 NaN: never read into an output), the division by
+    V (x · (1/V) for V a power of two), the reference last, each value
+    rounded to bf16 into its staged row and stored to its output row.
+    Returns var [C, D, h, w] and vol [3 (V-1) + C, D, h, w]."""
+    V, h, w, C = feats.shape
+    HW, nv = h * w, V - 1
+    L = C // FWD_CH
+    S = -(-nv // L)
+    src = feats.reshape(V, HW, C)
+    im4 = np.full((V, HW, 4), np.nan, f32)
+    im4[..., :3] = imgs.reshape(V, HW, 3)
+    pix = np.arange(HW)
+    fy, fx = (pix // w).astype(f32), (pix % w).astype(f32)
+    V32 = f32(V)
+    inv_v = f32(f32(1) / V32)
+    over_v = ((lambda x: (x * inv_v).astype(f32)) if V & (V - 1) == 0
+              else (lambda x: (x / V32).astype(f32)))
+    ref = src[0]
+    rows = k7_rows(C, nv)
+    var = np.zeros((C, D, HW), f32)
+    vol = np.zeros((3 * nv + C, D, HW), f32)
+    for d in range(D):
+        dv = (lo.reshape(-1) + f32(f32(d) * step.reshape(-1))).astype(f32)
+        mine = {(q, s_): _taps(rel[s_ * L + q + 1 if s_ * L + q < nv else 0],
+                               fx, fy, dv, h, w)
+                for q in range(L) for s_ in range(S)}
+        total, sq = np.zeros((HW, C), f32), np.zeros((HW, C), f32)
+        for v in range(nv):
+            val = _sample_bf16(src[v + 1], *mine[(v % L, v // L)], h, w)
+            total = (total + val).astype(f32)
+            sq = _fma(val, val, sq)
+        staged = np.zeros((len(rows), HW), f32)
+        for q in range(L):
+            for s_ in range(S):
+                v = s_ * L + q
+                if v >= nv:
+                    break
+                rgb = _sample_bf16(im4[v + 1], *mine[(q, s_)], h, w)
+                staged[C + 3 * v:C + 3 * v + 3] = _rnd(rgb[:, :3].T)
+        m_nr = over_v(total)
+        nr = _fma(-m_nr, m_nr, over_v(sq))
+        m = over_v((total + ref).astype(f32))
+        vr = _fma(-m, m, over_v(_fma(ref, ref, sq)))
+        for q in range(L):
+            for i in range(FWD_CH):
+                r = staged_row(L, q, i)
+                staged[r] = _rnd(vr[:, FWD_CH * q + i])
+                staged[C + 3 * nv + r] = _rnd(nr[:, FWD_CH * q + i])
+        for r, (t, o) in enumerate(rows):
+            (var if t == 0 else vol)[o, d] = staged[r]
+    return var.reshape(C, D, h, w), vol.reshape(3 * nv + C, D, h, w)
+
+
+@pytest.mark.parametrize("V,h,w,C,D", [
+    (4, 7, 9, 8, 9), (3, 5, 6, 16, 5), (5, 4, 5, 32, 4)])
+def test_k7_bf16_emulation_matches_plain_within_the_bf16_gate(V, h, w, C, D):
+    feats, imgs, projs, lo, step, _, _ = _vol_inputs(V, h, w, C, D,
+                                                     5 * C + V)
+    T = torch.from_numpy
+    rel = K1.relative_projections(T(projs)).reshape(V, 4, 4).numpy()
+    got = emulate_k7_bf16(feats, imgs, rel, lo, step, D)
+    bf = lambda a: T(a).to(torch.bfloat16)
+    want = K7.warp_volume_plain(bf(feats), bf(imgs), T(projs), T(lo),
+                                T(step), D)
+    for g, ref in zip(got, want):
+        ref = ref.float().numpy()
+        assert g.shape == ref.shape and np.isfinite(g).all()
+        tol = np.abs(ref) * 2.0 ** -7 + 1e-4 * np.abs(ref).max()
+        assert (np.abs(g - ref) <= tol).all(), np.abs(g - ref).max()
