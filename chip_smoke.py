@@ -195,6 +195,18 @@ the final "ok" line):
               per step: K1, K2 and K7's forward above their count without
               remat, K6, K7's backward and K8 dw at it; (d) steps/s and
               peak memory per setting, beside phase 6's;
+ 16. quality  (run before the report) the two end-to-end quality goldens
+              (`tools/quality.py`: the supervised and the unsupervised
+              backbone, each on its scene from `assets/golden_scenes.npz`,
+              5 views at 128x160, 64 planes, then geometric-consistency
+              fusion and the DTU metric against the exact GT cloud) through
+              the float32 plain versions, the float32 kernels and the bf16
+              kernels: each path within its golden's JAX test (bounds, and
+              pins against tests/golden/e2e_quality*.json); each kernel
+              path launches exactly K5 12, K1 3, K2 33 and K4 3 a map (the
+              bf16 instances on the bf16 path), nothing else; prints the
+              metrics, launches and the final-mask flip rate and acc / comp
+              deltas against the float32 plain path;
 Bounds use the published H100 SXM peaks: 3.35 TB/s of HBM and 67 TFLOP/s
 of float32 outside the tensor cores (TF32 is off in PyTorch on this path);
 the convs (K2, K5, K8 dw, K9), which run 3xTF32 on the tensor cores (K5
@@ -1095,6 +1107,77 @@ def phase_bf16(model, samples, scene, ref_dtu, ref_tanks, f32_paths, smi,
             raise AssertionError(f"bf16 {name}: {share:.2e} of pixels beyond "
                                  f"{DEPTH_GATE} against the float32 kernel "
                                  f"path (limit {BF16_SHARE})")
+    return results
+
+
+# phase 16: the quality goldens (tools/quality.py) and their committed
+# results; the paths as (name, eval dtype, plain), the float32 plain path
+# first: the others' flip rates and deltas are taken against it
+QUALITY_GOLDENS = ("sup", "unsup")
+QUALITY_JSON = {"sup": "e2e_quality.json", "unsup": "e2e_quality_unsup.json"}
+QUALITY_PATHS = (("float32_plain", "float32", True),
+                 ("float32_kernels", "float32", False),
+                 ("bf16_kernels", "bfloat16", False))
+# launches a depth map on each kernel path, exactly (every other count 0)
+QUALITY_LAUNCHES_PER_MAP = {
+    "float32": {"conv2d": 12, "warp_variance": 3, "conv3d": 33,
+                "depth_tail": 3},
+    "bfloat16": BF16_LAUNCHES_PER_MAP}
+
+
+def quality_delta(res: dict, ref: dict) -> dict:
+    """One path against the float32 plain path, as `PARITY_data.json` holds
+    the bf16 TPU path against XLA float32: the share of final-mask pixels
+    that differ, and the acc / comp deltas."""
+    m, r = res["metrics"], ref["metrics"]
+    return {"final_mask_flip_rate": float((res["masks"] != ref["masks"])
+                                          .mean()),
+            "acc_delta": m["acc_mean"] - r["acc_mean"],
+            "comp_delta": m["comp_mean"] - r["comp_mean"],
+            "overall_rel_delta": (m["acc_mean"] + m["comp_mean"])
+            / (r["acc_mean"] + r["comp_mean"]) - 1.0}
+
+
+def phase_quality(smi, dev, goldens=QUALITY_GOLDENS, paths=QUALITY_PATHS):
+    """Phase 16: each quality golden (`tools/quality.run`: its 5 views at
+    128x160, 64 planes, through `infer_views`, fusion and the DTU metric)
+    on each path. Every path is held to its golden's JAX test
+    (`tools/quality.check`: the bounds, and the pins against the committed
+    JSON under tests/golden/); each kernel path launches exactly
+    QUALITY_LAUNCHES_PER_MAP for its dtype and nothing else, the plain path
+    nothing. Prints every path's metrics, launches and seconds, and its
+    final-mask flip rate and acc / comp deltas against the first path."""
+    from rcmvsnet_tpu_torch.tools import quality
+    pinned = {g: json.loads((ROOT / "tests" / "golden" / f).read_text())
+              for g, f in QUALITY_JSON.items()}
+    results, failures = {}, []
+    for golden in goldens:
+        ref = None
+        for name, dtype, plain in paths:
+            wrappers = zero_launches()
+            sync(dev)
+            t0 = time.perf_counter()
+            res = quality.run(golden, dev, dtype, plain)
+            sync(dev)
+            seconds = time.perf_counter() - t0
+            n = len(res["maps"])
+            got = {k: fn.launches for k, fn in wrappers.items()
+                   if fn.launches}
+            want = {} if plain else {
+                k: v * n for k, v in QUALITY_LAUNCHES_PER_MAP[dtype].items()}
+            if got != want:
+                failures.append(f"{golden} {name}: launches {got}, not "
+                                f"{want}")
+            failures += [f"{golden} {name}: {msg}" for msg in quality.check(
+                golden, res["metrics"], pinned[golden], pinned["sup"])]
+            ref = ref or res
+            results.setdefault(golden, {})[name] = {
+                "metrics": res["metrics"], "launches": got,
+                "seconds": seconds,
+                "vs_float32_plain": quality_delta(res, ref)}
+    print(json.dumps({"quality": {"device": smi, **results}}), flush=True)
+    if failures:
+        raise AssertionError("quality: " + "; ".join(failures))
     return results
 
 
@@ -2443,6 +2526,11 @@ def main() -> int:
     del batch
     torch.cuda.empty_cache()
 
+    # 16. the quality goldens through fusion and the DTU metric, float32
+    # plain, float32 kernels and bf16 kernels (run before the report)
+    quality = phase_quality(smi, dev)
+    torch.cuda.empty_cache()
+
     # 13. report
     source = "rcmvsnet_tpu_torch/ops/"
     meta = [
@@ -2533,7 +2621,7 @@ def main() -> int:
         "tools_path": tools_path, "train_cli": train_cli,
         "wide_path": wide_path, "parallel": parallel,
         "bf16_paths": bf16_paths, "bf16_train_path": bf16_train,
-        "remat": remat, "kernels": kernels}, indent=1))
+        "remat": remat, "quality": quality, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@ class DTUTestDataset:
             scans = [l.strip() for l in open(listfile) if l.strip()]
         self.metas = []
         for scan in scans:
-            for ref, srcs in read_pair_file(self.datapath / scan / "pair.txt"):
+            for ref, srcs in self._pairs(scan):
                 if len(srcs) < self.nviews:
                     srcs = srcs + [srcs[0]] * (self.nviews - len(srcs))
                 self.metas.append((scan, ref, srcs))
@@ -46,11 +46,24 @@ class DTUTestDataset:
         resolution, so cams-only probes use the same dims."""
         if scan not in self._hw_cache:
             vid = next(r for s, r, _ in self.metas if s == scan)
-            path = self.datapath / scan / "images_post" / f"{vid:08d}.jpg"
-            if not path.exists():
-                path = self.datapath / scan / "images" / f"{vid:08d}.jpg"
-            self._hw_cache[scan] = read_image(path).shape[:2]
+            self._hw_cache[scan] = self._image(scan, vid).shape[:2]
         return self._hw_cache[scan]
+
+    def _pairs(self, scan):
+        """The scan's (ref view, [src views]) in pair-file order."""
+        return read_pair_file(self.datapath / scan / "pair.txt")
+
+    def _image(self, scan, vid):
+        """View vid's image, float32 RGB in [0, 1] (HWC)."""
+        path = self.datapath / scan / "images_post" / f"{vid:08d}.jpg"
+        if not path.exists():
+            path = self.datapath / scan / "images" / f"{vid:08d}.jpg"
+        return read_image(path)
+
+    def _cam_file(self, scan, vid):
+        """View vid's parsed cam file (`core.io.CameraFile`)."""
+        return read_cam_file(
+            self.datapath / scan / "cams" / f"{vid:08d}_cam.txt")
 
     def sample_cams(self, idx):
         """proj_matrices + depth_values of sample idx WITHOUT decoding its
@@ -86,7 +99,7 @@ class DTUTestDataset:
                 "depth_values": depth_values, "hw": (new_h, new_w)}
 
     def _read_cam(self, scan, vid):
-        cam = read_cam_file(self.datapath / scan / "cams" / f"{vid:08d}_cam.txt")
+        cam = self._cam_file(scan, vid)
         intr = cam.intrinsics.copy()
         intr[:2, :] /= 4.0
         depth_interval = cam.depth_interval
@@ -104,10 +117,7 @@ class DTUTestDataset:
         depth_values = None
         s_h = s_w = None
         for i, vid in enumerate(view_ids):
-            path = self.datapath / scan / "images_post" / f"{vid:08d}.jpg"
-            if not path.exists():
-                path = self.datapath / scan / "images" / f"{vid:08d}.jpg"
-            img = read_image(path)
+            img = self._image(scan, vid)
             intr, extr, depth_min, depth_interval = self._read_cam(scan, vid)
             img, intr = T.scale_mvs_input(img, intr, self.max_w, self.max_h)
             if i == 0:

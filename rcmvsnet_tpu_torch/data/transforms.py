@@ -130,10 +130,13 @@ def scale_mvs_intrinsics(intrinsics: np.ndarray, h: int, w: int,
 def scale_mvs_input(img: np.ndarray, intrinsics: np.ndarray,
                     max_w: int, max_h: int, base: int = 32):
     """Scale to ≤(max_w, max_h), rounded down to a multiple of `base`,
-    updating intrinsics. Matches dtu_test.py:131-148."""
-    import cv2
+    updating intrinsics. Matches dtu_test.py:131-148. An image already at
+    its scaled size is returned as it is (cv2.resize would copy it), so
+    that path needs no cv2."""
     h, w = img.shape[:2]
     new_h, new_w = scaled_mvs_dims(h, w, max_w, max_h, base)
     intrinsics = scale_mvs_intrinsics(intrinsics, h, w, new_h, new_w)
-    img = cv2.resize(img, (new_w, new_h))
+    if (new_h, new_w) != (h, w):
+        import cv2
+        img = cv2.resize(img, (new_w, new_h))
     return img, intrinsics

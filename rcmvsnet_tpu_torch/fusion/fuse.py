@@ -25,12 +25,98 @@ DTU_IMG_DIST_THRESHOLDS = {
 }
 
 
+# The reference samples with cv2.remap(img, x, y, INTER_LINEAR) on float32
+# maps (constant border 0). `_bilinear_map` is that call in numpy, equal in
+# every bit to OpenCV 5.0's x86-64 build with AVX2 (its `remap` runs each
+# map row in vector steps of _VEC output pixels, two AVX2 registers of
+# _VEC // 2 lanes, then one pixel at a time for the rest of the row):
+#   * ix = floor(x) as int32 (INT_MIN for NaN, ±inf and |x| ≥ 2^31), the
+#     weight a = x − float32(ix); likewise iy and b;
+#   * taps outside the image read 0, one by one; the blend is
+#     v0 = fma(a, p01 − p00, p00), v1 = fma(a, p11 − p10, p10),
+#     out = fma(b, v1 − v0, v0), each FMA rounded once;
+#   * a pixel whose 2×2 block misses the image (ix ∉ [−1, w − 1] or
+#     iy ∉ [−1, h − 1]) gives 0 in the per-pixel tail; a vector step gives
+#     0 only where none of its pixels touches the image, and otherwise
+#     blends every lane, so a NaN or ±inf coordinate gives NaN there: x's
+#     NaN (quieted) or, for ±inf, x86's default NaN, else y's; where both
+#     are NaN, a 1-channel image's upper register takes y's.
+_VEC = 16
+_QUIET = np.uint32(0x00400000)
+_DEFAULT_NAN = np.uint32(0xFFC00000)
+_INT_MIN = -2 ** 31
+
+
+def _fma(a, b, c):
+    """float32 a·b + c rounded once, computed in float64: the product is
+    exact there, and a sum that lands on a float32 midpoint is moved to the
+    side of its exact float64 error (TwoSum) before rounding."""
+    a, b, c = (np.asarray(t, np.float64) for t in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    other = np.where(s > r, np.nextafter(r, np.float32(np.inf)),
+                     np.nextafter(r, np.float32(-np.inf)))
+    tie = (s == (r.astype(np.float64) + other) * 0.5) & (err != 0)
+    return np.where(tie & ((other > r) == (err > 0)), other, r)
+
+
+def _floor_i32(c):
+    with np.errstate(invalid="ignore"):   # signaling NaNs
+        f = np.floor(c.astype(np.float64))
+        ok = (f >= _INT_MIN) & (f < 2 ** 31)
+    return np.where(ok, f, _INT_MIN).astype(np.int64)
+
+
+def _nan_bits(c):
+    """The NaN a non-finite coordinate gives: its own, quieted, or for ±inf
+    the default NaN (inf·0)."""
+    return np.where(np.isnan(c), c.view(np.uint32) | _QUIET, _DEFAULT_NAN)
+
+
 def _bilinear_map(img, x, y):
-    """cv2.remap(INTER_LINEAR)-equivalent bilinear sampling with border
-    clamp; out-of-range coords produce 0 like cv2's default border."""
-    import cv2
-    return cv2.remap(img, x.astype(np.float32), y.astype(np.float32),
-                     interpolation=cv2.INTER_LINEAR)
+    """cv2.remap(img, x, y, INTER_LINEAR) with the default constant border
+    0, in numpy (see the rules above): img float32 [h, w] or [h, w, ch],
+    x and y float32 maps [H, W] of source pixel coordinates."""
+    img = np.asarray(img)
+    if img.dtype != np.float32:
+        raise TypeError(f"_bilinear_map samples float32 images, not "
+                        f"{img.dtype}")
+    x, y = np.asarray(x, np.float32), np.asarray(y, np.float32)
+    h, w = img.shape[:2]
+    ix, iy = _floor_i32(x), _floor_i32(y)
+    finite = np.isfinite(x) & np.isfinite(y)
+    with np.errstate(invalid="ignore"):
+        a = np.where(finite, x - ix.astype(np.float32), np.float32(0))
+        b = np.where(finite, y - iy.astype(np.float32), np.float32(0))
+    chans = img[..., None] if img.ndim == 2 else img
+
+    def tap(dy, dx):
+        yy, xx = iy + dy, ix + dx
+        inside = (xx >= 0) & (xx < w) & (yy >= 0) & (yy < h)
+        v = chans[np.where(inside, yy, 0), np.where(inside, xx, 0)]
+        return np.where(inside[..., None], v, np.float32(0))
+
+    p00, p01, p10, p11 = tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
+    a, b = a[..., None], b[..., None]
+    v0 = _fma(a, p01 - p00, p00)
+    v1 = _fma(a, p11 - p10, p10)
+    out = _fma(b, v1 - v0, v0)
+
+    upper = (np.arange(x.shape[1]) % _VEC >= _VEC // 2) & (img.ndim == 2)
+    nan = np.where(np.isfinite(x) | (np.isnan(y) & upper), _nan_bits(y),
+                   _nan_bits(x))
+    out = np.where(finite[..., None], out, nan.view(np.float32)[..., None])
+
+    touch = (ix >= -1) & (ix < w) & (iy >= -1) & (iy < h)
+    n_vec = x.shape[1] // _VEC * _VEC
+    steps = touch[:, :n_vec].reshape(len(x), -1, _VEC).any(-1)
+    keep = np.concatenate([np.repeat(steps, _VEC, axis=1),
+                           touch[:, n_vec:]], axis=1)
+    out = np.where(keep[..., None], out, np.float32(0))
+    return out[..., 0] if img.ndim == 2 else out
 
 
 def reproject_with_depth(depth_ref, intr_ref, extr_ref,

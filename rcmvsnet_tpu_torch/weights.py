@@ -9,9 +9,11 @@ Inverts `rcmvsnet_tpu/train/convert.py` (`_conv`, `_deconv`, `_convbn`,
                                                running_mean/running_var
                                                (+ num_batches_tracked = 0)
   Dense              kernel (I, O)           → Linear weight (O, I)
-Takes numpy arrays and imports no JAX, so the golden backbone converts
-once and ships as `assets/backbone_synth.npz` (`load_state_dict` reads it
-back).
+Takes numpy arrays and imports no JAX, so the golden backbones convert
+once and ship as `assets/backbone_synth.npz` (supervised,
+tests/golden/backbone_synth.msgpack) and `assets/backbone_synth_unsup.npz`
+(trained without ground truth, tests/golden/backbone_synth_unsup.msgpack);
+`load_state_dict` reads them back.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 ASSET = Path(__file__).resolve().parent / "assets" / "backbone_synth.npz"
+UNSUP_ASSET = ASSET.with_name("backbone_synth_unsup.npz")
 
 FEATURE_BLOCKS = (("conv0.0", "conv0_0"), ("conv0.1", "conv0_1"),
                   ("conv1.0", "conv1_0"), ("conv1.1", "conv1_1"),

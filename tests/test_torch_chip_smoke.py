@@ -14,7 +14,9 @@
   * the train-CLI phase (`cli.train.fit`: train, validate, save, restore,
     resume, render v1 and v2) refuses a run that launched no kernel and,
     with the launch counts set as a card would set them, runs through
-    every one of its other checks at a tiny size."""
+    every one of its other checks at a tiny size;
+  * the quality phase (16) holds the supervised golden's plain path to
+    its JAX test and fails it on a corrupted depth map."""
 import shutil
 import subprocess
 import sys
@@ -469,3 +471,39 @@ def test_remat_phase_runs_on_cpu_and_demands_recompute(capsys):
         assert len(setting["step_losses"]) == 2
         assert set(setting["launches_per_step"]) == set(
             chip_smoke.RECOMPUTED_KERNELS + chip_smoke.BACKWARD_KERNELS)
+
+
+def test_quality_phase_runs_on_cpu_and_fails_a_corrupted_depth(
+        capsys, monkeypatch):
+    """Phase 16 at the supervised golden through the plain path: the
+    JAX test's bounds and pins hold, nothing launched, no flip against
+    itself. Then every depth map scaled by 1.02 (the same maps, so no second
+    forward) must fail the gates, after the result line is printed."""
+    import json
+
+    from rcmvsnet_tpu_torch.tools import quality
+    maps = []
+    real = quality.infer_views
+
+    def infer(*args, **kwargs):
+        if not maps:
+            maps.extend(real(*args, **kwargs))
+            return maps
+        return [(d * 1.02, c) for d, c in maps]
+
+    monkeypatch.setattr(quality, "infer_views", infer)
+    paths = (("float32_plain", "float32", True),)
+    dev = torch.device("cpu")
+    res = chip_smoke.phase_quality("cpu", dev, ("sup",), paths)
+    row = res["sup"]["float32_plain"]
+    m = row["metrics"]
+    assert m["n_fused_raw"] > 50_000 and m["acc_mean"] < 1.0
+    assert m["comp_mean"] < 2.0 and row["launches"] == {}
+    assert row["vs_float32_plain"] == {
+        "final_mask_flip_rate": 0.0, "acc_delta": 0.0, "comp_delta": 0.0,
+        "overall_rel_delta": 0.0}
+    printed = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert printed["quality"]["sup"]["float32_plain"]["metrics"] == m
+    with pytest.raises(AssertionError, match="quality: sup float32_plain"):
+        chip_smoke.phase_quality("cpu", dev, ("sup",), paths)
+    assert '"quality"' in capsys.readouterr().out

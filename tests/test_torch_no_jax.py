@@ -10,7 +10,11 @@ checkpoint and resumes from it. The dataset registry resolves every alias
 to a class of the port. The data-parallel modules (`parallel/mesh.py`,
 `parallel/sync_bn.py`) are among the modules imported, and so are the
 rematerialization helper (`nn/remat.py`) and the train-step profiler
-(`tools/profile_train.py`), which the card's path runs too."""
+(`tools/profile_train.py`), which the card's path runs too. The quality
+tool (`tools/quality.py`: a golden's depth maps, fusion and the DTU metric,
+chip_smoke.py's phase 16) runs to its JSON line with cv2 and PIL banned as
+well: its scene comes from `data/golden_scene.py`'s asset, its sampler is
+`fusion/fuse.py`'s numpy copy of cv2.remap."""
 import json
 import subprocess
 import sys
@@ -43,7 +47,7 @@ for must in ("cli.eval_dtu", "cli.train", "core.io", "data.dtu_test",
              "tools.ab_warp_view", "data.loader", "data.dtu_train",
              "data.dtu_val", "data.registry", "train.checkpoint",
              "parallel.mesh", "parallel.sync_bn", "nn.remat",
-             "tools.profile_train"):
+             "tools.profile_train", "tools.quality", "data.golden_scene"):
     assert "rcmvsnet_tpu_torch." + must in names, names
 from rcmvsnet_tpu_torch.data.registry import _ALIASES, find_dataset_def
 for alias, (module, cls) in _ALIASES.items():
@@ -74,9 +78,20 @@ for name in ("core.geometry", "data.synthetic", "data.transforms",
              "train.checkpoint",
              "data.loader", "data.dtu_train", "data.dtu_val", "nn.mlp",
              "losses.supervised", "parallel.mesh", "parallel.sync_bn",
-             "nn.remat", "tools.profile_train"):
+             "nn.remat", "tools.profile_train", "tools.quality",
+             "data.golden_scene", "data.dtu_test", "fusion.fuse",
+             "fusion.dtu_eval", "core.io"):
     importlib.import_module("rcmvsnet_tpu_torch." + name)
 print("ok")
+"""
+
+_QUALITY = _BAN + """
+for name in ("cv2", "PIL", "msgpack"):
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(2)
+from rcmvsnet_tpu_torch.tools import quality
+quality.main(["--golden", "sup", "--device", "cpu"])
 """
 
 _CLI = _BAN + """
@@ -140,6 +155,20 @@ def test_chip_path_imports_nothing_of_the_jax_package():
     r = _run(_CHIP_PATH)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip().endswith("ok")
+
+
+def test_quality_tool_runs_without_cv2():
+    """`tools.quality --device cpu` at the supervised golden on a host with
+    no cv2, PIL, msgpack or JAX: its JSON line, within the bounds of
+    tests/test_e2e_quality.py:42-44."""
+    r = _run(_QUALITY)
+    assert r.returncode == 0, r.stderr
+    metrics = json.loads(r.stdout.strip().splitlines()[-1])
+    golden = json.loads((REPO / "tests" / "golden" / "e2e_quality.json")
+                        .read_text())
+    assert set(metrics) == set(golden)
+    assert metrics["n_fused_raw"] > 50_000
+    assert metrics["acc_mean"] < 1.0 and metrics["comp_mean"] < 2.0
 
 
 def test_cli_runs_without_jax(tmp_path):

@@ -2,7 +2,8 @@
 CPU, through the plain versions, at a tiny shape (the module's shape
 constants patched): each prints its host-clock lines under a CPU label,
 times every component it names, and refuses a CUDA device that is
-absent (as do the kernel A/B tools, which run on the card only). The
+absent (as do the kernel A/B tools, which run on the card only, and the
+quality tool, tests/test_torch_quality.py). The
 warp-backward repeat tool reports every call's two runs, which the plain
 versions give equal. The K5 A/B tool imports a tree's package under an
 alias and lists FeatureNet's 13 calls and the eval path's forms of them,
@@ -29,7 +30,7 @@ from rcmvsnet_tpu_torch.tools import (ab_conv2d, ab_conv3d, ab_depth_tail,
                                       ab_warp_bwd, ab_warp_fwd,
                                       ab_warp_view, profile_breakdown,
                                       profile_conv3d, profile_train,
-                                      repeat_warp_bwd)
+                                      quality, repeat_warp_bwd)
 from rcmvsnet_tpu_torch.tools.timing import make_timer
 
 torch.set_num_threads(2)
@@ -279,7 +280,7 @@ def test_ab_warp_view_cpu(capsys):
 @pytest.mark.parametrize("tool", [profile_breakdown, profile_conv3d,
                                   ab_conv3d, ab_warp_bwd, repeat_warp_bwd,
                                   ab_warp_fwd, ab_conv2d, ab_depth_tail,
-                                  ab_warp_view, profile_train])
+                                  ab_warp_view, profile_train, quality])
 def test_tools_refuse_missing_cuda(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
